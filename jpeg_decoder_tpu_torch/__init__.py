@@ -1,0 +1,25 @@
+"""jpeg_decoder_tpu_torch: the JPEG decode engine on PyTorch and CUDA.
+
+A port of `jpeg_decoder_tpu` (JAX on a TPU) to PyTorch with kernels written
+by hand for NVIDIA Hopper (H100, sm_90a). This slice covers the default
+device path: baseline JPEGs on the "bits" interchange (host prescan, the
+4 B/chunk delta wire, chunk-parallel Huffman decode on the device),
+fast-precision reconstruction and the interleaved layout.
+
+    from jpeg_decoder_tpu_torch import DeviceStreamDecoder
+    with DeviceStreamDecoder(device="cuda") as dec:
+        images = dec.decode_stream(list_of_jpeg_bytes)   # CUDA uint8 tensors
+
+The host stage is the JAX package's numpy/C++ code, reused by import; the
+JAX package itself is never imported. Kernels:
+- K1 `entropy/chunk_decode.py::decode_chunks` (csrc/huffman_decode.cu)
+- K2 `ops/kernels.py::dequant_idct` (csrc/dequant_idct.cu)
+They build with nvcc at first launch (`_build.py`); `LAUNCHES` counts the
+launches of each.
+"""
+
+from ._build import LAUNCHES, reset_launches
+from .models.stream import DeviceStreamDecoder, StagedBits, stage_host_bits
+
+__all__ = ["DeviceStreamDecoder", "StagedBits", "stage_host_bits",
+           "LAUNCHES", "reset_launches"]

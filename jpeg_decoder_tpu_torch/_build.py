@@ -1,0 +1,121 @@
+"""Build the port's CUDA kernels with nvcc and bind them with ctypes.
+
+Both kernels (`csrc/huffman_decode.cu`, `csrc/dequant_idct.cu`) compile into
+one shared library with a plain C interface; nothing here includes PyTorch's
+headers, so a cold build takes seconds, not minutes. The library lands in
+`build/torch_kernels/` at the repository root, named by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one loads
+the existing file. Nothing is compiled or loaded at import time: the first
+kernel launch calls `load()`.
+
+Each wrapper counts its launches in `LAUNCHES` (one per kernel launch, and
+nowhere else), so a caller can show that a run went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("huffman_decode.cu", "dequant_idct.cu")
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+# Kernel launch counts, by kernel name; see reset_launches().
+LAUNCHES = {"huffman_decode": 0, "dequant_idct": 0}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None    # wall time of the nvcc run in this process, if any
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused the sources."""
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise KernelBuildError(
+            "nvcc not found (CUDA_HOME, /usr/local/cuda, PATH)")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libjdt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists."""
+    global build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / name) for name in SOURCES)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, load the library once per process, declare argtypes."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(str(build()))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.jdt_huffman_decode.argtypes = [
+            p, i,           # words, n_words
+            p, p, p, i,     # dm, ab, base, n_items
+            p, p, p, i,     # maxcode, delta, values, n_tab
+            p, i, p,        # pattern, plen, unzig
+            i,              # s_max
+            p, i,           # nat, n_blocks
+            p]              # stream
+        lib.jdt_huffman_decode.restype = i
+        lib.jdt_dequant_idct.argtypes = [
+            p, i,           # coef, n_blocks
+            p, p, i,        # q, basis, n_out
+            p,              # out
+            p]              # stream
+        lib.jdt_dequant_idct.restype = i
+        lib.jdt_error_string.argtypes = [i]
+        lib.jdt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a launch."""
+    if err != 0:
+        msg = lib.jdt_error_string(err).decode("utf-8", "replace")
+        raise RuntimeError(f"{what} launch failed: cudaError {err} ({msg})")

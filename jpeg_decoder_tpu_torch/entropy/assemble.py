@@ -1,0 +1,98 @@
+"""Assembly: stream-order `nat` -> per-component coefficient stores.
+
+Port of `jpeg_decoder_tpu/entropy/device_scan.py::build_assembler_nat`:
+segmented DC prefix sums (the DC column of `nat` holds wrap16
+differences; restart segments reset the predictor) and the stream ->
+raster rearrangement into one int16 [block_h * block_w, 64] store per scan
+component, zero rows where the block grid pads past the decoded MCUs.
+
+Both of the reference's strategies are here, with identical outputs:
+- `assemble_structured` (the reference's `plan.structured` branch): the
+  maps are reshape/permute/pad, no index arrays. Used whenever the plan
+  has the verified closed form, which every baseline product-path scan
+  does.
+- `assemble_general` (the `stream_idx`/`raster_src` branch): row gathers
+  through the plan's index arrays, for geometries the closed form does
+  not model.
+
+DC semantics: the prefix sum runs in int64 and wraps to int16 at the end,
+which equals the reference's int32 sum narrowed to int16 (both are the sum
+mod 2^16).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _segmented_dc(diffs: torch.Tensor, seg_blocks: int) -> torch.Tensor:
+    """Prefix sum of int16 DC diffs, restarting every `seg_blocks` blocks
+    (0: one segment). Returns int64."""
+    cum = torch.cumsum(diffs, 0, dtype=torch.int64)
+    n = cum.numel()
+    if 0 < seg_blocks < n:
+        prev = torch.cat([cum.new_zeros(1), cum])
+        nseg = -(-n // seg_blocks)
+        seg_base = prev[:nseg * seg_blocks:seg_blocks].repeat_interleave(
+            seg_blocks)[:n]
+        return cum - seg_base
+    return cum
+
+
+def assemble_structured(nat: torch.Tensor, plan) -> list:
+    """`plan.structured` branch. nat: int16 [plan.n_blocks, 64]."""
+    (n_mcus, rows_d, cols_d, plen), specs = plan.structured
+    by_mcu = nat.reshape(n_mcus, plen, 64)
+    stores = []
+    for (slot0, bpm, vs, hs, hc, wc, seg_blocks) in specs:
+        rows = by_mcu[:, slot0:slot0 + bpm].reshape(-1, 64)
+        dc = _segmented_dc(rows[:, 0], seg_blocks).to(torch.int16)
+
+        def rasterize(t):
+            t = t.reshape(rows_d, cols_d, vs, hs, *t.shape[1:])
+            return t.transpose(1, 2).reshape(rows_d * vs, cols_d * hs,
+                                             *t.shape[4:])
+
+        grid = nat.new_zeros((hc, wc, 64))
+        grid[:rows_d * vs, :cols_d * hs] = rasterize(rows)
+        grid[:rows_d * vs, :cols_d * hs, 0] = rasterize(dc)
+        stores.append(grid.reshape(hc * wc, 64))
+    return stores
+
+
+class GeneralMaps:
+    """The plan's index arrays (stream_idx, seg_first, raster_src) on one
+    device, built once per plan."""
+
+    def __init__(self, plan, device):
+        def put(a):
+            return torch.from_numpy(np.asarray(a, np.int64)).to(device)
+
+        self.stream_idx = [put(a) for a in plan.stream_idx]
+        self.seg_first = [put(a) for a in plan.seg_first]
+        self.raster_src = [put(a) for a in plan.raster_src]
+
+
+def assemble_general(nat: torch.Tensor, maps: GeneralMaps) -> list:
+    """`stream_idx`/`raster_src` branch. nat: int16 [n_blocks, 64]."""
+    stores = []
+    for s_idx, first, src in zip(maps.stream_idx, maps.seg_first,
+                                 maps.raster_src):
+        rows = nat[s_idx]                                   # stream order
+        cum = torch.cumsum(rows[:, 0], 0, dtype=torch.int64)
+        prev = torch.cat([cum.new_zeros(1), cum])
+        rows[:, 0] = (cum - prev[first]).to(torch.int16)    # wrap16
+        ext = torch.cat([rows, rows.new_zeros((1, 64))])
+        stores.append(ext[src])
+    return stores
+
+
+def assemble_nat(nat: torch.Tensor, plan, maps: GeneralMaps = None) -> list:
+    """Structured when the plan has the closed form, else general (`maps`
+    is then required)."""
+    if plan.structured is not None:
+        return assemble_structured(nat, plan)
+    if maps is None:
+        raise ValueError("plan has no structured form; pass GeneralMaps")
+    return assemble_general(nat, maps)

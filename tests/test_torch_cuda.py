@@ -1,0 +1,94 @@
+"""The PyTorch port's CUDA kernels against their plain PyTorch versions, on
+the card. Every test here needs a CUDA device and skips without one (the
+`cuda` fixture decides at run time); on a machine with a card run
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+Needs neither JAX nor PIL: the inputs are the committed fixtures.
+Tolerances: K1 bit-equal (integer decode); K2 |diff| <= 1 (fp32 sums in
+another order); decoded images |diff| <= 3 against the CPU port (the K2
+difference after color conversion).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jpeg_decoder_tpu_torch as jt
+from jpeg_decoder_tpu_torch.entropy.chunk_decode import (decode_chunks,
+                                                         decode_chunks_plain,
+                                                         unpack_delta)
+from jpeg_decoder_tpu_torch.ops.kernels import dequant_idct, dequant_idct_plain
+from jpeg_decoder_tpu_torch.params import DeviceParams
+
+from torch_inputs import SMALL_FIXTURES, fixture, oracle_stores
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("name", SMALL_FIXTURES + ("tower_420.jpg",))
+def test_k1_kernel_bit_equal_to_plain(cuda, name):
+    params = DeviceParams(cuda)
+    before = jt.LAUNCHES["huffman_decode"]
+    for st in jt.stage_host_bits(fixture(name)).scans:
+        words = torch.from_numpy(st.words).to(cuda)
+        dm = torch.from_numpy(st.dm).to(cuda)
+        ab, _b, _s, base = unpack_delta(dm)
+        args = (words, dm, ab, base, params.tables(st.scan), st.s_max,
+                st.scan.plan.n_blocks)
+        torch.testing.assert_close(decode_chunks(*args),
+                                   decode_chunks_plain(*args), rtol=0, atol=0)
+    assert jt.LAUNCHES["huffman_decode"] > before
+
+
+@pytest.mark.parametrize("scale", [8, 4, 2, 1])
+def test_k2_kernel_within_1_of_plain(cuda, scale):
+    params = DeviceParams(cuda)
+    rng = np.random.default_rng(scale)
+    coef = torch.from_numpy(
+        rng.integers(-1024, 1024, (3001, 64)).astype(np.int16)).to(cuda)
+    q = params.qt(rng.integers(1, 100, 64).astype(np.uint16))
+    args = (coef, q, params.basis(scale), scale)
+    a = dequant_idct(*args).to(torch.int32)
+    b = dequant_idct_plain(*args).to(torch.int32)
+    assert a.shape == (3001, scale * scale)
+    assert int((a - b).abs().max()) <= 1
+
+
+def test_decode_stream_on_card_matches_cpu_port(cuda):
+    data = [fixture(n) for n in SMALL_FIXTURES]
+    jt.reset_launches()
+    with jt.DeviceStreamDecoder(device="cuda", host_threads=2) as dec:
+        gpu = dec.decode_stream(data)
+    assert jt.LAUNCHES["huffman_decode"] == len(data)
+    assert jt.LAUNCHES["dequant_idct"] == 3 * (len(data) - 1) + 1
+    with jt.DeviceStreamDecoder(device="cpu", host_threads=2) as dec:
+        cpu = dec.decode_stream(data)
+    for g, c in zip(gpu, cpu):
+        assert g.is_cuda and g.dtype == torch.uint8
+        d = (g.cpu().to(torch.int32) - c.to(torch.int32)).abs()
+        assert int(d.max()) <= 3
+
+
+def test_stores_on_card_bit_equal_to_oracle(cuda):
+    from jpeg_decoder_tpu_torch.entropy.assemble import assemble_nat
+
+    params = DeviceParams(cuda)
+    data = fixture("small_dri.jpg")
+    oracle = oracle_stores(data)
+    for st in jt.stage_host_bits(data).scans:
+        dm = torch.from_numpy(st.dm).to(cuda)
+        ab, _b, _s, base = unpack_delta(dm)
+        nat = decode_chunks(torch.from_numpy(st.words).to(cuda), dm, ab, base,
+                            params.tables(st.scan), st.s_max,
+                            st.scan.plan.n_blocks)
+        stores = assemble_nat(nat, st.scan.plan)
+        for pos, comp_i in st.kept:
+            np.testing.assert_array_equal(
+                stores[pos].cpu().numpy().reshape(-1), oracle[comp_i])

@@ -1,0 +1,37 @@
+"""The PyTorch port must run without JAX: a fresh interpreter imports
+`jpeg_decoder_tpu_torch`, stages and decodes a fixture on the CPU, and
+must end with no `jax` (and no `triton`) module loaded and no CUDA
+library built or loaded. This guards against staging through the JAX
+package's `stage_host_bits`, whose `_attach_pallas` imports JAX."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+SCRIPT = r"""
+import sys
+import jpeg_decoder_tpu_torch as jt
+from jpeg_decoder_tpu_torch import _build
+assert "jax" not in sys.modules, "import loaded jax"
+data = open("tests/fixtures/torch_port/small_dri.jpg", "rb").read()
+with jt.DeviceStreamDecoder(device="cpu", host_threads=1) as dec:
+    img = dec.decode_stream([data])[0]
+assert tuple(img.shape) == (190, 250, 3), img.shape
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "triton"))
+assert not bad, bad
+assert _build._lib is None, "a CPU decode loaded the CUDA library"
+assert sum(jt.LAUNCHES.values()) == 0
+print("ok")
+"""
+
+
+def test_port_decodes_without_importing_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("ok")

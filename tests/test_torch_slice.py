@@ -1,0 +1,128 @@
+"""The PyTorch port's main path as a whole:
+`jpeg_decoder_tpu_torch.DeviceStreamDecoder(device="cpu").decode_stream`
+against the JAX package's `DeviceStreamDecoder(interchange="bits",
+precision="fast")` on CPU JAX.
+
+Tolerances:
+- pixels: |diff| <= 3. Both sides run an fp32 IDCT whose outputs may
+  differ by 1 (summation order), and color conversion scales a chroma
+  difference of 1 by up to 1.772, so 1 + 1.772 rounds to at most 3;
+- coefficient stores: bit-equal to the host oracle.
+Streams outside the slice must raise a typed error naming what is missing.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from jpeg_decoder_tpu.models.stream import \
+    DeviceStreamDecoder as JaxStreamDecoder
+from jpeg_decoder_tpu_torch import DeviceStreamDecoder, stage_host_bits
+from jpeg_decoder_tpu_torch.entropy.assemble import assemble_nat
+from jpeg_decoder_tpu_torch.entropy.chunk_decode import (decode_chunks,
+                                                         unpack_delta)
+from jpeg_decoder_tpu_torch.params import scan_tables
+
+from torch_inputs import (FIXTURE_DIR, SMALL_FIXTURES, fixture, oracle_stores,
+                          synth_jpeg)
+
+SLICE_INPUTS = {
+    **{name: (lambda n=name: fixture(n)) for name in SMALL_FIXTURES},
+    "synth_640x480_420": lambda: synth_jpeg(640, 480, seed=21),
+    "synth_320x240_422": lambda: synth_jpeg(320, 240, seed=22, subsampling=1),
+    "synth_200x152_444_dri": lambda: synth_jpeg(200, 152, seed=23,
+                                                subsampling=0, restart_rows=2),
+}
+
+
+def _pixel_diff(port, ref):
+    assert port.device.type == "cpu" and port.dtype == torch.uint8
+    ref = np.asarray(ref)
+    assert port.shape == ref.shape
+    d = np.abs(port.numpy().astype(np.int32) - ref.astype(np.int32))
+    return int(d.max()), int((d > 0).sum())
+
+
+def test_slice_within_3_of_jax_bits_path():
+    names = list(SLICE_INPUTS)
+    data = [SLICE_INPUTS[n]() for n in names]
+    with DeviceStreamDecoder(device="cpu", host_threads=2) as dec:
+        port = dec.decode_stream(data)
+    ref = JaxStreamDecoder(host_threads=2, precision="fast",
+                           interchange="bits").decode_stream(data)
+    for name, p, r in zip(names, port, ref):
+        worst, count = _pixel_diff(p, r)
+        print(f"{name}: max |diff| {worst}, {count} of {p.numel()} differ")
+        assert worst <= 3, (name, worst, count)
+
+
+def test_slice_scaled_within_3_of_jax():
+    data = synth_jpeg(640, 480, seed=24)
+    for scale_to in ((320, 240), (160, 120), (80, 60)):
+        with DeviceStreamDecoder(device="cpu", host_threads=1) as dec:
+            port = dec.decode_stream([data], scale_to=scale_to)[0]
+        ref = JaxStreamDecoder(host_threads=1, precision="fast",
+                               interchange="bits").decode_stream(
+                                   [data], scale_to=scale_to)[0]
+        worst, count = _pixel_diff(port, ref)
+        assert port.shape[:2] == (scale_to[1], scale_to[0])
+        assert worst <= 3, (scale_to, worst, count)
+
+
+@pytest.mark.parametrize("name", SMALL_FIXTURES)
+def test_slice_stores_bit_equal_to_oracle(name):
+    data = fixture(name)
+    staged = stage_host_bits(data)
+    oracle = oracle_stores(data)
+    for st in staged.scans:
+        dm = torch.from_numpy(st.dm)
+        ab, _b, _s, base = unpack_delta(dm)
+        nat = decode_chunks(torch.from_numpy(st.words), dm, ab, base,
+                            scan_tables(st.scan, "cpu"), st.s_max,
+                            st.scan.plan.n_blocks)
+        stores = assemble_nat(nat, st.scan.plan)
+        for pos, comp_i in st.kept:
+            np.testing.assert_array_equal(stores[pos].numpy().reshape(-1),
+                                          oracle[comp_i])
+
+
+def _lossless_jpeg():
+    from test_lossless_restart_order import _build_lossless_jpeg
+
+    rng = np.random.default_rng(31)
+    return _build_lossless_jpeg(rng.integers(-7, 8, (6, 5)), dri=0)
+
+
+@pytest.mark.parametrize("kind,match", [
+    ("progressive", "progressive"),
+    ("lossless", "lossless"),
+    ("quirk", "host entropy semantics"),
+])
+def test_streams_outside_the_slice_raise(kind, match):
+    data = {
+        "progressive": lambda: synth_jpeg(64, 48, seed=32, progressive=True),
+        "lossless": _lossless_jpeg,
+        "quirk": lambda: (FIXTURE_DIR.parent
+                          / "restart_underrun_prescan.jpg").read_bytes(),
+    }[kind]()
+    with pytest.raises(NotImplementedError, match=match):
+        stage_host_bits(data)
+    with DeviceStreamDecoder(device="cpu", host_threads=1) as dec:
+        with pytest.raises(NotImplementedError, match=match):
+            dec.decode_stream([data])
+
+
+def test_options_outside_the_slice_raise():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the no-CUDA error cannot occur")
+    with pytest.raises(RuntimeError, match="cuda"):
+        DeviceStreamDecoder(device="cuda")
+    for kw in ({"precision": "exact"}, {"layout": "planar"},
+               {"interchange": "prefix"}):
+        with pytest.raises(NotImplementedError):
+            DeviceStreamDecoder(device="cpu", **kw)
+    with DeviceStreamDecoder(device="cpu", host_threads=1) as dec:
+        with pytest.raises(NotImplementedError, match="batch_size"):
+            dec.decode_stream([fixture("small_gray.jpg")], batch_size=2)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            dec.device_resident_rate(fixture("small_gray.jpg"))

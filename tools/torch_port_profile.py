@@ -1,0 +1,135 @@
+"""Where the device time of the PyTorch port's main path goes, on a CUDA card.
+
+    python tools/torch_port_profile.py [--iters N] [--stream N]
+                                       [--trace out.json] [fixture ...]
+
+For each fixture (default: the 3.4 Mpix and 512x512 4:2:0 fixtures in
+tests/fixtures/torch_port/) it first times `decode_stream` end to end over
+`stream` copies (host staging on 4 pool threads, H2D, device), then stages
+the wire and copies it to the card once and runs `iters` device-resident
+decodes, unprofiled (CUDA events, `device_resident_rate`) and under
+torch.profiler. Printed per fixture, as JSON lines:
+- wall ms/image over the profiled window (host clock, synchronised);
+- device busy ms/image (union of kernel intervals) and the idle share;
+- kernel ms/image per layer (a kernel belongs to the decoder's
+  record_function range it starts in: unpack_delta, k1_decode, assemble,
+  reconstruct) and per kernel name (K1 huffman_decode_kernel, K2
+  dequant_idct_kernel, the rest PyTorch's);
+- kernel launches per image.
+With --trace, the Chrome trace of the last fixture is written there.
+Needs a CUDA device; fails without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
+LAYERS = ("unpack_delta", "k1_decode", "assemble", "reconstruct")
+
+
+def _busy_us(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def profile(dec, path: Path, iters: int):
+    from torch.profiler import ProfilerActivity
+    from jpeg_decoder_tpu_torch.models.stream import stage_host_bits
+
+    staged = stage_host_bits(path.read_bytes())
+    wires = dec._to_device(staged)
+    for _ in range(3):
+        dec._run_device(staged, wires)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            dec._run_device(staged, wires)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # record_function ranges also appear on the device timeline; they are
+    # spans around kernels, not kernels.
+    spans = [e for e in on_card if e.name in LAYERS]
+    kernels = [e for e in on_card if e.name not in LAYERS]
+    busy = _busy_us((e.time_range.start, e.time_range.end) for e in kernels)
+    by_kernel = defaultdict(float)
+    layers = defaultdict(float)
+    for e in kernels:
+        ms = e.time_range.elapsed_us() / iters / 1e3
+        by_kernel[e.name] += ms
+        owner = next((s.name for s in spans
+                      if s.time_range.start <= e.time_range.start
+                      < s.time_range.end), "other")
+        layers[owner] += ms
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
+    return {"fixture": path.name, "mpix": staged.mpix,
+            "wall_ms": wall / iters * 1e3, "device_busy_ms": busy / iters / 1e3,
+            "idle_share": 1 - busy / (wall * 1e6),
+            "launches_per_image": len(kernels) / iters,
+            "layer_kernel_ms": dict(layers), "top_kernels_ms": top,
+            "device": torch.cuda.get_device_name(0)}, prof
+
+
+def stream_rate(dec, path: Path, n: int) -> dict:
+    """End to end: decode_stream over n copies (host staging in the pool,
+    H2D, device), wall clock until the last image is on the card."""
+    data = [path.read_bytes()] * n
+    dec.decode_stream(data[:2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = dec.decode_stream(data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mpix = out[0].shape[0] * out[0].shape[1] / 1e6
+    return {"fixture": path.name, "images": n, "ms_per_image": wall / n * 1e3,
+            "mpix_s": mpix * n / wall, "host_threads": dec.host_threads}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("fixtures", nargs="*",
+                    default=["large_420.jpg", "tower_420.jpg"])
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--stream", type=int, default=32,
+                    help="images per end-to-end decode_stream run")
+    ap.add_argument("--trace", type=Path,
+                    help="write the last fixture's Chrome trace here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    from jpeg_decoder_tpu_torch import DeviceStreamDecoder
+
+    with DeviceStreamDecoder(device="cuda", host_threads=4) as dec:
+        for name in args.fixtures:
+            print(json.dumps({"stream": stream_rate(dec, FIXTURES / name,
+                                                    args.stream)}))
+            print(json.dumps({"device_resident": dec.device_resident_rate(
+                (FIXTURES / name).read_bytes(), iters=args.iters)}))
+            res, prof = profile(dec, FIXTURES / name, args.iters)
+            print(json.dumps(res))
+        if args.trace is not None:
+            args.trace.parent.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(args.trace))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
