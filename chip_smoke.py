@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (jpeg_decoder_tpu_torch.DeviceStreamDecoder on
-"cuda") over the committed fixtures in tests/fixtures/torch_port/, after
-building both hand-written kernels from csrc/ and holding each against its
-plain PyTorch version on the card:
+Drives the port's paths (jpeg_decoder_tpu_torch.DeviceStreamDecoder on
+"cuda" in the interleaved and planar layouts, and the K4 probe
+tools/experiments/fused_recon_probe_torch.py) over the committed fixtures
+in tests/fixtures/torch_port/, after building every hand-written kernel
+from csrc/ and holding each against its plain PyTorch version on the card:
 
 1. card name and power limit (nvidia-smi), native host library status;
 2. kernel build (nvcc), with its time;
@@ -17,7 +18,19 @@ plain PyTorch version on the card:
    of both kernels > 0, every image within 3 of the host exact decode;
 6. CUDA-event times: device-resident ms/image for the 3.4 Mpix and
    512x512 fixtures, each kernel beside its plain version at the main
-   path's shapes, and host staging ms/image.
+   path's shapes, and host staging ms/image;
+7. K3 (fused upsample + color) vs its plain version on the card, on every
+   fixture geometry it takes and on seeded planes (h1v2, YCCK, CMYK 4:4:4,
+   CMYK h2v2 on 3 components, width-1 chroma, odd sizes): bit-equal;
+8. the planar slice: decode_stream(layout="planar-pallas") and "planar"
+   over every fixture, each bit-equal to phase 5's interleaved image
+   permuted (gray as is), K3 launched in the planar-pallas run;
+9. K4 through its probe: bit-equal to K2 + blocks_to_plane + color and
+   within 3 of its plain version on small_444 and on seeded 256 x 210
+   block stores, K4 launched in the probe's run;
+10. times of the planar tail: device-resident ms/image and launches per
+   image (profiler) of planar-pallas beside interleaved, and K3 beside its
+   plain version at large_420's planes.
 
 Any failure raises and the script exits nonzero. It needs a CUDA device and
 the repository around it; it imports neither JAX nor PIL. The last line is
@@ -39,9 +52,25 @@ import torch
 ROOT = Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
 ORDER = ("large_420.jpg", "tower_420.jpg", "small_444.jpg", "small_422.jpg",
-         "small_gray.jpg", "small_dri.jpg")
+         "small_gray.jpg", "small_dri.jpg", "small_cmyk_420.jpg",
+         "small_rgb_444.jpg")
 K2_TOL = 1      # fp32 sums in another order: at most one rounding step
 PIXEL_TOL = 3   # fast-tier contract against the exact integer decode
+K4_TOL = 3      # K4 vs its cuBLAS plain version: 1 in the IDCT, x1.772 color
+RATE_FIXTURES = ("large_420.jpg", "tower_420.jpg")
+# K3 geometries beyond the fixtures': (comp_modes, transform, out_h, out_w,
+# chroma_dims).
+TAIL_CASES = (
+    (("h1v1", "h1v2", "h1v2"), "ycbcr", 90, 130, (45, 130)),
+    (("h1v1", "h2v2", "h2v2", "h1v1"), "ycck", 63, 77, (32, 39)),
+    (("h1v1", "h1v2", "h1v2", "h1v1"), "ycck", 31, 45, (16, 45)),
+    (("h1v1",) * 4, "cmyk", 35, 53, None),
+    (("h1v1", "h2v2", "h2v2", "h2v2"), "cmyk", 75, 111, (38, 56)),
+    (("h1v1", "h2v2", "h2v2"), "ycbcr", 9, 2, (5, 1)),
+    (("h1v1", "h2v1", "h2v1"), "ycbcr", 7, 1, (7, 1)),
+    (("h1v1", "h2v2", "h2v2"), "ycbcr", 1001, 1667, (501, 834)),
+    (("h1v1", "h2v1", "h2v1"), "ycbcr", 333, 517, (333, 259)),
+)
 
 
 def say(phase: str, **fields) -> None:
@@ -70,6 +99,20 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def seeded_planes(case, rng, dev) -> list:
+    """Block-padded uint8 planes for one TAIL_CASES entry, on `dev`."""
+    modes, _transform, out_h, out_w, chroma = case
+    hc, wc = chroma if chroma is not None else (out_h, out_w)
+    planes = []
+    for m in modes:
+        h = out_h if m == "h1v1" else hc
+        w = wc if m.startswith("h2") else out_w
+        planes.append(torch.from_numpy(rng.integers(
+            0, 256, (-(-h // 8) * 8 + 8, -(-w // 8) * 8)).astype(np.uint8))
+            .to(dev))
+    return planes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -85,9 +128,16 @@ def main() -> int:
     from jpeg_decoder_tpu_torch.entropy.assemble import assemble_nat
     from jpeg_decoder_tpu_torch.entropy.chunk_decode import (
         decode_chunks, decode_chunks_plain, unpack_delta)
+    from jpeg_decoder_tpu.ops.pallas_kernels import (_TAIL_TRANSFORMS,
+                                                     pallas_tail_mode)
     from jpeg_decoder_tpu_torch.ops.kernels import (dequant_idct,
-                                                    dequant_idct_plain)
+                                                    dequant_idct_plain,
+                                                    fused_tail,
+                                                    fused_tail_plain)
+    from jpeg_decoder_tpu_torch.ops.pipeline import _planes
     from jpeg_decoder_tpu_torch.params import DeviceParams
+    from tools.experiments import fused_recon_probe_torch as k4_probe
+    from tools.torch_port_profile import profile as profile_layers
 
     dev = torch.device("cuda")
     card = card_line()
@@ -100,7 +150,11 @@ def main() -> int:
     _build.load()
     say("2 build", library=str(lib_path.relative_to(ROOT)),
         nvcc_seconds=_build.build_seconds,
-        total_seconds=time.perf_counter() - t0)
+        total_seconds=time.perf_counter() - t0,
+        ptxas=[line.split("ptxas info    : ")[-1]
+               for line in _build.ptxas_log.splitlines()
+               if "registers" in line or "Compiling entry" in line
+               or "spill" in line])
 
     data = {name: (FIXTURES / name).read_bytes() for name in ORDER}
     params = DeviceParams(dev)
@@ -191,7 +245,7 @@ def main() -> int:
             if worst[name] > PIXEL_TOL:
                 raise AssertionError(f"{name}: max |diff| {worst[name]} > "
                                      f"{PIXEL_TOL} vs the exact decode")
-        if min(launches.values()) < 1:
+        if min(launches["huffman_decode"], launches["dequant_idct"]) < 1:
             raise AssertionError(f"a kernel of the path never ran: {launches}")
         say("5 slice", images=len(images), launches=launches,
             max_abs_diff_vs_exact=worst, tolerance=PIXEL_TOL)
@@ -223,6 +277,109 @@ def main() -> int:
         k2_shape=list(coef.shape), k2_ms=k2_ms, k2_plain_ms=k2_plain_ms)
     say("6 host staging ms/image", **stage_ms)
 
+    # 7. K3 against its plain version: every fixture geometry it takes
+    # (planes from the oracle's stores through K2), then seeded planes.
+    def fixture_planes(name):
+        renders = oracle(name)._pending_render
+        geometry = staged[name].geometry
+        planes = _planes(
+            geometry, [torch.from_numpy(renders[i][0].reshape(-1, 64)).to(dev)
+                       for i in range(len(renders))],
+            [renders[i][1] for i in range(len(renders))], params)
+        chroma = next(((c.size_height, c.size_width)
+                       for c in geometry.components
+                       if c.upsampler_mode != "h1v1"), None)
+        return planes, (tuple(c.upsampler_mode for c in geometry.components),
+                        _TAIL_TRANSFORMS[geometry.transform.value],
+                        geometry.out_height, geometry.out_width, chroma)
+
+    k3_cases = [fixture_planes(name) for name in ORDER
+                if pallas_tail_mode(staged[name].geometry) == "fused"]
+    rng = np.random.default_rng(7)
+    k3_cases += [(seeded_planes(case, rng, dev), case) for case in TAIL_CASES]
+    k3_err = 0
+    for planes, (modes, transform, out_h, out_w, chroma) in k3_cases:
+        args3 = (planes, modes, chroma, transform, out_h, out_w)
+        a = fused_tail(*args3)
+        b = fused_tail_plain(*args3)
+        if a.shape != (len(planes), out_h, out_w):
+            raise AssertionError(f"K3 shape {tuple(a.shape)}")
+        k3_err = max(k3_err, int((a.to(torch.int32) - b.to(torch.int32))
+                                 .abs().max()))
+    say("7 K3 vs plain", cases=len(k3_cases), max_abs_err=k3_err,
+        tolerance=0)
+    if k3_err:
+        raise AssertionError(f"K3 differs from its plain version: {k3_err}")
+
+    # 8. The planar slice, through the user entry point.
+    planar_launches, effective = {}, {}
+    for layout in ("planar-pallas", "planar"):
+        torch.cuda.synchronize()
+        jt.reset_launches()
+        with jt.DeviceStreamDecoder(device="cuda", host_threads=4,
+                                    layout=layout) as dec:
+            planar = dec.decode_stream([data[name] for name in ORDER])
+            torch.cuda.synchronize()
+            planar_launches[layout] = dict(jt.LAUNCHES)
+            effective[layout] = {
+                name: dec._effective_layout(staged[name].geometry)
+                for name in ORDER}
+        for name, img, ref in zip(ORDER, planar, images):
+            want = ref.permute(2, 0, 1) if ref.dim() == 3 else ref
+            if img.shape != want.shape or not torch.equal(img, want):
+                raise AssertionError(f"{layout} {name}: differs from the "
+                                     f"interleaved image permuted")
+    if planar_launches["planar-pallas"]["fused_tail"] < 1:
+        raise AssertionError(f"K3 never ran: {planar_launches}")
+    say("8 planar slice", images=len(ORDER), launches=planar_launches,
+        planar_pallas_takes=effective["planar-pallas"],
+        result="bit-equal to interleaved")
+
+    # 9. K4 through its probe; counts from the probe's run only.
+    torch.cuda.synchronize()
+    jt.reset_launches()
+    k4_results = k4_probe.run(FIXTURES / "small_444.jpg", iters=20)
+    torch.cuda.synchronize()
+    k4_launches = jt.LAUNCHES["fused_recon"]
+    for res in k4_results:
+        say("9 K4 probe", **res)
+        if res["k4_vs_x_max_abs_diff"] != 0 \
+                or res["k4_vs_plain_max_abs_diff"] > K4_TOL:
+            raise AssertionError(f"K4 {res['case']}: vs K2 path "
+                                 f"{res['k4_vs_x_max_abs_diff']}, vs plain "
+                                 f"{res['k4_vs_plain_max_abs_diff']}")
+    if k4_launches < 1:
+        raise AssertionError("K4 never ran in the probe")
+    k4_err = max(res["k4_vs_plain_max_abs_diff"] for res in k4_results)
+    k4_large = k4_results[-1]
+
+    # 10. Times of the planar tail.
+    layer_rates = {}
+    for layout in ("interleaved", "planar-pallas"):
+        with jt.DeviceStreamDecoder(device="cuda", host_threads=4,
+                                    layout=layout) as dec:
+            for name in RATE_FIXTURES:
+                rate = dec.device_resident_rate(data[name], iters=50)
+                prof, _trace = profile_layers(dec, FIXTURES / name, 10)
+                layer_rates[f"{layout} {name}"] = {
+                    "ms_per_image": rate["ms_per_image"],
+                    "host_ms_per_image": rate["host_ms_per_image"],
+                    "launches_per_image": prof["launches_per_image"],
+                    "device_busy_ms": prof["device_busy_ms"],
+                    "layer_kernel_ms": prof["layer_kernel_ms"]}
+    say("10 device_resident_rate by layout", **layer_rates)
+    planes3, (modes3, transform3, h3, w3, chroma3) = \
+        fixture_planes("large_420.jpg")
+    args3 = (planes3, modes3, chroma3, transform3, h3, w3)
+    k3_ms = cuda_ms(lambda: fused_tail(*args3), 50)
+    k3_plain_ms = cuda_ms(lambda: fused_tail_plain(*args3), 50)
+    say("10 kernel times", k3_shape={"modes": modes3, "out": [h3, w3],
+                                     "chroma": chroma3},
+        k3_ms=k3_ms, k3_plain_ms=k3_plain_ms,
+        k4_shape={"blocks": k4_large["blocks"], "width": k4_large["width"]},
+        k4_ms=k4_large["k4_ms"], k4_plain_ms=k4_large["plain_ms"],
+        k4_x_ms=k4_large["x_ms"], floor_ms=k4_large["floor_ms"])
+
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     kernels = [
@@ -236,6 +393,16 @@ def main() -> int:
          "replaces": "jpeg_decoder_tpu/ops/pallas_kernels.py:26",
          "launches": launches["dequant_idct"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "K3 fused_tail", "route": "cuda",
+         "source": "jpeg_decoder_tpu_torch/csrc/fused_tail.cu",
+         "replaces": "jpeg_decoder_tpu/ops/pallas_kernels.py:80",
+         "launches": planar_launches["planar-pallas"]["fused_tail"],
+         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "K4 fused_recon", "route": "cuda",
+         "source": "jpeg_decoder_tpu_torch/csrc/fused_recon.cu",
+         "replaces": "tools/experiments/fused_recon_probe.py:60",
+         "launches": k4_launches, "max_abs_err": k4_err,
+         "ms": k4_large["k4_ms"], "plain_ms": k4_large["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,10 +1,11 @@
 """jpeg_decoder_tpu_torch: the JPEG decode engine on PyTorch and CUDA.
 
 A port of `jpeg_decoder_tpu` (JAX on a TPU) to PyTorch with kernels written
-by hand for NVIDIA Hopper (H100, sm_90a). This slice covers the default
-device path: baseline JPEGs on the "bits" interchange (host prescan, the
-4 B/chunk delta wire, chunk-parallel Huffman decode on the device),
-fast-precision reconstruction and the interleaved layout.
+by hand for NVIDIA Hopper (H100, sm_90a). It covers the default device
+path: baseline JPEGs on the "bits" interchange (host prescan, the 4 B/chunk
+delta wire, chunk-parallel Huffman decode on the device) and fast-precision
+reconstruction, in the layouts "interleaved" ([H, W, C]), "planar"
+([C, H, W]) and "planar-pallas" ([C, H, W] through the fused tail K3).
 
     from jpeg_decoder_tpu_torch import DeviceStreamDecoder
     with DeviceStreamDecoder(device="cuda") as dec:
@@ -14,6 +15,10 @@ The host stage is the JAX package's numpy/C++ code, reused by import; the
 JAX package itself is never imported. Kernels:
 - K1 `entropy/chunk_decode.py::decode_chunks` (csrc/huffman_decode.cu)
 - K2 `ops/kernels.py::dequant_idct` (csrc/dequant_idct.cu)
+- K3 `ops/kernels.py::fused_tail` (csrc/fused_tail.cu), layout
+  "planar-pallas"
+- K4 `ops/kernels.py::fused_recon` (csrc/fused_recon.cu), driven by
+  tools/experiments/fused_recon_probe_torch.py
 They build with nvcc at first launch (`_build.py`); `LAUNCHES` counts the
 launches of each.
 """

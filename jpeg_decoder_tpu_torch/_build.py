@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
-Both kernels (`csrc/huffman_decode.cu`, `csrc/dequant_idct.cu`) compile into
-one shared library with a plain C interface; nothing here includes PyTorch's
-headers, so a cold build takes seconds, not minutes. The library lands in
+The kernels (`csrc/*.cu`, listed in SOURCES) link into one shared library
+with a plain C interface; nothing here includes PyTorch's headers, so a
+cold build takes seconds, not minutes. Each source compiles in its own nvcc
+process, all started together, then one nvcc links them. The library lands in
 `build/torch_kernels/` at the repository root, named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads
 the existing file. Nothing is compiled or loaded at import time: the first
@@ -24,17 +25,20 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("huffman_decode.cu", "dequant_idct.cu")
+SOURCES = ("huffman_decode.cu", "dequant_idct.cu", "fused_tail.cu",
+           "fused_recon.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # Kernel launch counts, by kernel name; see reset_launches().
-LAUNCHES = {"huffman_decode": 0, "dequant_idct": 0}
+LAUNCHES = {"huffman_decode": 0, "dequant_idct": 0, "fused_tail": 0,
+            "fused_recon": 0}
 
 _lock = threading.Lock()
 _lib = None
-build_seconds = None    # wall time of the nvcc run in this process, if any
+build_seconds = None    # wall time of the nvcc runs in this process, if any
+ptxas_log = ""          # ptxas's registers / shared memory / spills report
 
 
 class KernelBuildError(RuntimeError):
@@ -67,21 +71,45 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists."""
-    global build_seconds
+    global build_seconds, ptxas_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
+    objs = [tmp.with_name(f"{tmp.name}.{name}.o") for name in SOURCES]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    os.replace(tmp, out)
+    procs = []
+    try:
+        for name, obj in zip(SOURCES, objs):
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        logs = []
+        for name, proc in zip(SOURCES, procs):
+            _out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise KernelBuildError(
+                    f"nvcc failed on {name} ({proc.returncode}):\n"
+                    f"{err[-4000:]}")
+            logs.append(err)
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                              *map(str, objs)],
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc link failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        os.replace(tmp, out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in (*objs, tmp):     # tmp is gone after a good build
+            path.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
+    ptxas_log = "".join(logs)
     return out
 
 
@@ -108,6 +136,21 @@ def load() -> ctypes.CDLL:
             p,              # out
             p]              # stream
         lib.jdt_dequant_idct.restype = i
+        lib.jdt_fused_tail.argtypes = [
+            p, p, p, p,     # component planes 0..3 (unused ones 0)
+            p,              # host int32[8]: mode codes, then row pitches
+            i, i,           # ncomp, transform
+            i, i, i, i,     # hc, wc, out_h, out_w
+            p,              # out
+            p]              # stream
+        lib.jdt_fused_tail.restype = i
+        lib.jdt_fused_recon.argtypes = [
+            p, p, p,        # y, cb, cr stores
+            p, p,           # q [3, 64], basis [64, 64]
+            i, i, i,        # bh, bw, width
+            p,              # out
+            p]              # stream
+        lib.jdt_fused_recon.restype = i
         lib.jdt_error_string.argtypes = [i]
         lib.jdt_error_string.restype = ctypes.c_char_p
         _lib = lib

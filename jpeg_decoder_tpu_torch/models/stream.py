@@ -1,10 +1,15 @@
 """Decode-to-device streaming on PyTorch: the bits interchange main path.
 
 Port of `jpeg_decoder_tpu/models/stream.py`'s bits path
-(`DeviceStreamDecoder(interchange="bits")` with the delta wire, precision
-"fast" and layout "interleaved"). Images come back as uint8 [H, W, 3]
-(or [H, W] for grayscale) tensors on the decoder's device; the host never
-reads pixels back.
+(`DeviceStreamDecoder(interchange="bits")` with the delta wire and
+precision "fast") in its three layouts. Images come back as uint8 tensors
+on the decoder's device; the host never reads pixels back:
+- "interleaved": [H, W, C] (or [H, W] for grayscale);
+- "planar": [C, H, W], the interleaved result permuted (2-D outputs as
+  they are);
+- "planar-pallas": [C, H, W] through kernel K3 (fused upsample + color)
+  for the geometries `pallas_tail_mode` covers, else "planar" (one rule,
+  `_effective_layout`, as in the reference).
 
 Host stage (per image, in a thread pool): parse, prescan and
 `pack_delta`, all reused by import from the JAX package's numpy/C++ host
@@ -16,13 +21,13 @@ here runs the same Decoder hooks and calls `geometry_from_frame` and
 Device stage (per image, on the caller's thread, asynchronous on the
 current CUDA stream): delta unpack, kernel K1 (chunk Huffman decode),
 assembly (DC prefix sums, raster placement), kernel K2 (dequant + IDCT),
-upsampling and color.
+then upsampling and color, or kernel K3 on "planar-pallas".
 
 Not ported yet, and raising rather than restaging: progressive JPEG (the
 reference transcodes it into the bits wire), lossless (SOF3), streams the
 prescan sends to the host engines (`PrescanFallback`), scans `pack_delta`
-declines (the words-packed wire), batch_size > 1, layouts other than
-"interleaved", precision "exact" and the prefix interchange.
+declines (the words-packed wire), batch_size > 1, precision "exact" and
+the prefix interchange.
 """
 
 from __future__ import annotations
@@ -40,13 +45,16 @@ from jpeg_decoder_tpu.entropy.device_scan import AnchoredScan, PrescanFallback
 from jpeg_decoder_tpu.entropy.pallas_decode import WORDS_PAD, pack_delta
 from jpeg_decoder_tpu.errors import FormatError
 from jpeg_decoder_tpu.models.stream import BitstreamCapture
+from jpeg_decoder_tpu.ops.pallas_kernels import is_420_ycbcr
 from jpeg_decoder_tpu.ops.pipeline import ImageGeometry, geometry_from_frame
 from jpeg_decoder_tpu.parser import CodingProcess
 
 from ..entropy.assemble import GeneralMaps, assemble_nat
 from ..entropy.chunk_decode import decode_chunks, unpack_delta
-from ..ops.pipeline import reconstruct
+from ..ops.pipeline import reconstruct, reconstruct_planar_pallas
 from ..params import DeviceParams
+
+LAYOUTS = ("interleaved", "planar", "planar-pallas")
 
 
 @dataclasses.dataclass
@@ -141,14 +149,14 @@ class DeviceStreamDecoder:
         if precision != "fast":
             raise NotImplementedError(
                 f"precision {precision!r}: only 'fast' is ported yet")
-        if layout != "interleaved":
-            raise NotImplementedError(
-                f"layout {layout!r}: only 'interleaved' is ported yet")
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown layout {layout!r}; one of {LAYOUTS}")
         if interchange != "bits":
             raise NotImplementedError(
                 f"interchange {interchange!r}: only 'bits' is ported yet")
         self.device = dev
         self.precision = precision
+        self.layout = layout
         self.host_threads = host_threads
         self.params = DeviceParams(dev)
         self._maps: dict = {}
@@ -180,6 +188,13 @@ class DeviceStreamDecoder:
             maps = self._maps[plan] = GeneralMaps(plan, self.device)
         return maps
 
+    def _effective_layout(self, geometry) -> str:
+        """planar-pallas downgrades to plain planar for geometries the fused
+        tail doesn't cover: one rule for every dispatch shape."""
+        if self.layout == "planar-pallas" and not is_420_ycbcr(geometry):
+            return "planar"
+        return self.layout
+
     def _run_device(self, staged: StagedBits, wires: tuple) -> torch.Tensor:
         """The device half for one image whose wire is already on the
         device. Enqueues work only: no host synchronisation."""
@@ -200,9 +215,16 @@ class DeviceStreamDecoder:
                 scan_stores = assemble_nat(nat, plan, maps)
             for pos, comp_i in st.kept:
                 stores[comp_i] = scan_stores[pos]
-        with span("reconstruct"):
-            return reconstruct(staged.geometry, stores, staged.qts,
-                               self.params)
+        layout = self._effective_layout(staged.geometry)
+        with span("reconstruct"):     # K3 inside, under span "fused_tail"
+            if layout == "planar-pallas":
+                return reconstruct_planar_pallas(staged.geometry, stores,
+                                                 staged.qts, self.params)
+            out = reconstruct(staged.geometry, stores, staged.qts,
+                              self.params)
+            if layout == "planar" and out.dim() == 3:
+                return out.permute(2, 0, 1).contiguous()
+            return out
 
     def decode_one(self, staged: StagedBits) -> torch.Tensor:
         return self._run_device(staged, self._to_device(staged))
@@ -225,8 +247,9 @@ class DeviceStreamDecoder:
     def device_resident_rate(self, source, iters: int = 64, scale_to=None,
                              reps: int = 3) -> dict:
         """Device time per image of the full device half (K1, assembly, K2,
-        upsample, color) over a wire already in device memory, timed with
-        CUDA events around `iters` back-to-back decodes; best of `reps`.
+        the tail of the decoder's layout) over a wire already in device
+        memory, timed with CUDA events around `iters` back-to-back decodes;
+        best of `reps`.
         Needs a CUDA device: a measurement finds no card, it fails."""
         if self.device.type != "cuda":
             raise RuntimeError("device_resident_rate measures a CUDA device; "
@@ -252,4 +275,5 @@ class DeviceStreamDecoder:
         return {"ms_per_image": best, "mpix_s": staged.mpix / (best * 1e-3),
                 "host_ms_per_image": best_host, "mpix": staged.mpix,
                 "interchange": "bits", "batch": 1,
+                "layout": self._effective_layout(staged.geometry),
                 "device": torch.cuda.get_device_name(self.device)}

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernels import dequant_idct
+from . import kernels
 
 
 def dequantize_and_idct_blocks_fast(coefficients, q, basis,
@@ -23,7 +23,8 @@ def dequantize_and_idct_blocks_fast(coefficients, q, basis,
     the [64, 64] basis for `scale` (params.idct_basis) -> uint8
     [N, scale, scale]."""
     coef = coefficients.reshape(-1, 64)
-    return dequant_idct(coef, q, basis, scale).reshape(-1, scale, scale)
+    return kernels.dequant_idct(coef, q, basis, scale).reshape(-1, scale,
+                                                           scale)
 
 
 def blocks_to_plane(block_pixels: torch.Tensor, blocks_wide: int,

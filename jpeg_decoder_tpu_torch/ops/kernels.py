@@ -1,24 +1,44 @@
-"""Kernel K2: dequantize + IDCT of coefficient blocks.
+"""The port's reconstruction kernels, each beside its plain PyTorch version.
 
-Counterpart of `jpeg_decoder_tpu/ops/pallas_kernels.py::
-dequantize_and_idct_blocks_pallas` (the TPU kernel `_kernel_fn`):
+Every wrapper dispatches on the device of its inputs: CPU tensors run the
+plain version, CUDA tensors launch the CUDA kernel, anything else raises.
+
+K2 `dequant_idct`: dequantize + IDCT of coefficient blocks, counterpart of
+`jpeg_decoder_tpu/ops/pallas_kernels.py::dequantize_and_idct_blocks_pallas`
+(the TPU kernel `_kernel_fn`):
     pixels = u8(clip(floor((coef * q) @ basis + 128.5), 0, 255))
 in fp32, on int16 [N, 64] natural-order blocks. Scales 8/4/2/1 share one
 kernel through the zero-padded [64, 64] basis (`params.idct_basis`); only
 the first scale * scale pixel columns are computed.
 
-`dequant_idct` dispatches on the device of its inputs: CPU tensors run
-`dequant_idct_plain`, CUDA tensors launch the CUDA kernel
-(`csrc/dequant_idct.cu`), anything else raises. The kernel and the plain
-version sum the 64 products in different orders, so they may differ by 1
-where a value lands next to a .5 boundary.
+Kernel `csrc/dequant_idct.cu`. The kernel and the plain version sum the 64
+products in different orders, so they may differ by 1 where a value lands
+next to a .5 boundary.
+
+K3 `fused_tail`: chroma upsampling + color conversion into the planar
+layout, counterpart of `jpeg_decoder_tpu/ops/pallas_kernels.py::
+fused_tail_pallas` (the TPU kernel `_fused_tail_kernel`). Kernel
+`csrc/fused_tail.cu`; integer math, bit-equal to its plain version.
+
+K4 `fused_recon`: 4:4:4 YCbCr coefficient stores -> planar RGB in one
+kernel (K2's IDCT, block -> raster, color), counterpart of the TPU probe
+`tools/experiments/fused_recon_probe.py::make_kernel`. Kernel
+`csrc/fused_recon.cu`; it repeats K2's arithmetic, so on the card it is
+bit-equal to K2 + `blocks_to_plane` + color, and within 3 of its plain
+version (cuBLAS sums in another order: 1 in the IDCT, times up to 1.772
+through color).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _build
+from . import idct
+from .color import ycbcr_to_rgb
+from .upsample import _v2_near_far, h2v2_combine
 
 
 def _check_inputs(coef, q, basis, scale: int) -> None:
@@ -73,3 +93,179 @@ def dequant_idct_plain(coef, q, basis, scale: int = 8) -> torch.Tensor:
     n_out = scale * scale
     y = (coef.to(torch.float32) * q) @ basis[:, :n_out]
     return torch.floor(y + 128.5).clamp_(0, 255).to(torch.uint8)
+
+
+# K3: the upsampler modes it takes and the color transforms, in the
+# kernel's codes (csrc/fused_tail.cu).
+TAIL_MODES = ("h1v1", "h1v2", "h2v1", "h2v2")
+TAIL_TRANSFORMS = ("ycbcr", "cmyk", "ycck")
+_TAIL_COMPONENTS = {"ycbcr": 3, "cmyk": 4, "ycck": 4}
+
+
+def _check_tail(planes, comp_modes, chroma_dims, transform, out_h,
+                out_w) -> None:
+    """Reject what `fused_tail_pallas` is not defined on: the plain version
+    and the kernel then read only inside the planes."""
+    if transform not in TAIL_TRANSFORMS:
+        raise ValueError(f"unknown tail transform {transform!r}")
+    if len(planes) != _TAIL_COMPONENTS[transform] \
+            or len(comp_modes) != len(planes):
+        raise ValueError(f"{transform} takes {_TAIL_COMPONENTS[transform]} "
+                         f"planes and modes, got {len(planes)} and "
+                         f"{len(comp_modes)}")
+    if any(m not in TAIL_MODES for m in comp_modes):
+        raise ValueError(f"unsupported upsampler modes {comp_modes}")
+    h2 = any(m.startswith("h2") for m in comp_modes)
+    if h2 and "h1v2" in comp_modes:
+        raise ValueError("h1v2 mixed with h2 modes (pallas_tail_mode "
+                         "rejects it)")
+    if out_h < 1 or out_w < 1:
+        raise ValueError(f"empty output {out_h}x{out_w}")
+    if chroma_dims is None:
+        if any(m != "h1v1" for m in comp_modes):
+            raise ValueError("subsampled modes need chroma_dims")
+        hc, wc = out_h, out_w
+    else:
+        hc, wc = chroma_dims
+    dev = planes[0].device
+    for p, m in zip(planes, comp_modes):
+        if p.device != dev or p.dtype != torch.uint8 or p.dim() != 2 \
+                or not p.is_contiguous():
+            raise ValueError("planes must be contiguous uint8 [rows, cols] "
+                             "on one device")
+        rows, cols = p.shape
+        need_h = out_h if m == "h1v1" else hc
+        need_w = wc if m.startswith("h2") else out_w
+        covers_h = {"h1v1": True, "h2v1": hc >= out_h}.get(m, 2 * hc >= out_h)
+        covers_w = 2 * wc >= out_w if m.startswith("h2") else True
+        if rows < need_h or cols < need_w or min(need_h, need_w) < 1 \
+                or not (covers_h and covers_w):
+            raise ValueError(f"{m} plane {tuple(p.shape)} with chroma "
+                             f"{hc}x{wc} does not cover {out_h}x{out_w}")
+
+
+def fused_tail(planes, comp_modes, chroma_dims, transform: str, out_h: int,
+               out_w: int) -> torch.Tensor:
+    """uint8 component planes (block-padded IDCT output, full rows) ->
+    uint8 planar [C_out, out_h, out_w]. `comp_modes[i]` in TAIL_MODES,
+    `chroma_dims` = (hc, wc) shared by every subsampled component (None
+    when all are h1v1), `transform` in TAIL_TRANSFORMS; the arguments of
+    `fused_tail_pallas`."""
+    _check_tail(planes, comp_modes, chroma_dims, transform, out_h, out_w)
+    dev = planes[0].device
+    if dev.type == "cpu":
+        return fused_tail_plain(planes, comp_modes, chroma_dims, transform,
+                                out_h, out_w)
+    if dev.type != "cuda":
+        raise ValueError(f"no K3 implementation for device {dev}")
+    hc, wc = chroma_dims if chroma_dims is not None else (out_h, out_w)
+    out = torch.empty((len(planes), out_h, out_w), dtype=torch.uint8,
+                      device=dev)
+    ptrs = [p.data_ptr() for p in planes] + [0] * (4 - len(planes))
+    # Per component: mode code, row pitch in bytes.
+    meta = (ctypes.c_int * 8)(
+        *[TAIL_MODES.index(m) for m in comp_modes], *[0] * (4 - len(planes)),
+        *[p.shape[1] for p in planes], *[0] * (4 - len(planes)))
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.jdt_fused_tail(
+            *ptrs, ctypes.addressof(meta), len(planes),
+            TAIL_TRANSFORMS.index(transform), hc, wc, out_h, out_w,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _build.LAUNCHES["fused_tail"] += 1
+    _build.check(lib, err, "fused_tail")
+    return out
+
+
+def _tail_color(transform: str, chans) -> list:
+    """`pallas_kernels.py::_tail_color`: int32 planes -> uint8 planes."""
+    if transform == "cmyk":
+        return [(255 - c).to(torch.uint8) for c in chans]
+    rgb = list(ycbcr_to_rgb(*chans[:3]))
+    if transform == "ycck":
+        rgb.append((255 - chans[3]).to(torch.uint8))
+    return rgb
+
+
+def fused_tail_plain(planes, comp_modes, chroma_dims, transform: str,
+                     out_h: int, out_w: int) -> torch.Tensor:
+    """Plain PyTorch version of K3, after `fused_tail_pallas`: V2 near/far
+    rows (`near_far`), the V2 triangle taps, the H2 taps with the
+    quarter-weight edges and the column interleave (`h2taps` and the final
+    stack, which `upsample.h2v2_combine` computes in one step), then
+    `_tail_color`. A full-resolution component's column-parity split is the
+    identity once the interleave is undone, so it is read as is; the row-tile
+    padding changes no value and is left out."""
+    hc, wc = chroma_dims if chroma_dims is not None else (out_h, out_w)
+    chans = []
+    for p, m in zip(planes, comp_modes):
+        if m == "h1v1":
+            chans.append(p[:out_h, :out_w].to(torch.int32))
+            continue
+        if m.endswith("v2"):
+            near, far = _v2_near_far(p, hc, out_h)
+        else:
+            near = far = p[:hc][:out_h].to(torch.int32)
+        if m == "h1v2":
+            chans.append((3 * near[:, :out_w] + far[:, :out_w] + 2) >> 2)
+        else:
+            chans.append(h2v2_combine(near[:, :wc], far[:, :wc], wc)
+                         [:, :out_w].to(torch.int32))
+    return torch.stack(_tail_color(transform, chans), dim=0)
+
+
+def _check_recon(y, cb, cr, qts, basis, width: int) -> None:
+    dev = y.device
+    for name, t in (("y", y), ("cb", cb), ("cr", cr)):
+        if t.device != dev or t.dtype != torch.int16 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int16 on {dev}")
+        if t.dim() != 3 or t.shape[2] != 64 or t.shape != y.shape:
+            raise ValueError("K4 takes 4:4:4 YCbCr: three [bh, bw, 64] "
+                             f"stores of one shape, got {tuple(t.shape)} "
+                             f"for {name} and {tuple(y.shape)} for y")
+    for name, t, shape in (("qts", qts, (3, 64)), ("basis", basis, (64, 64))):
+        if t.device != dev or t.dtype != torch.float32 \
+                or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be contiguous float32 {shape}")
+    bh, bw, _ = y.shape
+    if not 1 <= width <= bw * 8 or bh < 1:
+        raise ValueError(f"width {width} outside 1..{bw * 8}, or no blocks")
+
+
+def fused_recon(y, cb, cr, qts, basis, width: int = None) -> torch.Tensor:
+    """4:4:4 YCbCr stores, int16 [bh, bw, 64] each (natural order), float32
+    [3, 64] dequant factors and the 8x8 [64, 64] basis -> uint8 planar RGB
+    [3, bh * 8, width]: rows uncropped, columns cut to `width` (default
+    bw * 8), as the TPU probe defines it."""
+    width = y.shape[1] * 8 if width is None else width
+    _check_recon(y, cb, cr, qts, basis, width)
+    if y.device.type == "cpu":
+        return fused_recon_plain(y, cb, cr, qts, basis, width)
+    if y.device.type != "cuda":
+        raise ValueError(f"no K4 implementation for device {y.device}")
+    bh, bw, _ = y.shape
+    out = torch.empty((3, bh * 8, width), dtype=torch.uint8, device=y.device)
+    lib = _build.load()
+    with torch.cuda.device(y.device):
+        err = lib.jdt_fused_recon(
+            y.data_ptr(), cb.data_ptr(), cr.data_ptr(), qts.data_ptr(),
+            basis.data_ptr(), bh, bw, width, out.data_ptr(),
+            torch.cuda.current_stream(y.device).cuda_stream)
+        _build.LAUNCHES["fused_recon"] += 1
+    _build.check(lib, err, "fused_recon")
+    return out
+
+
+def fused_recon_plain(y, cb, cr, qts, basis, width: int = None,
+                      k2=dequant_idct_plain) -> torch.Tensor:
+    """Plain PyTorch version of K4, the probe's reference "X": per component
+    `k2` (dequant + IDCT), `blocks_to_plane`, then `ycbcr_to_rgb` and a
+    planar stack. `k2=dequant_idct` gives the unfused path that the kernel
+    matches bit for bit on the card."""
+    bh, bw, _ = y.shape
+    width = bw * 8 if width is None else width
+    planes = [idct.blocks_to_plane(k2(s.reshape(-1, 64), q, basis)
+                                   .reshape(-1, 8, 8), bw, bh)[:, :width]
+              for s, q in zip((y, cb, cr), qts)]
+    return torch.stack(ycbcr_to_rgb(*planes), dim=0)

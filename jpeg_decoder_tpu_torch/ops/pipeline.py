@@ -1,25 +1,31 @@
 """Reconstruction: coefficient stores -> image tensor, on the stores' device.
 
-Port of `jpeg_decoder_tpu/ops/pipeline.py::_reconstruct` for the fast
-precision: per component dequant + IDCT (kernel K2) and block -> plane,
-then chroma upsampling and color conversion. Geometry comes from the
-reference's `ImageGeometry` / `geometry_from_frame`, reused by import.
+Port of the fast precision of `jpeg_decoder_tpu/ops/pipeline.py::
+_reconstruct` (`reconstruct`: per component dequant + IDCT (kernel K2) and
+block -> plane, then chroma upsampling and color conversion, interleaved
+out) and of `jpeg_decoder_tpu/ops/pallas_kernels.py::
+reconstruct_planar_pallas` (`reconstruct_planar_pallas`: the same planes,
+then kernel K3, planar out). Geometry comes from the reference's
+`ImageGeometry` / `geometry_from_frame`, and the planar tail's coverage
+rule from its `pallas_tail_mode`, all reused by import.
 """
 
 from __future__ import annotations
 
 import torch
 
+from jpeg_decoder_tpu.ops.pallas_kernels import (_TAIL_TRANSFORMS,
+                                                 pallas_tail_mode)
+
 from ..params import DeviceParams
 from .color import color_convert_image
 from .idct import blocks_to_plane, dequantize_and_idct_blocks_fast
+from .kernels import fused_tail
 from .upsample import upsample_component
 
 
-def reconstruct(geometry, stores, qts, params: DeviceParams) -> torch.Tensor:
-    """`stores`: int16 [blocks_high * blocks_wide, 64] per component;
-    `qts`: uint16[64] natural-order numpy tables. Returns uint8 [H, W] for
-    one component, else [H, W, C]."""
+def _planes(geometry, stores, qts, params: DeviceParams) -> list:
+    """K2 + block -> plane per component: block-padded uint8 planes."""
     if geometry.precision != "fast":
         raise NotImplementedError(
             "precision 'exact' (the stb int32 IDCT) is not ported yet")
@@ -30,6 +36,14 @@ def reconstruct(geometry, stores, qts, params: DeviceParams) -> torch.Tensor:
             scale=comp.dct_scale)
         planes.append(blocks_to_plane(pixels, comp.blocks_wide,
                                       comp.blocks_high))
+    return planes
+
+
+def reconstruct(geometry, stores, qts, params: DeviceParams) -> torch.Tensor:
+    """`stores`: int16 [blocks_high * blocks_wide, 64] per component;
+    `qts`: uint16[64] natural-order numpy tables. Returns uint8 [H, W] for
+    one component, else [H, W, C]."""
+    planes = _planes(geometry, stores, qts, params)
     if geometry.transform is None:
         comp = geometry.components[0]
         return planes[0][:comp.size_height, :comp.size_width]
@@ -42,3 +56,30 @@ def reconstruct(geometry, stores, qts, params: DeviceParams) -> torch.Tensor:
                            h_scale=comp.h_scale, v_scale=comp.v_scale)
         for comp, plane in zip(geometry.components, planes)]
     return color_convert_image(channels, geometry.transform)
+
+
+def reconstruct_planar_pallas(geometry, stores, qts,
+                              params: DeviceParams) -> torch.Tensor:
+    """Planar reconstruction for the geometries `pallas_tail_mode` admits:
+    uint8 [H, W] for one component ("gray", a crop), [C, H, W] for RGB
+    4:4:4 ("stack") and through kernel K3 for YCbCr / CMYK / YCCK with any
+    h1/h2 x v1/v2 chroma it admits ("fused"). Other geometries raise: the
+    decoder sends them to layout "planar"."""
+    mode = pallas_tail_mode(geometry)
+    if mode is None:
+        raise ValueError("the planar tail does not cover this geometry "
+                         "(pallas_tail_mode is None)")
+    planes = _planes(geometry, stores, qts, params)
+    comps = geometry.components
+    out_h, out_w = geometry.out_height, geometry.out_width
+    if mode == "gray":
+        return planes[0][:comps[0].size_height, :comps[0].size_width]
+    if mode == "stack":
+        return torch.stack([p[:out_h, :out_w] for p in planes], dim=0)
+    chroma_dims = next(((c.size_height, c.size_width) for c in comps
+                        if c.upsampler_mode != "h1v1"), None)
+    with torch.profiler.record_function("fused_tail"):
+        return fused_tail(planes, tuple(c.upsampler_mode for c in comps),
+                          chroma_dims,
+                          _TAIL_TRANSFORMS[geometry.transform.value],
+                          out_h, out_w)

@@ -7,7 +7,10 @@ the card. Every test here needs a CUDA device and skips without one (the
 Needs neither JAX nor PIL: the inputs are the committed fixtures.
 Tolerances: K1 bit-equal (integer decode); K2 |diff| <= 1 (fp32 sums in
 another order); decoded images |diff| <= 3 against the CPU port (the K2
-difference after color conversion).
+difference after color conversion); K3 bit-equal (integer math); K4
+bit-equal to K2 + blocks_to_plane + color (it repeats K2's arithmetic) and
+within 3 of its plain version (cuBLAS sums in another order); the planar
+layouts bit-equal to the interleaved output on the card, permuted.
 """
 
 import numpy as np
@@ -18,10 +21,15 @@ import jpeg_decoder_tpu_torch as jt
 from jpeg_decoder_tpu_torch.entropy.chunk_decode import (decode_chunks,
                                                          decode_chunks_plain,
                                                          unpack_delta)
-from jpeg_decoder_tpu_torch.ops.kernels import dequant_idct, dequant_idct_plain
+from jpeg_decoder_tpu_torch.ops.kernels import (dequant_idct,
+                                                dequant_idct_plain,
+                                                fused_recon,
+                                                fused_recon_plain, fused_tail,
+                                                fused_tail_plain)
 from jpeg_decoder_tpu_torch.params import DeviceParams
 
-from torch_inputs import SMALL_FIXTURES, fixture, oracle_stores
+from torch_inputs import (SMALL_FIXTURES, TAIL_CASES, fixture, oracle_stores,
+                          tail_planes)
 
 
 @pytest.fixture
@@ -67,7 +75,8 @@ def test_decode_stream_on_card_matches_cpu_port(cuda):
     with jt.DeviceStreamDecoder(device="cuda", host_threads=2) as dec:
         gpu = dec.decode_stream(data)
     assert jt.LAUNCHES["huffman_decode"] == len(data)
-    assert jt.LAUNCHES["dequant_idct"] == 3 * (len(data) - 1) + 1
+    assert jt.LAUNCHES["dequant_idct"] == sum(
+        len(jt.stage_host_bits(d).qts) for d in data)
     with jt.DeviceStreamDecoder(device="cpu", host_threads=2) as dec:
         cpu = dec.decode_stream(data)
     for g, c in zip(gpu, cpu):
@@ -92,3 +101,48 @@ def test_stores_on_card_bit_equal_to_oracle(cuda):
         for pos, comp_i in st.kept:
             np.testing.assert_array_equal(
                 stores[pos].cpu().numpy().reshape(-1), oracle[comp_i])
+
+
+@pytest.mark.parametrize("name", TAIL_CASES)
+def test_k3_kernel_bit_equal_to_plain(cuda, name):
+    modes, transform, out_h, out_w, chroma = TAIL_CASES[name]
+    planes = [torch.from_numpy(p).to(cuda) for p in tail_planes(name, 3)]
+    before = jt.LAUNCHES["fused_tail"]
+    got = fused_tail(planes, modes, chroma, transform, out_h, out_w)
+    want = fused_tail_plain(planes, modes, chroma, transform, out_h, out_w)
+    assert jt.LAUNCHES["fused_tail"] == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bh,bw,width", [(5, 7, 56), (3, 33, 259), (1, 1, 5)])
+def test_k4_kernel_bit_equal_to_k2_path(cuda, bh, bw, width):
+    rng = np.random.default_rng(bh * 100 + bw)
+    y, cb, cr = (torch.from_numpy(rng.integers(-300, 300, (bh, bw, 64))
+                                  .astype(np.int16)).to(cuda)
+                 for _ in range(3))
+    params = DeviceParams(cuda)
+    q = torch.stack([params.qt(rng.integers(1, 60, 64).astype(np.uint16))
+                     for _ in range(3)])
+    args = (y, cb, cr, q, params.basis(8), width)
+    got = fused_recon(*args)
+    assert tuple(got.shape) == (3, bh * 8, width)
+    torch.testing.assert_close(got, fused_recon_plain(*args, k2=dequant_idct),
+                               rtol=0, atol=0)
+    d = (got.to(torch.int32) - fused_recon_plain(*args).to(torch.int32))
+    assert int(d.abs().max()) <= 3
+
+
+@pytest.mark.parametrize("layout", ["planar", "planar-pallas"])
+def test_planar_layouts_on_card_bit_equal_to_interleaved(cuda, layout):
+    data = [fixture(n) for n in SMALL_FIXTURES]
+    with jt.DeviceStreamDecoder(device="cuda", host_threads=2) as dec:
+        interleaved = dec.decode_stream(data)
+    before = jt.LAUNCHES["fused_tail"]
+    with jt.DeviceStreamDecoder(device="cuda", host_threads=2,
+                                layout=layout) as dec:
+        planar = dec.decode_stream(data)
+    for p, i in zip(planar, interleaved):
+        want = i.permute(2, 0, 1) if i.dim() == 3 else i
+        torch.testing.assert_close(p, want, rtol=0, atol=0)
+    fused = jt.LAUNCHES["fused_tail"] - before
+    assert fused == (0 if layout == "planar" else 4)    # not gray, not RGB

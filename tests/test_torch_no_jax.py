@@ -1,7 +1,7 @@
 """The PyTorch port must run without JAX: a fresh interpreter imports
-`jpeg_decoder_tpu_torch`, stages and decodes a fixture on the CPU, and
-must end with no `jax` (and no `triton`) module loaded and no CUDA
-library built or loaded. This guards against staging through the JAX
+`jpeg_decoder_tpu_torch`, stages and decodes a fixture on the CPU in the
+interleaved and the planar-pallas layouts, and must end with no `jax`
+(and no `triton`) module loaded and no CUDA library built or loaded. This guards against staging through the JAX
 package's `stage_host_bits`, whose `_attach_pallas` imports JAX."""
 
 import os
@@ -20,6 +20,13 @@ data = open("tests/fixtures/torch_port/small_dri.jpg", "rb").read()
 with jt.DeviceStreamDecoder(device="cpu", host_threads=1) as dec:
     img = dec.decode_stream([data])[0]
 assert tuple(img.shape) == (190, 250, 3), img.shape
+# The planar-pallas layout reads pallas_tail_mode from the JAX package's
+# pallas_kernels module, which must not load JAX either.
+with jt.DeviceStreamDecoder(device="cpu", host_threads=1,
+                            layout="planar-pallas") as dec:
+    planar = dec.decode_stream([data])[0]
+assert dec._effective_layout(dec.stage(data).geometry) == "planar-pallas"
+assert (planar == img.permute(2, 0, 1)).all()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton"))
 assert not bad, bad

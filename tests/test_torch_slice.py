@@ -7,7 +7,9 @@ Tolerances:
 - pixels: |diff| <= 3. Both sides run an fp32 IDCT whose outputs may
   differ by 1 (summation order), and color conversion scales a chroma
   difference of 1 by up to 1.772, so 1 + 1.772 rounds to at most 3;
-- coefficient stores: bit-equal to the host oracle.
+- coefficient stores: bit-equal to the host oracle;
+- the port's planar layouts against its own interleaved output, permuted:
+  bit-equal (the same IDCT, and integer math after it).
 Streams outside the slice must raise a typed error naming what is missing.
 """
 
@@ -33,6 +35,9 @@ SLICE_INPUTS = {
     "synth_200x152_444_dri": lambda: synth_jpeg(200, 152, seed=23,
                                                 subsampling=0, restart_rows=2),
 }
+
+
+PLANAR_INPUTS = SMALL_FIXTURES + ("synth_320x240_422",)
 
 
 def _pixel_diff(port, ref):
@@ -67,6 +72,39 @@ def test_slice_scaled_within_3_of_jax():
         worst, count = _pixel_diff(port, ref)
         assert port.shape[:2] == (scale_to[1], scale_to[0])
         assert worst <= 3, (scale_to, worst, count)
+
+
+@pytest.mark.parametrize("layout", ["planar", "planar-pallas"])
+def test_planar_layouts_within_3_of_jax_bits_path(layout):
+    data = [SLICE_INPUTS[n]() for n in PLANAR_INPUTS]
+    with DeviceStreamDecoder(device="cpu", host_threads=2,
+                             layout=layout) as dec:
+        port = dec.decode_stream(data)
+    ref = JaxStreamDecoder(host_threads=2, precision="fast",
+                           interchange="bits",
+                           layout=layout).decode_stream(data)
+    for name, p, r in zip(PLANAR_INPUTS, port, ref):
+        worst, count = _pixel_diff(p, r)
+        print(f"{layout} {name}: max |diff| {worst}, {count} differ")
+        assert worst <= 3, (layout, name, worst, count)
+
+
+@pytest.mark.parametrize("layout", ["planar", "planar-pallas"])
+def test_planar_layouts_bit_equal_to_interleaved_permuted(layout):
+    data = [SLICE_INPUTS[n]() for n in PLANAR_INPUTS]
+    with DeviceStreamDecoder(device="cpu", host_threads=2) as dec:
+        interleaved = dec.decode_stream(data)
+    with DeviceStreamDecoder(device="cpu", host_threads=2,
+                             layout=layout) as dec:
+        planar = dec.decode_stream(data)
+        effective = [dec._effective_layout(dec.stage(d).geometry)
+                     for d in data]
+    for name, p, i in zip(PLANAR_INPUTS, planar, interleaved):
+        want = i.permute(2, 0, 1) if i.dim() == 3 else i
+        assert p.dim() == 2 or p.is_contiguous(), name
+        torch.testing.assert_close(p, want, rtol=0, atol=0, msg=name)
+    if layout == "planar-pallas":         # every input here has a K3 tail
+        assert effective == ["planar-pallas"] * len(data)
 
 
 @pytest.mark.parametrize("name", SMALL_FIXTURES)
@@ -117,10 +155,11 @@ def test_options_outside_the_slice_raise():
         pytest.skip("this host has CUDA; the no-CUDA error cannot occur")
     with pytest.raises(RuntimeError, match="cuda"):
         DeviceStreamDecoder(device="cuda")
-    for kw in ({"precision": "exact"}, {"layout": "planar"},
-               {"interchange": "prefix"}):
+    for kw in ({"precision": "exact"}, {"interchange": "prefix"}):
         with pytest.raises(NotImplementedError):
             DeviceStreamDecoder(device="cpu", **kw)
+    with pytest.raises(ValueError, match="layout"):
+        DeviceStreamDecoder(device="cpu", layout="planar-xla")
     with DeviceStreamDecoder(device="cpu", host_threads=1) as dec:
         with pytest.raises(NotImplementedError, match="batch_size"):
             dec.decode_stream([fixture("small_gray.jpg")], batch_size=2)

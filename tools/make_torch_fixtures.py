@@ -9,8 +9,8 @@ the files can be regenerated bit for bit on the same PIL/libjpeg build:
 
 The set covers the main path's shapes: one ~3.4 Mpix 4:2:0 image (the
 `large_image.jpg` class), one 512x512 4:2:0 image, and small 4:4:4, 4:2:2,
-grayscale and restart-interval (DRI) images with edges that are not MCU
-multiples.
+grayscale, restart-interval (DRI), subsampled CMYK and RGB-stored images
+with edges that are not MCU multiples.
 """
 
 from __future__ import annotations
@@ -34,6 +34,11 @@ FIXTURES = {
     "small_gray.jpg": (171, 117, "L", {}, 4.0, 4),
     "small_dri.jpg": (250, 190, "RGB",
                       {"subsampling": 2, "restart_marker_rows": 1}, 4.0, 5),
+    # CMYK with h2v2 on 3 of its 4 components (PIL subsamples all but the
+    # first), and RGB stored as RGB (no color transform, 4:4:4).
+    "small_cmyk_420.jpg": (221, 149, "CMYK", {"subsampling": 2}, 4.0, 6),
+    "small_rgb_444.jpg": (189, 133, "RGB",
+                          {"subsampling": 0, "keep_rgb": True}, 4.0, 7),
 }
 QUALITY = 85
 
@@ -63,7 +68,7 @@ def encode(name: str) -> bytes:
     from PIL import Image
 
     w, h, mode, opts, noise, seed = FIXTURES[name]
-    arr = textured(h, w, 1 if mode == "L" else 3, noise, seed)
+    arr = textured(h, w, {"L": 1, "CMYK": 4}.get(mode, 3), noise, seed)
     buf = io.BytesIO()
     Image.fromarray(arr, mode).save(buf, "JPEG", quality=QUALITY, **opts)
     return buf.getvalue()

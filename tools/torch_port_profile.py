@@ -1,20 +1,23 @@
 """Where the device time of the PyTorch port's main path goes, on a CUDA card.
 
     python tools/torch_port_profile.py [--iters N] [--stream N]
-                                       [--trace out.json] [fixture ...]
+                                       [--layout L] [--trace out.json]
+                                       [fixture ...]
 
 For each fixture (default: the 3.4 Mpix and 512x512 4:2:0 fixtures in
 tests/fixtures/torch_port/) it first times `decode_stream` end to end over
 `stream` copies (host staging on 4 pool threads, H2D, device), then stages
 the wire and copies it to the card once and runs `iters` device-resident
 decodes, unprofiled (CUDA events, `device_resident_rate`) and under
-torch.profiler. Printed per fixture, as JSON lines:
+torch.profiler, in the decoder layout `--layout` (default interleaved;
+"planar-pallas" runs kernel K3). Printed per fixture, as JSON lines:
 - wall ms/image over the profiled window (host clock, synchronised);
 - device busy ms/image (union of kernel intervals) and the idle share;
-- kernel ms/image per layer (a kernel belongs to the decoder's
-  record_function range it starts in: unpack_delta, k1_decode, assemble,
-  reconstruct) and per kernel name (K1 huffman_decode_kernel, K2
-  dequant_idct_kernel, the rest PyTorch's);
+- kernel ms/image per layer (a kernel belongs to the innermost of the
+  decoder's record_function ranges it starts in: unpack_delta, k1_decode,
+  assemble, reconstruct, and fused_tail inside reconstruct) and per kernel
+  name (K1 huffman_decode_kernel, K2 dequant_idct_kernel, K3
+  fused_tail_kernel, the rest PyTorch's);
 - kernel launches per image.
 With --trace, the Chrome trace of the last fixture is written there.
 Needs a CUDA device; fails without one.
@@ -34,7 +37,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
-LAYERS = ("unpack_delta", "k1_decode", "assemble", "reconstruct")
+LAYERS = ("unpack_delta", "k1_decode", "assemble", "reconstruct",
+          "fused_tail")
 
 
 def _busy_us(intervals) -> float:
@@ -74,12 +78,13 @@ def profile(dec, path: Path, iters: int):
     for e in kernels:
         ms = e.time_range.elapsed_us() / iters / 1e3
         by_kernel[e.name] += ms
-        owner = next((s.name for s in spans
-                      if s.time_range.start <= e.time_range.start
-                      < s.time_range.end), "other")
+        owners = [s for s in spans if s.time_range.start
+                  <= e.time_range.start < s.time_range.end]
+        owner = max(owners, key=lambda s: s.time_range.start).name \
+            if owners else "other"
         layers[owner] += ms
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
-    return {"fixture": path.name, "mpix": staged.mpix,
+    return {"fixture": path.name, "layout": dec.layout, "mpix": staged.mpix,
             "wall_ms": wall / iters * 1e3, "device_busy_ms": busy / iters / 1e3,
             "idle_share": 1 - busy / (wall * 1e6),
             "launches_per_image": len(kernels) / iters,
@@ -97,7 +102,9 @@ def stream_rate(dec, path: Path, n: int) -> dict:
     out = dec.decode_stream(data)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    mpix = out[0].shape[0] * out[0].shape[1] / 1e6
+    h, w = out[0].shape[-2:] if dec.layout.startswith("planar") \
+        else out[0].shape[:2]          # [C, H, W] or [H, W, C]; gray [H, W]
+    mpix = h * w / 1e6
     return {"fixture": path.name, "images": n, "ms_per_image": wall / n * 1e3,
             "mpix_s": mpix * n / wall, "host_threads": dec.host_threads}
 
@@ -109,6 +116,8 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--stream", type=int, default=32,
                     help="images per end-to-end decode_stream run")
+    ap.add_argument("--layout", default="interleaved",
+                    choices=("interleaved", "planar", "planar-pallas"))
     ap.add_argument("--trace", type=Path,
                     help="write the last fixture's Chrome trace here")
     args = ap.parse_args(argv)
@@ -117,7 +126,8 @@ def main(argv=None) -> int:
         return 1
     from jpeg_decoder_tpu_torch import DeviceStreamDecoder
 
-    with DeviceStreamDecoder(device="cuda", host_threads=4) as dec:
+    with DeviceStreamDecoder(device="cuda", host_threads=4,
+                             layout=args.layout) as dec:
         for name in args.fixtures:
             print(json.dumps({"stream": stream_rate(dec, FIXTURES / name,
                                                     args.stream)}))
