@@ -30,7 +30,26 @@ from csrc/ and holding each against its plain PyTorch version on the card:
    block stores, K4 launched in the probe's run;
 10. times of the planar tail: device-resident ms/image and launches per
    image (profiler) of planar-pallas beside interleaved, and K3 beside its
-   plain version at large_420's planes.
+   plain version at large_420's planes;
+11. precision "exact": every fixture, and large_420 scaled 1/2, 1/4 and
+   1/8, bit-equal to the host exact decode; device-resident ms/image of
+   exact beside fast at large_420, and exact's launches per image;
+12. progressive and quirk streams (host decode + transcode, then K1):
+   large_420_progressive, small_422_progressive and a synthesized quirk
+   stream; K1 on the card bit-equal to its plain version and the oracle's
+   stores, pixels within 3 (fast) and bit-equal (exact) to the host exact
+   decode; the malformed restart_underrun_prescan.jpg raises the host's
+   FormatError;
+13. large_420 with three (DC, AC) table pairs (the SOF1 recipe, 6 table
+   rows) on the anchor wire: K1 bit-equal to plain and the oracle, the
+   image equal to the unedited file's;
+14. the prefix interchange: every fixture, both precisions, interleaved
+   and planar-pallas, bit-equal to the bits path;
+15. lossless: kernel L1 bit-equal to its plain version and to the host
+   oracle for predictors 1-7 x pt {0, 2} on seeded planes; a 2048 x 2048
+   16-bit SOF3 stream (the DICOM "JPEG Lossless, First-Order Prediction"
+   class) with predictors 1 and 6, each bit-equal to the host decode; L1
+   beside its plain version at that size, and ms/image of both streams.
 
 Any failure raises and the script exits nonzero. It needs a CUDA device and
 the repository around it; it imports neither JAX nor PIL. The last line is
@@ -58,6 +77,10 @@ K2_TOL = 1      # fp32 sums in another order: at most one rounding step
 PIXEL_TOL = 3   # fast-tier contract against the exact integer decode
 K4_TOL = 3      # K4 vs its cuBLAS plain version: 1 in the IDCT, x1.772 color
 RATE_FIXTURES = ("large_420.jpg", "tower_420.jpg")
+PROGRESSIVE = ("large_420_progressive.jpg", "small_422_progressive.jpg")
+EXACT_SCALES = ((1024, 840), (512, 420), (256, 210))   # large_420 / 2, 4, 8
+L1_PLANE = (1, 384, 256)      # seeded difference planes, predictor x pt
+SOF3_SIDE = 2048              # the full-size lossless stream: 2048 x 2048
 # K3 geometries beyond the fixtures': (comp_modes, transform, out_h, out_w,
 # chroma_dims).
 TAIL_CASES = (
@@ -111,6 +134,313 @@ def seeded_planes(case, rng, dev) -> list:
             0, 256, (-(-h // 8) * 8 + 8, -(-w // 8) * 8)).astype(np.uint8))
             .to(dev))
     return planes
+
+
+def host_exact(data: bytes, scale_to=None) -> np.ndarray:
+    from jpeg_decoder_tpu import Decoder
+
+    d = Decoder(data, backend="numpy", precision="exact")
+    if scale_to is not None:
+        d.scale(*scale_to)
+    return d.decode_array()
+
+
+def host_oracle(data: bytes):
+    """The host oracle's decoder, entropy-decoded: its stores in
+    `_pending_render`."""
+    from jpeg_decoder_tpu import Decoder
+
+    d = Decoder(data, backend="numpy")
+    d._decode_entropy_only()
+    return d
+
+
+def max_diff(img: torch.Tensor, ref: np.ndarray, what: str) -> int:
+    got = img.cpu().numpy()
+    if got.shape != ref.shape:
+        raise AssertionError(f"{what}: shape {got.shape} vs {ref.shape}")
+    return int(np.abs(got.astype(np.int64) - ref.astype(np.int64)).max())
+
+
+def k1_stores(st, params, dev):
+    """K1 on the card and its plain version on one staged scan (either
+    wire), both checked against each other; returns (max |diff|, the
+    scan's stores from the kernel, the K1 arguments)."""
+    from jpeg_decoder_tpu_torch.entropy.assemble import (GeneralMaps,
+                                                         assemble_nat)
+    from jpeg_decoder_tpu_torch.entropy.chunk_decode import (
+        decode_chunks, decode_chunks_plain, unpack_delta)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    words, dm = put(st.words), put(st.dm)
+    if st.ab is None:
+        ab, _budget, _slot0, base = unpack_delta(dm)
+    else:
+        ab, base = put(st.ab), put(st.base)
+    plan = st.scan.plan
+    args = (words, dm, ab, base, params.tables(st.scan), st.s_max,
+            plan.n_blocks)
+    nat = decode_chunks(*args)
+    plain = decode_chunks_plain(*args)
+    torch.cuda.synchronize()
+    err = int((nat.to(torch.int32) - plain.to(torch.int32)).abs().max())
+    maps = None if plan.structured is not None else GeneralMaps(plan, dev)
+    return err, assemble_nat(nat, plan, maps), args
+
+
+def check_stores(name: str, data: bytes, staged, params, dev) -> int:
+    """K1 vs plain and the oracle's stores for every scan of `staged`, the
+    staging of `data`."""
+    host = host_oracle(data)
+    worst = 0
+    for st in staged.scans:
+        err, stores, _args = k1_stores(st, params, dev)
+        worst = max(worst, err)
+        for pos, comp_i in st.kept:
+            want = host._pending_render[comp_i][0].reshape(-1)
+            got = stores[pos].reshape(-1).cpu().numpy()
+            if err or not np.array_equal(got, want):
+                raise AssertionError(
+                    f"K1 {name} component {comp_i}: kernel vs plain max "
+                    f"|diff| {err}, oracle mismatches "
+                    f"{int((got != want).sum())}")
+    return worst
+
+
+def phase_exact(jt, data: dict, profile_layers) -> None:
+    """11. Precision "exact" through the user entry point."""
+    large = data["large_420.jpg"]
+    torch.cuda.synchronize()
+    jt.reset_launches()
+    with jt.DeviceStreamDecoder(device="cuda", host_threads=4,
+                                precision="exact") as dec:
+        images = dec.decode_stream([data[name] for name in ORDER])
+        scaled = [dec.decode_stream([large], scale_to=s)[0]
+                  for s in EXACT_SCALES]
+        torch.cuda.synchronize()
+        launches = dict(jt.LAUNCHES)
+        for name, img in zip(ORDER, images):
+            if max_diff(img, host_exact(data[name]), name):
+                raise AssertionError(f"exact {name} differs from the host")
+        for size, img in zip(EXACT_SCALES, scaled):
+            if max_diff(img, host_exact(large, size), f"large {size}"):
+                raise AssertionError(f"exact large_420 at {size} differs")
+        if launches["huffman_decode"] < 1:
+            raise AssertionError(f"K1 never ran: {launches}")
+        exact = dec.device_resident_rate(large, iters=20)
+        prof, _trace = profile_layers(dec, FIXTURES / "large_420.jpg", 10)
+    with jt.DeviceStreamDecoder(device="cuda", host_threads=4) as dec:
+        fast = dec.device_resident_rate(large, iters=20)
+    say("11 exact", images=len(ORDER) + len(EXACT_SCALES),
+        scales=EXACT_SCALES, launches=launches, result="bit-equal to host",
+        large_420_exact_ms=exact["ms_per_image"],
+        large_420_exact_host_ms=exact["host_ms_per_image"],
+        large_420_fast_ms=fast["ms_per_image"],
+        large_420_fast_host_ms=fast["host_ms_per_image"],
+        exact_launches_per_image=prof["launches_per_image"],
+        exact_device_busy_ms=prof["device_busy_ms"],
+        exact_layer_kernel_ms=prof["layer_kernel_ms"])
+
+
+def phase_transcoded(jt, data: dict, params, dev) -> int:
+    """12. Progressive and quirk streams: host decode + transcode, K1."""
+    from torch_inputs import quirk_jpeg
+    from jpeg_decoder_tpu.errors import FormatError
+
+    cases = {name: (FIXTURES / name).read_bytes() for name in PROGRESSIVE}
+    cases["quirk_jpeg(0)"] = quirk_jpeg(0)
+    k1_err = 0
+    for name, blob in cases.items():
+        staged = jt.stage_host_bits(blob)
+        if not isinstance(staged, jt.StagedBits):
+            raise AssertionError(f"{name} staged as {type(staged)}")
+        k1_err = max(k1_err, check_stores(name, blob, staged, params, dev))
+    worst = {}
+    launches = {}
+    for precision in ("fast", "exact"):
+        torch.cuda.synchronize()
+        jt.reset_launches()
+        with jt.DeviceStreamDecoder(device="cuda", host_threads=4,
+                                    precision=precision) as dec:
+            images = dec.decode_stream(list(cases.values()))
+            torch.cuda.synchronize()
+        launches[precision] = dict(jt.LAUNCHES)
+        if launches[precision]["huffman_decode"] < len(cases):
+            raise AssertionError(f"K1 launches {launches[precision]}")
+        for name, img in zip(cases, images):
+            worst[f"{precision} {name}"] = err = max_diff(
+                img, host_exact(cases[name]), name)
+            if err > (PIXEL_TOL if precision == "fast" else 0):
+                raise AssertionError(f"{precision} {name}: max |diff| {err}")
+    bad = (ROOT / "tests" / "fixtures" / "restart_underrun_prescan.jpg") \
+        .read_bytes()
+    try:
+        host_exact(bad)
+        raise AssertionError("the host decoded restart_underrun_prescan")
+    except FormatError as e:
+        host_msg = str(e)
+    try:
+        with jt.DeviceStreamDecoder(device="cuda", host_threads=1) as dec:
+            dec.decode_stream([bad])
+        raise AssertionError("the port decoded restart_underrun_prescan")
+    except FormatError as e:
+        if str(e) != host_msg:
+            raise AssertionError(f"port raised {e!r}, host {host_msg!r}")
+    with jt.DeviceStreamDecoder(device="cuda", host_threads=4) as dec:
+        rate = dec.device_resident_rate(cases[PROGRESSIVE[0]], iters=20)
+    say("12 progressive and quirk", k1_vs_plain_max_abs_err=k1_err,
+        stores="bit-equal to the oracle", max_abs_diff_vs_exact=worst,
+        launches=launches, underrun_fixture=f"raises {host_msg!r}",
+        large_420_progressive_ms=rate["ms_per_image"],
+        large_420_progressive_host_ms=rate["host_ms_per_image"])
+    return k1_err
+
+
+def phase_three_pairs(jt, data: dict, params, dev) -> int:
+    """13. large_420 with three (DC, AC) table pairs, the anchor wire."""
+    from torch_inputs import three_table_pairs
+
+    blob = three_table_pairs(data["large_420.jpg"])
+    staged = jt.stage_host_bits(blob)
+    (st,) = staged.scans
+    n_tab = params.tables(st.scan).n_tab
+    if st.wire != "anchor" or n_tab != 6:
+        raise AssertionError(f"wire {st.wire}, {n_tab} table rows")
+    k1_err = check_stores("large_420 three pairs", blob, staged, params, dev)
+    _err, _stores, args = k1_stores(st, params, dev)
+    from jpeg_decoder_tpu_torch.entropy.chunk_decode import (
+        decode_chunks, decode_chunks_plain)
+    k1_ms = cuda_ms(lambda: decode_chunks(*args), 50)
+    k1_plain_ms = cuda_ms(lambda: decode_chunks_plain(*args), 2)
+    torch.cuda.synchronize()
+    jt.reset_launches()
+    with jt.DeviceStreamDecoder(device="cuda", host_threads=1,
+                                precision="exact") as dec:
+        img = dec.decode_stream([blob])[0]
+        torch.cuda.synchronize()
+        launches = dict(jt.LAUNCHES)
+        if max_diff(img, host_exact(data["large_420.jpg"]), "three pairs"):
+            raise AssertionError("three-pair large_420 differs from large_420")
+        rate = dec.device_resident_rate(blob, iters=20)
+    if launches["huffman_decode"] < 1:
+        raise AssertionError(f"K1 never ran: {launches}")
+    say("13 three table pairs", wire=st.wire, table_rows=n_tab,
+        chunks=int(st.dm.size), s_max=st.s_max, k1_vs_plain_max_abs_err=k1_err,
+        stores="bit-equal to the oracle",
+        image="equal to the unedited large_420", launches=launches,
+        k1_anchor_ms=k1_ms, k1_anchor_plain_ms=k1_plain_ms,
+        exact_ms=rate["ms_per_image"])
+    return k1_err
+
+
+def phase_prefix(jt, data: dict) -> None:
+    """14. The prefix interchange against the bits path."""
+    names = ORDER + PROGRESSIVE
+    blobs = [data.get(n) or (FIXTURES / n).read_bytes() for n in names]
+    launches = {}
+    for precision in ("fast", "exact"):
+        for layout in ("interleaved", "planar-pallas"):
+            out = {}
+            for interchange in ("bits", "prefix"):
+                torch.cuda.synchronize()
+                jt.reset_launches()
+                with jt.DeviceStreamDecoder(
+                        device="cuda", host_threads=4, precision=precision,
+                        layout=layout, interchange=interchange) as dec:
+                    out[interchange] = dec.decode_stream(blobs)
+                    torch.cuda.synchronize()
+                launches[f"{interchange} {precision} {layout}"] = \
+                    dict(jt.LAUNCHES)
+            for name, a, b in zip(names, out["prefix"], out["bits"]):
+                if a.shape != b.shape or not torch.equal(a, b):
+                    raise AssertionError(f"prefix {precision} {layout} "
+                                         f"{name} differs from bits")
+    if launches["prefix fast interleaved"]["dequant_idct"] < 1:
+        raise AssertionError(f"K2 never ran on prefix: {launches}")
+    rates = {}
+    for precision in ("fast", "exact"):
+        with jt.DeviceStreamDecoder(device="cuda", host_threads=4,
+                                    precision=precision,
+                                    interchange="prefix") as dec:
+            rates[f"large_420 {precision}"] = dec.device_resident_rate(
+                data["large_420.jpg"], iters=20)["ms_per_image"]
+    say("14 prefix", images=len(names), result="bit-equal to bits",
+        launches=launches, prefix_ms=rates)
+
+
+def phase_lossless(jt, dev) -> tuple:
+    """15. Lossless: L1 against its plain version and the oracle, then a
+    2048 x 2048 16-bit SOF3 stream with predictors 1 and 6."""
+    from jpeg_decoder_tpu.ops.predictors import (_default_prediction,
+                                                 reconstruct_lossless)
+    from jpeg_decoder_tpu.parser import Predictor
+    from jpeg_decoder_tpu_torch.ops.predictors import (lossless_recur,
+                                                       lossless_recur_plain)
+    from tools.make_torch_fixtures import sof3_jpeg, sof3_samples
+
+    rng = np.random.default_rng(15)
+    l1_err = 0
+    for predictor in range(1, 8):
+        for pt in (0, 2):
+            d_np = rng.integers(-200, 200, L1_PLANE)
+            d_np[..., ::7] = rng.integers(0, 65536, d_np[..., ::7].shape)
+            d_np = (d_np & 0xFFFF).astype(np.int32)
+            d = torch.from_numpy(d_np).to(dev)
+            default = _default_prediction(16, pt)
+            got = lossless_recur(d, predictor, pt, default)
+            plain = lossless_recur_plain(d, predictor, pt, default)
+            torch.cuda.synchronize()
+            err = int((got - plain).abs().max())
+            host = reconstruct_lossless(d_np[0], Predictor(predictor), pt,
+                                        16, False)
+            if err or not np.array_equal(got[0].cpu().numpy(), host):
+                raise AssertionError(f"L1 predictor {predictor} pt {pt}: "
+                                     f"vs plain {err}, vs oracle differs")
+            l1_err = max(l1_err, err)
+
+    t0 = time.perf_counter()
+    samples = sof3_samples(SOF3_SIDE, SOF3_SIDE, 1, 16, 0, seed=0)
+    streams = {p: sof3_jpeg(samples, p, 0, 16) for p in (1, 6)}
+    write_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    jt.reset_launches()
+    with jt.DeviceStreamDecoder(device="cuda", host_threads=2) as dec:
+        images = dec.decode_stream(list(streams.values()))
+        torch.cuda.synchronize()
+        launches = dict(jt.LAUNCHES)
+        for (p, blob), img in zip(streams.items(), images):
+            if img.dtype != torch.uint16 or max_diff(
+                    img, host_exact(blob), f"predictor {p}") \
+                    or not np.array_equal(img.cpu().numpy(), samples):
+                raise AssertionError(f"SOF3 predictor {p} differs")
+        rates = {p: dec.device_resident_rate(blob, iters=10)
+                 for p, blob in streams.items()}
+    if launches["lossless_recur"] < 1:
+        raise AssertionError(f"L1 never ran: {launches}")
+    staged = jt.stage_host_bits(streams[6])
+    d = (torch.from_numpy(staged.diffs.view(np.int16)).to(dev)
+         .to(torch.int32) & 0xFFFF)
+    default = _default_prediction(16, 0)
+    full = lossless_recur(d, 6, 0, default)
+    full_plain = lossless_recur_plain(d, 6, 0, default)
+    torch.cuda.synchronize()
+    err = int((full - full_plain).abs().max())
+    if err:
+        raise AssertionError(f"L1 at full size differs from plain: {err}")
+    l1_ms = cuda_ms(lambda: lossless_recur(d, 6, 0, default), 10)
+    l1_plain_ms = cuda_ms(lambda: lossless_recur_plain(d, 6, 0, default), 1)
+    say("15 lossless", l1_cases=14, l1_plane=L1_PLANE,
+        l1_vs_plain_max_abs_err=l1_err, l1_vs_oracle="bit-equal",
+        sof3_bytes={p: len(b) for p, b in streams.items()},
+        sof3_write_seconds=write_s, launches=launches,
+        result="bit-equal to the host decode",
+        ms_per_image={p: r["ms_per_image"] for p, r in rates.items()},
+        host_ms_per_image={p: r["host_ms_per_image"]
+                           for p, r in rates.items()},
+        l1_shape=list(d.shape), l1_ms=l1_ms, l1_plain_ms=l1_plain_ms)
+    return launches["lossless_recur"], max(l1_err, err), l1_ms, l1_plain_ms
 
 
 def main() -> int:
@@ -380,6 +710,14 @@ def main() -> int:
         k4_ms=k4_large["k4_ms"], k4_plain_ms=k4_large["plain_ms"],
         k4_x_ms=k4_large["x_ms"], floor_ms=k4_large["floor_ms"])
 
+    # 11-15. The rest of the one-image decoder.
+    sys.path.insert(0, str(ROOT / "tests"))    # torch_inputs: byte recipes
+    phase_exact(jt, data, profile_layers)
+    k1_err = max(k1_err, phase_transcoded(jt, data, params, dev))
+    k1_err = max(k1_err, phase_three_pairs(jt, data, params, dev))
+    phase_prefix(jt, data)
+    l1_launches, l1_err, l1_ms, l1_plain_ms = phase_lossless(jt, dev)
+
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     kernels = [
@@ -403,6 +741,11 @@ def main() -> int:
          "replaces": "tools/experiments/fused_recon_probe.py:60",
          "launches": k4_launches, "max_abs_err": k4_err,
          "ms": k4_large["k4_ms"], "plain_ms": k4_large["plain_ms"]},
+        {"name": "L1 lossless_recur", "route": "cuda",
+         "source": "jpeg_decoder_tpu_torch/csrc/lossless_recur.cu",
+         "replaces": "jpeg_decoder_tpu/ops/predictors.py:273",
+         "launches": l1_launches, "max_abs_err": l1_err,
+         "ms": l1_ms, "plain_ms": l1_plain_ms},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,15 +1,24 @@
 """jpeg_decoder_tpu_torch: the JPEG decode engine on PyTorch and CUDA.
 
 A port of `jpeg_decoder_tpu` (JAX on a TPU) to PyTorch with kernels written
-by hand for NVIDIA Hopper (H100, sm_90a). It covers the default device
-path: baseline JPEGs on the "bits" interchange (host prescan, the 4 B/chunk
-delta wire, chunk-parallel Huffman decode on the device) and fast-precision
-reconstruction, in the layouts "interleaved" ([H, W, C]), "planar"
-([C, H, W]) and "planar-pallas" ([C, H, W] through the fused tail K3).
+by hand for NVIDIA Hopper (H100, sm_90a). It covers the one-image stream
+decoder, `DeviceStreamDecoder`: every JPEG the reference's decodes, one
+image at a time.
+- Baseline JPEGs on the "bits" interchange: host prescan, the 4 B/chunk
+  delta wire (or the 12 B/chunk anchor wire for scans it declines, such
+  as more than two table pairs), chunk-parallel Huffman decode on the
+  device.
+- Progressive and quirk streams: a host decode, transcoded onto the same
+  wire.
+- The "prefix" interchange (host-decoded zigzag prefixes and residuals).
+- Lossless (SOF3): host difference planes, predictors on the device.
+- Precision "fast" (fp32 IDCT) or "exact" (int32, bit-equal to the
+  reference), in the layouts "interleaved" ([H, W, C]), "planar"
+  ([C, H, W]) and "planar-pallas" ([C, H, W] through the fused tail K3).
 
     from jpeg_decoder_tpu_torch import DeviceStreamDecoder
     with DeviceStreamDecoder(device="cuda") as dec:
-        images = dec.decode_stream(list_of_jpeg_bytes)   # CUDA uint8 tensors
+        images = dec.decode_stream(list_of_jpeg_bytes)   # CUDA tensors
 
 The host stage is the JAX package's numpy/C++ code, reused by import; the
 JAX package itself is never imported. Kernels:
@@ -19,6 +28,8 @@ JAX package itself is never imported. Kernels:
   "planar-pallas"
 - K4 `ops/kernels.py::fused_recon` (csrc/fused_recon.cu), driven by
   tools/experiments/fused_recon_probe_torch.py
+- L1 `ops/predictors.py::lossless_recur` (csrc/lossless_recur.cu), the
+  lossless predictor recurrence
 They build with nvcc at first launch (`_build.py`); `LAUNCHES` counts the
 launches of each.
 """

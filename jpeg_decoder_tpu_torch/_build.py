@@ -26,14 +26,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("huffman_decode.cu", "dequant_idct.cu", "fused_tail.cu",
-           "fused_recon.cu")
+           "fused_recon.cu", "lossless_recur.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # Kernel launch counts, by kernel name; see reset_launches().
 LAUNCHES = {"huffman_decode": 0, "dequant_idct": 0, "fused_tail": 0,
-            "fused_recon": 0}
+            "fused_recon": 0, "lossless_recur": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -151,6 +151,12 @@ def load() -> ctypes.CDLL:
             p,              # out
             p]              # stream
         lib.jdt_fused_recon.restype = i
+        lib.jdt_lossless_recur.argtypes = [
+            p, i, i, i,     # diffs, ncomp, h, w
+            i, i, i,        # predictor, pt, default prediction
+            p,              # out
+            p]              # stream
+        lib.jdt_lossless_recur.restype = i
         lib.jdt_error_string.argtypes = [i]
         lib.jdt_error_string.restype = ctypes.c_char_p
         _lib = lib

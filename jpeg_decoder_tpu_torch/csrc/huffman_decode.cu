@@ -6,6 +6,12 @@
 // delta wire carries them (pallas_decode.pack_delta): the scan's unstuffed
 // bit stream as big-endian uint32 words, and per chunk its entry bit `ab`,
 // MCU-pattern slot, block budget (<= K_CAP = 24) and first stream block.
+// Scans the delta wire declines arrive on the 12 B/chunk anchor wire (`ab`,
+// `budget << 4 | slot`, `base` as the reference's XLA engine takes them),
+// with up to 8 table rows (4 (DC, AC) pairs, SOF1) and any s_max.
+// Transcoded scans (entropy/transcode.py: progressive and quirk streams
+// re-encoded on the host) use one synthetic table pair whose alphabet goes
+// past baseline: DC categories up to 16, AC sizes up to 15.
 // Each chunk runs the same per-symbol state machine as the Pallas kernel for
 // at most `s_max` steps: a 32-bit window from two words, the code length by
 // the F.16 maxcode chain, the symbol through the delta/values tables,
@@ -38,7 +44,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxTabs = 4;
+constexpr int kMaxTabs = 8;   // 4 (DC, AC) pairs
 constexpr int kMaxPattern = 16;
 
 __global__ void __launch_bounds__(kThreads)
@@ -116,8 +122,12 @@ huffman_decode_kernel(const uint32_t* __restrict__ words, int n_words,
     const int vidx = min(max(code + s_delta[tab * 16 + length - 1], 0), 255);
     const int value = s_values[tab * 256 + vidx];
 
-    // receive/extend (F.12). Valid scans keep mag <= 11 (DC) or 15 (AC);
-    // the cap at 31 only keeps the shifts defined on other input.
+    // receive/extend (F.12). Baseline scans keep mag <= 11 (DC) or 15 (AC);
+    // transcoded scans reach DC category 16, where a 16-bit code plus 16
+    // magnitude bits fill the window exactly (mshift == 0) and the wrap16
+    // store below keeps the DC difference mod 2^16. length + mag <= 32 for
+    // every symbol of a valid scan; the cap at 31 only keeps the shifts
+    // defined on other input.
     const int r = value >> 4;
     const int s = value & 15;
     const int mag = is_dc ? value : s;

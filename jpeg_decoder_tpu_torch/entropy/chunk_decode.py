@@ -10,6 +10,13 @@ Mirrors `jpeg_decoder_tpu/entropy/pallas_decode.py`:
   [n_blocks, 64] natural-order coefficients in stream block order, DC
   columns holding wrap16 differences.
 
+K1 takes its per-chunk inputs from either wire: the 4 B/chunk delta wire
+(`ab`, `base` from `unpack_delta`), or the 12 B/chunk anchor wire that
+ships `ab`, the meta word and `base` as they are (the inputs of the
+reference's XLA engine, `device_scan.py::build_anchored_decoder`), for
+scans `pack_delta` declines. The anchor wire takes up to 8 table rows (4
+distinct (DC, AC) pairs, as SOF1 allows) and any symbol count per chunk.
+
 What the port leaves out, and why: the class partition (argsort),
 `materialize_slots`, the one-hot dense emission, pack16 and the rowmap all
 exist because Mosaic gathers and scatters slowly. On the GPU every chunk
@@ -29,7 +36,11 @@ import torch
 from .. import _build
 from ..params import MAX_PATTERN, ScanTables
 
-S_MAX_LIMIT = 224   # pallas_decode.SYM_BUCKETS[-1]
+MAX_TABS = 8        # table rows: 4 (DC, AC) pairs, the most SOF1 selects
+# A chunk holds at most 31 blocks (the meta word's 5-bit budget) of at most
+# 64 symbols each, so no chunk needs more steps. On the GPU s_max is only a
+# loop bound; the delta wire keeps the Pallas limit of 224 by itself.
+S_MAX_LIMIT = 31 * 64
 
 
 def unpack_delta(dm: torch.Tensor):
@@ -67,11 +78,11 @@ def _check_inputs(words, dm, ab, base, tables: ScanTables, s_max: int,
         raise ValueError(f"ab {tuple(ab.shape)} / base {tuple(base.shape)} "
                          f"must match dm {tuple(dm.shape)}")
     n_tab = tables.n_tab
-    if not 1 <= n_tab <= 4 or tables.maxcode.shape != (n_tab, 16) \
+    if not 1 <= n_tab <= MAX_TABS or tables.maxcode.shape != (n_tab, 16) \
             or tables.delta.shape != (n_tab, 16) \
             or tables.values.shape != (n_tab, 64):
-        raise ValueError("tables must be [n_tab<=4, 16] / [n_tab, 16] / "
-                         "[n_tab, 64]")
+        raise ValueError(f"tables must be [n_tab<={MAX_TABS}, 16] / "
+                         "[n_tab, 16] / [n_tab, 64]")
     if not 1 <= tables.pattern.numel() <= MAX_PATTERN:
         raise ValueError(f"pattern length {tables.pattern.numel()} not in "
                          f"1..{MAX_PATTERN}")
@@ -89,9 +100,12 @@ def decode_chunks(words, dm, ab, base, tables: ScanTables, s_max: int,
 
     words: int32 [n_words] big-endian stream words (uint32 bit patterns),
     zero-padded past the last chunk (pack_delta pads WORDS_PAD words; the
-    kernel also reads 0 past `n_words`). dm: int32 wire words; ab, base:
-    from `unpack_delta(dm)`. Stops each chunk after `s_max` symbol steps
-    or when its budget of blocks is done."""
+    kernel also reads 0 past `n_words`). dm: int32 per-chunk words whose
+    low 9 bits are `budget << 4 | slot` (the delta wire's, or the anchor
+    wire's meta word); ab (entry bit, a uint32 bit pattern), base (first
+    stream block): from `unpack_delta(dm)` or shipped on the anchor wire.
+    Stops each chunk after `s_max` symbol steps or when its budget of
+    blocks is done."""
     _check_inputs(words, dm, ab, base, tables, s_max, n_blocks)
     if words.device.type == "cpu":
         return decode_chunks_plain(words, dm, ab, base, tables, s_max,
@@ -128,7 +142,7 @@ def decode_chunks_plain(words, dm, ab, base, tables: ScanTables, s_max: int,
     u = dm.to(i64) & 0xFFFFFFFF
     budget = (u >> 4) & 31
     slot = u & 15
-    p = ab.to(i64)
+    p = ab.to(i64) & 0xFFFFFFFF
     blk0 = base.to(i64)
     n = u.numel()
     k = torch.zeros(n, dtype=i64, device=dev)

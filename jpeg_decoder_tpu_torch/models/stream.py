@@ -1,33 +1,47 @@
-"""Decode-to-device streaming on PyTorch: the bits interchange main path.
+"""Decode-to-device streaming on PyTorch: the one-image stream decoder.
 
-Port of `jpeg_decoder_tpu/models/stream.py`'s bits path
-(`DeviceStreamDecoder(interchange="bits")` with the delta wire and
-precision "fast") in its three layouts. Images come back as uint8 tensors
-on the decoder's device; the host never reads pixels back:
+Port of `jpeg_decoder_tpu/models/stream.py`'s `DeviceStreamDecoder`, one
+image at a time, in both interchanges, both precisions and the three
+layouts. Images come back as tensors on the decoder's device; the host
+never reads pixels back:
 - "interleaved": [H, W, C] (or [H, W] for grayscale);
 - "planar": [C, H, W], the interleaved result permuted (2-D outputs as
   they are);
 - "planar-pallas": [C, H, W] through kernel K3 (fused upsample + color)
   for the geometries `pallas_tail_mode` covers, else "planar" (one rule,
   `_effective_layout`, as in the reference).
+Lossless (SOF3) images come back as [H, W] or [H, W, C], uint8 at
+precision 8 and uint16 above it; layouts do not apply to them.
 
-Host stage (per image, in a thread pool): parse, prescan and
-`pack_delta`, all reused by import from the JAX package's numpy/C++ host
-code. The reference's own `stage_host_bits` is NOT used: it ends in
-`_attach_pallas`, which imports JAX to look for a TPU. `stage_host_bits`
-here runs the same Decoder hooks and calls `geometry_from_frame` and
-`pack_delta` directly.
+Host stage (per image, in a thread pool), reused by import from the JAX
+package's numpy/C++ host code. `stage_host_bits` routes a stream as the
+reference's `stage_host_bits` does, branch for branch:
+- baseline scans: the `BitstreamCapture` prescan, then per scan the
+  4 B/chunk delta wire (`pack_delta`), or the 12 B/chunk anchor wire for
+  scans it declines (more than 4 table rows, field overflow, long
+  chunks);
+- lossless frames: the `_LosslessCapture` difference planes
+  (`StagedLossless`, the reference's typed `FormatError`s unchanged);
+- `PrescanFallback` (quirk streams): a host decode, then `transcode`;
+- progressive frames: `transcode` of the host-decoded stores;
+- whatever `transcode` declines: the prefix interchange (`stage_host`).
+The reference's own `stage_host_bits` is NOT called: it ends in
+`_attach_pallas`, which imports JAX to look for a TPU. This routing is the
+reference's host decision, made from the stream; it catches no device or
+kernel error. `interchange="prefix"` stages everything through
+`stage_host`, as the reference does.
 
 Device stage (per image, on the caller's thread, asynchronous on the
-current CUDA stream): delta unpack, kernel K1 (chunk Huffman decode),
-assembly (DC prefix sums, raster placement), kernel K2 (dequant + IDCT),
-then upsampling and color, or kernel K3 on "planar-pallas".
+current CUDA stream):
+- bits: delta unpack (delta wire), kernel K1 (chunk Huffman decode),
+  assembly (DC prefix sums, raster placement), then reconstruction: the
+  exact int32 IDCT or kernel K2 by precision, then upsampling and color,
+  or K2 and kernel K3 on "planar-pallas";
+- prefix: the zigzag prefix and residuals rebuilt into stores, then the
+  same reconstruction;
+- lossless: the predictor closed forms or kernel L1, then the interleave.
 
-Not ported yet, and raising rather than restaging: progressive JPEG (the
-reference transcodes it into the bits wire), lossless (SOF3), streams the
-prescan sends to the host engines (`PrescanFallback`), scans `pack_delta`
-declines (the words-packed wire), batch_size > 1, precision "exact" and
-the prefix interchange.
+Not ported yet: batch_size > 1 (merged multi-image sweeps).
 """
 
 from __future__ import annotations
@@ -43,29 +57,44 @@ import torch
 from jpeg_decoder_tpu.decoder import Decoder
 from jpeg_decoder_tpu.entropy.device_scan import AnchoredScan, PrescanFallback
 from jpeg_decoder_tpu.entropy.pallas_decode import WORDS_PAD, pack_delta
+from jpeg_decoder_tpu.entropy.transcode import transcode_decoded
 from jpeg_decoder_tpu.errors import FormatError
-from jpeg_decoder_tpu.models.stream import BitstreamCapture
+from jpeg_decoder_tpu.models.stream import (_ZIGZAG_OF_NATURAL, PREFIX_K,
+                                            BitstreamCapture, StagedImage,
+                                            StagedLossless, _LosslessCapture,
+                                            _staged_lossless_from_capture,
+                                            stage_host)
 from jpeg_decoder_tpu.ops.pallas_kernels import is_420_ycbcr
 from jpeg_decoder_tpu.ops.pipeline import ImageGeometry, geometry_from_frame
-from jpeg_decoder_tpu.parser import CodingProcess
+from jpeg_decoder_tpu.parser import CodingProcess, Predictor
 
 from ..entropy.assemble import GeneralMaps, assemble_nat
 from ..entropy.chunk_decode import decode_chunks, unpack_delta
 from ..ops.pipeline import reconstruct, reconstruct_planar_pallas
+from ..ops.predictors import reconstruct_plane
 from ..params import DeviceParams
 
 LAYOUTS = ("interleaved", "planar", "planar-pallas")
+PRECISIONS = ("fast", "exact")
+INTERCHANGES = ("bits", "prefix")
 
 
 @dataclasses.dataclass
 class StagedScan:
-    """One baseline scan on the 4 B/chunk delta wire."""
+    """One scan on its wire: the 4 B/chunk delta wire (`ab` and `base`
+    None: the device rebuilds them from `dm`), or the 12 B/chunk anchor
+    wire (`dm` holds `budget << 4 | slot`, `ab` and `base` ride beside)."""
     scan: AnchoredScan   # the reference's staging: plan, tables, n_blocks
     kept: tuple          # ((scan component position, frame component), ...)
-    words: np.ndarray    # int32 [n_wpad] stream words, zero-padded
-    dm: np.ndarray       # int32 [n_pad] per-chunk wire words + terminator
-    cnts: np.ndarray     # int32 [n_classes] live chunks per class
+    words: np.ndarray    # int32 stream words, zero-padded
+    dm: np.ndarray       # int32 per-chunk wire words
     s_max: int           # symbol steps that bound every chunk
+    ab: np.ndarray = None     # int32 [n] entry bits (uint32 patterns)
+    base: np.ndarray = None   # int32 [n] first stream block of each chunk
+
+    @property
+    def wire(self) -> str:
+        return "delta" if self.ab is None else "anchor"
 
 
 @dataclasses.dataclass
@@ -78,50 +107,98 @@ class StagedBits:
     mpix: float
 
 
+def _anchor_scan(scan: AnchoredScan, kept: tuple) -> StagedScan:
+    """The 12 B/chunk anchor wire: the fields the reference's XLA engine
+    takes (`anchor_bits`, `anchor_block`, `anchor_slot`), in K1's layout."""
+    n = scan.n_items
+    budget = scan.anchor_block[1:n + 1].astype(np.int64) \
+        - scan.anchor_block[:n]
+    slot = scan.anchor_slot[:n].astype(np.int64)
+    if n and (budget.min() < 0 or budget.max() > 31 or slot.min() < 0
+              or slot.max() > 15):
+        raise FormatError("chunk budget or slot outside the anchor wire's "
+                          "fields")
+    if scan.chunk_syms is not None and n:
+        s_max = int(scan.chunk_syms[:n].max())
+    else:
+        s_max = scan.plan.s_max
+    return StagedScan(
+        scan, kept,
+        words=np.ascontiguousarray(scan.words[:max(scan.n_words, 1)],
+                                   np.uint32).view(np.int32),
+        dm=(budget << 4 | slot).astype(np.int32),
+        s_max=max(s_max, 1),
+        ab=np.ascontiguousarray(scan.anchor_bits[:n], np.uint32)
+        .view(np.int32),
+        base=scan.anchor_block[:n].astype(np.int32))
+
+
 def _wire_scan(scan: AnchoredScan, kept: tuple) -> StagedScan:
+    """The delta wire where `pack_delta` takes the scan (the reference's
+    first choice, `_attach_pallas`), else the anchor wire."""
     packed = pack_delta(scan)
     if packed is None:
-        raise NotImplementedError(
-            "pack_delta declined this scan (field overflow, span over 512 B, "
-            "more than 4 tables or over 224 symbols per chunk); the "
-            "words-packed wire and the XLA-engine inputs are not ported yet")
-    (words, dm, cnts), shapes = packed
+        return _anchor_scan(scan, kept)
+    (words, dm, _cnts), shapes = packed
     if len(words) < scan.n_words + WORDS_PAD:
         raise FormatError("delta wire without its zero word padding")
-    return StagedScan(scan, kept, words, dm, cnts,
+    return StagedScan(scan, kept, words, dm,
                       max(s_max for (_sw, s_max, _nb, _ni) in shapes))
 
 
-def stage_host_bits(source, scale_to=None,
-                    precision: str = "fast") -> StagedBits:
-    """Parse + prescan + pack one baseline JPEG (bytes, path or file-like)
-    into the delta wire. Raises NotImplementedError, naming the missing
-    piece, for streams outside the ported slice."""
+def _port_bits(st) -> StagedBits:
+    """The reference's StagedBits (from `transcode_decoded`) on the port's
+    wires."""
+    return StagedBits(st.geometry,
+                      tuple(_wire_scan(s, kept) for s, kept in st.scans),
+                      st.qts, st.mpix)
+
+
+def _stage_host_decoded_bits(source, scale_to, precision: str,
+                             pool_width: int):
+    """Full host decode into dense stores, then transcode into the bits
+    interchange; prefix fallback when the transcoder declines (the
+    reference's `_stage_host_decoded_bits`)."""
     d = Decoder(source, backend="numpy")
-    d.read_info()
-    process = d.frame.coding_process
-    if process == CodingProcess.DCT_PROGRESSIVE:
-        raise NotImplementedError(
-            "progressive JPEG: the host-decode + transcode staging "
-            "(entropy/transcode.py) is not ported yet")
-    if process == CodingProcess.LOSSLESS:
-        raise NotImplementedError(
-            "lossless (SOF3) JPEG: device predictor reconstruction is not "
-            "ported yet")
-    capture = BitstreamCapture()
-    d._prefix_capture = capture
     if scale_to is not None:
         d.scale(*scale_to)
+    d._decode_entropy_only()
+    st = transcode_decoded(d, precision)
+    if st is not None:
+        return _port_bits(st)
+    return stage_host(source, scale_to, precision, pool_width=pool_width)
+
+
+def stage_host_bits(source, scale_to=None, precision: str = "fast",
+                    pool_width: int = 1):
+    """Stage one JPEG (bytes, path or file-like) for the device: a
+    StagedBits, or a StagedLossless (SOF3), or a StagedImage (the prefix
+    interchange) for what the bits wire cannot carry."""
+    d = Decoder(source, backend="numpy")
+    capture = BitstreamCapture()
+    d._prefix_capture = capture
+    ll_cap = _LosslessCapture()
+    d._lossless_capture = ll_cap
     try:
+        if scale_to is not None:
+            d.scale(*scale_to)
         d._decode_entropy_only()
-    except PrescanFallback as e:
-        raise NotImplementedError(
-            f"stream needs host entropy semantics ({e}); the host-decode + "
-            f"transcode path is not ported yet") from e
+    except PrescanFallback:
+        return _stage_host_decoded_bits(source, scale_to, precision,
+                                        pool_width)
+    if ll_cap.scans:
+        return _staged_lossless_from_capture(d, ll_cap)
+    if not capture.used:
+        if d.frame is not None \
+                and d.frame.coding_process == CodingProcess.DCT_PROGRESSIVE:
+            st = transcode_decoded(d, precision)
+            if st is not None:
+                return _port_bits(st)
+        return stage_host(source, scale_to, precision, pool_width=pool_width)
 
     frame = d.frame
     n = len(frame.components)
-    if not capture.used or any(i not in d._pending_render for i in range(n)):
+    if any(i not in d._pending_render for i in range(n)):
         raise FormatError("not all components have data")
     transform = None if n == 1 else d._determine_color_transform()
     geometry = geometry_from_frame(frame, transform, precision=precision)
@@ -130,6 +207,58 @@ def stage_host_bits(source, scale_to=None,
     return StagedBits(geometry,
                       tuple(_wire_scan(s, kept) for s, kept in capture.scans),
                       qts, info.width * info.height / 1e6)
+
+
+def prefix_stores(geometry, dc, ac, resid_idx, resid_vals) -> list:
+    """The reference's `_compiled_prefix_pipeline` up to the stores: int16
+    dc [N] and int8 ac [N, 15] (zigzag slots 1..15) -> a zigzag [N, 64]
+    int16 tensor, permuted to natural order, plus the residuals
+    scatter-added (wrapping in int16). Residual indices outside the stores
+    (the bucket padding, `total`) are dropped, as `mode="drop"` does, by
+    sending them to a sink element past the end. Returns one int16
+    [blocks, 64] store per component."""
+    n = dc.shape[0]
+    padded = torch.cat([dc[:, None], ac.to(torch.int16),
+                        dc.new_zeros((n, 64 - PREFIX_K))], dim=1)
+    perm = torch.as_tensor(_ZIGZAG_OF_NATURAL, dtype=torch.int64,
+                           device=dc.device)
+    total = n * 64
+    dense = torch.cat([padded[:, perm].reshape(-1), dc.new_zeros(1)])
+    idx = resid_idx.to(torch.int64)
+    idx = torch.where((idx >= 0) & (idx < total), idx, total)
+    dense.index_add_(0, idx, resid_vals)
+    sizes = [c.blocks_high * c.blocks_wide * 64 for c in geometry.components]
+    return [s.view(-1, 64) for s in dense[:total].split(sizes)]
+
+
+def lossless_image(st: StagedLossless, diffs: torch.Tensor) -> torch.Tensor:
+    """The reference's `_compiled_lossless_pipeline` (batch None): `diffs`
+    holds the staged uint16 planes as int16 bit patterns, [C, H, W]. Each
+    component through `reconstruct_plane`, then the element-count-bound
+    interleave; uint8 out at precision 8, else uint16."""
+    d = diffs.to(torch.int32) & 0xFFFF
+    ncomp = d.shape[0]
+    predictor = Predictor(st.predictor)
+    planes = [reconstruct_plane(d[i], predictor, st.point_transform,
+                                st.precision, st.restart_all)
+              for i in range(ncomp)]
+    if ncomp == 1:
+        img = planes[0]
+    else:
+        count = st.out_width * st.out_height
+        img = torch.stack([p.reshape(-1)[:count] for p in planes],
+                          dim=-1).reshape(st.out_height, st.out_width, ncomp)
+    return img.to(torch.uint8 if st.precision == 8 else torch.uint16)
+
+
+def _kind(staged) -> str:
+    if isinstance(staged, StagedBits):
+        return "bits"
+    if isinstance(staged, StagedLossless):
+        return "lossless"
+    if isinstance(staged, StagedImage):
+        return "prefix"
+    raise TypeError(f"not a staged image: {type(staged).__name__}")
 
 
 class DeviceStreamDecoder:
@@ -146,17 +275,18 @@ class DeviceStreamDecoder:
                                "torch.cuda.is_available() is False")
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {device!r}")
-        if precision != "fast":
-            raise NotImplementedError(
-                f"precision {precision!r}: only 'fast' is ported yet")
+        if precision not in PRECISIONS:
+            raise ValueError(f"unknown precision {precision!r}; one of "
+                             f"{PRECISIONS}")
         if layout not in LAYOUTS:
             raise ValueError(f"unknown layout {layout!r}; one of {LAYOUTS}")
-        if interchange != "bits":
-            raise NotImplementedError(
-                f"interchange {interchange!r}: only 'bits' is ported yet")
+        if interchange not in INTERCHANGES:
+            raise ValueError(f"unknown interchange {interchange!r}; one of "
+                             f"{INTERCHANGES}")
         self.device = dev
         self.precision = precision
         self.layout = layout
+        self.interchange = interchange
         self.host_threads = host_threads
         self.params = DeviceParams(dev)
         self._maps: dict = {}
@@ -171,14 +301,29 @@ class DeviceStreamDecoder:
     def __exit__(self, *exc):
         self.close()
 
-    def stage(self, source, scale_to=None) -> StagedBits:
-        return stage_host_bits(source, scale_to, self.precision)
+    def stage(self, source, scale_to=None):
+        """Host stage of one image, by the decoder's interchange."""
+        if self.interchange == "bits":
+            return stage_host_bits(source, scale_to, self.precision,
+                                   self.host_threads)
+        return stage_host(source, scale_to, self.precision,
+                          pool_width=self.host_threads)
 
-    def _to_device(self, staged: StagedBits) -> tuple:
-        """H2D copies of every scan's (words, dm)."""
-        return tuple((torch.from_numpy(s.words).to(self.device),
-                      torch.from_numpy(s.dm).to(self.device))
-                     for s in staged.scans)
+    def _to_device(self, staged) -> tuple:
+        """H2D copies of the staged wire."""
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        kind = _kind(staged)
+        if kind == "bits":
+            return tuple((put(s.words), put(s.dm)) if s.ab is None
+                         else (put(s.words), put(s.dm), put(s.ab),
+                               put(s.base))
+                         for s in staged.scans)
+        if kind == "lossless":
+            return (put(staged.diffs.view(np.int16)),)
+        return tuple(put(a) for a in (staged.dc, staged.ac, staged.resid_idx,
+                                      staged.resid_vals))
 
     def _general_maps(self, plan):
         maps = self._maps.get(plan)
@@ -195,16 +340,28 @@ class DeviceStreamDecoder:
             return "planar"
         return self.layout
 
-    def _run_device(self, staged: StagedBits, wires: tuple) -> torch.Tensor:
-        """The device half for one image whose wire is already on the
-        device. Enqueues work only: no host synchronisation."""
+    def _reconstruct(self, geometry, stores, qts) -> torch.Tensor:
+        layout = self._effective_layout(geometry)
+        with torch.profiler.record_function("reconstruct"):  # K3: fused_tail
+            if layout == "planar-pallas":
+                return reconstruct_planar_pallas(geometry, stores, qts,
+                                                 self.params)
+            out = reconstruct(geometry, stores, qts, self.params)
+            if layout == "planar" and out.dim() == 3:
+                return out.permute(2, 0, 1).contiguous()
+            return out
+
+    def _bits_stores(self, staged: StagedBits, wires: tuple) -> list:
         span = torch.profiler.record_function   # layer names in traces
-        ncomp = len(staged.qts)
-        stores = [None] * ncomp
-        for st, (words, dm) in zip(staged.scans, wires):
+        stores = [None] * len(staged.qts)
+        for st, wire in zip(staged.scans, wires):
             plan = st.scan.plan
-            with span("unpack_delta"):
-                ab, _budget, _slot0, base = unpack_delta(dm)
+            if st.ab is None:
+                words, dm = wire
+                with span("unpack_delta"):
+                    ab, _budget, _slot0, base = unpack_delta(dm)
+            else:
+                words, dm, ab, base = wire
             with span("k1_decode"):
                 nat = decode_chunks(words, dm, ab, base,
                                     self.params.tables(st.scan), st.s_max,
@@ -215,18 +372,24 @@ class DeviceStreamDecoder:
                 scan_stores = assemble_nat(nat, plan, maps)
             for pos, comp_i in st.kept:
                 stores[comp_i] = scan_stores[pos]
-        layout = self._effective_layout(staged.geometry)
-        with span("reconstruct"):     # K3 inside, under span "fused_tail"
-            if layout == "planar-pallas":
-                return reconstruct_planar_pallas(staged.geometry, stores,
-                                                 staged.qts, self.params)
-            out = reconstruct(staged.geometry, stores, staged.qts,
-                              self.params)
-            if layout == "planar" and out.dim() == 3:
-                return out.permute(2, 0, 1).contiguous()
-            return out
+        return stores
 
-    def decode_one(self, staged: StagedBits) -> torch.Tensor:
+    def _run_device(self, staged, wires: tuple) -> torch.Tensor:
+        """The device half for one image whose wire is already on the
+        device. Enqueues work only: no host synchronisation."""
+        kind = _kind(staged)
+        if kind == "lossless":
+            with torch.profiler.record_function("lossless"):
+                return lossless_image(staged, wires[0])
+        if kind == "bits":
+            stores = self._bits_stores(staged, wires)
+        else:
+            with torch.profiler.record_function("prefix_stores"):
+                stores = prefix_stores(staged.geometry, *wires)
+        return self._reconstruct(staged.geometry, stores, staged.qts)
+
+    def decode_one(self, staged) -> torch.Tensor:
+        """Decode one staged image (bits, prefix or lossless)."""
         return self._run_device(staged, self._to_device(staged))
 
     def decode_stream(self, sources: Iterable, scale_to=None,
@@ -246,15 +409,17 @@ class DeviceStreamDecoder:
 
     def device_resident_rate(self, source, iters: int = 64, scale_to=None,
                              reps: int = 3) -> dict:
-        """Device time per image of the full device half (K1, assembly, K2,
-        the tail of the decoder's layout) over a wire already in device
-        memory, timed with CUDA events around `iters` back-to-back decodes;
-        best of `reps`.
+        """Device time per image of the full device half (for bits: K1,
+        assembly, the IDCT of the decoder's precision and the tail of its
+        layout; for prefix: the store rebuild and the same reconstruction;
+        for lossless: the predictors) over a wire already in device
+        memory, staged by the decoder's interchange, timed with CUDA events
+        around `iters` back-to-back decodes; best of `reps`.
         Needs a CUDA device: a measurement finds no card, it fails."""
         if self.device.type != "cuda":
             raise RuntimeError("device_resident_rate measures a CUDA device; "
                                f"this decoder runs on {self.device}")
-        staged = stage_host_bits(source, scale_to, self.precision)
+        staged = self.stage(source, scale_to)
         wires = self._to_device(staged)
         self._run_device(staged, wires)                    # warm-up
         torch.cuda.synchronize(self.device)
@@ -272,8 +437,11 @@ class DeviceStreamDecoder:
             ms = start.elapsed_time(stop) / iters
             if ms < best:
                 best, best_host = ms, host * 1e3
+        kind = _kind(staged)
         return {"ms_per_image": best, "mpix_s": staged.mpix / (best * 1e-3),
                 "host_ms_per_image": best_host, "mpix": staged.mpix,
-                "interchange": "bits", "batch": 1,
-                "layout": self._effective_layout(staged.geometry),
+                "interchange": kind, "batch": 1,
+                "layout": None if kind == "lossless"
+                else self._effective_layout(staged.geometry),
+                "precision": self.precision,
                 "device": torch.cuda.get_device_name(self.device)}

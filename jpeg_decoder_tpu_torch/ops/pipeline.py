@@ -1,13 +1,18 @@
 """Reconstruction: coefficient stores -> image tensor, on the stores' device.
 
-Port of the fast precision of `jpeg_decoder_tpu/ops/pipeline.py::
-_reconstruct` (`reconstruct`: per component dequant + IDCT (kernel K2) and
-block -> plane, then chroma upsampling and color conversion, interleaved
-out) and of `jpeg_decoder_tpu/ops/pallas_kernels.py::
-reconstruct_planar_pallas` (`reconstruct_planar_pallas`: the same planes,
-then kernel K3, planar out). Geometry comes from the reference's
-`ImageGeometry` / `geometry_from_frame`, and the planar tail's coverage
-rule from its `pallas_tail_mode`, all reused by import.
+Port of `jpeg_decoder_tpu/ops/pipeline.py::_reconstruct` (`reconstruct`:
+per component dequant + IDCT and block -> plane, then chroma upsampling
+and color conversion, interleaved out) and of
+`jpeg_decoder_tpu/ops/pallas_kernels.py::reconstruct_planar_pallas`
+(`reconstruct_planar_pallas`: the planes, then kernel K3, planar out).
+Geometry comes from the reference's `ImageGeometry` /
+`geometry_from_frame`, and the planar tail's coverage rule from its
+`pallas_tail_mode`, all reused by import.
+
+The IDCT tier follows `geometry.precision` as `_reconstruct` does: "fast"
+runs kernel K2, anything else the exact int32 IDCT. The planar tail runs
+K2 at either precision, as the reference's `reconstruct_planar_pallas`
+runs its fp32 Pallas IDCT whatever the precision.
 """
 
 from __future__ import annotations
@@ -19,21 +24,25 @@ from jpeg_decoder_tpu.ops.pallas_kernels import (_TAIL_TRANSFORMS,
 
 from ..params import DeviceParams
 from .color import color_convert_image
-from .idct import blocks_to_plane, dequantize_and_idct_blocks_fast
+from .idct import (blocks_to_plane, dequantize_and_idct_blocks,
+                   dequantize_and_idct_blocks_fast)
 from .kernels import fused_tail
 from .upsample import upsample_component
 
 
-def _planes(geometry, stores, qts, params: DeviceParams) -> list:
-    """K2 + block -> plane per component: block-padded uint8 planes."""
-    if geometry.precision != "fast":
-        raise NotImplementedError(
-            "precision 'exact' (the stb int32 IDCT) is not ported yet")
+def _planes(geometry, stores, qts, params: DeviceParams,
+            fp32: bool = False) -> list:
+    """IDCT + block -> plane per component: block-padded uint8 planes. K2
+    when `fp32` or at precision "fast", else the exact int32 IDCT."""
     planes = []
     for comp, store, qt in zip(geometry.components, stores, qts):
-        pixels = dequantize_and_idct_blocks_fast(
-            store, params.qt(qt), params.basis(comp.dct_scale),
-            scale=comp.dct_scale)
+        if fp32 or geometry.precision == "fast":
+            pixels = dequantize_and_idct_blocks_fast(
+                store, params.qt(qt), params.basis(comp.dct_scale),
+                scale=comp.dct_scale)
+        else:
+            pixels = dequantize_and_idct_blocks(store, params.qt_exact(qt),
+                                                comp.dct_scale)
         planes.append(blocks_to_plane(pixels, comp.blocks_wide,
                                       comp.blocks_high))
     return planes
@@ -64,12 +73,13 @@ def reconstruct_planar_pallas(geometry, stores, qts,
     uint8 [H, W] for one component ("gray", a crop), [C, H, W] for RGB
     4:4:4 ("stack") and through kernel K3 for YCbCr / CMYK / YCCK with any
     h1/h2 x v1/v2 chroma it admits ("fused"). Other geometries raise: the
-    decoder sends them to layout "planar"."""
+    decoder sends them to layout "planar". The IDCT is K2 at either
+    precision, as in the reference."""
     mode = pallas_tail_mode(geometry)
     if mode is None:
         raise ValueError("the planar tail does not cover this geometry "
                          "(pallas_tail_mode is None)")
-    planes = _planes(geometry, stores, qts, params)
+    planes = _planes(geometry, stores, qts, params, fp32=True)
     comps = geometry.components
     out_h, out_w = geometry.out_height, geometry.out_width
     if mode == "gray":

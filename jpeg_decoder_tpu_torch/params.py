@@ -60,10 +60,11 @@ def scan_tables(scan, device) -> ScanTables:
         unzig=put(np.asarray(UNZIGZAG)))
 
 
-def quant_table(qt, device) -> torch.Tensor:
-    """uint16[64] natural-order quantization table -> float32 [64], as the
-    fast tier multiplies it (ops/idct.py dequantize_and_idct_blocks_fast)."""
-    q = np.asarray(qt).astype(np.float32).reshape(64)
+def quant_table(qt, device, dtype=np.float32) -> torch.Tensor:
+    """uint16[64] natural-order quantization table -> [64] of `dtype`:
+    float32 as the fast tier multiplies it (K2), int32 as the exact tier
+    does (ops/idct.py dequantize_and_idct_blocks)."""
+    q = np.asarray(qt).astype(dtype).reshape(64)
     return torch.from_numpy(q).to(device)
 
 
@@ -103,6 +104,10 @@ class DeviceParams:
     def qt(self, qt) -> torch.Tensor:
         return self._get(("qt", np.asarray(qt).tobytes()),
                          lambda: quant_table(qt, self.device))
+
+    def qt_exact(self, qt) -> torch.Tensor:
+        return self._get(("qt_exact", np.asarray(qt).tobytes()),
+                         lambda: quant_table(qt, self.device, np.int32))
 
     def basis(self, scale: int) -> torch.Tensor:
         return self._get(("basis", scale),

@@ -21,7 +21,8 @@ from jpeg_decoder_tpu_torch.entropy.assemble import (GeneralMaps,
                                                      assemble_general,
                                                      assemble_nat,
                                                      assemble_structured)
-from jpeg_decoder_tpu_torch.entropy.chunk_decode import (decode_chunks,
+from jpeg_decoder_tpu_torch.entropy.chunk_decode import (S_MAX_LIMIT,
+                                                         decode_chunks,
                                                          unpack_delta)
 from jpeg_decoder_tpu_torch.models.stream import stage_host_bits
 from jpeg_decoder_tpu_torch.params import scan_tables
@@ -157,8 +158,8 @@ def test_decode_chunks_dispatch_and_checks():
                       n_blocks)
     with pytest.raises(ValueError):
         decode_chunks(words, dm, ab[:-1], base, tables, st.s_max, n_blocks)
-    with pytest.raises(ValueError):
-        decode_chunks(words, dm, ab, base, tables, 1000, n_blocks)
+    with pytest.raises(ValueError):     # past 31 blocks x 64 symbols
+        decode_chunks(words, dm, ab, base, tables, S_MAX_LIMIT + 1, n_blocks)
     meta = [t.to("meta") for t in (words, dm, ab, base)]
     meta_tables = scan_tables(st.scan, "meta")
     with pytest.raises(ValueError, match="no K1 implementation"):

@@ -5,12 +5,15 @@ the card. Every test here needs a CUDA device and skips without one (the
     python -m pytest tests/test_torch_cuda.py -q
 
 Needs neither JAX nor PIL: the inputs are the committed fixtures.
-Tolerances: K1 bit-equal (integer decode); K2 |diff| <= 1 (fp32 sums in
-another order); decoded images |diff| <= 3 against the CPU port (the K2
-difference after color conversion); K3 bit-equal (integer math); K4
-bit-equal to K2 + blocks_to_plane + color (it repeats K2's arithmetic) and
-within 3 of its plain version (cuBLAS sums in another order); the planar
-layouts bit-equal to the interleaved output on the card, permuted.
+Tolerances: K1 bit-equal (integer decode), also with 6 table rows on the
+anchor wire; K2 |diff| <= 1 (fp32 sums in another order); decoded images
+|diff| <= 3 against the CPU port (the K2 difference after color
+conversion); K3 bit-equal (integer math); K4 bit-equal to K2 +
+blocks_to_plane + color (it repeats K2's arithmetic) and within 3 of its
+plain version (cuBLAS sums in another order); the planar layouts
+bit-equal to the interleaved output on the card, permuted; L1 bit-equal
+to its plain version (integer math); exact-precision, prefix and lossless
+decodes bit-equal to the CPU port (integer math throughout).
 """
 
 import numpy as np
@@ -28,8 +31,11 @@ from jpeg_decoder_tpu_torch.ops.kernels import (dequant_idct,
                                                 fused_tail_plain)
 from jpeg_decoder_tpu_torch.params import DeviceParams
 
+from jpeg_decoder_tpu_torch.ops.predictors import (lossless_recur,
+                                                   lossless_recur_plain)
+
 from torch_inputs import (SMALL_FIXTURES, TAIL_CASES, fixture, oracle_stores,
-                          tail_planes)
+                          tail_planes, three_table_pairs)
 
 
 @pytest.fixture
@@ -146,3 +152,61 @@ def test_planar_layouts_on_card_bit_equal_to_interleaved(cuda, layout):
         torch.testing.assert_close(p, want, rtol=0, atol=0)
     fused = jt.LAUNCHES["fused_tail"] - before
     assert fused == (0 if layout == "planar" else 4)    # not gray, not RGB
+
+
+@pytest.mark.parametrize("pt", [0, 2])
+@pytest.mark.parametrize("predictor", range(1, 8))
+def test_l1_kernel_bit_equal_to_plain(cuda, predictor, pt):
+    rng = np.random.default_rng(predictor * 10 + pt)
+    for shape in ((1, 67, 45), (3, 20, 9), (1, 1100, 3), (1, 1, 70)):
+        d = rng.integers(-300, 300, shape)
+        d[..., ::5] = rng.integers(0, 65536, d[..., ::5].shape)
+        d = torch.from_numpy((d & 0xFFFF).astype(np.int32)).to(cuda)
+        before = jt.LAUNCHES["lossless_recur"]
+        got = lossless_recur(d, predictor, pt, 1 << (15 - pt))
+        assert jt.LAUNCHES["lossless_recur"] == before + 1
+        want = lossless_recur_plain(d, predictor, pt, 1 << (15 - pt))
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["small_444.jpg", "tower_420.jpg"])
+def test_k1_six_table_rows_on_the_anchor_wire(cuda, name):
+    params = DeviceParams(cuda)
+    data = three_table_pairs(fixture(name))
+    oracle = oracle_stores(data)
+    (st,) = jt.stage_host_bits(data).scans
+    assert st.wire == "anchor" and params.tables(st.scan).n_tab == 6
+    from jpeg_decoder_tpu_torch.entropy.assemble import assemble_nat
+
+    args = tuple(torch.from_numpy(a).to(cuda)
+                 for a in (st.words, st.dm, st.ab, st.base)) + (
+        params.tables(st.scan), st.s_max, st.scan.plan.n_blocks)
+    nat = decode_chunks(*args)
+    torch.testing.assert_close(nat, decode_chunks_plain(*args), rtol=0,
+                               atol=0)
+    stores = assemble_nat(nat, st.scan.plan)
+    for pos, comp_i in st.kept:
+        np.testing.assert_array_equal(stores[pos].cpu().numpy().reshape(-1),
+                                      oracle[comp_i])
+
+
+def test_other_paths_on_card_bit_equal_to_cpu_port(cuda):
+    """Exact precision (bits and prefix), progressive, the anchor wire and
+    lossless: integer math end to end, so the card equals the CPU."""
+    from tools.make_torch_fixtures import sof3_jpeg, sof3_samples
+
+    base = fixture("small_dri.jpg")
+    data = [base, fixture("small_422_progressive.jpg"),
+            three_table_pairs(base),
+            sof3_jpeg(sof3_samples(70, 90, 1, 16, 0, seed=5), 6, 0, 16),
+            sof3_jpeg(sof3_samples(30, 20, 3, 12, 0, seed=6), 3, 0, 12)]
+    for interchange in ("bits", "prefix"):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            with jt.DeviceStreamDecoder(device=dev, host_threads=2,
+                                        precision="exact",
+                                        interchange=interchange) as dec:
+                outs[dev] = dec.decode_stream(data)
+        for g, c in zip(outs["cuda"], outs["cpu"]):
+            assert g.is_cuda
+            torch.testing.assert_close(g.cpu(), c, rtol=0, atol=0)

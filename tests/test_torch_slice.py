@@ -9,8 +9,11 @@ Tolerances:
   difference of 1 by up to 1.772, so 1 + 1.772 rounds to at most 3;
 - coefficient stores: bit-equal to the host oracle;
 - the port's planar layouts against its own interleaved output, permuted:
-  bit-equal (the same IDCT, and integer math after it).
-Streams outside the slice must raise a typed error naming what is missing.
+  bit-equal (the same IDCT, and integer math after it);
+- lossless: bit-equal.
+Progressive, lossless and quirk streams decode (tests/
+test_torch_stream_paths.py and test_torch_lossless.py hold them in full);
+options the port lacks raise a typed error naming what is missing.
 """
 
 import numpy as np
@@ -131,23 +134,42 @@ def _lossless_jpeg():
     return _build_lossless_jpeg(rng.integers(-7, 8, (6, 5)), dri=0)
 
 
-@pytest.mark.parametrize("kind,match", [
-    ("progressive", "progressive"),
-    ("lossless", "lossless"),
-    ("quirk", "host entropy semantics"),
+# Streams the baseline-only port refused, each now decoded. The ids are the
+# ones the earlier raise cases had.
+@pytest.mark.parametrize("kind", [
+    pytest.param("progressive", id="progressive-progressive"),
+    pytest.param("lossless", id="lossless-lossless"),
+    pytest.param("quirk", id="quirk-host entropy semantics"),
 ])
-def test_streams_outside_the_slice_raise(kind, match):
+def test_streams_outside_the_slice_raise(kind):
+    """Progressive (transcoded), lossless (device predictors) and a quirk
+    stream the prescan defers (host decode + transcode) decode through
+    `decode_stream` and match the JAX `DeviceStreamDecoder`: bit-equal for
+    lossless, within 3 at fast precision otherwise. The malformed
+    restart-underrun fixture raises the host's FormatError on both."""
+    from torch_inputs import quirk_jpeg
+    from jpeg_decoder_tpu.errors import FormatError
+
     data = {
         "progressive": lambda: synth_jpeg(64, 48, seed=32, progressive=True),
         "lossless": _lossless_jpeg,
-        "quirk": lambda: (FIXTURE_DIR.parent
-                          / "restart_underrun_prescan.jpg").read_bytes(),
+        "quirk": lambda: quirk_jpeg(1),
     }[kind]()
-    with pytest.raises(NotImplementedError, match=match):
-        stage_host_bits(data)
+    staged = stage_host_bits(data)
+    assert type(staged).__name__ == ("StagedLossless" if kind == "lossless"
+                                     else "StagedBits")
     with DeviceStreamDecoder(device="cpu", host_threads=1) as dec:
-        with pytest.raises(NotImplementedError, match=match):
-            dec.decode_stream([data])
+        port = dec.decode_stream([data])[0]
+    ref = JaxStreamDecoder(host_threads=1, precision="fast",
+                           interchange="bits").decode_stream([data])[0]
+    worst, count = _pixel_diff(port, ref)
+    assert worst <= (0 if kind == "lossless" else 3), (kind, worst, count)
+    if kind == "quirk":
+        bad = (FIXTURE_DIR.parent / "restart_underrun_prescan.jpg") \
+            .read_bytes()
+        with DeviceStreamDecoder(device="cpu", host_threads=1) as dec:
+            with pytest.raises(FormatError, match="no marker found"):
+                dec.decode_stream([bad])
 
 
 def test_options_outside_the_slice_raise():
@@ -156,10 +178,12 @@ def test_options_outside_the_slice_raise():
     with pytest.raises(RuntimeError, match="cuda"):
         DeviceStreamDecoder(device="cuda")
     for kw in ({"precision": "exact"}, {"interchange": "prefix"}):
-        with pytest.raises(NotImplementedError):
+        DeviceStreamDecoder(device="cpu", **kw).close()     # both ported
+    for kw, what in (({"layout": "planar-xla"}, "layout"),
+                     ({"precision": "bf16"}, "precision"),
+                     ({"interchange": "coo"}, "interchange")):
+        with pytest.raises(ValueError, match=what):
             DeviceStreamDecoder(device="cpu", **kw)
-    with pytest.raises(ValueError, match="layout"):
-        DeviceStreamDecoder(device="cpu", layout="planar-xla")
     with DeviceStreamDecoder(device="cpu", host_threads=1) as dec:
         with pytest.raises(NotImplementedError, match="batch_size"):
             dec.decode_stream([fixture("small_gray.jpg")], batch_size=2)

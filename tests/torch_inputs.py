@@ -3,7 +3,10 @@
 Images are numpy arrays from `np.random.default_rng(seed)` encoded by PIL,
 the recipes of tests/test_pallas_decode.py (`_synth_jpeg`) and
 tests/test_prescan_parity.py (`_make_dri_jpeg`); the committed fixtures
-come from tools/make_torch_fixtures.py.
+come from tools/make_torch_fixtures.py. Two byte-level recipes need
+neither PIL nor JAX, so `chip_smoke.py` uses them too:
+`three_table_pairs` (an SOF1 edit that gives Cr its own tables) and
+`quirk_jpeg` (a baseline scan the device prescan defers to the host).
 """
 
 from __future__ import annotations
@@ -103,3 +106,124 @@ def tail_planes(name: str, seed: int = 0) -> list:
         planes.append(rng.integers(0, 256, (-(-h // 8) * 8 + 8,
                                             -(-w // 8) * 8)).astype(np.uint8))
     return planes
+
+
+def _segments(data: bytes):
+    """(marker, payload start, payload end) of each marker segment from
+    SOI up to and including the first SOS."""
+    pos = 2
+    while True:
+        if data[pos] != 0xFF:
+            raise ValueError(f"no marker at byte {pos}")
+        marker = data[pos + 1]
+        end = pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        yield marker, pos + 4, end
+        if marker == 0xDA:
+            return
+        pos = end
+
+
+def three_table_pairs(data: bytes) -> bytes:
+    """A 3-component baseline JPEG re-signalled so that its scan holds 3
+    distinct (DC, AC) table pairs (6 table rows), the image unchanged:
+    SOF0 becomes SOF1 (extended sequential allows 4 tables per class), a
+    DHT adds copies of DC table 1 and AC table 1 as table 2, and the Cr
+    selector byte of the SOS becomes 0x22. Encoders that give Cr its own
+    tables write such scans."""
+    tables = {}
+    out = bytearray(data[:2])
+    for marker, lo, hi in _segments(data):
+        seg = bytearray(data[lo - 4:hi])
+        if marker == 0xC4:
+            i = lo
+            while i < hi:
+                n = sum(data[i + 1:i + 17])
+                tables[data[i]] = data[i:i + 17 + n]
+                i += 17 + n
+        elif marker == 0xC0:
+            seg[1] = 0xC1
+        elif marker == 0xDA:
+            if seg[4] != 3:
+                raise ValueError("the recipe needs a 3-component scan")
+            copies = b"".join(bytes([cls << 4 | 2]) + tables[cls << 4 | 1][1:]
+                              for cls in (0, 1))
+            out += b"\xff\xc4" + (len(copies) + 2).to_bytes(2, "big") + copies
+            seg[4 + 1 + 2 * 2 + 1] = 0x22      # third component: Td 2, Ta 2
+            out += seg + data[hi:]
+            return bytes(out)
+        out += seg
+    raise ValueError("no SOS")
+
+
+def quirk_jpeg(seed: int = 0) -> bytes:
+    """A 40x24 grayscale baseline JPEG that the host decodes and the device
+    prescan defers (PrescanFallback), so the bits path host-decodes and
+    transcodes it: some blocks end with an AC run past coefficient 63
+    (the reference stops the block there, reading no magnitude bits), and
+    one uses an EOB run (EOB1) in a sequential scan, which skips the AC
+    coefficients of the next block. Fixed-length codes: 4 bits for the 12
+    DC categories, 8 bits for 176 AC symbols."""
+    w, h = 40, 24
+    rng = np.random.default_rng(seed)
+    ac_syms = ([0x00, 0xF0] + [r << 4 | s for r in range(16)
+                               for s in range(1, 11)]
+               + [r << 4 for r in range(1, 15)])
+    ac_code = {sym: i for i, sym in enumerate(ac_syms)}
+    bits: list = []
+
+    def put(value: int, n: int) -> None:
+        bits.extend((value >> (n - 1 - i)) & 1 for i in range(n))
+
+    def put_value(v: int, cat: int) -> None:
+        put(v if v >= 0 else v + (1 << cat) - 1, cat)
+
+    pred = 0
+    skip_ac = False
+    for b in range((w // 8) * (h // 8)):
+        dc = int(rng.integers(-60, 60))
+        diff, pred = dc - pred, dc
+        cat = abs(diff).bit_length()
+        put(cat, 4)
+        put_value(diff, cat)
+        if skip_ac:                 # inside the EOB run: no AC symbols
+            skip_ac = False
+            continue
+        k = 1
+        positions = sorted(rng.choice(np.arange(1, 40), 4, replace=False))
+        if b % 3 == 0:              # a last one late enough to overshoot
+            positions.append(int(rng.integers(48, 63)))
+        for pos in positions:
+            run = int(pos) - k
+            while run >= 16:
+                put(ac_code[0xF0], 8)
+                run -= 16
+            v = int(rng.integers(1, 300)) * int(rng.choice([-1, 1]))
+            size = abs(v).bit_length()
+            put(ac_code[run << 4 | size], 8)
+            put_value(v, size)
+            k = int(pos) + 1
+        if b % 3 == 0:
+            put(ac_code[15 << 4 | 3], 8)   # k + 15 > 63: the block ends
+        elif b == 4:
+            put(ac_code[0x10], 8)          # EOB1, run bit 0: one more block
+            put(0, 1)
+            skip_ac = True
+        else:
+            put(ac_code[0x00], 8)          # EOB
+    bits.extend([1] * (-len(bits) % 8))
+    scan = np.packbits(np.asarray(bits, np.uint8))
+    scan = np.insert(scan, np.flatnonzero(scan == 0xFF) + 1, 0)
+
+    def segment(marker: int, payload: bytes) -> bytes:
+        return bytes([0xFF, marker]) + (len(payload) + 2).to_bytes(2, "big") \
+            + payload
+
+    dqt = bytes([0]) + bytes(rng.integers(1, 20, 64).tolist())
+    dc_dht = bytes([0x00] + [0, 0, 0, 12] + [0] * 12 + list(range(12)))
+    ac_dht = bytes([0x10] + [0] * 7 + [len(ac_syms)] + [0] * 8 + ac_syms)
+    sof = bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big") \
+        + bytes([1, 1, 0x11, 0])
+    sos = bytes([1, 1, 0x00, 0, 63, 0])
+    return (b"\xff\xd8" + segment(0xDB, dqt) + segment(0xC4, dc_dht)
+            + segment(0xC4, ac_dht) + segment(0xC0, sof)
+            + segment(0xDA, sos) + scan.tobytes() + b"\xff\xd9")

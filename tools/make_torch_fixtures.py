@@ -10,7 +10,13 @@ the files can be regenerated bit for bit on the same PIL/libjpeg build:
 The set covers the main path's shapes: one ~3.4 Mpix 4:2:0 image (the
 `large_image.jpg` class), one 512x512 4:2:0 image, and small 4:4:4, 4:2:2,
 grayscale, restart-interval (DRI), subsampled CMYK and RGB-stored images
-with edges that are not MCU multiples.
+with edges that are not MCU multiples; and two progressive ones, the
+large image's own array and a small 4:2:2 image.
+
+Lossless (SOF3) streams are not committed: `sof3_jpeg` writes them at run
+time from seeded samples (`sof3_samples`), with numpy alone (no PIL, no
+JAX), so `chip_smoke.py` can make a 2048 x 2048 16-bit one on a machine
+without PIL.
 """
 
 from __future__ import annotations
@@ -39,6 +45,13 @@ FIXTURES = {
     "small_cmyk_420.jpg": (221, 149, "CMYK", {"subsampling": 2}, 4.0, 6),
     "small_rgb_444.jpg": (189, 133, "RGB",
                           {"subsampling": 0, "keep_rgb": True}, 4.0, 7),
+    # large_420's array, progressive; a small progressive 4:2:2 image.
+    "large_420_progressive.jpg": (2048, 1680, "RGB",
+                                  {"subsampling": 2, "progressive": True},
+                                  3.3, 0),
+    "small_422_progressive.jpg": (197, 131, "RGB",
+                                  {"subsampling": 1, "progressive": True},
+                                  4.0, 8),
 }
 QUALITY = 85
 
@@ -72,6 +85,123 @@ def encode(name: str) -> bytes:
     buf = io.BytesIO()
     Image.fromarray(arr, mode).save(buf, "JPEG", quality=QUALITY, **opts)
     return buf.getvalue()
+
+
+# Lossless DC table: code lengths by frequency rank of the 17 difference
+# categories (0-16). Kraft sum 0.875 - 2^-16 < 1, so no code is all ones.
+_SOF3_RANK_LENGTHS = (2, 2, 3, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
+                      16)
+
+
+def _predict(v: np.ndarray, predictor: int, pt: int, precision: int
+             ) -> np.ndarray:
+    """H.1.2.1 predictions of every stored sample `v` (int64 [H, W]) from
+    its neighbours, with the reference's edge rules: (0, 0) the default,
+    row 0 Ra, column 0 Rb (`ops/predictors.py::_reconstruct_scalar`)."""
+    ra = np.zeros_like(v)
+    rb = np.zeros_like(v)
+    rc = np.zeros_like(v)
+    ra[:, 1:] = v[:, :-1]
+    rb[1:, :] = v[:-1, :]
+    rc[1:, 1:] = v[:-1, :-1]
+    interior = {0: np.zeros_like(v), 1: ra, 2: rb, 3: rc, 4: ra + rb - rc,
+                5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+                7: (ra + rb) // 2}[predictor]
+    pred = interior.copy()
+    pred[0, :] = ra[0, :]
+    pred[1:, 0] = rb[1:, 0]
+    pred[0, 0] = 1 << (precision - pt - 1) if precision > 1 + pt else 0
+    return pred
+
+
+def _pack_bits(vals: np.ndarray, nbits: np.ndarray) -> np.ndarray:
+    """MSB-first concatenation of `vals[i]` in `nbits[i]` (<= 32) bits,
+    1-padded to a byte (B.1.1.5); uint8 out. In slices, to bound memory."""
+    out = []
+    step = 1 << 18
+    for lo in range(0, len(vals), step):
+        v = vals[lo:lo + step].astype(np.uint64)
+        n = nbits[lo:lo + step].astype(np.int64)
+        start = np.cumsum(n) - n
+        sym = np.repeat(np.arange(len(n)), n)
+        j = np.arange(int(n.sum())) - start[sym]
+        shift = (n[sym] - 1 - j).astype(np.uint64)
+        out.append(((v[sym] >> shift) & np.uint64(1)).astype(np.uint8))
+    bits = np.concatenate(out) if out else np.zeros(0, np.uint8)
+    bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.uint8)])
+    return np.packbits(bits)
+
+
+def sof3_samples(h: int, w: int, ncomp: int = 1, precision: int = 16,
+                 pt: int = 0, seed: int = 0) -> np.ndarray:
+    """Seeded photo-like samples for `sof3_jpeg`: uint16 [H, W] (one
+    component) or [H, W, C], each below 2^(precision - pt): smooth
+    gradients and waves with grain, the content of a radiograph."""
+    peak = (1 << (precision - pt)) - 1
+    arr = textured(h, w, ncomp, 4.0, seed).astype(np.float64) / 255.0
+    rng = np.random.default_rng(seed + 1)
+    arr = arr * peak + rng.normal(0, peak / 400.0, arr.shape)
+    return np.clip(np.rint(arr), 0, peak).astype(np.uint16)
+
+
+def sof3_jpeg(samples: np.ndarray, predictor: int = 1, pt: int = 0,
+              precision: int = 16) -> bytes:
+    """A lossless (SOF3) JPEG of `samples` (uint16 [H, W] or [H, W, C], each
+    below 2^(precision - pt)), one interleaved scan with selection value
+    `predictor` (0-7) and point transform `pt`: the decoder's stored
+    samples are `samples << pt`. One DC table covers categories 0-16
+    (SSSS 16, the difference 32768, carries no extra bits, H.1.2.2); the
+    scan is byte-stuffed. Numpy only."""
+    u = np.asarray(samples)
+    if u.ndim == 2:
+        u = u[..., None]
+    h, w, ncomp = u.shape
+    if not 2 <= precision <= 16 or not 0 <= pt < precision \
+            or not 0 <= predictor <= 7 or int(u.max()) >> (precision - pt):
+        raise ValueError("samples, precision, predictor or pt out of range")
+    diffs = np.empty((h, w, ncomp), np.int64)
+    for c in range(ncomp):
+        v = u[..., c].astype(np.int64) << pt
+        diffs[..., c] = (u[..., c].astype(np.int64)
+                         - _predict(v, predictor, pt, precision)) & 0xFFFF
+    d = diffs.reshape(-1)                   # pixel-major, component-minor
+    signed = np.where(d >= 32768, d - 65536, d)
+    cat = np.where(signed == -32768, 16,
+                   np.ceil(np.log2(np.abs(signed) + 1)).astype(np.int64))
+    extra = np.where(signed >= 0, signed, signed + (1 << cat) - 1)
+    extra = np.where(cat == 16, 0, extra)        # in [0, 2^cat)
+
+    counts = np.bincount(cat, minlength=17)
+    order = sorted(range(17), key=lambda c: (-counts[c], c))
+    length = np.zeros(17, np.int64)
+    length[order] = _SOF3_RANK_LENGTHS
+    huffval = sorted(range(17), key=lambda c: (length[c], c))
+    bits = np.bincount(length, minlength=17)[1:]
+    code = np.zeros(17, np.int64)
+    nxt, prev_len = 0, length[huffval[0]]
+    for c in huffval:                          # canonical codes (Annex C)
+        nxt <<= int(length[c] - prev_len)
+        prev_len = length[c]
+        code[c] = nxt
+        nxt += 1
+    sym_bits = length[cat] + np.where(cat == 16, 0, cat)
+    sym_vals = (code[cat] << np.where(cat == 16, 0, cat)) | extra
+    scan = _pack_bits(sym_vals, sym_bits)
+    scan = np.insert(scan, np.flatnonzero(scan == 0xFF) + 1, 0)   # stuffing
+
+    def segment(marker: int, payload: bytes) -> bytes:
+        return bytes([0xFF, marker]) + (len(payload) + 2).to_bytes(2, "big") \
+            + payload
+
+    dht = bytes([0x00, *bits.tolist(), *huffval])
+    sof = bytes([precision]) + h.to_bytes(2, "big") + w.to_bytes(2, "big") \
+        + bytes([ncomp]) + b"".join(bytes([c + 1, 0x11, 0])
+                                    for c in range(ncomp))
+    sos = bytes([ncomp]) + b"".join(bytes([c + 1, 0x00])
+                                    for c in range(ncomp)) \
+        + bytes([predictor, 0, pt])
+    return (b"\xff\xd8" + segment(0xC4, dht) + segment(0xC3, sof)
+            + segment(0xDA, sos) + scan.tobytes() + b"\xff\xd9")
 
 
 def main(argv=None) -> int:

@@ -1,7 +1,8 @@
 """Where the device time of the PyTorch port's main path goes, on a CUDA card.
 
     python tools/torch_port_profile.py [--iters N] [--stream N]
-                                       [--layout L] [--trace out.json]
+                                       [--layout L] [--precision P]
+                                       [--interchange I] [--trace out.json]
                                        [fixture ...]
 
 For each fixture (default: the 3.4 Mpix and 512x512 4:2:0 fixtures in
@@ -10,14 +11,17 @@ tests/fixtures/torch_port/) it first times `decode_stream` end to end over
 the wire and copies it to the card once and runs `iters` device-resident
 decodes, unprofiled (CUDA events, `device_resident_rate`) and under
 torch.profiler, in the decoder layout `--layout` (default interleaved;
-"planar-pallas" runs kernel K3). Printed per fixture, as JSON lines:
+"planar-pallas" runs kernel K3), precision `--precision` (default fast;
+"exact" runs the int32 IDCT) and interchange `--interchange` (default
+bits). Printed per fixture, as JSON lines:
 - wall ms/image over the profiled window (host clock, synchronised);
 - device busy ms/image (union of kernel intervals) and the idle share;
 - kernel ms/image per layer (a kernel belongs to the innermost of the
   decoder's record_function ranges it starts in: unpack_delta, k1_decode,
-  assemble, reconstruct, and fused_tail inside reconstruct) and per kernel
-  name (K1 huffman_decode_kernel, K2 dequant_idct_kernel, K3
-  fused_tail_kernel, the rest PyTorch's);
+  assemble, prefix_stores, reconstruct, fused_tail inside reconstruct, and
+  lossless) and per kernel name (K1 huffman_decode_kernel, K2
+  dequant_idct_kernel, K3 fused_tail_kernel, L1 lossless_recur_kernel,
+  the rest PyTorch's);
 - kernel launches per image.
 With --trace, the Chrome trace of the last fixture is written there.
 Needs a CUDA device; fails without one.
@@ -37,8 +41,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
-LAYERS = ("unpack_delta", "k1_decode", "assemble", "reconstruct",
-          "fused_tail")
+LAYERS = ("unpack_delta", "k1_decode", "assemble", "prefix_stores",
+          "reconstruct", "fused_tail", "lossless")
 
 
 def _busy_us(intervals) -> float:
@@ -51,10 +55,11 @@ def _busy_us(intervals) -> float:
 
 
 def profile(dec, path: Path, iters: int):
+    """Profile `iters` device-resident decodes of the JPEG at `path`,
+    staged by the decoder's interchange and precision."""
     from torch.profiler import ProfilerActivity
-    from jpeg_decoder_tpu_torch.models.stream import stage_host_bits
 
-    staged = stage_host_bits(path.read_bytes())
+    staged = dec.stage(path.read_bytes())
     wires = dec._to_device(staged)
     for _ in range(3):
         dec._run_device(staged, wires)
@@ -84,7 +89,9 @@ def profile(dec, path: Path, iters: int):
             if owners else "other"
         layers[owner] += ms
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
-    return {"fixture": path.name, "layout": dec.layout, "mpix": staged.mpix,
+    return {"fixture": path.name, "layout": dec.layout,
+            "precision": dec.precision, "interchange": dec.interchange,
+            "mpix": staged.mpix,
             "wall_ms": wall / iters * 1e3, "device_busy_ms": busy / iters / 1e3,
             "idle_share": 1 - busy / (wall * 1e6),
             "launches_per_image": len(kernels) / iters,
@@ -118,6 +125,9 @@ def main(argv=None) -> int:
                     help="images per end-to-end decode_stream run")
     ap.add_argument("--layout", default="interleaved",
                     choices=("interleaved", "planar", "planar-pallas"))
+    ap.add_argument("--precision", default="fast", choices=("fast", "exact"))
+    ap.add_argument("--interchange", default="bits",
+                    choices=("bits", "prefix"))
     ap.add_argument("--trace", type=Path,
                     help="write the last fixture's Chrome trace here")
     args = ap.parse_args(argv)
@@ -127,7 +137,8 @@ def main(argv=None) -> int:
     from jpeg_decoder_tpu_torch import DeviceStreamDecoder
 
     with DeviceStreamDecoder(device="cuda", host_threads=4,
-                             layout=args.layout) as dec:
+                             layout=args.layout, precision=args.precision,
+                             interchange=args.interchange) as dec:
         for name in args.fixtures:
             print(json.dumps({"stream": stream_rate(dec, FIXTURES / name,
                                                     args.stream)}))
