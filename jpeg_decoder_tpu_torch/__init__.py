@@ -17,11 +17,12 @@ image at a time.
   ([C, H, W]) and "planar-pallas" ([C, H, W] through the fused tail K3).
 
     from jpeg_decoder_tpu_torch import DeviceStreamDecoder
-    with DeviceStreamDecoder(device="cuda") as dec:
+    with DeviceStreamDecoder() as dec:                   # on "cuda"
         images = dec.decode_stream(list_of_jpeg_bytes)   # CUDA tensors
 
-The host stage is the JAX package's numpy/C++ code, reused by import; the
-JAX package itself is never imported. Kernels:
+The host stage is the port's own copy of the JAX package's numpy/C++ code
+(`jpeg_decoder_tpu_torch.host`); neither JAX nor the JAX package is ever
+imported. Kernels:
 - K1 `entropy/chunk_decode.py::decode_chunks` (csrc/huffman_decode.cu)
 - K2 `ops/kernels.py::dequant_idct` (csrc/dequant_idct.cu)
 - K3 `ops/kernels.py::fused_tail` (csrc/fused_tail.cu), layout

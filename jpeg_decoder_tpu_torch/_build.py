@@ -124,16 +124,17 @@ def load() -> ctypes.CDLL:
         lib.jdt_huffman_decode.argtypes = [
             p, i,           # words, n_words
             p, p, p, i,     # dm, ab, base, n_items
-            p, p, p, i,     # maxcode, delta, values, n_tab
+            p, p, p, p, p,  # maxcode, delta, values, lut, walk
+            i,              # n_tab
             p, i, p,        # pattern, plen, unzig
             i,              # s_max
             p, i,           # nat, n_blocks
             p]              # stream
         lib.jdt_huffman_decode.restype = i
         lib.jdt_dequant_idct.argtypes = [
-            p, i,           # coef, n_blocks
-            p, p, i,        # q, basis, n_out
-            p,              # out
+            p, p, p,        # host void*[ncomp]: coefs, folded bases, outs
+            p, p,           # host int32[ncomp]: block counts, scales
+            i,              # ncomp
             p]              # stream
         lib.jdt_dequant_idct.restype = i
         lib.jdt_fused_tail.argtypes = [

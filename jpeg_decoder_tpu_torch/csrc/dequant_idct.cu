@@ -1,5 +1,5 @@
-// K2: dequantize + IDCT of natural-order coefficient blocks, for Hopper
-// (sm_90a).
+// K2: dequantize + IDCT of natural-order coefficient blocks, every component
+// of an image in one launch, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel jpeg_decoder_tpu/ops/pallas_kernels.py `_kernel_fn`
 // (`dequant_idct_kernel`, driven by `dequantize_and_idct_blocks_pallas`):
@@ -8,86 +8,346 @@
 // in fp32, with the cast after the clamp. `basis` is the [64, 64] coefficient
 // -> pixel matrix; for scaled decodes (4x4, 2x2, 1x1) it is the zero-padded
 // Dugad-Ahuja basis and only the first n_out = scale * scale columns are
-// computed and stored, so `out` is [n_blocks, n_out].
+// computed and stored, so `out` is [n_blocks, n_out]. The quantization
+// table arrives folded into the basis, B = diag(q) @ basis, rounded to fp32
+// once per product (params.folded_basis), so the kernel computes coef @ B.
+// Its contract is its plain version's, `dequant_idct_plain`, within 1: the
+// two round in different places, so a value next to a .5 boundary may land
+// one step apart.
 //
-// What bounds it on this card: 2 * 64 * 64 = 8192 FLOPs per block against
-// 128 bytes of coefficients in and 64 bytes out, ~43 FLOP/byte, above the
-// fp32 CUDA-core ridge (~20 FLOP/byte at 67 TFLOP/s and 3.35 TB/s): fp32
-// FMA issue bounds it, provided the basis is not re-read per block.
+// What bounds it on this card: at large_420 (80,640 blocks, three
+// components) it reads 10.3 MB of coefficients and writes 5.2 MB of pixels,
+// 4.6 us at 3.35 TB/s; its 660.6 MFLOP would take 9.9 us on the fp32 CUDA
+// cores (67 TFLOP/s). The first design (one launch per component, fp32
+// FMAs in a fixed order, each of 1,260 CTAs re-reading the 16 KB basis)
+// took 45.4 us for the three launches, at ~22% of the fp32 peak.
 //
-// What the design does about it: one CTA of 256 threads takes a tile of 64
-// blocks. It stages the basis (16 KB), the 64 dequant factors and the
-// dequantized tile (16 KB) in shared memory; thread t owns pixel p = t % 64
-// of blocks t / 64 + 4j, j < 16, so each basis value read from shared memory
-// feeds 16 FMAs and the coefficient reads are warp-wide broadcasts. Plain
-// CUDA-core FMAs in a fixed order c = 0..63, no tensor cores: TF32 would
-// break the fp32 contract (a 3xTF32 split or wgmma is later work).
+// What the design does about it:
+// - one launch per image: a descriptor per component (coefficients, block
+//   count, folded basis, output, scale) rides in the kernel's arguments;
+// - tensor cores with a split-precision product: fp32 operands do not fit
+//   TF32 (11 significant bits), so each is split into a TF32 high part and
+//   a low part, and three `mma.sync.m16n8k8` TF32 products, hi*hi + hi*lo +
+//   lo*hi, accumulate in fp32. A basis value's high part is the value
+//   rounded to the nearest TF32 (ties away from zero), its low part the
+//   remainder rounded the same way; an int16 coefficient splits exactly
+//   (high part: the low 13 mantissa bits cleared; low part: the rest, at
+//   most 5 significant bits). The error is the basis remainder's bits
+//   below about 2^-23 of its value, well inside the fp32 contract. The
+//   lo*hi product only matters for coefficients of magnitude >= 2048; a
+//   warp skips it for a k-step where none has a low part, which leaves the
+//   sum bit-identical. Nothing here reads or sets
+//   torch's allow_tf32: the split is the kernel's own arithmetic;
+// - persistent CTAs, two per SM: each walks 128-block tiles (four warps of
+//   32 blocks, two m16 tiles each) in a grid-stride loop, keeps the folded
+//   basis of the current component in shared memory as ready-made B
+//   fragments (hi and lo, one 16-byte load per fragment), reloading it only
+//   when its tiles cross into the next component, and pulls the next
+//   tile's coefficients with cp.async (16-byte chunks, zero-filled past the
+//   last block) while it computes the current one;
+// - scales 4, 2 and 1 run the same code with fewer n-tiles (n_out / 8,
+//   rounded up) and k-steps (the scaled basis is zero past coefficient row
+//   8 * (scale - 1) + scale - 1);
+// - pixels go through a per-warp staging buffer in shared memory and out as
+//   16-byte stores (32 blocks x n_out bytes, contiguous in `out`).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;                  // blocks per CTA
-constexpr int kRows = kThreads / 64;       // blocks advanced per j step
-constexpr int kPerThread = kTile / kRows;  // 16 accumulators
+constexpr int kMaxComps = 4;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kWarpRows = 32;                  // blocks per warp: 2 m16 tiles
+constexpr int kTileRows = kWarps * kWarpRows;  // blocks per CTA tile
+constexpr int kCoefStride = 72;                // int16 per staged row (144 B)
+constexpr int kBasisBytes = 64 * 32 * 16;      // 64 fragments, 32 lanes, float4
+constexpr int kCoefBytes = kTileRows * kCoefStride * 2;
+constexpr int kOutBytes = kWarps * kWarpRows * 64;
+constexpr int kSmemBytes = kBasisBytes + 2 * kCoefBytes + kOutBytes;
+constexpr uint32_t kTf32Mask = 0xFFFFE000u;    // clears 13 low mantissa bits
 
-__global__ void __launch_bounds__(kThreads)
-dequant_idct_kernel(const int16_t* __restrict__ coef, int n_blocks,
-                    const float* __restrict__ q,
-                    const float* __restrict__ basis, int n_out,
-                    uint8_t* __restrict__ out) {
-  __shared__ float s_basis[64 * 64];
-  __shared__ float s_coef[kTile * 64];
-  __shared__ float s_q[64];
+struct Comp {
+  const int16_t* coef;   // [n_blocks, 64] natural order
+  const float* basis;    // [64, 64]: diag(q) @ basis, zero past n_out columns
+  uint8_t* out;          // [n_blocks, scale * scale]
+  int n_blocks;
+  int scale;             // 8, 4, 2 or 1
+  int tile0;             // the component's first CTA tile
+};
 
-  for (int i = threadIdx.x; i < 64 * 64; i += kThreads) s_basis[i] = basis[i];
-  if (threadIdx.x < 64) s_q[threadIdx.x] = q[threadIdx.x];
-  __syncthreads();
-  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * kTile;
-  for (int i = threadIdx.x; i < kTile * 64; i += kThreads) {
-    const int64_t blk = tile0 + i / 64;
-    s_coef[i] = blk < n_blocks
-                    ? static_cast<float>(coef[tile0 * 64 + i]) * s_q[i & 63]
-                    : 0.0f;
+struct Args {
+  Comp comp[kMaxComps];
+  int ncomp;
+  int n_tiles;
+};
+
+__device__ __forceinline__ float tf32_hi(float x) {
+  return __uint_as_float(__float_as_uint(x) & kTf32Mask);
+}
+
+// Round to the nearest TF32, ties away from zero.
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & kTf32Mask);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ int comp_of(const Args& a, int tile) {
+  int c = 0;
+#pragma unroll
+  for (int i = 1; i < kMaxComps; ++i)
+    if (i < a.ncomp && a.comp[i].tile0 <= tile) c = i;
+  return c;
+}
+
+// Start the copy of one CTA tile's coefficients (128 rows of 128 B) into
+// `dst`; rows past the component's last block are zero-filled.
+__device__ __forceinline__ void issue_tile(const Args& a, int tile,
+                                           int16_t* dst, int tid) {
+  const Comp& cp = a.comp[comp_of(a, tile)];
+  const int64_t row0 = static_cast<int64_t>(tile - cp.tile0) * kTileRows;
+#pragma unroll
+  for (int j = 0; j < kTileRows * 8 / kThreads; ++j) {
+    const int q = tid + j * kThreads;
+    const int row = q >> 3;
+    const int part = q & 7;
+    const bool live = row0 + row < cp.n_blocks;
+    const int16_t* src =
+        live ? cp.coef + (row0 + row) * 64 + part * 8 : cp.coef;
+    cp_async16(dst + row * kCoefStride + part * 8, src, live ? 16 : 0);
   }
-  __syncthreads();
+}
 
-  const int p = threadIdx.x & 63;
-  const int row = threadIdx.x >> 6;
-  if (p >= n_out) return;
-
-  float acc[kPerThread];
+// The folded basis of one component as B fragments of m16n8k8: fragment
+// (kk, nt) of lane (g, t) holds B[8kk + t][8nt + g] and
+// B[8kk + t + 4][8nt + g], each split into hi and lo:
+// {b0.hi, b1.hi, b0.lo, b1.lo}.
+// All of a thread's loads are issued before the first is used.
+__device__ __forceinline__ void load_basis(const float* __restrict__ basis,
+                                           float4* s_frag, int tid) {
+  constexpr int kPer = 64 * 32 / kThreads;
+  float b[kPer][2];
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) acc[j] = 0.0f;
-  for (int c = 0; c < 64; ++c) {
-    const float m = s_basis[c * 64 + p];
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j)
-      acc[j] = fmaf(s_coef[(row + kRows * j) * 64 + c], m, acc[j]);
+  for (int j = 0; j < kPer; ++j) {
+    const int i = tid + j * kThreads;
+    const int lane = i & 31;
+    const int f = i >> 5;
+    const int col = 8 * (f & 7) + (lane >> 2);
+    const int row = 8 * (f >> 3) + (lane & 3);
+    b[j][0] = __ldg(basis + row * 64 + col);
+    b[j][1] = __ldg(basis + (row + 4) * 64 + col);
   }
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int64_t blk = tile0 + row + kRows * j;
-    if (blk < n_blocks) {
-      const float y = fminf(fmaxf(floorf(acc[j] + 128.5f), 0.0f), 255.0f);
-      out[blk * n_out + p] = static_cast<uint8_t>(y);
+  for (int j = 0; j < kPer; ++j) {
+    const float h0 = tf32_rna(b[j][0]);
+    const float h1 = tf32_rna(b[j][1]);
+    s_frag[tid + j * kThreads] =
+        make_float4(h0, h1, tf32_rna(b[j][0] - h0), tf32_rna(b[j][1] - h1));
+  }
+}
+
+// One warp: 32 staged coefficient rows -> 32 x n_out pixels in `s_out`.
+template <int NT, int KT>
+__device__ __forceinline__ void warp_tile(const int16_t* s_coef,
+                                          const float4* s_frag, uint8_t* s_out,
+                                          int n_out, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  float acc[2][NT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[m][n][j] = 0.0f;
+
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    uint32_t ahi[2][4], alo[2][4];
+    bool any_lo = false;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int16_t* r0 = s_coef + (m * 16 + g) * kCoefStride + kk * 8 + t;
+      const int16_t* r1 = r0 + 8 * kCoefStride;
+      const float x[4] = {
+          static_cast<float>(r0[0]), static_cast<float>(r1[0]),
+          static_cast<float>(r0[4]), static_cast<float>(r1[4])};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float hi = tf32_hi(x[j]);
+        const float lo = x[j] - hi;      // exact, at most 5 significant bits
+        ahi[m][j] = __float_as_uint(hi);
+        alo[m][j] = __float_as_uint(lo);
+        any_lo |= lo != 0.0f;
+      }
+    }
+    const bool need_lo = __any_sync(0xFFFFFFFFu, any_lo);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float4 b = s_frag[(kk * 8 + n) * 32 + lane];
+      const uint32_t bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
+      const uint32_t bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        mma_tf32(acc[m][n], ahi[m], bh0, bh1);
+        mma_tf32(acc[m][n], ahi[m], bl0, bl1);
+        if (need_lo) mma_tf32(acc[m][n], alo[m], bh0, bh1);
+      }
     }
   }
+
+  // C fragment: acc[m][n][j] is row 16m + g + 8 (j >> 1), column
+  // 8n + 2t + (j & 1).
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = m * 16 + g + 8 * (j >> 1);
+        const int col = n * 8 + 2 * t + (j & 1);
+        if (col < n_out) {
+          const float y = fminf(fmaxf(floorf(acc[m][n][j] + 128.5f), 0.0f),
+                                255.0f);
+          s_out[row * n_out + col] = static_cast<uint8_t>(y);
+        }
+      }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+dequant_idct_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* s_frag = reinterpret_cast<float4*>(smem);
+  int16_t* s_coef = reinterpret_cast<int16_t*>(smem + kBasisBytes);
+  uint8_t* s_out = smem + kBasisBytes + 2 * kCoefBytes;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  uint8_t* w_out = s_out + warp * kWarpRows * 64;
+
+  int tile = blockIdx.x;
+  if (tile >= a.n_tiles) return;
+  int loaded = -1;
+  issue_tile(a, tile, s_coef, tid);
+  cp_async_commit();
+  for (int i = 0; tile < a.n_tiles; ++i, tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    if (next < a.n_tiles)
+      issue_tile(a, next, s_coef + ((i + 1) & 1) * kTileRows * kCoefStride,
+                 tid);
+    cp_async_commit();            // an empty group on the last tile
+    cp_async_wait_all_but_one();  // this tile's copy has landed
+    __syncthreads();
+    const int c = comp_of(a, tile);
+    if (c != loaded) {            // every warp is past the previous tile
+      load_basis(a.comp[c].basis, s_frag, tid);
+      loaded = c;
+      __syncthreads();
+    }
+    const Comp& cp = a.comp[c];
+    const int n_out = cp.scale * cp.scale;
+    const int16_t* w_coef = s_coef + (i & 1) * kTileRows * kCoefStride
+                            + warp * kWarpRows * kCoefStride;
+    switch (cp.scale) {
+      case 8: warp_tile<8, 8>(w_coef, s_frag, w_out, n_out, lane); break;
+      case 4: warp_tile<2, 4>(w_coef, s_frag, w_out, n_out, lane); break;
+      case 2: warp_tile<1, 2>(w_coef, s_frag, w_out, n_out, lane); break;
+      default: warp_tile<1, 1>(w_coef, s_frag, w_out, n_out, lane); break;
+    }
+    __syncwarp();
+    const int64_t row0 = static_cast<int64_t>(tile - cp.tile0) * kTileRows
+                         + warp * kWarpRows;
+    const int64_t live = cp.n_blocks - row0;
+    if (live > 0) {
+      uint8_t* dst = cp.out + row0 * n_out;
+      if (live >= kWarpRows) {    // 32 * n_out bytes, a multiple of 32
+        const int chunks = kWarpRows * n_out / 16;
+        for (int q = lane; q < chunks; q += 32)
+          reinterpret_cast<int4*>(dst)[q] =
+              reinterpret_cast<const int4*>(w_out)[q];
+      } else {
+        const int bytes = static_cast<int>(live) * n_out;
+        for (int q = lane; q < bytes; q += 32) dst[q] = w_out[q];
+      }
+    }
+    __syncthreads();              // buffers free for the next prefetch
+  }
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess
+        || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+               != cudaSuccess)
+      sms = 132;
+  }
+  return sms;
 }
 
 }  // namespace
 
-extern "C" int jdt_dequant_idct(const void* coef, int n_blocks, const void* q,
-                                const void* basis, int n_out, void* out,
-                                void* stream) {
-  if (n_out < 1 || n_out > 64) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_blocks <= 0) return 0;
-  const int grid = (n_blocks + kTile - 1) / kTile;
-  dequant_idct_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(coef), n_blocks,
-      static_cast<const float*>(q), static_cast<const float*>(basis), n_out,
-      static_cast<uint8_t*>(out));
+// One launch for `ncomp` components: per component its int16 [n, 64]
+// coefficients, float32 [64, 64] folded basis, uint8 [n, scale^2] output,
+// block count n and scale.
+extern "C" int jdt_dequant_idct(const void* const* coefs,
+                                const void* const* bases, void* const* outs,
+                                const int* n_blocks, const int* scales,
+                                int ncomp, void* stream) {
+  if (ncomp < 1 || ncomp > kMaxComps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = {};
+  a.ncomp = ncomp;
+  int tiles = 0;
+  for (int i = 0; i < ncomp; ++i) {
+    const int s = scales[i];
+    if ((s != 1 && s != 2 && s != 4 && s != 8) || n_blocks[i] < 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if ((reinterpret_cast<uintptr_t>(coefs[i])
+         | reinterpret_cast<uintptr_t>(outs[i])) & 15)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    a.comp[i] = {static_cast<const int16_t*>(coefs[i]),
+                 static_cast<const float*>(bases[i]),
+                 static_cast<uint8_t*>(outs[i]), n_blocks[i], s, tiles};
+    tiles += (n_blocks[i] + kTileRows - 1) / kTileRows;
+  }
+  a.n_tiles = tiles;
+  if (tiles == 0) return 0;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dequant_idct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const int grid = tiles < 2 * sm_count() ? tiles : 2 * sm_count();
+  dequant_idct_kernel<<<grid, kThreads, kSmemBytes,
+                        static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,10 +8,13 @@
 // dequant + IDCT, the block -> raster shuffle, then YCbCr -> RGB in x2^20
 // fixed point. Rows are not cropped; columns stop at width.
 //
-// The IDCT repeats K2's arithmetic exactly (csrc/dequant_idct.cu):
-// float(coef) * q rounded first, then fmaf over c = 0..63 in order from 0,
-// floorf(y + 128.5f), clamp to [0, 255]. So on the card its output equals K2
-// + blocks_to_plane + ops/color.py's ycbcr_to_rgb bit for bit.
+// The IDCT keeps the arithmetic of the first K2 design: float(coef) * q
+// rounded first, then fmaf over c = 0..63 in order from 0, floorf(y +
+// 128.5f), clamp to [0, 255]. K2 (csrc/dequant_idct.cu) has since moved to a
+// split-TF32 tensor-core product with q folded into the basis, which rounds
+// in other places, so K4 is no longer bit-equal to K2 + blocks_to_plane +
+// ops/color.py's ycbcr_to_rgb: it is held within 3 of that path (1 in the
+// IDCT, times up to 1.772 through color), as of its plain version.
 //
 // What bounds it on this card: like K2, fp32 FMA issue (8192 FLOPs per
 // block against 128 bytes of coefficients in and 64 bytes out per

@@ -20,9 +20,14 @@ distinct (DC, AC) pairs, as SOF1 allows) and any symbol count per chunk.
 What the port leaves out, and why: the class partition (argsort),
 `materialize_slots`, the one-hot dense emission, pack16 and the rowmap all
 exist because Mosaic gathers and scatters slowly. On the GPU every chunk
-reads the stream at its own bit offset and stores its coefficients
-directly, so the chunks stay in stream order and no partition is needed:
-budget-0 entries (the terminator and the padding) decode nothing.
+reads the stream at its own bit offset: one thread walks it, keeping the
+decoder state every few symbols, and threads decode the segments between
+those checkpoints in parallel, storing straight into `nat`. So the chunks
+stay in stream order and no partition is needed: budget-0 entries (the
+terminator and the padding) decode nothing. Codes of up to 11 bits resolve
+through lookahead tables (`params.lookahead_tables` for the decode,
+`params.walk_tables`, two symbols at a time, for the walk), longer ones
+through the maxcode chain.
 
 `decode_chunks` dispatches on the device of its inputs: CPU tensors run
 `decode_chunks_plain`, CUDA tensors launch the CUDA kernel
@@ -34,7 +39,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..params import MAX_PATTERN, ScanTables
+from ..params import LUT_SIZE, MAX_PATTERN, ScanTables
 
 MAX_TABS = 8        # table rows: 4 (DC, AC) pairs, the most SOF1 selects
 # A chunk holds at most 31 blocks (the meta word's 5-bit budget) of at most
@@ -64,7 +69,8 @@ def _check_inputs(words, dm, ab, base, tables: ScanTables, s_max: int,
     dev = words.device
     for name, t in (("words", words), ("dm", dm), ("ab", ab), ("base", base),
                     ("maxcode", tables.maxcode), ("delta", tables.delta),
-                    ("values", tables.values), ("pattern", tables.pattern),
+                    ("values", tables.values), ("lut", tables.lut),
+                    ("walk", tables.walk), ("pattern", tables.pattern),
                     ("unzig", tables.unzig)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, words on {dev}")
@@ -80,9 +86,11 @@ def _check_inputs(words, dm, ab, base, tables: ScanTables, s_max: int,
     n_tab = tables.n_tab
     if not 1 <= n_tab <= MAX_TABS or tables.maxcode.shape != (n_tab, 16) \
             or tables.delta.shape != (n_tab, 16) \
-            or tables.values.shape != (n_tab, 64):
+            or tables.values.shape != (n_tab, 64) \
+            or tables.lut.shape != (n_tab, LUT_SIZE) \
+            or tables.walk.shape != (n_tab, LUT_SIZE):
         raise ValueError(f"tables must be [n_tab<={MAX_TABS}, 16] / "
-                         "[n_tab, 16] / [n_tab, 64]")
+                         f"[n_tab, 16] / [n_tab, 64] / [n_tab, {LUT_SIZE}]")
     if not 1 <= tables.pattern.numel() <= MAX_PATTERN:
         raise ValueError(f"pattern length {tables.pattern.numel()} not in "
                          f"1..{MAX_PATTERN}")
@@ -105,21 +113,24 @@ def decode_chunks(words, dm, ab, base, tables: ScanTables, s_max: int,
     wire's meta word); ab (entry bit, a uint32 bit pattern), base (first
     stream block): from `unpack_delta(dm)` or shipped on the anchor wire.
     Stops each chunk after `s_max` symbol steps or when its budget of
-    blocks is done."""
+    blocks is done. The kernel writes every row of `nat` itself (no zero
+    fill first), which needs the chunks' first blocks `base` to be
+    nondecreasing, as both wires make them."""
     _check_inputs(words, dm, ab, base, tables, s_max, n_blocks)
     if words.device.type == "cpu":
         return decode_chunks_plain(words, dm, ab, base, tables, s_max,
                                    n_blocks)
     if words.device.type != "cuda":
         raise ValueError(f"no K1 implementation for device {words.device}")
-    nat = torch.zeros((n_blocks, 64), dtype=torch.int16, device=words.device)
+    nat = torch.empty((n_blocks, 64), dtype=torch.int16, device=words.device)
     lib = _build.load()
     with torch.cuda.device(words.device):
         err = lib.jdt_huffman_decode(
             words.data_ptr(), words.numel(),
             dm.data_ptr(), ab.data_ptr(), base.data_ptr(), dm.numel(),
             tables.maxcode.data_ptr(), tables.delta.data_ptr(),
-            tables.values.data_ptr(), tables.n_tab,
+            tables.values.data_ptr(), tables.lut.data_ptr(),
+            tables.walk.data_ptr(), tables.n_tab,
             tables.pattern.data_ptr(), tables.pattern.numel(),
             tables.unzig.data_ptr(), s_max, nat.data_ptr(), n_blocks,
             torch.cuda.current_stream(words.device).cuda_stream)

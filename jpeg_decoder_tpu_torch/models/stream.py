@@ -13,9 +13,10 @@ never reads pixels back:
 Lossless (SOF3) images come back as [H, W] or [H, W, C], uint8 at
 precision 8 and uint16 above it; layouts do not apply to them.
 
-Host stage (per image, in a thread pool), reused by import from the JAX
-package's numpy/C++ host code. `stage_host_bits` routes a stream as the
-reference's `stage_host_bits` does, branch for branch:
+Host stage (per image, in a thread pool): the port's own copy of the JAX
+package's numpy/C++ host code, `jpeg_decoder_tpu_torch.host`.
+`stage_host_bits` routes a stream as the reference's `stage_host_bits`
+does, branch for branch:
 - baseline scans: the `BitstreamCapture` prescan, then per scan the
   4 B/chunk delta wire (`pack_delta`), or the 12 B/chunk anchor wire for
   scans it declines (more than 4 table rows, field overflow, long
@@ -25,11 +26,12 @@ reference's `stage_host_bits` does, branch for branch:
 - `PrescanFallback` (quirk streams): a host decode, then `transcode`;
 - progressive frames: `transcode` of the host-decoded stores;
 - whatever `transcode` declines: the prefix interchange (`stage_host`).
-The reference's own `stage_host_bits` is NOT called: it ends in
-`_attach_pallas`, which imports JAX to look for a TPU. This routing is the
-reference's host decision, made from the stream; it catches no device or
-kernel error. `interchange="prefix"` stages everything through
-`stage_host`, as the reference does.
+The reference's `stage_host_bits` ends in `_attach_pallas` (the Pallas
+class packing), which the port has no use for, so the copy leaves it out
+and this function routes. The routing is the reference's host decision,
+made from the stream; it catches no device or kernel error.
+`interchange="prefix"` stages everything through `stage_host`, as the
+reference does.
 
 Device stage (per image, on the caller's thread, asynchronous on the
 current CUDA stream):
@@ -54,22 +56,19 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from jpeg_decoder_tpu.decoder import Decoder
-from jpeg_decoder_tpu.entropy.device_scan import AnchoredScan, PrescanFallback
-from jpeg_decoder_tpu.entropy.pallas_decode import WORDS_PAD, pack_delta
-from jpeg_decoder_tpu.entropy.transcode import transcode_decoded
-from jpeg_decoder_tpu.errors import FormatError
-from jpeg_decoder_tpu.models.stream import (_ZIGZAG_OF_NATURAL, PREFIX_K,
-                                            BitstreamCapture, StagedImage,
-                                            StagedLossless, _LosslessCapture,
-                                            _staged_lossless_from_capture,
-                                            stage_host)
-from jpeg_decoder_tpu.ops.pallas_kernels import is_420_ycbcr
-from jpeg_decoder_tpu.ops.pipeline import ImageGeometry, geometry_from_frame
-from jpeg_decoder_tpu.parser import CodingProcess, Predictor
-
 from ..entropy.assemble import GeneralMaps, assemble_nat
 from ..entropy.chunk_decode import decode_chunks, unpack_delta
+from ..host.decoder import Decoder
+from ..host.entropy.prescan import AnchoredScan, PrescanFallback
+from ..host.entropy.transcode import transcode_decoded
+from ..host.entropy.wire import WORDS_PAD, pack_delta
+from ..host.errors import FormatError
+from ..host.ops.pipeline import ImageGeometry, geometry_from_frame
+from ..host.ops.tail import is_420_ycbcr
+from ..host.parser import CodingProcess, Predictor
+from ..host.staging import (_ZIGZAG_OF_NATURAL, PREFIX_K, BitstreamCapture,
+                            StagedImage, StagedLossless, _LosslessCapture,
+                            _staged_lossless_from_capture, stage_host)
 from ..ops.pipeline import reconstruct, reconstruct_planar_pallas
 from ..ops.predictors import reconstruct_plane
 from ..params import DeviceParams
@@ -84,7 +83,7 @@ class StagedScan:
     """One scan on its wire: the 4 B/chunk delta wire (`ab` and `base`
     None: the device rebuilds them from `dm`), or the 12 B/chunk anchor
     wire (`dm` holds `budget << 4 | slot`, `ab` and `base` ride beside)."""
-    scan: AnchoredScan   # the reference's staging: plan, tables, n_blocks
+    scan: AnchoredScan   # the host prescan's staging: plan, tables, n_blocks
     kept: tuple          # ((scan component position, frame component), ...)
     words: np.ndarray    # int32 stream words, zero-padded
     dm: np.ndarray       # int32 per-chunk wire words
@@ -147,7 +146,7 @@ def _wire_scan(scan: AnchoredScan, kept: tuple) -> StagedScan:
 
 
 def _port_bits(st) -> StagedBits:
-    """The reference's StagedBits (from `transcode_decoded`) on the port's
+    """The host copy's StagedBits (from `transcode_decoded`) on the port's
     wires."""
     return StagedBits(st.geometry,
                       tuple(_wire_scan(s, kept) for s, kept in st.scans),
@@ -262,11 +261,12 @@ def _kind(staged) -> str:
 
 
 class DeviceStreamDecoder:
-    """Streaming decode to tensors on `device` ("cuda", "cuda:N" or "cpu").
-    On the CPU the kernels' plain PyTorch versions run; on a CUDA device
-    the hand-written kernels do."""
+    """Streaming decode to tensors on `device` ("cuda", the default,
+    "cuda:N", or "cpu" when the caller asks for it). On the CPU the
+    kernels' plain PyTorch versions run; on a CUDA device the hand-written
+    kernels do. Asking for CUDA where there is no card raises."""
 
-    def __init__(self, *, device, host_threads: int = 4,
+    def __init__(self, *, device="cuda", host_threads: int = 4,
                  precision: str = "fast", layout: str = "interleaved",
                  interchange: str = "bits"):
         dev = torch.device(device)

@@ -10,10 +10,9 @@ from __future__ import annotations
 
 import torch
 
-from jpeg_decoder_tpu.errors import FormatError
-from jpeg_decoder_tpu.ops.color import (_C0_344, _C0_714, _C1_402, _C1_772,
-                                        _FIXED, _HALF, ColorTransform,
-                                        validate_transform)
+from ..host.errors import FormatError
+from ..host.ops.color import (_C0_344, _C0_714, _C1_402, _C1_772, _FIXED,
+                              _HALF, ColorTransform, validate_transform)
 
 
 def ycbcr_to_rgb(y, cb, cr):

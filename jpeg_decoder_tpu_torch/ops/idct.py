@@ -4,7 +4,8 @@ block -> plane layout.
 Mirrors `jpeg_decoder_tpu/ops/idct.py`:
 - `dequantize_and_idct_blocks` is the exact tier, `_idct8x8` / `_idct4x4` /
   `_idct2x2` / `_idct1x1` as torch int32 ops over all blocks at once, with
-  the reference module's fixed-point constants imported, not retyped.
+  the fixed-point constants imported from the host copy
+  (`host/ops/idct.py`), not retyped.
   Bit-equal to the numpy and jnp versions: int32 `*`, `+` and `-` wrap
   modulo 2^32 on the CPU and on CUDA as they do there, `>>` is arithmetic,
   and `<< n` is written `* 2**n`, the same value mod 2^32.
@@ -22,10 +23,9 @@ from __future__ import annotations
 
 import torch
 
-from jpeg_decoder_tpu.ops.idct import (_C0_298, _C0_541, _C0_765, _C1_175,
-                                       _C1_501, _C2_053, _C3_072, _CM0_390,
-                                       _CM0_899, _CM1_847, _CM1_961,
-                                       _CM2_562, _X_SCALE_ROW)
+from ..host.ops.idct import (_C0_298, _C0_541, _C0_765, _C1_175, _C1_501,
+                             _C2_053, _C3_072, _CM0_390, _CM0_899, _CM1_847,
+                             _CM1_961, _CM2_562, _X_SCALE_ROW)
 
 from . import kernels
 

@@ -3,17 +3,21 @@
 Every wrapper dispatches on the device of its inputs: CPU tensors run the
 plain version, CUDA tensors launch the CUDA kernel, anything else raises.
 
-K2 `dequant_idct`: dequantize + IDCT of coefficient blocks, counterpart of
+K2 `dequant_idct_multi` (and its one-component form `dequant_idct`):
+dequantize + IDCT of coefficient blocks, counterpart of
 `jpeg_decoder_tpu/ops/pallas_kernels.py::dequantize_and_idct_blocks_pallas`
 (the TPU kernel `_kernel_fn`):
     pixels = u8(clip(floor((coef * q) @ basis + 128.5), 0, 255))
 in fp32, on int16 [N, 64] natural-order blocks. Scales 8/4/2/1 share one
 kernel through the zero-padded [64, 64] basis (`params.idct_basis`); only
-the first scale * scale pixel columns are computed.
+the first scale * scale pixel columns are computed. Every component of an
+image goes in one launch.
 
-Kernel `csrc/dequant_idct.cu`. The kernel and the plain version sum the 64
-products in different orders, so they may differ by 1 where a value lands
-next to a .5 boundary.
+Kernel `csrc/dequant_idct.cu`: tensor cores on a split-precision TF32
+product of the coefficients and the basis with q folded in
+(`params.folded_basis`). It and the plain version round in different
+places, so they may differ by 1 where a value lands next to a .5 boundary.
+`split_tf32_product` is the kernel's arithmetic in torch, for the CPU tests.
 
 K3 `fused_tail`: chroma upsampling + color conversion into the planar
 layout, counterpart of `jpeg_decoder_tpu/ops/pallas_kernels.py::
@@ -21,12 +25,12 @@ fused_tail_pallas` (the TPU kernel `_fused_tail_kernel`). Kernel
 `csrc/fused_tail.cu`; integer math, bit-equal to its plain version.
 
 K4 `fused_recon`: 4:4:4 YCbCr coefficient stores -> planar RGB in one
-kernel (K2's IDCT, block -> raster, color), counterpart of the TPU probe
+kernel (an fp32 IDCT, block -> raster, color), counterpart of the TPU probe
 `tools/experiments/fused_recon_probe.py::make_kernel`. Kernel
-`csrc/fused_recon.cu`; it repeats K2's arithmetic, so on the card it is
-bit-equal to K2 + `blocks_to_plane` + color, and within 3 of its plain
-version (cuBLAS sums in another order: 1 in the IDCT, times up to 1.772
-through color).
+`csrc/fused_recon.cu`; it keeps the first K2's fp32 FMA order, so on the
+card it is within 3 of K2 + `blocks_to_plane` + color and of its plain
+version (the IDCTs round in different places: 1 in the IDCT, times up to
+1.772 through color).
 """
 
 from __future__ import annotations
@@ -41,13 +45,16 @@ from .color import ycbcr_to_rgb
 from .upsample import _v2_near_far, h2v2_combine
 
 
-def _check_inputs(coef, q, basis, scale: int) -> None:
-    dev = coef.device
+K2_MAX_COMPONENTS = 4      # one launch takes a CMYK image
+
+
+def _check_inputs(coef, q, basis, scale: int, dev=None) -> None:
+    dev = coef.device if dev is None else dev
     for name, t, dtype in (("coef", coef, torch.int16),
                            ("q", q, torch.float32),
                            ("basis", basis, torch.float32)):
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, coef on {dev}")
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
@@ -62,26 +69,57 @@ def _check_inputs(coef, q, basis, scale: int) -> None:
         raise ValueError("too many blocks for one launch")
 
 
-def dequant_idct(coef, q, basis, scale: int = 8) -> torch.Tensor:
-    """int16 [N, 64] coefficients, float32 [64] dequant factors, float32
-    [64, 64] basis -> uint8 [N, scale * scale] pixels."""
-    _check_inputs(coef, q, basis, scale)
-    if coef.device.type == "cpu":
-        return dequant_idct_plain(coef, q, basis, scale)
-    if coef.device.type != "cuda":
-        raise ValueError(f"no K2 implementation for device {coef.device}")
-    n_out = scale * scale
-    out = torch.empty((coef.shape[0], n_out), dtype=torch.uint8,
-                      device=coef.device)
+def dequant_idct_multi(coefs, qs, bases, scales, folded=None) -> list:
+    """K2 over several components in one launch: per component int16
+    [N_i, 64] coefficients, float32 [64] dequant factors, float32 [64, 64]
+    basis and its scale -> uint8 [N_i, scale_i ** 2] pixels. `folded[i]`,
+    the basis with q folded in (`params.folded_basis`), is computed on the
+    device when not given."""
+    n = len(coefs)
+    if not 1 <= n <= K2_MAX_COMPONENTS \
+            or not len(qs) == len(bases) == len(scales) == n:
+        raise ValueError(f"1..{K2_MAX_COMPONENTS} components, with one q, "
+                         "basis and scale each")
+    dev = coefs[0].device
+    for coef, q, basis, scale in zip(coefs, qs, bases, scales):
+        _check_inputs(coef, q, basis, scale, dev)
+    if dev.type == "cpu":
+        return [dequant_idct_plain(*args)
+                for args in zip(coefs, qs, bases, scales)]
+    if dev.type != "cuda":
+        raise ValueError(f"no K2 implementation for device {dev}")
+    if folded is None:
+        folded = [q[:, None] * basis for q, basis in zip(qs, bases)]
+    for f in folded:
+        if f.device != dev or f.dtype != torch.float32 \
+                or f.shape != (64, 64) or not f.is_contiguous():
+            raise ValueError("folded bases must be contiguous float32 "
+                             f"[64, 64] on {dev}")
+    if any(c.data_ptr() % 16 for c in coefs):
+        raise ValueError("K2 reads coefficients in 16-byte chunks: each "
+                         "store must start 16-byte aligned")
+    outs = [torch.empty((c.shape[0], s * s), dtype=torch.uint8, device=dev)
+            for c, s in zip(coefs, scales)]
+    ptrs = ctypes.c_void_p * n
+    ints = ctypes.c_int * n
     lib = _build.load()
-    with torch.cuda.device(coef.device):
+    with torch.cuda.device(dev):
         err = lib.jdt_dequant_idct(
-            coef.data_ptr(), coef.shape[0], q.data_ptr(), basis.data_ptr(),
-            n_out, out.data_ptr(),
-            torch.cuda.current_stream(coef.device).cuda_stream)
+            ptrs(*[c.data_ptr() for c in coefs]),
+            ptrs(*[f.data_ptr() for f in folded]),
+            ptrs(*[o.data_ptr() for o in outs]),
+            ints(*[c.shape[0] for c in coefs]), ints(*scales), n,
+            torch.cuda.current_stream(dev).cuda_stream)
         _build.LAUNCHES["dequant_idct"] += 1
     _build.check(lib, err, "dequant_idct")
-    return out
+    return outs
+
+
+def dequant_idct(coef, q, basis, scale: int = 8) -> torch.Tensor:
+    """int16 [N, 64] coefficients, float32 [64] dequant factors, float32
+    [64, 64] basis -> uint8 [N, scale * scale] pixels: K2 on one
+    component."""
+    return dequant_idct_multi([coef], [q], [basis], [scale])[0]
 
 
 def dequant_idct_plain(coef, q, basis, scale: int = 8) -> torch.Tensor:
@@ -92,6 +130,34 @@ def dequant_idct_plain(coef, q, basis, scale: int = 8) -> torch.Tensor:
         raise RuntimeError("the fp32 reference needs TF32 matmuls off")
     n_out = scale * scale
     y = (coef.to(torch.float32) * q) @ basis[:, :n_out]
+    return torch.floor(y + 128.5).clamp_(0, 255).to(torch.uint8)
+
+
+def _tf32_hi(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> its TF32 part: the low 13 mantissa bits cleared."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32, ties away from zero."""
+    return ((x.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def split_tf32_product(coef, folded, scale: int = 8) -> torch.Tensor:
+    """K2's arithmetic in torch: the coefficients (exact as hi + lo, the
+    low 13 mantissa bits cleared for hi) times the folded basis split into
+    TF32 hi and lo parts (each rounded to nearest), as the three products
+    hi*hi + hi*lo + lo*hi summed in fp32, then K2's epilogue. Its sums run
+    in another order than the tensor cores', so it models the scheme's
+    error, not the kernel's bits."""
+    n_out = scale * scale
+    x = coef.to(torch.float32)
+    x_hi = _tf32_hi(x)
+    x_lo = x - x_hi
+    b = folded[:, :n_out].contiguous()
+    b_hi = _tf32_rna(b)
+    b_lo = _tf32_rna(b - b_hi)
+    y = x_hi @ b_hi + x_hi @ b_lo + x_lo @ b_hi
     return torch.floor(y + 128.5).clamp_(0, 255).to(torch.uint8)
 
 
@@ -261,8 +327,8 @@ def fused_recon_plain(y, cb, cr, qts, basis, width: int = None,
                       k2=dequant_idct_plain) -> torch.Tensor:
     """Plain PyTorch version of K4, the probe's reference "X": per component
     `k2` (dequant + IDCT), `blocks_to_plane`, then `ycbcr_to_rgb` and a
-    planar stack. `k2=dequant_idct` gives the unfused path that the kernel
-    matches bit for bit on the card."""
+    planar stack. `k2=dequant_idct` gives the unfused path of the decoder,
+    which the kernel matches within 3 on the card."""
     bh, bw, _ = y.shape
     width = bw * 8 if width is None else width
     planes = [idct.blocks_to_plane(k2(s.reshape(-1, 64), q, basis)

@@ -5,12 +5,13 @@ per component dequant + IDCT and block -> plane, then chroma upsampling
 and color conversion, interleaved out) and of
 `jpeg_decoder_tpu/ops/pallas_kernels.py::reconstruct_planar_pallas`
 (`reconstruct_planar_pallas`: the planes, then kernel K3, planar out).
-Geometry comes from the reference's `ImageGeometry` /
-`geometry_from_frame`, and the planar tail's coverage rule from its
-`pallas_tail_mode`, all reused by import.
+Geometry comes from `ImageGeometry` / `geometry_from_frame`, and the
+planar tail's coverage rule from `pallas_tail_mode`, all in the port's
+host copy (`host/ops/pipeline.py`, `host/ops/tail.py`).
 
 The IDCT tier follows `geometry.precision` as `_reconstruct` does: "fast"
-runs kernel K2, anything else the exact int32 IDCT. The planar tail runs
+runs kernel K2 (one launch for every component), anything else the exact
+int32 IDCT. The planar tail runs
 K2 at either precision, as the reference's `reconstruct_planar_pallas`
 runs its fp32 Pallas IDCT whatever the precision.
 """
@@ -19,33 +20,41 @@ from __future__ import annotations
 
 import torch
 
-from jpeg_decoder_tpu.ops.pallas_kernels import (_TAIL_TRANSFORMS,
-                                                 pallas_tail_mode)
+from ..host.ops.tail import _TAIL_TRANSFORMS, pallas_tail_mode
 
 from ..params import DeviceParams
 from .color import color_convert_image
-from .idct import (blocks_to_plane, dequantize_and_idct_blocks,
-                   dequantize_and_idct_blocks_fast)
-from .kernels import fused_tail
+from .idct import blocks_to_plane, dequantize_and_idct_blocks
+from .kernels import dequant_idct_multi, fused_tail
 from .upsample import upsample_component
+
+
+def fast_pixels(geometry, stores, qts, params: DeviceParams) -> list:
+    """Kernel K2 over every component of one image, in one launch: uint8
+    [N, s, s] block pixels per component."""
+    comps = geometry.components
+    scales = [c.dct_scale for c in comps]
+    pixels = dequant_idct_multi(
+        [s.reshape(-1, 64) for s in stores],
+        [params.qt(qt) for qt in qts],
+        [params.basis(s) for s in scales], scales,
+        folded=[params.folded(qt, s) for qt, s in zip(qts, scales)])
+    return [px.reshape(-1, s, s) for px, s in zip(pixels, scales)]
 
 
 def _planes(geometry, stores, qts, params: DeviceParams,
             fp32: bool = False) -> list:
     """IDCT + block -> plane per component: block-padded uint8 planes. K2
     when `fp32` or at precision "fast", else the exact int32 IDCT."""
-    planes = []
-    for comp, store, qt in zip(geometry.components, stores, qts):
-        if fp32 or geometry.precision == "fast":
-            pixels = dequantize_and_idct_blocks_fast(
-                store, params.qt(qt), params.basis(comp.dct_scale),
-                scale=comp.dct_scale)
-        else:
-            pixels = dequantize_and_idct_blocks(store, params.qt_exact(qt),
-                                                comp.dct_scale)
-        planes.append(blocks_to_plane(pixels, comp.blocks_wide,
-                                      comp.blocks_high))
-    return planes
+    comps = geometry.components
+    if fp32 or geometry.precision == "fast":
+        pixels = fast_pixels(geometry, stores, qts, params)
+    else:
+        pixels = [dequantize_and_idct_blocks(store, params.qt_exact(qt),
+                                             comp.dct_scale)
+                  for comp, store, qt in zip(comps, stores, qts)]
+    return [blocks_to_plane(px, comp.blocks_wide, comp.blocks_high)
+            for comp, px in zip(comps, pixels)]
 
 
 def reconstruct(geometry, stores, qts, params: DeviceParams) -> torch.Tensor:

@@ -5,7 +5,8 @@ Port of `jpeg_decoder_tpu/ops/predictors.py`:
 - `reconstruct_lossless_device`: the closed forms (Ra as prefix sums and
   dispatched before the restart check, the `restart_all` quirk, no
   prediction, Rb and Ra+Rb-Rc through cumsums), for the configurations
-  `device_supported` names (reused by import, with `_default_prediction`).
+  `device_supported` names (imported from the host copy, with
+  `_default_prediction`).
   The Rc row chain is a `lax.scan` over rows in the reference; here it
   runs through kernel L1, whose wavefront computes the same recurrence.
 - `reconstruct_lossless_wavefront`: every predictor at any point
@@ -26,9 +27,8 @@ from __future__ import annotations
 
 import torch
 
-from jpeg_decoder_tpu.ops.predictors import (_default_prediction,
-                                             device_supported)
-from jpeg_decoder_tpu.parser import Predictor
+from ..host.ops.predictors import _default_prediction, device_supported
+from ..host.parser import Predictor
 
 from .. import _build
 

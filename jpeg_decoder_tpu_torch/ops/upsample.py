@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from jpeg_decoder_tpu.ops.upsample import GENERIC, H1V1, H1V2, H2V1, H2V2
+from ..host.ops.upsample import GENERIC, H1V1, H1V2, H2V1, H2V2
 
 
 def _h2_horizontal(rows: torch.Tensor, input_width: int) -> torch.Tensor:

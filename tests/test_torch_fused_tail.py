@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from jpeg_decoder_tpu import Decoder
+from jpeg_decoder_tpu.ops.pipeline import geometry_from_frame
 from jpeg_decoder_tpu.ops.pallas_kernels import fused_tail_pallas
 from jpeg_decoder_tpu.ops.pallas_kernels import \
     reconstruct_planar_pallas as jax_reconstruct_planar_pallas
@@ -53,15 +54,19 @@ def _stores(data: bytes, scale_to=None):
         d.scale(*scale_to)
     d._decode_entropy_only()
     n = len(d.frame.components)
+    transform = None if n == 1 else d._determine_color_transform()
     return ([d._pending_render[i][0].reshape(-1, 64) for i in range(n)],
-            [d._pending_render[i][1] for i in range(n)])
+            [d._pending_render[i][1] for i in range(n)],
+            geometry_from_frame(d.frame, transform, precision="fast"))
 
 
 def _planar_vs_jax(data: bytes, scale_to=None):
+    """The port's geometry (its own staging) and the reference's (the JAX
+    package's host decode), each to its own planar reconstruction."""
     geometry = stage_host_bits(data, scale_to).geometry
-    stores, qts = _stores(data, scale_to)
+    stores, qts, ref_geometry = _stores(data, scale_to)
     ref = np.asarray(jax_reconstruct_planar_pallas(
-        geometry, [jnp.asarray(s) for s in stores],
+        ref_geometry, [jnp.asarray(s) for s in stores],
         [jnp.asarray(q) for q in qts], interpret=True))
     got = reconstruct_planar_pallas(
         geometry, [torch.from_numpy(s) for s in stores], qts,

@@ -25,6 +25,7 @@ from jpeg_decoder_tpu.models.stream import \
 from jpeg_decoder_tpu.ops import predictors as ref
 from jpeg_decoder_tpu.parser import Predictor
 from jpeg_decoder_tpu_torch import DeviceStreamDecoder
+from jpeg_decoder_tpu_torch.host.errors import FormatError as PortFormatError
 from jpeg_decoder_tpu_torch.ops import predictors as port
 from tools.make_torch_fixtures import sof3_jpeg, sof3_samples
 
@@ -136,6 +137,6 @@ def test_ra_with_point_transform_raises_like_jax():
         JaxStreamDecoder(host_threads=1,
                          interchange="bits").decode_stream([data])
     with DeviceStreamDecoder(device="cpu", host_threads=1) as dec:
-        with pytest.raises(FormatError) as pi:
+        with pytest.raises(PortFormatError) as pi:
             dec.decode_stream([data])
     assert str(pi.value) == str(ji.value)

@@ -1,17 +1,25 @@
-"""The PyTorch port must run without JAX: a fresh interpreter imports
-`jpeg_decoder_tpu_torch`, stages and decodes on the CPU in the interleaved
-and the planar-pallas layouts, and through every other path of the
-one-image decoder (exact precision, progressive and quirk streams through
-transcode, the three-table-pair anchor wire, the prefix interchange and
-lossless), and must end with no `jax` (and no `triton`) module loaded and
-no CUDA library built or loaded. This guards against staging through the
-JAX package's `stage_host_bits`, whose `_attach_pallas` imports JAX, and
-against the function-level `import jax` all over its models/stream.py."""
+"""The PyTorch port must run without JAX and without the JAX package:
+- a fresh interpreter imports `jpeg_decoder_tpu_torch`, stages and decodes
+  on the CPU in the interleaved and the planar-pallas layouts, and through
+  every other path of the one-image decoder (exact precision, progressive
+  and quirk streams through transcode, the three-table-pair anchor wire,
+  the prefix interchange and lossless), and must end with no `jax`,
+  `jaxlib`, `triton` or `jpeg_decoder_tpu` module loaded and no CUDA
+  library built or loaded: the port stages through its own copy of the
+  host code, `jpeg_decoder_tpu_torch.host`;
+- no source of the port, nor `chip_smoke.py` or the tools it imports,
+  imports `jax` or `jpeg_decoder_tpu` (read with `ast`, so a function-level
+  import counts too);
+- `DeviceStreamDecoder()` targets the card unless the caller asks for the
+  CPU."""
 
+import ast
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -54,7 +62,8 @@ with jt.DeviceStreamDecoder(device="cpu", host_threads=1) as dec:
 assert [(tuple(o.shape), str(o.dtype)) for o in out] == [
     ((9, 11), "torch.uint16"), ((9, 11, 3), "torch.uint8")], out
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "triton"))
+             if m.split(".")[0] in ("jax", "jaxlib", "triton",
+                                    "jpeg_decoder_tpu"))
 assert not bad, bad
 assert _build._lib is None, "a CPU decode loaded the CUDA library"
 assert sum(jt.LAUNCHES.values()) == 0
@@ -68,3 +77,48 @@ def test_port_decodes_without_importing_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().endswith("ok")
+
+
+# The port and what `chip_smoke.py` runs on the card.
+PORT_SOURCES = (
+    sorted((REPO / "jpeg_decoder_tpu_torch").rglob("*.py"))
+    + [REPO / "chip_smoke.py", REPO / "tools" / "torch_port_profile.py",
+       REPO / "tools" / "experiments" / "fused_recon_probe_torch.py",
+       REPO / "tools" / "experiments" / "k1_step_probe.py"])
+
+
+def _imported_modules(path: Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_SOURCES])
+def test_port_sources_import_neither_jax_nor_the_jax_package(path):
+    bad = sorted(m for m in _imported_modules(path)
+                 if m.split(".")[0] in ("jax", "jaxlib", "jpeg_decoder_tpu"))
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_device_stream_decoder_targets_cuda_by_default():
+    import inspect
+
+    import torch
+
+    from jpeg_decoder_tpu_torch import DeviceStreamDecoder
+
+    default = inspect.signature(DeviceStreamDecoder).parameters["device"]
+    assert default.default == "cuda"
+    if torch.cuda.is_available():
+        with DeviceStreamDecoder(host_threads=1) as dec:
+            assert dec.device.type == "cuda"
+    else:   # asking for the card where there is none raises
+        with pytest.raises(RuntimeError, match="cuda"):
+            DeviceStreamDecoder()
+    with DeviceStreamDecoder(device="cpu", host_threads=1) as dec:
+        assert dec.device.type == "cpu"

@@ -148,7 +148,7 @@ def test_streams_outside_the_slice_raise(kind):
     lossless, within 3 at fast precision otherwise. The malformed
     restart-underrun fixture raises the host's FormatError on both."""
     from torch_inputs import quirk_jpeg
-    from jpeg_decoder_tpu.errors import FormatError
+    from jpeg_decoder_tpu_torch.host.errors import FormatError
 
     data = {
         "progressive": lambda: synth_jpeg(64, 48, seed=32, progressive=True),

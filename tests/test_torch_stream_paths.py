@@ -28,6 +28,7 @@ from jpeg_decoder_tpu.errors import FormatError
 from jpeg_decoder_tpu.models.stream import \
     DeviceStreamDecoder as JaxStreamDecoder
 from jpeg_decoder_tpu_torch import DeviceStreamDecoder, stage_host_bits
+from jpeg_decoder_tpu_torch.host.errors import FormatError as PortFormatError
 from jpeg_decoder_tpu_torch.entropy.assemble import assemble_nat
 from jpeg_decoder_tpu_torch.entropy.chunk_decode import (decode_chunks,
                                                          unpack_delta)
@@ -151,7 +152,7 @@ def test_restart_underrun_raises_as_the_host_does():
         Decoder(data).decode_array()
     with pytest.raises(FormatError) as jax_err:
         _jax(data, interchange="bits")
-    with pytest.raises(FormatError) as port_err:
+    with pytest.raises(PortFormatError) as port_err:
         _decode(data)
     assert str(port_err.value) == str(jax_err.value) == str(host.value)
 

@@ -1,6 +1,9 @@
 """Tail modules of the PyTorch port (jpeg_decoder_tpu_torch/ops/idct.py
 blocks_to_plane, ops/upsample.py, ops/color.py) against the JAX package's
-numpy implementations on seeded random planes.
+numpy implementations on seeded random planes. The port takes its own
+`ColorTransform` and raises its own errors (its host copy,
+`jpeg_decoder_tpu_torch/host/`); the tests match them to the reference's by
+name and message.
 
 Tolerance: bit-equal — both sides are the same integer arithmetic.
 """
@@ -14,6 +17,9 @@ from jpeg_decoder_tpu.ops.color import ColorTransform
 from jpeg_decoder_tpu.ops.color import color_convert_image as ref_color
 from jpeg_decoder_tpu.ops.idct import blocks_to_plane as ref_b2p
 from jpeg_decoder_tpu.ops.upsample import upsample_component as ref_up
+from jpeg_decoder_tpu_torch.host.errors import JpegError as PortJpegError
+from jpeg_decoder_tpu_torch.host.ops.color import \
+    ColorTransform as PortColorTransform
 from jpeg_decoder_tpu_torch.ops.color import color_convert_image
 from jpeg_decoder_tpu_torch.ops.idct import blocks_to_plane
 from jpeg_decoder_tpu_torch.ops.upsample import upsample_component
@@ -71,7 +77,8 @@ def test_color_convert_bit_equal(transform, n):
     # Include the extremes of every channel.
     for c in chans:
         c[0, :4] = (0, 255, 0, 255)
-    got = color_convert_image([torch.from_numpy(c) for c in chans], transform)
+    got = color_convert_image([torch.from_numpy(c) for c in chans],
+                              PortColorTransform[transform.name])
     np.testing.assert_array_equal(got.numpy(), ref_color(chans, transform))
 
 
@@ -82,6 +89,9 @@ def test_color_convert_rejects_like_reference(transform, n):
     chans = [np.zeros((2, 2), np.uint8)] * n
     with pytest.raises(JpegError) as ref_err:
         ref_color(chans, transform)
-    with pytest.raises(type(ref_err.value)):
-        color_convert_image([torch.from_numpy(c) for c in chans], transform)
+    with pytest.raises(PortJpegError) as port_err:
+        color_convert_image([torch.from_numpy(c) for c in chans],
+                            PortColorTransform[transform.name])
     assert issubclass(type(ref_err.value), (FormatError, JpegError))
+    assert type(port_err.value).__name__ == type(ref_err.value).__name__
+    assert str(port_err.value) == str(ref_err.value)

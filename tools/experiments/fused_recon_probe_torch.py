@@ -24,9 +24,11 @@ For each it prints one JSON line with the CUDA-event ms of
 - X: the unfused path, K2 (`dequant_idct`) per component,
   `blocks_to_plane` and `ycbcr_to_rgb`;
 - plain: K4's plain version (cuBLAS fp32 matmul, then the same tail);
-and "K4 vs X max |diff|" (0 expected: K4 repeats K2's arithmetic) and
-K4 vs plain (3 at most: cuBLAS sums in another order, 1 in the IDCT, times
-up to 1.772 through color). It exits nonzero if either bound is missed.
+and "K4 vs X max |diff|" and K4 vs plain, each 3 at most: the IDCTs round
+in different places (K4 keeps the first K2's fp32 FMA order, K2 now runs
+a split-TF32 tensor-core product, the plain version cuBLAS), 1 in the IDCT,
+times up to 1.772 through color. It exits nonzero if either bound is
+missed.
 
 The TPU probe's stages P0 (copy-through) and P1 (IDCT without the
 shuffle) measured whether Mosaic could afford the block -> raster shuffle
@@ -67,8 +69,8 @@ def cuda_ms(fn, iters: int) -> float:
 def image_stores(data: bytes):
     """Host-oracle stores [bh, bw, 64] x 3, uint16 qts and the width of a
     4:4:4 YCbCr JPEG; raises ValueError for anything else."""
-    from jpeg_decoder_tpu import Decoder
-    from jpeg_decoder_tpu.ops.color import ColorTransform
+    from jpeg_decoder_tpu_torch.host.decoder import Decoder
+    from jpeg_decoder_tpu_torch.host.ops.color import ColorTransform
 
     d = Decoder(data, backend="numpy")
     d._decode_entropy_only()
@@ -91,14 +93,9 @@ def run_case(name: str, stores, qts, width: int, iters: int) -> dict:
     from jpeg_decoder_tpu_torch.ops.kernels import (dequant_idct,
                                                     fused_recon,
                                                     fused_recon_plain)
-    from jpeg_decoder_tpu_torch.params import idct_basis, quant_table
 
-    dev = torch.device("cuda")
-    y, cb, cr = (torch.from_numpy(np.ascontiguousarray(s, np.int16)).to(dev)
-                 for s in stores)
-    q = torch.stack([quant_table(qt, dev) for qt in qts])
-    basis = idct_basis(8, dev)
-    args = (y, cb, cr, q, basis, width)
+    args = case_args(stores, qts, width)
+    y, cb, cr = args[:3]
 
     k4 = fused_recon(*args).to(torch.int32)
     x = fused_recon_plain(*args, k2=dequant_idct).to(torch.int32)
@@ -118,16 +115,33 @@ def run_case(name: str, stores, qts, width: int, iters: int) -> dict:
         "device": torch.cuda.get_device_name(0)}
 
 
+def seeded_stores(seed: int = 0) -> list:
+    """Seeded int16 stores at the 3.44 Mpix 4:4:4 shape, [bh, bw, 64] x 3."""
+    rng = np.random.default_rng(seed)
+    bh, bw = LARGE_BLOCKS
+    return [rng.integers(-256, 256, (bh, bw, 64)).astype(np.int16)
+            for _ in range(3)]
+
+
+def case_args(stores, qts, width: int) -> tuple:
+    """`fused_recon`'s arguments on the card for one set of stores."""
+    from jpeg_decoder_tpu_torch.params import idct_basis, quant_table
+
+    dev = torch.device("cuda")
+    y, cb, cr = (torch.from_numpy(np.ascontiguousarray(s, np.int16)).to(dev)
+                 for s in stores)
+    q = torch.stack([quant_table(qt, dev) for qt in qts])
+    return (y, cb, cr, q, idct_basis(8, dev), width)
+
+
 def run(image: Path = DEFAULT_IMAGE, iters: int = 20, seed: int = 0) -> list:
     """Both cases: the image's stores, then seeded stores at 256 x 210
     blocks with the image's tables."""
     stores, qts, width = image_stores(image.read_bytes())
-    rng = np.random.default_rng(seed)
-    bh, bw = LARGE_BLOCKS
-    rand = [rng.integers(-256, 256, (bh, bw, 64)).astype(np.int16)
-            for _ in range(3)]
+    bw = LARGE_BLOCKS[1]
     return [run_case(image.name, stores, qts, width, iters),
-            run_case(f"seeded_{bw}x{bh}_blocks", rand, qts, bw * 8, iters)]
+            run_case(f"seeded_{bw}x{LARGE_BLOCKS[0]}_blocks",
+                     seeded_stores(seed), qts, bw * 8, iters)]
 
 
 def main(argv=None) -> int:
@@ -144,7 +158,7 @@ def main(argv=None) -> int:
         print(json.dumps(res))
         print(f"{res['case']}: K4 vs X max |diff| "
               f"{res['k4_vs_x_max_abs_diff']}")
-        bad += res["k4_vs_x_max_abs_diff"] != 0 \
+        bad += res["k4_vs_x_max_abs_diff"] > PLAIN_TOL \
             or res["k4_vs_plain_max_abs_diff"] > PLAIN_TOL
     return 1 if bad else 0
 

@@ -54,6 +54,42 @@ def _busy_us(intervals) -> float:
     return total
 
 
+def kernel_device_us(fn, symbol: str, iters: int = 20) -> dict:
+    """Device time of the kernels whose name contains `symbol`, per call of
+    `fn`, from torch.profiler over `iters` calls after three warm-up calls
+    (warm L2): {"kernel_us", "launches", "all_device_us", "all_launches"},
+    the last two over every device operation `fn` enqueues."""
+    from torch.profiler import ProfilerActivity
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _attempt in range(3):   # a trace now and then comes back empty
+        with torch.profiler.profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        mine = [e for e in on_card if symbol in e.name]
+        if mine:
+            break
+    else:
+        raise RuntimeError(f"the profiler saw no {symbol!r} kernel; names: "
+                           f"{sorted({e.name for e in on_card})[:8]}")
+    # The trace may drop an event at the edge of the window: average over
+    # the events seen, times the launches one call makes.
+    per_call = max(1, round(len(mine) / iters))
+    return {"kernel_us": sum(e.time_range.elapsed_us() for e in mine)
+            / len(mine) * per_call,
+            "launches": per_call,
+            "all_device_us": sum(e.time_range.elapsed_us()
+                                 for e in on_card) / len(on_card)
+            * round(len(on_card) / iters),
+            "all_launches": round(len(on_card) / iters)}
+
+
 def profile(dec, path: Path, iters: int):
     """Profile `iters` device-resident decodes of the JPEG at `path`,
     staged by the decoder's interchange and precision."""
