@@ -23,7 +23,10 @@ from csrc/ and holding each against its plain PyTorch version on the card:
    the port), and host staging ms/image;
 7. K3 (fused upsample + color) vs its plain version on the card, on every
    fixture geometry it takes and on seeded planes (h1v2, YCCK, CMYK 4:4:4,
-   CMYK h2v2 on 3 components, width-1 chroma, odd sizes): bit-equal;
+   CMYK h2v2 on 3 components, width-1 chroma, odd sizes), and on seeded
+   planes of every odd width 1-39 and height 1-5 in five layouts, each
+   plane's pitch 8 mod 16 or its base 8 bytes off a 16-byte boundary:
+   bit-equal;
 8. the planar slice: decode_stream(layout="planar-pallas") and "planar"
    over every fixture, each bit-equal to phase 5's interleaved image
    permuted (gray as is), K3 launched in the planar-pallas run;
@@ -49,15 +52,21 @@ from csrc/ and holding each against its plain PyTorch version on the card:
 14. the prefix interchange: every fixture, both precisions, interleaved
    and planar-pallas, bit-equal to the bits path;
 15. lossless: kernel L1 bit-equal to its plain version and to the host
-   oracle for predictors 1-7 x pt {0, 2} on seeded planes; a 2048 x 2048
-   16-bit SOF3 stream (the DICOM "JPEG Lossless, First-Order Prediction"
-   class) with predictors 1 and 6, each bit-equal to the host decode; L1
-   beside its plain version at that size, and ms/image of both streams;
+   oracle for predictors 1-7 x pt {0, 2} on seeded planes of shapes at the
+   band edges (L1_SHAPES), and to its plain version on [3, 2048, 2048] at
+   predictor 6; a 2048 x 2048 16-bit SOF3 stream (the DICOM "JPEG
+   Lossless, First-Order Prediction" class) with predictors 1 and 6, each
+   bit-equal to the host decode, and a 3-component 16-bit predictor-6
+   stream decoded with exactly one L1 launch; L1 beside its plain version
+   at that size, ms/image of the streams, and L1's chain bound: H + W - 1
+   steps at the cycles per step and SM clock that
+   tools/experiments/l1_step_probe.py measures;
 16. the kernel table: each kernel's device time by name (torch.profiler,
    warm L2) at the main path's shapes beside its bound (the larger of its
    bytes over 3.35 TB/s and its operations over the peak rate of their
-   type), and its launches per image on the main path (one large_420
-   decode: bits, fast, interleaved).
+   type; for L1 also its chain bound from phase 15), K2's yardstick
+   `torch.addmm` by device time, and its launches per image on the main
+   path (one large_420 decode: bits, fast, interleaved).
 
 Any failure raises and the script exits nonzero. It needs a CUDA device and
 the repository around it; it imports neither JAX, nor PIL, nor the JAX
@@ -91,7 +100,12 @@ RATE_FIXTURES = ("large_420.jpg", "tower_420.jpg")
 PROGRESSIVE = ("large_420_progressive.jpg", "small_422_progressive.jpg")
 EXACT_SCALES = ((1024, 840), (512, 420), (256, 210))   # large_420 / 2, 4, 8
 L1_PLANE = (1, 384, 256)      # seeded difference planes, predictor x pt
+# L1 at the edges of its 32-row bands and 16-column strips, (C, H, W).
+L1_SHAPES = ((1, 1, 70), (1, 31, 45), (1, 32, 9), (1, 33, 200), (3, 97, 1),
+             (1, 1100, 3))
+L1_FULL = (3, 2048, 2048)     # predictor 6 only: plain takes ~1.4 s a plane
 SOF3_SIDE = 2048              # the full-size lossless stream: 2048 x 2048
+SOF3_RGB = (768, 1024)        # the 3-component lossless stream
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
 # the least time of a kernel is the larger of its bytes over HBM_BPS and its
 # operations over the peak rate of their type.
@@ -151,6 +165,22 @@ def seeded_planes(case, rng, dev) -> list:
             0, 256, (-(-h // 8) * 8 + 8, -(-w // 8) * 8)).astype(np.uint8))
             .to(dev))
     return planes
+
+
+def odd_tail_cases(rng, dev) -> list:
+    """K3 at every odd width 1-39 and height 1-5 in the five layouts of
+    `tests/torch_inputs.py::ODD_TAIL_LAYOUTS`, every plane's pitch 8 mod 16
+    or (every other case) its base 8 bytes off a 16-byte boundary."""
+    from torch_inputs import ODD_TAIL_LAYOUTS, odd_tail_case
+
+    cases = []
+    for out_w in range(1, 40, 2):
+        for out_h in range(1, 6):
+            for layout in ODD_TAIL_LAYOUTS:
+                planes, modes, chroma, transform, h, w = odd_tail_case(
+                    layout, out_h, out_w, 8 * (len(cases) % 2), rng, dev)
+                cases.append((planes, (modes, transform, h, w, chroma)))
+    return cases
 
 
 def host_exact(data: bytes, scale_to=None) -> np.ndarray:
@@ -247,10 +277,13 @@ def main_path_launches(jt, blob: bytes) -> dict:
         return dict(jt.LAUNCHES)
 
 
-def phase_kernel_table(jt, measured: dict, per_image: dict) -> list:
+def phase_kernel_table(jt, measured: dict, per_image: dict, l1_chain: dict,
+                       k2_library) -> list:
     """16. Device time of each kernel by name (torch.profiler, warm L2) at
     the main path's shapes, beside its bound; `measured[name]` holds (the
-    wrapper call, the kernel's symbol, bytes, flops, flop rate)."""
+    wrapper call, the kernel's symbol, bytes, flops, flop rate). L1 also
+    gets its chain bound, and K2's yardstick `torch.addmm` (the call
+    `k2_library`) its device time over every kernel it launches."""
     from tools.torch_port_profile import kernel_device_us
 
     rows = {}
@@ -263,6 +296,12 @@ def phase_kernel_table(jt, measured: dict, per_image: dict) -> list:
                       "wrapper_launches_per_call": prof["all_launches"],
                       "bound_us": least, "bound_by": by,
                       "launches_per_image": per_image[name]}
+    rows["L1"]["chain_bound_us"] = l1_chain["chain_bound_us"]
+    rows["L1"]["bound_with_chain_us"] = max(rows["L1"]["bound_us"],
+                                            l1_chain["chain_bound_us"])
+    addmm = kernel_device_us(k2_library, "")
+    rows["K2"]["library_device_us"] = addmm["all_device_us"]
+    rows["K2"]["library_launches_per_call"] = addmm["all_launches"]
     say("16 kernel table", **rows)
     if per_image["K2"] != 1 or rows["K1"]["wrapper_launches_per_call"] != 1:
         raise AssertionError("K2 must launch once per image and K1's wrapper "
@@ -431,6 +470,17 @@ def phase_prefix(jt, data: dict) -> None:
         launches=launches, prefix_ms=rates)
 
 
+def l1_chain_bound(h: int, w: int) -> dict:
+    """L1's chain bound for an h x w plane: H + W - 1 dependent steps at
+    the cycles of one step and the SM clock l1_step_probe measures."""
+    from tools.experiments import l1_step_probe
+
+    step = l1_step_probe.measure_step()
+    return {**step, "steps": h + w - 1,
+            "chain_bound_us": (h + w - 1) * step["step_cycles"]
+            / step["sm_clock_mhz"]}
+
+
 def phase_lossless(jt, dev) -> tuple:
     """15. Lossless: L1 against its plain version and the oracle, then a
     2048 x 2048 16-bit SOF3 stream with predictors 1 and 6."""
@@ -443,23 +493,31 @@ def phase_lossless(jt, dev) -> tuple:
 
     rng = np.random.default_rng(15)
     l1_err = 0
-    for predictor in range(1, 8):
-        for pt in (0, 2):
-            d_np = rng.integers(-200, 200, L1_PLANE)
-            d_np[..., ::7] = rng.integers(0, 65536, d_np[..., ::7].shape)
-            d_np = (d_np & 0xFFFF).astype(np.int32)
-            d = torch.from_numpy(d_np).to(dev)
-            default = _default_prediction(16, pt)
-            got = lossless_recur(d, predictor, pt, default)
-            plain = lossless_recur_plain(d, predictor, pt, default)
-            torch.cuda.synchronize()
-            err = int((got - plain).abs().max())
-            host = reconstruct_lossless(d_np[0], Predictor(predictor), pt,
-                                        16, False)
-            if err or not np.array_equal(got[0].cpu().numpy(), host):
-                raise AssertionError(f"L1 predictor {predictor} pt {pt}: "
-                                     f"vs plain {err}, vs oracle differs")
-            l1_err = max(l1_err, err)
+    l1_cases = 0
+    for shape in (L1_PLANE, *L1_SHAPES, L1_FULL):
+        for predictor in (6,) if shape == L1_FULL else range(1, 8):
+            for pt in (0, 2):
+                d_np = rng.integers(-200, 200, shape)
+                d_np[..., ::7] = rng.integers(0, 65536, d_np[..., ::7].shape)
+                d_np = (d_np & 0xFFFF).astype(np.int32)
+                d = torch.from_numpy(d_np).to(dev)
+                default = _default_prediction(16, pt)
+                got = lossless_recur(d, predictor, pt, default)
+                plain = lossless_recur_plain(d, predictor, pt, default)
+                torch.cuda.synchronize()
+                err = int((got - plain).abs().max())
+                oracle_ok = shape == L1_FULL or all(   # the oracle is a
+                    np.array_equal(got[c].cpu().numpy(),   # Python loop
+                                   reconstruct_lossless(
+                                       d_np[c], Predictor(predictor), pt, 16,
+                                       False))
+                    for c in range(shape[0]))
+                if err or not oracle_ok:
+                    raise AssertionError(
+                        f"L1 {shape} predictor {predictor} pt {pt}: vs plain "
+                        f"{err}, oracle equal: {oracle_ok}")
+                l1_err = max(l1_err, err)
+                l1_cases += 1
 
     t0 = time.perf_counter()
     samples = sof3_samples(SOF3_SIDE, SOF3_SIDE, 1, 16, 0, seed=0)
@@ -480,6 +538,21 @@ def phase_lossless(jt, dev) -> tuple:
                  for p, blob in streams.items()}
     if launches["lossless_recur"] < 1:
         raise AssertionError(f"L1 never ran: {launches}")
+    rgb = sof3_samples(*SOF3_RGB, 3, 16, 0, seed=1)
+    rgb_blob = sof3_jpeg(rgb, 6, 0, 16)
+    with jt.DeviceStreamDecoder(device="cuda", host_threads=1) as dec:
+        staged_rgb = dec.stage(rgb_blob)
+        wires = dec._to_device(staged_rgb)
+        torch.cuda.synchronize()
+        jt.reset_launches()
+        img = dec._run_device(staged_rgb, wires)
+        torch.cuda.synchronize()
+        rgb_launches = jt.LAUNCHES["lossless_recur"]
+        if rgb_launches != 1 or img.dtype != torch.uint16 \
+                or not np.array_equal(img.cpu().numpy(), rgb):
+            raise AssertionError(f"3-component SOF3: {rgb_launches} L1 "
+                                 "launches (want 1), or the samples differ")
+        rgb_rate = dec.device_resident_rate(rgb_blob, iters=10)
     staged = jt.stage_host_bits(streams[6])
     d = (torch.from_numpy(staged.diffs.view(np.int16)).to(dev)
          .to(torch.int32) & 0xFFFF)
@@ -492,17 +565,26 @@ def phase_lossless(jt, dev) -> tuple:
         raise AssertionError(f"L1 at full size differs from plain: {err}")
     l1_ms = cuda_ms(lambda: lossless_recur(d, 6, 0, default), 10)
     l1_plain_ms = cuda_ms(lambda: lossless_recur_plain(d, 6, 0, default), 1)
-    say("15 lossless", l1_cases=14, l1_plane=L1_PLANE,
-        l1_vs_plain_max_abs_err=l1_err, l1_vs_oracle="bit-equal",
+    d3 = d.expand(3, -1, -1).contiguous()
+    l1_3_ms = cuda_ms(lambda: lossless_recur(d3, 6, 0, default), 10)
+    chain = l1_chain_bound(*d.shape[1:])
+    say("15 lossless", l1_cases=l1_cases,
+        l1_shapes=[L1_PLANE, *L1_SHAPES, L1_FULL],
+        l1_vs_plain_max_abs_err=l1_err,
+        l1_vs_oracle=f"bit-equal (all but {L1_FULL})",
+        rgb_stream={"shape": [*SOF3_RGB, 3], "l1_launches": rgb_launches,
+                    "ms_per_image": rgb_rate["ms_per_image"],
+                    "result": "bit-equal to the samples"},
         sof3_bytes={p: len(b) for p, b in streams.items()},
         sof3_write_seconds=write_s, launches=launches,
         result="bit-equal to the host decode",
         ms_per_image={p: r["ms_per_image"] for p, r in rates.items()},
         host_ms_per_image={p: r["host_ms_per_image"]
                            for p, r in rates.items()},
-        l1_shape=list(d.shape), l1_ms=l1_ms, l1_plain_ms=l1_plain_ms)
+        l1_shape=list(d.shape), l1_ms=l1_ms, l1_plain_ms=l1_plain_ms,
+        l1_3x2048x2048_ms=l1_3_ms, l1_chain=chain)
     return (launches["lossless_recur"], max(l1_err, err), l1_ms, l1_plain_ms,
-            (lambda: lossless_recur(d, 6, 0, default)), d.numel())
+            (lambda: lossless_recur(d, 6, 0, default)), d.numel(), chain)
 
 
 def main() -> int:
@@ -533,6 +615,7 @@ def main() -> int:
     from tools.torch_port_profile import profile as profile_layers
 
     dev = torch.device("cuda")
+    sys.path.insert(0, str(ROOT / "tests"))    # torch_inputs: input recipes
     card = card_line()
     say("1 card", nvidia_smi=card, torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
@@ -672,7 +755,10 @@ def main() -> int:
     coef_f32 = torch.cat(stores2).to(torch.float32)
     folded = params.qt(qts2[0])[:, None] * params.basis(8)
     bias = torch.full((1, 64), 128.5, device=dev)
-    k2_library_ms = cuda_ms(lambda: torch.addmm(bias, coef_f32, folded), 50)
+    def k2_library():
+        return torch.addmm(bias, coef_f32, folded)
+
+    k2_library_ms = cuda_ms(k2_library, 50)
     k2_blocks = [int(s.shape[0]) for s in stores2]
     stage_ms = {}
     for name in ORDER:
@@ -709,6 +795,7 @@ def main() -> int:
                 if pallas_tail_mode(staged[name].geometry) == "fused"]
     rng = np.random.default_rng(7)
     k3_cases += [(seeded_planes(case, rng, dev), case) for case in TAIL_CASES]
+    k3_cases += odd_tail_cases(rng, dev)
     k3_err = 0
     for planes, (modes, transform, out_h, out_w, chroma) in k3_cases:
         args3 = (planes, modes, chroma, transform, out_h, out_w)
@@ -716,8 +803,12 @@ def main() -> int:
         b = fused_tail_plain(*args3)
         if a.shape != (len(planes), out_h, out_w):
             raise AssertionError(f"K3 shape {tuple(a.shape)}")
-        k3_err = max(k3_err, int((a.to(torch.int32) - b.to(torch.int32))
-                                 .abs().max()))
+        err = int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+        if err:
+            raise AssertionError(f"K3 differs from plain by {err} at {modes} "
+                                 f"{transform} {out_h}x{out_w}, pitches "
+                                 f"{[p.stride(0) for p in planes]}")
+        k3_err = max(k3_err, err)
     say("7 K3 vs plain", cases=len(k3_cases), max_abs_err=k3_err,
         tolerance=0)
     if k3_err:
@@ -793,12 +884,11 @@ def main() -> int:
         k4_x_ms=k4_large["x_ms"], floor_ms=k4_large["floor_ms"])
 
     # 11-15. The rest of the one-image decoder.
-    sys.path.insert(0, str(ROOT / "tests"))    # torch_inputs: byte recipes
     phase_exact(jt, data, profile_layers)
     k1_err = max(k1_err, phase_transcoded(jt, data, params, dev))
     k1_err = max(k1_err, phase_three_pairs(jt, data, params, dev))
     phase_prefix(jt, data)
-    l1_launches, l1_err, l1_ms, l1_plain_ms, l1_call, l1_samples = \
+    l1_launches, l1_err, l1_ms, l1_plain_ms, l1_call, l1_samples, l1_chain = \
         phase_lossless(jt, dev)
 
     # 16. The kernel table: device time by kernel name beside the bound.
@@ -825,7 +915,8 @@ def main() -> int:
         "L1": (l1_call, "lossless_recur_kernel", 8 * l1_samples, 0.0,
                FP32_FLOPS),
     }, dict(zip(("K1", "K2", "K3", "K4", "L1"),
-                (main_launches[k] for k in _build.LAUNCHES))))
+                (main_launches[k] for k in _build.LAUNCHES))), l1_chain,
+        k2_library)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
                     in ("jax", "jaxlib", "jpeg_decoder_tpu"))
@@ -865,6 +956,8 @@ def main() -> int:
         row.update(kernel_us=tab["kernel_us"], bound_us=tab["bound_us"],
                    bound_ms=tab["bound_us"] / 1e3, bound_by=tab["bound_by"],
                    launches_per_image=tab["launches_per_image"])
+    kernels[1]["library_device_us"] = table["K2"]["library_device_us"]
+    kernels[4]["chain_bound_ms"] = table["L1"]["chain_bound_us"] / 1e3
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

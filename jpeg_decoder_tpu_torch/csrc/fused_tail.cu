@@ -22,135 +22,310 @@
 // exists: the kernel reads the block-padded IDCT planes in place, each with
 // its own row pitch, and writes the interleaved columns itself.
 //
-// What bounds it on this card: memory and its launch. It moves about 1.5
-// bytes in and 3 out per pixel (~15 MB at 3.4 Mpix 4:2:0), a few
-// microseconds at 3.35 TB/s, with ~40 integer operations per pixel.
+// What it replaces: one thread per output row and 4 columns, 64-bit index
+// division, one clamped byte load per tap (~20 loads for 4 pixels at
+// 4:2:0), chroma rows read again by the warps of both output rows they
+// serve (15.1 us at large_420's planes on an H100: 1.0 TB/s).
 //
-// What the design does about it: one launch per image; each thread owns one
-// output row and a run of 4 output columns, so a warp reads and writes 128
-// consecutive bytes of a row and stores 4 bytes per thread and channel.
-// Neighbouring threads share the chroma bytes they read through L1.
+// What bounds it on this card: memory. It moves about 1.5 bytes in and 3
+// out per pixel (~15.5 MB at 3.4 Mpix 4:2:0), 4.6 us at 3.35 TB/s, with ~40
+// integer operations per pixel.
+//
+// What the design does about it:
+// - A 2-D grid, 32-bit indices: blockIdx.y runs over output row pairs,
+//   x over 16-column tiles; one thread computes 2 output rows x 16
+//   columns, so with V2 modes the chroma rows i - 1, i and i + 1 serve both
+//   output rows 2i and 2i + 1 from registers.
+// - Vector loads: 16 B of a full-resolution row, 8 B of an H2 chroma row,
+//   in the widest vector the plane's pitch and base alignment allow (only
+//   8 is guaranteed); the H2 taps' j - 1 and j + 8 come from the adjacent
+//   lanes by __shfl_sync (lanes 0 and 31 load theirs). A vector that would
+//   leave its row reads byte by byte, clamped as the taps are.
+// - Vector stores: 16 B per channel and row where the output row pitch
+//   allows, else the widest that does; the ragged last tile of a row stores
+//   bytewise.
+// - (full, h2v2, h2v2) and (full, h2v1, h2v1) YCbCr and YCbCr 4:4:4 are
+//   compiled with their modes fixed; every other mode and transform (YCCK,
+//   CMYK, h1v2, 4 components) runs the same tiles with the modes read at
+//   run time.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kTileX = 32;   // tiles of a block along a row: one warp
+constexpr int kTileY = 4;    // row pairs of a block: one per warp
+constexpr int kCols = 16;    // output columns of a tile
 constexpr int kMaxComp = 4;
+constexpr unsigned kFull = 0xffffffffu;
 
-enum Mode { kFull = 0, kV2 = 1, kH2 = 2, kH2V2 = 3 };   // ops/kernels.py TAIL_MODES
-enum Transform { kYCbCr = 0, kCMYK = 1, kYCCK = 2 };    // TAIL_TRANSFORMS
+// ops/kernels.py TAIL_MODES and TAIL_TRANSFORMS
+enum Mode { kFullRes = 0, kV2 = 1, kH2 = 2, kH2V2 = 3 };
+enum Transform { kYCbCr = 0, kCMYK = 1, kYCCK = 2 };
+// Compile-time layouts; kAny reads the modes and transform at run time.
+enum Layout { kAny = 0, k420 = 1, k422 = 2, k444 = 3 };
 
-struct TailArgs {
-  const uint8_t* plane[kMaxComp];
-  int mode[kMaxComp];
-  int pitch[kMaxComp];     // bytes per plane row
-  int ncomp, transform, hc, wc, out_h, out_w;
+struct Plane {
+  const uint8_t* p;
+  int pitch;   // bytes per row
+  int mode;
+  int align;   // the widest of 16, 8, 4, 1 dividing the base and the pitch
 };
 
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return min(max(v, lo), hi);
+struct TailArgs {
+  Plane c[kMaxComp];
+  int ncomp, transform, hc, wc, out_h, out_w;
+  int out_align;   // the widest of 16, 8, 4, 1 dividing out_w
+};
+
+template <int L>
+__device__ __forceinline__ int mode_of(const TailArgs& a, int c) {
+  if constexpr (L == k420) return c == 0 ? kFullRes : kH2V2;
+  else if constexpr (L == k422) return c == 0 ? kFullRes : kH2;
+  else if constexpr (L == k444) return kFullRes;
+  else return a.c[c].mode;
 }
 
-// The component's value at output row r, columns x0 .. x0 + 3 (x0 % 4 == 0).
-// Columns at or past out_w are computed from clamped reads and not stored.
-__device__ __forceinline__ void component4(const TailArgs& a, int c, int r,
-                                           int x0, int v[4]) {
-  const uint8_t* p = a.plane[c];
-  const int pitch = a.pitch[c];
-  const int mode = a.mode[c];
-  if (mode == kFull) {
-    const uint8_t* row = p + static_cast<int64_t>(r) * pitch;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) v[k] = row[min(x0 + k, a.out_w - 1)];
-    return;
-  }
-  int rn = r, rf = r;
-  if (mode != kH2) {
-    rn = r >> 1;
-    rf = clampi((r & 1) ? rn + 1 : rn - 1, 0, a.hc - 1);
-  }
-  const uint8_t* near = p + static_cast<int64_t>(rn) * pitch;
-  const uint8_t* far = p + static_cast<int64_t>(rf) * pitch;
-  if (mode == kV2) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int x = min(x0 + k, a.out_w - 1);
-      v[k] = (3 * near[x] + far[x] + 2) >> 2;
-    }
-    return;
-  }
-  const int j0 = x0 >> 1;
-  const int last = a.wc - 1;
-  int t[4];   // t at columns j0 - 1, j0, j0 + 1, j0 + 2, clamped
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int j = clampi(j0 - 1 + k, 0, last);
-    t[k] = 3 * near[j] + far[j];
-  }
-  v[0] = j0 == 0 ? (t[1] + 2) >> 2 : (3 * t[1] + t[0] + 8) >> 4;
-  v[1] = j0 >= last ? (t[1] + 2) >> 2 : (3 * t[1] + t[2] + 8) >> 4;
-  v[2] = (3 * t[2] + t[1] + 8) >> 4;
-  v[3] = j0 + 1 >= last ? (t[2] + 2) >> 2 : (3 * t[2] + t[3] + 8) >> 4;
+__device__ __forceinline__ int byte_of(const uint32_t* w, int k) {
+  return (w[k >> 2] >> ((k & 3) * 8)) & 0xFF;
 }
 
-__device__ __forceinline__ int fixed20(int v) {
-  return clampi(v >> 20, 0, 255);
-}
-
-__global__ void __launch_bounds__(kThreads)
-fused_tail_kernel(TailArgs a, uint8_t* __restrict__ out) {
-  const int groups = (a.out_w + 3) >> 2;
-  const int64_t idx =
-      static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= static_cast<int64_t>(groups) * a.out_h) return;
-  const int r = static_cast<int>(idx / groups);
-  const int x0 = static_cast<int>(idx - static_cast<int64_t>(r) * groups) * 4;
-
-  int v[kMaxComp][4] = {};
-#pragma unroll
-  for (int c = 0; c < kMaxComp; ++c)
-    if (c < a.ncomp) component4(a, c, r, x0, v[c]);
-
-  int o[kMaxComp][4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (a.transform == kCMYK) {
-#pragma unroll
-      for (int c = 0; c < kMaxComp; ++c) o[c][k] = 255 - v[c][k];
-      continue;
-    }
-    const int yy = v[0][k] * (1 << 20) + (1 << 19);
-    const int cb = v[1][k] - 128;
-    const int cr = v[2][k] - 128;
-    o[0][k] = fixed20(yy + 1470104 * cr);
-    o[1][k] = fixed20(yy - 360857 * cb - 748830 * cr);
-    o[2][k] = fixed20(yy + 1858077 * cb);
-    o[3][k] = 255 - v[3][k];   // YCCK's K; unused for YCbCr
-  }
-
-  const int64_t plane_px = static_cast<int64_t>(a.out_h) * a.out_w;
-  const bool whole = (a.out_w & 3) == 0;   // 4-byte aligned, never ragged
-#pragma unroll
-  for (int c = 0; c < kMaxComp; ++c) {
-    if (c >= a.ncomp) break;
-    uint8_t* dst = out + c * plane_px + static_cast<int64_t>(r) * a.out_w + x0;
-    if (whole) {
-      *reinterpret_cast<uchar4*>(dst) =
-          make_uchar4(o[c][0], o[c][1], o[c][2], o[c][3]);
+// 16 bytes of plane row `row` from column x0, as 4 words. Where the vector
+// would leave the row, byte by byte at min(x, lim - 1).
+__device__ __forceinline__ void load16(const Plane& pl, int row, int x0,
+                                       int lim, uint32_t* w) {
+  const uint8_t* src = pl.p + row * pl.pitch;
+  if (x0 + 16 <= pl.pitch && pl.align >= 4) {
+    if (pl.align >= 16) {
+      const uint4 v = *reinterpret_cast<const uint4*>(src + x0);
+      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    } else if (pl.align >= 8) {
+      const uint2 u = *reinterpret_cast<const uint2*>(src + x0);
+      const uint2 v = *reinterpret_cast<const uint2*>(src + x0 + 8);
+      w[0] = u.x; w[1] = u.y; w[2] = v.x; w[3] = v.y;
     } else {
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        if (x0 + k < a.out_w) dst[k] = static_cast<uint8_t>(o[c][k]);
+        w[k] = *reinterpret_cast<const uint32_t*>(src + x0 + 4 * k);
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) w[k] = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    w[k >> 2] |= static_cast<uint32_t>(src[min(x0 + k, lim - 1)])
+                 << ((k & 3) * 8);
+}
+
+// 8 bytes of chroma row `row` from column j0, as 2 words; the same rule.
+__device__ __forceinline__ void load8(const Plane& pl, int row, int j0,
+                                      int lim, uint32_t* w) {
+  const uint8_t* src = pl.p + row * pl.pitch;
+  if (j0 + 8 <= pl.pitch && pl.align >= 4) {
+    if (pl.align >= 8) {
+      const uint2 v = *reinterpret_cast<const uint2*>(src + j0);
+      w[0] = v.x; w[1] = v.y;
+    } else {
+      w[0] = *reinterpret_cast<const uint32_t*>(src + j0);
+      w[1] = *reinterpret_cast<const uint32_t*>(src + j0 + 4);
+    }
+    return;
+  }
+  w[0] = w[1] = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    w[k >> 2] |= static_cast<uint32_t>(src[min(j0 + k, lim - 1)])
+                 << ((k & 3) * 8);
+}
+
+// One component's rows for a tile, by mode, in 12 words:
+//   full   w[0..3] row r0, w[4..7] row r1
+//   v2     w[0..3] chroma row i, w[4..7] row i - 1, w[8..11] row i + 1
+//   h2     rows ri = 0, 1 (r0, r1): 8 bytes at w[2 ri], j0 - 1 at
+//          w[6 + ri], j0 + 8 at w[9 + ri]
+//   h2v2   the same with ri = 0, 1, 2 for chroma rows i, i - 1, i + 1
+// (rows clamped to the plane, chroma row i = r0 / 2).
+template <int M>
+__device__ __forceinline__ void load_comp(const TailArgs& a, const Plane& pl,
+                                          int pair, int x0, uint32_t* w) {
+  const int r0 = 2 * pair, r1 = min(r0 + 1, a.out_h - 1);
+  const int up = max(pair - 1, 0), dn = min(pair + 1, a.hc - 1);
+  if constexpr (M == kFullRes) {
+    load16(pl, r0, x0, a.out_w, w);
+    load16(pl, r1, x0, a.out_w, w + 4);
+  } else if constexpr (M == kV2) {
+    load16(pl, pair, x0, a.out_w, w);
+    load16(pl, up, x0, a.out_w, w + 4);
+    load16(pl, dn, x0, a.out_w, w + 8);
+  } else {
+    constexpr int kRows = M == kH2 ? 2 : 3;
+    const int rows[3] = {M == kH2 ? r0 : pair, M == kH2 ? r1 : up, dn};
+    const int j0 = x0 >> 1, last = a.wc - 1;
+    const int lane = threadIdx.x;
+    const uint8_t* base = pl.p;
+#pragma unroll
+    for (int ri = 0; ri < kRows; ++ri) {
+      load8(pl, rows[ri], j0, a.wc, w + 2 * ri);
+      const uint8_t* row = base + rows[ri] * pl.pitch;
+      int left = __shfl_up_sync(kFull, byte_of(w + 2 * ri, 7), 1);
+      int right = __shfl_down_sync(kFull, byte_of(w + 2 * ri, 0), 1);
+      if (lane == 0) left = row[min(max(j0 - 1, 0), last)];
+      if (lane == kTileX - 1) right = row[min(j0 + 8, last)];
+      w[6 + ri] = left;
+      w[9 + ri] = right;
     }
   }
+}
+
+template <int L>
+__device__ __forceinline__ void load_any(const TailArgs& a, int c, int pair,
+                                         int x0, uint32_t* w) {
+  switch (mode_of<L>(a, c)) {
+    case kFullRes: load_comp<kFullRes>(a, a.c[c], pair, x0, w); break;
+    case kV2: load_comp<kV2>(a, a.c[c], pair, x0, w); break;
+    case kH2: load_comp<kH2>(a, a.c[c], pair, x0, w); break;
+    default: load_comp<kH2V2>(a, a.c[c], pair, x0, w); break;
+  }
+}
+
+// H2 taps input t at local column jl (-1 .. 8) of chroma row pair (ri_n,
+// ri_f): 4 * near for h2, 3 * near + far for h2v2.
+template <int M>
+__device__ __forceinline__ int h2_t(const uint32_t* w, int o, int jl) {
+  auto b = [&](int ri) {
+    return jl < 0 ? static_cast<int>(w[6 + ri])
+         : jl > 7 ? static_cast<int>(w[9 + ri]) : byte_of(w + 2 * ri, jl);
+  };
+  if constexpr (M == kH2) return 4 * b(o);
+  else return 3 * b(0) + b(1 + o);
+}
+
+// The component's value at output row o (0: r0, 1: r1), tile column kk.
+template <int M>
+__device__ __forceinline__ int comp_value(const TailArgs& a, const uint32_t* w,
+                                          int o, int kk, int j0) {
+  if constexpr (M == kFullRes) {
+    return byte_of(w + 4 * o, kk);
+  } else if constexpr (M == kV2) {
+    return (3 * byte_of(w, kk) + byte_of(w + 4 * (1 + o), kk) + 2) >> 2;
+  } else {
+    const int jl = kk >> 1;
+    const int t = h2_t<M>(w, o, jl);
+    if ((kk & 1) == 0)
+      return j0 + jl == 0 ? (t + 2) >> 2
+                          : (3 * t + h2_t<M>(w, o, jl - 1) + 8) >> 4;
+    return j0 + jl >= a.wc - 1 ? (t + 2) >> 2
+                               : (3 * t + h2_t<M>(w, o, jl + 1) + 8) >> 4;
+  }
+}
+
+template <int L>
+__device__ __forceinline__ int value_any(const TailArgs& a, int c,
+                                         const uint32_t* w, int o, int kk,
+                                         int j0) {
+  switch (mode_of<L>(a, c)) {
+    case kFullRes: return comp_value<kFullRes>(a, w, o, kk, j0);
+    case kV2: return comp_value<kV2>(a, w, o, kk, j0);
+    case kH2: return comp_value<kH2>(a, w, o, kk, j0);
+    default: return comp_value<kH2V2>(a, w, o, kk, j0);
+  }
+}
+
+__device__ __forceinline__ int fixed20(int v) {
+  return min(max(v >> 20, 0), 255);
+}
+
+// Store 16 bytes (4 words) of one channel row at dst, `n` of them valid.
+__device__ __forceinline__ void store16(uint8_t* dst, const uint32_t* o,
+                                        int n, int align) {
+  if (n >= 16) {
+    if (align >= 16) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
+      return;
+    }
+    if (align >= 8) {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(o[0], o[1]);
+      *reinterpret_cast<uint2*>(dst + 8) = make_uint2(o[2], o[3]);
+      return;
+    }
+    if (align >= 4) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) reinterpret_cast<uint32_t*>(dst)[k] = o[k];
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    if (k < n) dst[k] = static_cast<uint8_t>(byte_of(o, k));
+}
+
+template <int L>
+__global__ void __launch_bounds__(kTileX * kTileY)
+fused_tail_kernel(TailArgs a, uint8_t* __restrict__ out) {
+  const int pair = blockIdx.y * kTileY + threadIdx.y;
+  if (2 * pair >= a.out_h) return;   // whole warps: the shuffles stay full
+  // Lanes past the row's end stay for the shuffles and store nothing.
+  const int x0 = (blockIdx.x * kTileX + threadIdx.x) * kCols;
+  const int j0 = x0 >> 1;
+  const int ncomp = L == kAny ? a.ncomp : 3;
+  const int transform = L == kAny ? a.transform : kYCbCr;
+
+  uint32_t w[kMaxComp][12];
+#pragma unroll
+  for (int c = 0; c < kMaxComp; ++c)
+    if (c < ncomp) load_any<L>(a, c, pair, x0, w[c]);
+
+  const int plane = a.out_h * a.out_w;
+#pragma unroll
+  for (int o = 0; o < 2; ++o) {
+    const int r = 2 * pair + o;
+    if (r >= a.out_h) break;
+    uint32_t packed[kMaxComp][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kCols; ++kk) {
+      int v[kMaxComp] = {0, 0, 0, 0};
+#pragma unroll
+      for (int c = 0; c < kMaxComp; ++c)
+        if (c < ncomp) v[c] = value_any<L>(a, c, w[c], o, kk, j0);
+      int px[kMaxComp];
+      if (transform == kCMYK) {
+#pragma unroll
+        for (int c = 0; c < kMaxComp; ++c) px[c] = 255 - v[c];
+      } else {
+        const int yy = v[0] * (1 << 20) + (1 << 19);
+        const int cb = v[1] - 128;
+        const int cr = v[2] - 128;
+        px[0] = fixed20(yy + 1470104 * cr);
+        px[1] = fixed20(yy - 360857 * cb - 748830 * cr);
+        px[2] = fixed20(yy + 1858077 * cb);
+        px[3] = 255 - v[3];   // YCCK's K; unused for YCbCr
+      }
+#pragma unroll
+      for (int c = 0; c < kMaxComp; ++c)
+        packed[c][kk >> 2] |= static_cast<uint32_t>(px[c] & 0xFF)
+                              << ((kk & 3) * 8);
+    }
+    const int n = a.out_w - x0;
+    if (n <= 0) continue;
+#pragma unroll
+    for (int c = 0; c < kMaxComp; ++c)
+      if (c < ncomp)
+        store16(out + c * plane + r * a.out_w + x0, packed[c], n,
+                a.out_align);
+  }
+}
+
+int widest(uintptr_t v) {
+  return v % 16 == 0 ? 16 : v % 8 == 0 ? 8 : v % 4 == 0 ? 4 : 1;
 }
 
 }  // namespace
 
 // meta: int32[8] on the host: the mode codes of components 0..3, then their
-// row pitches in bytes. Entries past ncomp are ignored.
+// row pitches in bytes. Entries past ncomp are ignored. Every plane, and the
+// output, must hold fewer than 2^31 bytes.
 extern "C" int jdt_fused_tail(const void* p0, const void* p1, const void* p2,
                               const void* p3, const void* meta, int ncomp,
                               int transform, int hc, int wc, int out_h,
@@ -159,15 +334,23 @@ extern "C" int jdt_fused_tail(const void* p0, const void* p1, const void* p2,
       transform > kYCCK || hc < 1 || wc < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (out_h <= 0 || out_w <= 0) return 0;
+  const long long limit = 1LL << 31;
+  if (static_cast<long long>(ncomp) * out_h * out_w >= limit)
+    return static_cast<int>(cudaErrorInvalidValue);
   TailArgs a;
   const void* planes[kMaxComp] = {p0, p1, p2, p3};
   const int* m = static_cast<const int*>(meta);
   for (int c = 0; c < kMaxComp; ++c) {
-    a.plane[c] = static_cast<const uint8_t*>(planes[c]);
-    a.mode[c] = c < ncomp ? m[c] : kFull;
-    a.pitch[c] = c < ncomp ? m[kMaxComp + c] : 0;
-    if (c < ncomp && (a.mode[c] < kFull || a.mode[c] > kH2V2 ||
-                      a.plane[c] == nullptr))
+    Plane& pl = a.c[c];
+    pl.p = static_cast<const uint8_t*>(planes[c]);
+    pl.mode = c < ncomp ? m[c] : kFullRes;
+    pl.pitch = c < ncomp ? m[kMaxComp + c] : 0;
+    pl.align = widest(reinterpret_cast<uintptr_t>(pl.p) |
+                      static_cast<uintptr_t>(pl.pitch));
+    if (c < ncomp && (pl.mode < kFullRes || pl.mode > kH2V2 ||
+                      pl.p == nullptr || pl.pitch < 1 ||
+                      static_cast<long long>(max(out_h, hc) + 1) * pl.pitch
+                          >= limit))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   a.ncomp = ncomp;
@@ -176,11 +359,25 @@ extern "C" int jdt_fused_tail(const void* p0, const void* p1, const void* p2,
   a.wc = wc;
   a.out_h = out_h;
   a.out_w = out_w;
-  const int64_t items = static_cast<int64_t>((out_w + 3) / 4) * out_h;
-  const int64_t grid = (items + kThreads - 1) / kThreads;
-  if (grid > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  fused_tail_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<uint8_t*>(out));
+  a.out_align = widest(static_cast<uintptr_t>(out_w) |
+                       reinterpret_cast<uintptr_t>(out));
+  const int tiles = (out_w + kCols - 1) / kCols;
+  const dim3 block(kTileX, kTileY);
+  const dim3 grid((tiles + kTileX - 1) / kTileX,
+                  ((out_h + 1) / 2 + kTileY - 1) / kTileY);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* o = static_cast<uint8_t*>(out);
+  const int m0 = a.c[0].mode, m1 = a.c[1].mode, m2 = a.c[2].mode;
+  const bool ycc3 = ncomp == 3 && transform == kYCbCr && m0 == kFullRes &&
+                    m1 == m2;
+  if (ycc3 && m1 == kH2V2)
+    fused_tail_kernel<k420><<<grid, block, 0, s>>>(a, o);
+  else if (ycc3 && m1 == kH2)
+    fused_tail_kernel<k422><<<grid, block, 0, s>>>(a, o);
+  else if (ycc3 && m1 == kFullRes)
+    fused_tail_kernel<k444><<<grid, block, 0, s>>>(a, o);
+  else
+    fused_tail_kernel<kAny><<<grid, block, 0, s>>>(a, o);
   return static_cast<int>(cudaGetLastError());
 }

@@ -70,7 +70,7 @@ from ..host.staging import (_ZIGZAG_OF_NATURAL, PREFIX_K, BitstreamCapture,
                             StagedImage, StagedLossless, _LosslessCapture,
                             _staged_lossless_from_capture, stage_host)
 from ..ops.pipeline import reconstruct, reconstruct_planar_pallas
-from ..ops.predictors import reconstruct_plane
+from ..ops.predictors import reconstruct_planes
 from ..params import DeviceParams
 
 LAYOUTS = ("interleaved", "planar", "planar-pallas")
@@ -232,15 +232,15 @@ def prefix_stores(geometry, dc, ac, resid_idx, resid_vals) -> list:
 
 def lossless_image(st: StagedLossless, diffs: torch.Tensor) -> torch.Tensor:
     """The reference's `_compiled_lossless_pipeline` (batch None): `diffs`
-    holds the staged uint16 planes as int16 bit patterns, [C, H, W]. Each
-    component through `reconstruct_plane`, then the element-count-bound
-    interleave; uint8 out at precision 8, else uint16."""
+    holds the staged uint16 planes as int16 bit patterns, [C, H, W]. All
+    components through `reconstruct_planes` (kernel L1 once per image where
+    the predictor needs it), then the element-count-bound interleave;
+    uint8 out at precision 8, else uint16."""
     d = diffs.to(torch.int32) & 0xFFFF
     ncomp = d.shape[0]
-    predictor = Predictor(st.predictor)
-    planes = [reconstruct_plane(d[i], predictor, st.point_transform,
-                                st.precision, st.restart_all)
-              for i in range(ncomp)]
+    planes = reconstruct_planes(d, Predictor(st.predictor),
+                                st.point_transform, st.precision,
+                                st.restart_all)
     if ncomp == 1:
         img = planes[0]
     else:

@@ -173,13 +173,26 @@ def reconstruct_lossless_wavefront(d, predictor, pt: int, precision: int
                           _default_prediction(precision, pt))[0]
 
 
-def reconstruct_plane(d, predictor, pt: int, precision: int,
-                      restart_all: bool) -> torch.Tensor:
-    """One component, by the rule of the reference's
-    `_compiled_lossless_pipeline`: the closed forms where they apply, else
-    the wavefront."""
-    if predictor == Predictor.RA or restart_all \
-            or device_supported(predictor, pt):
-        return reconstruct_lossless_device(d, predictor, pt, precision,
-                                           restart_all)
-    return reconstruct_lossless_wavefront(d, predictor, pt, precision)
+def runs_l1(predictor, pt: int, restart_all: bool) -> bool:
+    """Whether the reference's `_compiled_lossless_pipeline` rule sends this
+    configuration to the recurrence: the Rc row chain at pt 0, and every
+    predictor but Ra that has no closed form (predictors 5-7 at any pt,
+    0-4 at pt > 0). Ra and `restart_all` have closed forms."""
+    if predictor == Predictor.RA or restart_all:
+        return False
+    return predictor == Predictor.RC or not device_supported(predictor, pt)
+
+
+def reconstruct_planes(d, predictor, pt: int, precision: int,
+                       restart_all: bool) -> torch.Tensor:
+    """Every component, int32 [C, H, W] differences -> int32 [C, H, W]
+    stored samples, by the rule of the reference's
+    `_compiled_lossless_pipeline`: the closed forms component by component,
+    or L1 once for all components (one launch per image)."""
+    if runs_l1(predictor, pt, restart_all):
+        return lossless_recur(d.contiguous(), predictor, pt,
+                              _default_prediction(precision, pt))
+    return torch.stack([reconstruct_lossless_device(p, predictor, pt,
+                                                    precision, restart_all)
+                        for p in d])
+

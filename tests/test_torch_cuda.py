@@ -16,9 +16,12 @@ conversion); K3 bit-equal (integer math); K4 within 3 of K2 +
 blocks_to_plane + color and of its plain version: K4 keeps the first K2's
 fp32 FMA order, which the redesigned K2 no longer has, so the two IDCTs
 may differ by 1 and color scales that by up to 1.772; the planar layouts
-bit-equal to the interleaved output on the card, permuted; L1 bit-equal
-to its plain version (integer math); exact-precision, prefix and lossless
-decodes bit-equal to the CPU port (integer math throughout).
+bit-equal to the interleaved output on the card, permuted; K3 also at odd
+widths with pitches 8 mod 16 and bases 8 bytes off 16; L1 bit-equal to its
+plain version (integer math), also at its 32-row band edges and with three
+components in one launch, and one L1 launch for a 3-component SOF3
+image; exact-precision, prefix and lossless decodes bit-equal to the CPU
+port (integer math throughout).
 """
 
 import numpy as np
@@ -40,8 +43,9 @@ from jpeg_decoder_tpu_torch.params import DeviceParams
 from jpeg_decoder_tpu_torch.ops.predictors import (lossless_recur,
                                                    lossless_recur_plain)
 
-from torch_inputs import (SMALL_FIXTURES, TAIL_CASES, fixture, oracle_stores,
-                          tail_planes, three_table_pairs)
+from torch_inputs import (ODD_TAIL_LAYOUTS, SMALL_FIXTURES, TAIL_CASES,
+                          fixture, odd_tail_case, oracle_stores, tail_planes,
+                          three_table_pairs)
 
 
 @pytest.fixture
@@ -173,6 +177,52 @@ def test_l1_kernel_bit_equal_to_plain(cuda, predictor, pt):
         assert jt.LAUNCHES["lossless_recur"] == before + 1
         want = lossless_recur_plain(d, predictor, pt, 1 << (15 - pt))
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("h", [31, 32, 33, 65])
+@pytest.mark.parametrize("predictor", [1, 3, 6, 7])
+def test_l1_band_edges_and_three_components_in_one_launch(cuda, predictor,
+                                                           h):
+    rng = np.random.default_rng(predictor * 100 + h)
+    for shape in ((1, h, 1), (3, h, 37), (3, h, 1)):
+        d = rng.integers(0, 65536, shape).astype(np.int32)
+        d = torch.from_numpy(d).to(cuda)
+        before = jt.LAUNCHES["lossless_recur"]
+        got = lossless_recur(d, predictor, 2, 1 << 13)
+        assert jt.LAUNCHES["lossless_recur"] == before + 1
+        torch.testing.assert_close(
+            got, lossless_recur_plain(d, predictor, 2, 1 << 13), rtol=0,
+            atol=0)
+
+
+@pytest.mark.parametrize("predictor", [3, 6])
+def test_three_component_sof3_launches_l1_once(cuda, predictor):
+    from tools.make_torch_fixtures import sof3_jpeg, sof3_samples
+
+    samples = sof3_samples(70, 45, 3, 16, 0, seed=predictor)
+    data = sof3_jpeg(samples, predictor, 0, 16)
+    with jt.DeviceStreamDecoder(device="cuda", host_threads=1) as dec:
+        staged = dec.stage(data)
+        wires = dec._to_device(staged)
+        torch.cuda.synchronize()
+        jt.reset_launches()
+        img = dec._run_device(staged, wires)
+        torch.cuda.synchronize()
+    assert jt.LAUNCHES["lossless_recur"] == 1
+    np.testing.assert_array_equal(img.cpu().numpy(), samples)
+
+
+@pytest.mark.parametrize("offset", [0, 8])
+@pytest.mark.parametrize("layout", sorted(ODD_TAIL_LAYOUTS))
+def test_k3_odd_widths_and_8_aligned_pitches(cuda, layout, offset):
+    """Pitches 8 mod 16 (offset 0) or bases 8 bytes off 16 (offset 8)."""
+    rng = np.random.default_rng(len(layout) + offset)
+    for out_w in range(1, 40, 2):
+        for out_h in (1, 2, 5):
+            args = odd_tail_case(layout, out_h, out_w, offset, rng, cuda)
+            torch.testing.assert_close(fused_tail(*args),
+                                       fused_tail_plain(*args), rtol=0,
+                                       atol=0)
 
 
 @pytest.mark.parametrize("name", ["small_444.jpg", "tower_420.jpg"])

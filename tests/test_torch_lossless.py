@@ -68,7 +68,8 @@ def test_restart_all_quirk_matches_jnp_and_oracle(predictor):
     d = _diffs((9, 13), 50 + predictor)
     p = Predictor(predictor)
     for pt in ((0,) if p == Predictor.RA else (0, 2)):
-        got = port.reconstruct_plane(torch.from_numpy(d), p, pt, 12, True)
+        got = port.reconstruct_planes(torch.from_numpy(d)[None], p, pt, 12,
+                                      True)[0]
         want = np.asarray(ref.reconstruct_lossless_device(
             jnp.asarray(d), p, pt, 12, True, jnp))
         np.testing.assert_array_equal(got.numpy(), want)

@@ -108,6 +108,40 @@ def tail_planes(name: str, seed: int = 0) -> list:
     return planes
 
 
+# K3 at odd sizes, by layout: (comp_modes, transform, chroma_dims) from
+# (out_h, out_w, hc, wc) with hc, wc the halved sizes rounded up.
+ODD_TAIL_LAYOUTS = {
+    "420": lambda h, w, hc, wc: (("h1v1", "h2v2", "h2v2"), "ycbcr", (hc, wc)),
+    "422": lambda h, w, hc, wc: (("h1v1", "h2v1", "h2v1"), "ycbcr", (h, wc)),
+    "444": lambda h, w, hc, wc: (("h1v1",) * 3, "ycbcr", None),
+    "ycck": lambda h, w, hc, wc: (("h1v1", "h1v2", "h1v2", "h1v1"), "ycck",
+                                  (hc, w)),
+    "cmyk": lambda h, w, hc, wc: (("h1v1", "h2v2", "h2v2", "h2v2"), "cmyk",
+                                  (hc, wc)),
+}
+
+
+def odd_tail_case(layout: str, out_h: int, out_w: int, offset: int, rng,
+                  device) -> tuple:
+    """The arguments of `fused_tail` for one ODD_TAIL_LAYOUTS layout at one
+    size: seeded uint8 planes on `device`, a row taller than needed, whose
+    pitch is 8 mod 16 (offset 0; block padding promises 8, not 16), or
+    16 mod 16 with the data starting 8 bytes into its buffer (offset 8)."""
+    import torch
+
+    modes, transform, chroma = ODD_TAIL_LAYOUTS[layout](
+        out_h, out_w, -(-out_h // 2), -(-out_w // 2))
+    planes = []
+    for m in modes:
+        rows = (out_h if m == "h1v1" else chroma[0]) + 1
+        cols = chroma[1] if m.startswith("h2") else out_w
+        cols = -(-cols // 16) * 16 + 8 - offset
+        buf = torch.from_numpy(rng.integers(
+            0, 256, rows * cols + offset).astype(np.uint8)).to(device)
+        planes.append(buf[offset:].view(rows, cols))
+    return planes, modes, chroma, transform, out_h, out_w
+
+
 def _segments(data: bytes):
     """(marker, payload start, payload end) of each marker segment from
     SOI up to and including the first SOS."""

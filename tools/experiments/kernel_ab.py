@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""K1 and K2 device time of one checkout of the port, for A/B runs on a card.
+"""Kernel device times of one checkout of the port, for A/B runs on a card.
 
     python tools/experiments/kernel_ab.py TREE
 
@@ -12,7 +12,11 @@ time per call of K1 (`decode_chunks`) by kernel name and of everything the
 K1 wrapper enqueues (a zero fill included, where a version has one), and
 for large_420 the device time of K2 over the image's three components as
 the main path calls it, all from torch.profiler over 50 warm calls
-(`tools/torch_port_profile.py::kernel_device_us` of this checkout). Run
+(`tools/torch_port_profile.py::kernel_device_us` of this checkout); then
+K3 (`fused_tail`) on seeded planes of large_420's shapes (1680 x 2048
+luma, two 840 x 1024 chroma planes at h2v2) and L1 (`lossless_recur`) on
+a seeded [1, 2048, 2048] plane at predictor 6 and on [3, 2048, 2048] in
+one call (50, 10 and 5 calls). Run
 parent, change, change, parent in one call to compare two versions on one
 card. Needs a CUDA device.
 """
@@ -23,6 +27,7 @@ import json
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parents[2]
@@ -88,6 +93,24 @@ def main(argv=None) -> int:
         k2 = kernel_device_us(k2_image, "dequant_idct_kernel", iters=50)
         out[name].update(k2_kernel_us=k2["kernel_us"],
                          k2_launches=k2["launches"])
+    from jpeg_decoder_tpu_torch.ops.kernels import fused_tail
+    from jpeg_decoder_tpu_torch.ops.predictors import lossless_recur
+
+    rng = np.random.default_rng(0)
+    planes = [torch.from_numpy(rng.integers(0, 256, s).astype(np.uint8))
+              .to(dev) for s in ((1680, 2048), (840, 1024), (840, 1024))]
+    k3 = kernel_device_us(
+        lambda: fused_tail(planes, ("h1v1", "h2v2", "h2v2"), (840, 1024),
+                           "ycbcr", 1680, 2048),
+        "fused_tail_kernel", iters=50)
+    out["k3_large_420_kernel_us"] = k3["kernel_us"]
+    for c, iters in ((1, 10), (3, 5)):
+        d = torch.from_numpy(rng.integers(0, 65536, (c, 2048, 2048))
+                             .astype(np.int32)).to(dev)
+        l1 = kernel_device_us(lambda: lossless_recur(d, 6, 0, 1 << 15),
+                              "lossless_recur_kernel", iters=iters)
+        out[f"l1_{c}x2048x2048_p6_kernel_us"] = l1["kernel_us"]
+        out[f"l1_{c}x2048x2048_p6_launches"] = l1["launches"]
     print(json.dumps(out))
     return 0
 
