@@ -16,6 +16,8 @@ from csrc/ and holding each against its plain PyTorch version on the card:
    fixture stores and seeded random coefficients: |diff| <= 1;
 5. the slice: decode_stream(all fixtures) -> CUDA tensors, launch counts
    of both kernels > 0, every image within 3 of the host exact decode;
+   then [small_444, a malformed stream, small_444] with on_error="none":
+   None in the malformed slot, CUDA tensors in the others;
 6. CUDA-event times: device-resident ms/image for the 3.4 Mpix and
    512x512 fixtures, each kernel beside its plain version at the main
    path's shapes (K2 over all three components of the 3.4 Mpix image, as
@@ -30,10 +32,11 @@ from csrc/ and holding each against its plain PyTorch version on the card:
 8. the planar slice: decode_stream(layout="planar-pallas") and "planar"
    over every fixture, each bit-equal to phase 5's interleaved image
    permuted (gray as is), K3 launched in the planar-pallas run;
-9. K4 through its probe: within 3 of K2 + blocks_to_plane + color (K4
-   keeps the first K2's fp32 FMA order; K2 is now a split-TF32 tensor-core
-   product) and of its plain version on small_444 and on seeded 256 x 210
-   block stores, K4 launched in the probe's run;
+9. K4 through its probe: bit-equal to K2 + blocks_to_plane + color (the
+   same split-TF32 tensor-core product) and within 3 of its plain version,
+   on small_444, on seeded stores at its edges (bw past its tiles, a width
+   cut mid-block, coefficients >= 2048) and on seeded 256 x 210 block
+   stores, K4 launched in the probe's run;
 10. times of the planar tail: device-resident ms/image and launches per
    image (profiler) of planar-pallas beside interleaved, and K3 beside its
    plain version at large_420's planes;
@@ -64,9 +67,12 @@ from csrc/ and holding each against its plain PyTorch version on the card:
 16. the kernel table: each kernel's device time by name (torch.profiler,
    warm L2) at the main path's shapes beside its bound (the larger of its
    bytes over 3.35 TB/s and its operations over the peak rate of their
-   type; for L1 also its chain bound from phase 15), K2's yardstick
-   `torch.addmm` by device time, and its launches per image on the main
-   path (one large_420 decode: bits, fast, interleaved).
+   type; for L1 also its chain bound from phase 15; for K2 and K4, whose
+   bound is bytes, also the TF32 work and the fp32 CUDA-core time of the
+   same product), K2's yardstick `torch.addmm` and K4's, the unfused K2
+   path, by device time over every kernel they launch, and its launches
+   per image on the main path (one large_420 decode: bits, fast,
+   interleaved).
 
 Any failure raises and the script exits nonzero. It needs a CUDA device and
 the repository around it; it imports neither JAX, nor PIL, nor the JAX
@@ -94,8 +100,9 @@ ORDER = ("large_420.jpg", "tower_420.jpg", "small_444.jpg", "small_422.jpg",
          "small_rgb_444.jpg")
 K2_TOL = 1      # fp32 sums in another order: at most one rounding step
 PIXEL_TOL = 3   # fast-tier contract against the exact integer decode
-K4_TOL = 3      # K4 vs the K2 path and its plain version: 1 in the IDCT,
-                # x1.772 through color
+K4_X_TOL = 0    # K4 vs the K2 path: the same split-TF32 IDCT arithmetic
+K4_TOL = 3      # K4 vs its plain version: 1 in the IDCT, x1.772 in color
+BAD_JPEG = b"\xff\xd8 definitely not a jpeg"   # on_error's malformed item
 RATE_FIXTURES = ("large_420.jpg", "tower_420.jpg")
 PROGRESSIVE = ("large_420_progressive.jpg", "small_422_progressive.jpg")
 EXACT_SCALES = ((1024, 840), (512, 420), (256, 210))   # large_420 / 2, 4, 8
@@ -278,12 +285,15 @@ def main_path_launches(jt, blob: bytes) -> dict:
 
 
 def phase_kernel_table(jt, measured: dict, per_image: dict, l1_chain: dict,
-                       k2_library) -> list:
+                       yardsticks: dict) -> list:
     """16. Device time of each kernel by name (torch.profiler, warm L2) at
     the main path's shapes, beside its bound; `measured[name]` holds (the
-    wrapper call, the kernel's symbol, bytes, flops, flop rate). L1 also
-    gets its chain bound, and K2's yardstick `torch.addmm` (the call
-    `k2_library`) its device time over every kernel it launches."""
+    wrapper call, the kernel's symbol, bytes, flops, flop rate). A kernel
+    whose flops are TF32 split products (three per fp32 product) also gets
+    the TF32 work and the fp32 CUDA-core time of that product. L1 also gets
+    its chain bound, and each `yardsticks[name] = (label, call)` (K2's
+    `torch.addmm`, K4's unfused K2 path) its device time over every kernel
+    it launches, as `{label}_device_us`."""
     from tools.torch_port_profile import kernel_device_us
 
     rows = {}
@@ -296,12 +306,16 @@ def phase_kernel_table(jt, measured: dict, per_image: dict, l1_chain: dict,
                       "wrapper_launches_per_call": prof["all_launches"],
                       "bound_us": least, "bound_by": by,
                       "launches_per_image": per_image[name]}
+        if rate == TF32_FLOPS:
+            rows[name]["tf32_work_us"] = flops / TF32_FLOPS * 1e6
+            rows[name]["fp32_core_bound_us"] = flops / 3 / FP32_FLOPS * 1e6
     rows["L1"]["chain_bound_us"] = l1_chain["chain_bound_us"]
     rows["L1"]["bound_with_chain_us"] = max(rows["L1"]["bound_us"],
                                             l1_chain["chain_bound_us"])
-    addmm = kernel_device_us(k2_library, "")
-    rows["K2"]["library_device_us"] = addmm["all_device_us"]
-    rows["K2"]["library_launches_per_call"] = addmm["all_launches"]
+    for name, (label, call) in yardsticks.items():
+        prof = kernel_device_us(call, "")
+        rows[name][f"{label}_device_us"] = prof["all_device_us"]
+        rows[name][f"{label}_launches_per_call"] = prof["all_launches"]
     say("16 kernel table", **rows)
     if per_image["K2"] != 1 or rows["K1"]["wrapper_launches_per_call"] != 1:
         raise AssertionError("K2 must launch once per image and K1's wrapper "
@@ -607,6 +621,7 @@ def main() -> int:
     from jpeg_decoder_tpu_torch.ops.kernels import (dequant_idct,
                                                     dequant_idct_plain,
                                                     fused_recon,
+                                                    fused_recon_plain,
                                                     fused_tail,
                                                     fused_tail_plain)
     from jpeg_decoder_tpu_torch.ops.pipeline import _planes, fast_pixels
@@ -723,8 +738,18 @@ def main() -> int:
                                      f"{PIXEL_TOL} vs the exact decode")
         if min(launches["huffman_decode"], launches["dequant_idct"]) < 1:
             raise AssertionError(f"a kernel of the path never ran: {launches}")
+        isolated = dec.decode_stream(
+            [data["small_444.jpg"], BAD_JPEG, data["small_444.jpg"]],
+            on_error="none")
+        torch.cuda.synchronize()
+        if isolated[1] is not None or not all(
+                isinstance(img, torch.Tensor) and img.is_cuda
+                for img in (isolated[0], isolated[2])):
+            raise AssertionError("on_error='none' must give [image, None, "
+                                 f"image], got {[type(x) for x in isolated]}")
         say("5 slice", images=len(images), launches=launches,
-            max_abs_diff_vs_exact=worst, tolerance=PIXEL_TOL)
+            max_abs_diff_vs_exact=worst, tolerance=PIXEL_TOL,
+            on_error_none=["cuda tensor", None, "cuda tensor"])
 
         # 6. Times.
         rates = {name: dec.device_resident_rate(data[name], iters=50)
@@ -846,7 +871,7 @@ def main() -> int:
     k4_launches = jt.LAUNCHES["fused_recon"]
     for res in k4_results:
         say("9 K4 probe", **res)
-        if res["k4_vs_x_max_abs_diff"] > K4_TOL \
+        if res["k4_vs_x_max_abs_diff"] > K4_X_TOL \
                 or res["k4_vs_plain_max_abs_diff"] > K4_TOL:
             raise AssertionError(f"K4 {res['case']}: vs K2 path "
                                  f"{res['k4_vs_x_max_abs_diff']}, vs plain "
@@ -854,6 +879,7 @@ def main() -> int:
     if k4_launches < 1:
         raise AssertionError("K4 never ran in the probe")
     k4_err = max(res["k4_vs_plain_max_abs_diff"] for res in k4_results)
+    k4_x_err = max(res["k4_vs_x_max_abs_diff"] for res in k4_results)
     k4_large = k4_results[-1]
 
     # 10. Times of the planar tail.
@@ -909,14 +935,16 @@ def main() -> int:
         "K3": (lambda: fused_tail(*args3), "fused_tail_kernel",
                sum(p.numel() for p in planes3) + len(planes3) * h3 * w3,
                0.0, FP32_FLOPS),
-        "K4": (lambda: fused_recon(*k4_args),
-               "fused_recon_kernel", 128 * k4_blocks + 3 * 64 * k4_blocks,
-               2 * 64 * 64 * k4_blocks, FP32_FLOPS),
+        "K4": (lambda: fused_recon(*k4_args), "fused_recon_kernel",
+               128 * k4_blocks + 64 * k4_blocks, 3 * 2 * 64 * 64 * k4_blocks,
+               TF32_FLOPS),
         "L1": (l1_call, "lossless_recur_kernel", 8 * l1_samples, 0.0,
                FP32_FLOPS),
     }, dict(zip(("K1", "K2", "K3", "K4", "L1"),
                 (main_launches[k] for k in _build.LAUNCHES))), l1_chain,
-        k2_library)
+        {"K2": ("library", k2_library),
+         "K4": ("unfused", lambda: fused_recon_plain(*k4_args,
+                                                     k2=dequant_idct))})
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
                     in ("jax", "jaxlib", "jpeg_decoder_tpu"))
@@ -957,6 +985,10 @@ def main() -> int:
                    bound_ms=tab["bound_us"] / 1e3, bound_by=tab["bound_by"],
                    launches_per_image=tab["launches_per_image"])
     kernels[1]["library_device_us"] = table["K2"]["library_device_us"]
+    kernels[3].update(
+        max_abs_err_vs_k2_path=k4_x_err,
+        unfused_device_us=table["K4"]["unfused_device_us"],
+        unfused_launches_per_call=table["K4"]["unfused_launches_per_call"])
     kernels[4]["chain_bound_ms"] = table["L1"]["chain_bound_us"] / 1e3
     print(json.dumps({"kernels": kernels}))
     print(card)

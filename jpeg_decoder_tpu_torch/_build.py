@@ -1,13 +1,14 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
-The kernels (`csrc/*.cu`, listed in SOURCES) link into one shared library
-with a plain C interface; nothing here includes PyTorch's headers, so a
-cold build takes seconds, not minutes. Each source compiles in its own nvcc
-process, all started together, then one nvcc links them. The library lands in
-`build/torch_kernels/` at the repository root, named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads
-the existing file. Nothing is compiled or loaded at import time: the first
-kernel launch calls `load()`.
+The kernels (`csrc/*.cu`, listed in SOURCES; the headers they include are
+listed in HEADERS) link into one shared library with a plain C interface;
+nothing here includes PyTorch's headers, so a cold build takes seconds, not
+minutes. Each source compiles in its own nvcc process, all started together,
+then one nvcc links them. The library lands in `build/torch_kernels/` at the
+repository root, named by a hash of the sources, headers and flags, so an
+edited source rebuilds and an unchanged one loads the existing file. Nothing
+is compiled or loaded at import time: the first kernel launch calls
+`load()`.
 
 Each wrapper counts its launches in `LAUNCHES` (one per kernel launch, and
 nowhere else), so a caller can show that a run went through the kernels.
@@ -27,6 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("huffman_decode.cu", "dequant_idct.cu", "fused_tail.cu",
            "fused_recon.cu", "lossless_recur.cu")
+HEADERS = ("idct_mma.cuh",)    # included by sources; part of the hash
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -63,7 +65,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libjdt_kernels_{h.hexdigest()[:16]}.so"
@@ -147,7 +149,7 @@ def load() -> ctypes.CDLL:
         lib.jdt_fused_tail.restype = i
         lib.jdt_fused_recon.argtypes = [
             p, p, p,        # y, cb, cr stores
-            p, p,           # q [3, 64], basis [64, 64]
+            p,              # folded bases [3, 64, 64]
             i, i, i,        # bh, bw, width
             p,              # out
             p]              # stream

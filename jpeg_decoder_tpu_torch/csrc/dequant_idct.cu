@@ -25,19 +25,12 @@
 // What the design does about it:
 // - one launch per image: a descriptor per component (coefficients, block
 //   count, folded basis, output, scale) rides in the kernel's arguments;
-// - tensor cores with a split-precision product: fp32 operands do not fit
-//   TF32 (11 significant bits), so each is split into a TF32 high part and
-//   a low part, and three `mma.sync.m16n8k8` TF32 products, hi*hi + hi*lo +
-//   lo*hi, accumulate in fp32. A basis value's high part is the value
-//   rounded to the nearest TF32 (ties away from zero), its low part the
-//   remainder rounded the same way; an int16 coefficient splits exactly
-//   (high part: the low 13 mantissa bits cleared; low part: the rest, at
-//   most 5 significant bits). The error is the basis remainder's bits
-//   below about 2^-23 of its value, well inside the fp32 contract. The
-//   lo*hi product only matters for coefficients of magnitude >= 2048; a
-//   warp skips it for a k-step where none has a low part, which leaves the
-//   sum bit-identical. Nothing here reads or sets
-//   torch's allow_tf32: the split is the kernel's own arithmetic;
+// - tensor cores with a split-precision product (idct_mma.cuh, shared with
+//   K4): both operands split into TF32 hi and lo parts, three
+//   `mma.sync.m16n8k8` TF32 products, hi*hi + hi*lo + lo*hi, accumulated in
+//   fp32, the lo*hi one skipped per warp and k-step where no coefficient
+//   reaches 2048. The error is the basis remainder's bits below about
+//   2^-23 of its value, well inside the fp32 contract;
 // - persistent CTAs, two per SM: each walks 128-block tiles (four warps of
 //   32 blocks, two m16 tiles each) in a grid-stride loop, keeps the folded
 //   basis of the current component in shared memory as ready-made B
@@ -54,19 +47,19 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "idct_mma.cuh"
+
 namespace {
+
+using namespace jdt_idct;
 
 constexpr int kMaxComps = 4;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kWarpRows = 32;                  // blocks per warp: 2 m16 tiles
 constexpr int kTileRows = kWarps * kWarpRows;  // blocks per CTA tile
-constexpr int kCoefStride = 72;                // int16 per staged row (144 B)
-constexpr int kBasisBytes = 64 * 32 * 16;      // 64 fragments, 32 lanes, float4
 constexpr int kCoefBytes = kTileRows * kCoefStride * 2;
 constexpr int kOutBytes = kWarps * kWarpRows * 64;
 constexpr int kSmemBytes = kBasisBytes + 2 * kCoefBytes + kOutBytes;
-constexpr uint32_t kTf32Mask = 0xFFFFE000u;    // clears 13 low mantissa bits
 
 struct Comp {
   const int16_t* coef;   // [n_blocks, 64] natural order
@@ -82,39 +75,6 @@ struct Args {
   int ncomp;
   int n_tiles;
 };
-
-__device__ __forceinline__ float tf32_hi(float x) {
-  return __uint_as_float(__float_as_uint(x) & kTf32Mask);
-}
-
-// Round to the nearest TF32, ties away from zero.
-__device__ __forceinline__ float tf32_rna(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & kTf32Mask);
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all_but_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
 
 __device__ __forceinline__ int comp_of(const Args& a, int tile) {
   int c = 0;
@@ -142,34 +102,6 @@ __device__ __forceinline__ void issue_tile(const Args& a, int tile,
   }
 }
 
-// The folded basis of one component as B fragments of m16n8k8: fragment
-// (kk, nt) of lane (g, t) holds B[8kk + t][8nt + g] and
-// B[8kk + t + 4][8nt + g], each split into hi and lo:
-// {b0.hi, b1.hi, b0.lo, b1.lo}.
-// All of a thread's loads are issued before the first is used.
-__device__ __forceinline__ void load_basis(const float* __restrict__ basis,
-                                           float4* s_frag, int tid) {
-  constexpr int kPer = 64 * 32 / kThreads;
-  float b[kPer][2];
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int i = tid + j * kThreads;
-    const int lane = i & 31;
-    const int f = i >> 5;
-    const int col = 8 * (f & 7) + (lane >> 2);
-    const int row = 8 * (f >> 3) + (lane & 3);
-    b[j][0] = __ldg(basis + row * 64 + col);
-    b[j][1] = __ldg(basis + (row + 4) * 64 + col);
-  }
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const float h0 = tf32_rna(b[j][0]);
-    const float h1 = tf32_rna(b[j][1]);
-    s_frag[tid + j * kThreads] =
-        make_float4(h0, h1, tf32_rna(b[j][0] - h0), tf32_rna(b[j][1] - h1));
-  }
-}
-
 // One warp: 32 staged coefficient rows -> 32 x n_out pixels in `s_out`.
 template <int NT, int KT>
 __device__ __forceinline__ void warp_tile(const int16_t* s_coef,
@@ -178,50 +110,8 @@ __device__ __forceinline__ void warp_tile(const int16_t* s_coef,
   const int g = lane >> 2;
   const int t = lane & 3;
   float acc[2][NT][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[m][n][j] = 0.0f;
-
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    uint32_t ahi[2][4], alo[2][4];
-    bool any_lo = false;
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const int16_t* r0 = s_coef + (m * 16 + g) * kCoefStride + kk * 8 + t;
-      const int16_t* r1 = r0 + 8 * kCoefStride;
-      const float x[4] = {
-          static_cast<float>(r0[0]), static_cast<float>(r1[0]),
-          static_cast<float>(r0[4]), static_cast<float>(r1[4])};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float hi = tf32_hi(x[j]);
-        const float lo = x[j] - hi;      // exact, at most 5 significant bits
-        ahi[m][j] = __float_as_uint(hi);
-        alo[m][j] = __float_as_uint(lo);
-        any_lo |= lo != 0.0f;
-      }
-    }
-    const bool need_lo = __any_sync(0xFFFFFFFFu, any_lo);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const float4 b = s_frag[(kk * 8 + n) * 32 + lane];
-      const uint32_t bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
-      const uint32_t bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        mma_tf32(acc[m][n], ahi[m], bh0, bh1);
-        mma_tf32(acc[m][n], ahi[m], bl0, bl1);
-        if (need_lo) mma_tf32(acc[m][n], alo[m], bh0, bh1);
-      }
-    }
-  }
-
-  // C fragment: acc[m][n][j] is row 16m + g + 8 (j >> 1), column
-  // 8n + 2t + (j & 1).
+  warp_product<NT, KT>(s_coef, s_frag, lane, acc);
+  // acc[m][n][j] is row 16m + g + 8 (j >> 1), column 8n + 2t + (j & 1).
 #pragma unroll
   for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -230,11 +120,9 @@ __device__ __forceinline__ void warp_tile(const int16_t* s_coef,
       for (int j = 0; j < 4; ++j) {
         const int row = m * 16 + g + 8 * (j >> 1);
         const int col = n * 8 + 2 * t + (j & 1);
-        if (col < n_out) {
-          const float y = fminf(fmaxf(floorf(acc[m][n][j] + 128.5f), 0.0f),
-                                255.0f);
-          s_out[row * n_out + col] = static_cast<uint8_t>(y);
-        }
+        if (col < n_out)
+          s_out[row * n_out + col] =
+              static_cast<uint8_t>(idct_pixel(acc[m][n][j]));
       }
 }
 
@@ -260,11 +148,11 @@ dequant_idct_kernel(const Args a) {
       issue_tile(a, next, s_coef + ((i + 1) & 1) * kTileRows * kCoefStride,
                  tid);
     cp_async_commit();            // an empty group on the last tile
-    cp_async_wait_all_but_one();  // this tile's copy has landed
+    cp_async_wait<1>();           // this tile's copy has landed
     __syncthreads();
     const int c = comp_of(a, tile);
     if (c != loaded) {            // every warp is past the previous tile
-      load_basis(a.comp[c].basis, s_frag, tid);
+      load_frags<kThreads, 1>(a.comp[c].basis, s_frag, tid);
       loaded = c;
       __syncthreads();
     }
@@ -296,18 +184,6 @@ dequant_idct_kernel(const Args a) {
     }
     __syncthreads();              // buffers free for the next prefetch
   }
-}
-
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess
-        || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
-               != cudaSuccess)
-      sms = 132;
-  }
-  return sms;
 }
 
 }  // namespace
@@ -346,7 +222,7 @@ extern "C" int jdt_dequant_idct(const void* const* coefs,
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const int grid = tiles < 2 * sm_count() ? tiles : 2 * sm_count();
+  const int grid = min(tiles, 2 * jdt_idct::sm_count());
   dequant_idct_kernel<<<grid, kThreads, kSmemBytes,
                         static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());

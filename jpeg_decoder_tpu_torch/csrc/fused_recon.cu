@@ -3,154 +3,336 @@
 //
 // Replaces the TPU probe kernel tools/experiments/fused_recon_probe.py
 // `make_kernel` (its stage 2, the real fused kernel): int16 [bh, bw, 64]
-// natural-order stores per component, float32 [3, 64] dequant factors and
-// the [64, 64] 8x8 IDCT basis -> uint8 [3, bh * 8, width]: per block row,
-// dequant + IDCT, the block -> raster shuffle, then YCbCr -> RGB in x2^20
-// fixed point. Rows are not cropped; columns stop at width.
+// natural-order stores per component and the three components' [64, 64]
+// IDCT bases with their quantization tables folded in (B = diag(q) @ basis,
+// as K2 takes them) -> uint8 [3, bh * 8, width]: per block row, dequant +
+// IDCT, the block -> raster shuffle, then YCbCr -> RGB in x2^20 fixed point
+// (ops/color.py's constants). Rows are not cropped; columns stop at width.
 //
-// The IDCT keeps the arithmetic of the first K2 design: float(coef) * q
-// rounded first, then fmaf over c = 0..63 in order from 0, floorf(y +
-// 128.5f), clamp to [0, 255]. K2 (csrc/dequant_idct.cu) has since moved to a
-// split-TF32 tensor-core product with q folded into the basis, which rounds
-// in other places, so K4 is no longer bit-equal to K2 + blocks_to_plane +
-// ops/color.py's ycbcr_to_rgb: it is held within 3 of that path (1 in the
-// IDCT, times up to 1.772 through color), as of its plain version.
+// The IDCT is K2's: the split-TF32 tensor-core product of idct_mma.cuh,
+// the same instructions on the same operands for every pixel, so K4 is
+// bit-equal to K2 + blocks_to_plane + ycbcr_to_rgb (the decoder's unfused
+// path), and within 3 of its plain fp32 version (1 in the IDCT, times up to
+// 1.772 through color).
 //
-// What bounds it on this card: like K2, fp32 FMA issue (8192 FLOPs per
-// block against 128 bytes of coefficients in and 64 bytes out per
-// component). Fusing removes the two uint8 planes written and read again
-// between K2, blocks_to_plane and color (3 + 3 + 3 bytes per pixel) and
-// four launches per component.
+// What bounds it on this card: at the probe's shape (3 x [210, 256, 64],
+// 161,280 blocks) it reads 20.6 MB of coefficients and writes 10.3 MB of
+// pixels, 9.24 us at 3.35 TB/s; the split product's three TF32 products
+// (3.96 GFLOP) would take 8.0 us at 495 TFLOP/s, the same work in fp32 on
+// the CUDA cores (1.32 GFLOP) 19.7 us. The first design (one CTA per 16
+// blocks of a block row, fp32 FMAs, every one of 3,360 CTAs copying the 16
+// KB basis: 55 MB of L2 reads) took 108 us. In practice the tensor-core
+// product sets the pace: on an H100, mma.sync alone reaches about 70% of
+// the TF32 peak, and the two products per k-step that K2's bits require
+// (lo*hi is never needed below 2048) take about half of each warp's time
+// at ~80% of that rate (tools/experiments/k4_phase_probe.py).
 //
-// What the design does about it: one CTA of 256 threads per tile of 16
-// blocks of one block row. It stages the basis (16 KB), the 3 x 64 dequant
-// factors and the three dequantized tiles (12 KB) in shared memory; thread t
-// owns pixel p = t % 64 of blocks t / 64 + 4j, j < 4, in all three
-// components, so each basis value read feeds 12 FMAs and the coefficient
-// reads are warp-wide broadcasts. The pixels go to a raster tile in shared
-// memory (3 x 8 rows x 128 columns); each thread then converts 4 consecutive
-// pixels of one row and stores 4 bytes per channel, a warp 128 bytes of a
-// row.
+// What the design does about it:
+// - persistent CTAs, one per SM: each stages the three folded bases once,
+//   as ready-made hi/lo B fragments (96 KB of shared memory), and every
+//   warp reads its component's from there;
+// - the CTA's 12 warps form 4 independent groups of 3, one warp per
+//   component, each with its own named barrier, double buffer and tile
+//   stream (32 consecutive blocks of one block row, 256 pixel columns), so
+//   one group's color and stores overlap another's tensor-core product,
+//   and the work splits into 32-block tiles across 528 groups;
+// - a tile's coefficients arrive by cp.async (16-byte chunks, zero-filled
+//   past bw) into the group's other buffer while the current tile
+//   computes;
+// - each warp runs K2's warp_product on its two m16 tiles and writes its
+//   pixels, two bytes per store, over its own coefficient rows as a
+//   raster tile (8 rows x 256 columns): the block -> raster shuffle, with
+//   no uint8 plane in device memory;
+// - color as K3 does it: each thread converts 16 consecutive pixels of one
+//   row in int32 fixed point and stores each channel as wide as the width
+//   and the output's base allow (16 B where width % 16 == 0), bytewise on
+//   the ragged edge.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "idct_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 16;                  // blocks per CTA
-constexpr int kCols = kTile * 8;           // pixel columns per CTA
-constexpr int kRows = kThreads / 64;       // blocks advanced per j step
-constexpr int kPerThread = kTile / kRows;  // blocks per thread and component
+using namespace jdt_idct;
+
+constexpr int kGroups = 4;                     // warp groups per CTA
+constexpr int kGroupThreads = 3 * 32;          // one warp per component
+constexpr int kThreads = kGroups * kGroupThreads;
+constexpr int kTileBlocks = kWarpRows;         // of one block row
+constexpr int kTileCols = kTileBlocks * 8;     // one warp's raster row
+constexpr int kWarpBytes = kWarpRows * kCoefStride * 2;
+constexpr int kBufBytes = 3 * kWarpBytes;
+constexpr int kSmemBytes = 3 * kBasisBytes + kGroups * 2 * kBufBytes;
+constexpr int kVec = 16;                       // pixels per color item
+
+static_assert(8 * kTileCols <= kWarpBytes,
+              "a warp's raster fits over its coefficient rows");
+static_assert(kSmemBytes <= 232448, "one CTA's shared memory on sm_90");
+
+#ifdef K4_PHASE_PROBE
+// tools/experiments/k4_phase_probe.py builds with this defined: the clock64
+// cycles each warp spends in its phases (0: the tile's copy wait and
+// barrier, and the next prefetch; 1: the product; 2: the raster; 3: the
+// raster barrier; 4: color; 5: the prologue), summed over all warps, then
+// the number of warps and the longest warp's span.
+__device__ unsigned long long k4_probe[8];
+__device__ __forceinline__ void lap(long long& acc, long long& tk) {
+  const long long t = clock64();
+  acc += t - tk;
+  tk = t;
+}
+#define K4_PROBE(...) __VA_ARGS__
+#else
+#define K4_PROBE(...)
+#endif
+
+struct ReconArgs {
+  const int16_t* y;
+  const int16_t* cb;
+  const int16_t* cr;
+  const float* bases;    // [3][64][64]: diag(q_c) @ basis
+  uint8_t* out;          // [3][bh * 8][width]
+  int bw, width;
+  int tiles_per_row, n_tiles;
+  int out_align;         // the widest of 16, 8, 4, 1 dividing out and width
+  int64_t plane;         // bh * 8 * width
+};
 
 __device__ __forceinline__ int fixed20(int v) {
   return min(max(v >> 20, 0), 255);
 }
 
-__global__ void __launch_bounds__(kThreads)
-fused_recon_kernel(const int16_t* __restrict__ y,
-                   const int16_t* __restrict__ cb,
-                   const int16_t* __restrict__ cr,
-                   const float* __restrict__ q,
-                   const float* __restrict__ basis, int bh, int bw, int width,
-                   uint8_t* __restrict__ out) {
-  __shared__ float s_basis[64 * 64];
-  __shared__ float s_coef[3][kTile * 64];
-  __shared__ float s_q[3 * 64];
-  __shared__ uint8_t s_px[3][8][kCols];
+__device__ __forceinline__ int byte_of(const uint4& v, int k) {
+  const uint32_t w = k < 4 ? v.x : k < 8 ? v.y : k < 12 ? v.z : v.w;
+  return (w >> ((k & 3) * 8)) & 0xFF;
+}
 
-  const int brow = blockIdx.y;
-  const int b0 = blockIdx.x * kTile;
-  const int nb = min(kTile, bw - b0);
-  for (int i = threadIdx.x; i < 64 * 64; i += kThreads) s_basis[i] = basis[i];
-  if (threadIdx.x < 3 * 64) s_q[threadIdx.x] = q[threadIdx.x];
-  __syncthreads();
-  const int64_t base = (static_cast<int64_t>(brow) * bw + b0) * 64;
-  for (int i = threadIdx.x; i < 3 * kTile * 64; i += kThreads) {
-    const int comp = i / (kTile * 64);
-    const int k = i - comp * (kTile * 64);
-    const int16_t* src = comp == 0 ? y : (comp == 1 ? cb : cr);
-    s_coef[comp][k] = k / 64 < nb ? static_cast<float>(src[base + k]) *
-                                        s_q[comp * 64 + (k & 63)]
-                                  : 0.0f;
-  }
-  __syncthreads();
+// A barrier over one warp group's threads (barrier 0 is __syncthreads').
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(1 + group), "n"(kGroupThreads)
+               : "memory");
+}
 
-  const int p = threadIdx.x & 63;
-  const int row = threadIdx.x >> 6;
-  float acc[3][kPerThread];
-#pragma unroll
-  for (int comp = 0; comp < 3; ++comp)
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) acc[comp][j] = 0.0f;
-  for (int c = 0; c < 64; ++c) {
-    const float m = s_basis[c * 64 + p];
-#pragma unroll
-    for (int comp = 0; comp < 3; ++comp)
-#pragma unroll
-      for (int j = 0; j < kPerThread; ++j)
-        acc[comp][j] =
-            fmaf(s_coef[comp][(row + kRows * j) * 64 + c], m, acc[comp][j]);
-  }
-#pragma unroll
-  for (int comp = 0; comp < 3; ++comp)
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const float v =
-          fminf(fmaxf(floorf(acc[comp][j] + 128.5f), 0.0f), 255.0f);
-      s_px[comp][p >> 3][(row + kRows * j) * 8 + (p & 7)] =
-          static_cast<uint8_t>(v);
+// Store 16 bytes (4 words) of one channel row at dst, `n` of them valid.
+__device__ __forceinline__ void store16(uint8_t* dst, const uint32_t* o,
+                                        int n, int align) {
+  if (n >= 16) {
+    if (align >= 16) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
+      return;
     }
-  __syncthreads();
-
-  // 8 rows x kCols columns, 4 columns per thread: kThreads work items.
-  const int r8 = threadIdx.x / (kCols / 4);
-  const int xl = (threadIdx.x % (kCols / 4)) * 4;
-  const int x0 = b0 * 8 + xl;
-  if (x0 >= width) return;
-  int o[3][4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int yy = s_px[0][r8][xl + k] * (1 << 20) + (1 << 19);
-    const int vb = s_px[1][r8][xl + k] - 128;
-    const int vr = s_px[2][r8][xl + k] - 128;
-    o[0][k] = fixed20(yy + 1470104 * vr);
-    o[1][k] = fixed20(yy - 360857 * vb - 748830 * vr);
-    o[2][k] = fixed20(yy + 1858077 * vb);
-  }
-  const int64_t plane_px = static_cast<int64_t>(bh) * 8 * width;
-  const int64_t at = (static_cast<int64_t>(brow) * 8 + r8) * width + x0;
-  const bool whole = (width & 3) == 0;   // 4-byte aligned, never ragged
-#pragma unroll
-  for (int comp = 0; comp < 3; ++comp) {
-    uint8_t* dst = out + comp * plane_px + at;
-    if (whole) {
-      *reinterpret_cast<uchar4*>(dst) =
-          make_uchar4(o[comp][0], o[comp][1], o[comp][2], o[comp][3]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (x0 + k < width) dst[k] = static_cast<uint8_t>(o[comp][k]);
+    if (align >= 8) {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(o[0], o[1]);
+      *reinterpret_cast<uint2*>(dst + 8) = make_uint2(o[2], o[3]);
+      return;
     }
+    if (align >= 4) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) reinterpret_cast<uint32_t*>(dst)[k] = o[k];
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    if (k < n) dst[k] = static_cast<uint8_t>(o[k >> 2] >> ((k & 3) * 8));
+}
+
+// Start the copy of one tile's coefficients into `dst` (gt: the thread's
+// index in its group): staged row 32 c + r is block r of the tile in
+// component c; rows past bw are zero-filled.
+__device__ __forceinline__ void issue_tile(const ReconArgs& a, int tile,
+                                           int16_t* dst, int gt) {
+  const int brow = tile / a.tiles_per_row;
+  const int b0 = (tile - brow * a.tiles_per_row) * kTileBlocks;
+  const int64_t row_base = static_cast<int64_t>(brow) * a.bw;
+#pragma unroll
+  for (int j = 0; j < 3 * kTileBlocks * 8 / kGroupThreads; ++j) {
+    const int q = gt + j * kGroupThreads;
+    const int row = q >> 3;
+    const int part = q & 7;
+    const int c = row / kTileBlocks;
+    const int bx = b0 + row % kTileBlocks;
+    const int16_t* store = c == 0 ? a.y : c == 1 ? a.cb : a.cr;
+    const bool live = bx < a.bw;
+    const int16_t* src = live ? store + (row_base + bx) * 64 + part * 8
+                              : store;
+    cp_async16(dst + row * kCoefStride + part * 8, src, live ? 16 : 0);
   }
 }
 
-static_assert(kThreads == 8 * (kCols / 4), "one thread per 4 output pixels");
-static_assert(kTile % kRows == 0, "whole j steps per tile");
+// The warp's pixels -> its raster tile over its own coefficient rows:
+// row r (0..7) of its 32 blocks at w_buf + r * kTileCols. acc[m][n][j] is
+// block 16m + g + 8 (j >> 1), pixel row n, column 2t + (j & 1).
+__device__ __forceinline__ void put_raster(const float (&acc)[2][8][4],
+                                           unsigned char* w_buf, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int blk = 16 * m + g + 8 * h;
+        const uint32_t v = idct_pixel(acc[m][n][2 * h])
+                           | idct_pixel(acc[m][n][2 * h + 1]) << 8;
+        *reinterpret_cast<uint16_t*>(w_buf + n * kTileCols + blk * 8 + 2 * t) =
+            static_cast<uint16_t>(v);
+      }
+}
+
+// The tile's raster in `buf` -> RGB, 16 pixels of one row per item.
+__device__ __forceinline__ void color_tile(const ReconArgs& a,
+                                           const unsigned char* buf, int tile,
+                                           int gt) {
+  constexpr int kItemsPerRow = kTileCols / kVec;
+  const int brow = tile / a.tiles_per_row;
+  const int x0 = (tile - brow * a.tiles_per_row) * kTileCols;
+  for (int it = gt; it < 8 * kItemsPerRow; it += kGroupThreads) {
+    const int r = it / kItemsPerRow;
+    const int xl = (it % kItemsPerRow) * kVec;
+    const int n = a.width - (x0 + xl);
+    if (n <= 0) continue;
+    const unsigned char* src = buf + r * kTileCols + xl;
+    const uint4 yv = *reinterpret_cast<const uint4*>(src);
+    const uint4 bv = *reinterpret_cast<const uint4*>(src + kWarpBytes);
+    const uint4 rv = *reinterpret_cast<const uint4*>(src + 2 * kWarpBytes);
+    uint32_t o[3][4] = {};
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const int yy = byte_of(yv, k) * (1 << 20) + (1 << 19);
+      const int vb = byte_of(bv, k) - 128;
+      const int vr = byte_of(rv, k) - 128;
+      const int sh = (k & 3) * 8;
+      o[0][k >> 2] |= static_cast<uint32_t>(fixed20(yy + 1470104 * vr)) << sh;
+      o[1][k >> 2] |=
+          static_cast<uint32_t>(fixed20(yy - 360857 * vb - 748830 * vr)) << sh;
+      o[2][k >> 2] |= static_cast<uint32_t>(fixed20(yy + 1858077 * vb)) << sh;
+    }
+    uint8_t* dst = a.out + (static_cast<int64_t>(brow) * 8 + r) * a.width
+                   + x0 + xl;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      store16(dst + c * a.plane, o[c], n, a.out_align);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fused_recon_kernel(const ReconArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int group = tid / kGroupThreads;
+  const int gt = tid - group * kGroupThreads;
+  const int warp = gt >> 5;
+  const int lane = tid & 31;
+  const float4* w_frag = reinterpret_cast<const float4*>(smem)
+                         + warp * kFragsPerBasis;   // warp w: component w
+  unsigned char* g_buf = smem + 3 * kBasisBytes + group * 2 * kBufBytes;
+  const int stride = kGroups * gridDim.x;
+  K4_PROBE(long long ph[6] = {0, 0, 0, 0, 0, 0}; long long tk = clock64();
+           const long long t0 = tk;)
+
+  // Group g of CTA b takes tiles b + g * gridDim.x, then every stride-th.
+  int tile = blockIdx.x + group * gridDim.x;
+  if (tile < a.n_tiles)
+    issue_tile(a, tile, reinterpret_cast<int16_t*>(g_buf), gt);
+  cp_async_commit();
+  load_frags<kThreads, 3>(a.bases, reinterpret_cast<float4*>(smem), tid);
+  __syncthreads();                // the fragments are in
+  K4_PROBE(lap(ph[5], tk);)
+  for (int i = 0; tile < a.n_tiles; ++i, tile += stride) {
+    unsigned char* buf = g_buf + (i & 1) * kBufBytes;
+    cp_async_wait<0>();           // this tile's copy has landed
+    group_sync(group);            // ... for the whole group, and every
+                                  // thread of it is past the last tile
+    const int next = tile + stride;
+    if (next < a.n_tiles)
+      issue_tile(a, next,
+                 reinterpret_cast<int16_t*>(g_buf + ((i + 1) & 1) * kBufBytes),
+                 gt);
+    cp_async_commit();            // an empty group on the last tile
+    K4_PROBE(lap(ph[0], tk);)
+    unsigned char* w_buf = buf + warp * kWarpBytes;
+    float acc[2][8][4];
+    warp_product<8, 8>(reinterpret_cast<const int16_t*>(w_buf), w_frag, lane,
+                       acc);
+    __syncwarp();                 // every lane has read its coefficients
+    K4_PROBE(lap(ph[1], tk);)
+    put_raster(acc, w_buf, lane);
+    K4_PROBE(lap(ph[2], tk);)
+    group_sync(group);            // the whole tile's raster is in
+    K4_PROBE(lap(ph[3], tk);)
+    color_tile(a, buf, tile, gt);
+    K4_PROBE(lap(ph[4], tk);)
+  }
+  K4_PROBE(if (lane == 0) {
+    for (int k = 0; k < 6; ++k)
+      atomicAdd(&k4_probe[k], static_cast<unsigned long long>(ph[k]));
+    atomicAdd(&k4_probe[6], 1ull);
+    atomicMax(&k4_probe[7], static_cast<unsigned long long>(clock64() - t0));
+  })
+}
+
+int widest(uintptr_t v) {
+  return v % 16 == 0 ? 16 : v % 8 == 0 ? 8 : v % 4 == 0 ? 4 : 1;
+}
 
 }  // namespace
 
+#ifdef K4_PHASE_PROBE
+extern "C" int jdt_k4_probe_read(void* dst) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(dst, k4_probe, sizeof(k4_probe)));
+}
+
+extern "C" int jdt_k4_probe_reset() {
+  const unsigned long long zero[8] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(k4_probe, zero, sizeof(zero)));
+}
+#endif
+
+// y, cb, cr: int16 [bh, bw, 64] stores, each 16-byte aligned; bases: float32
+// [3, 64, 64] folded bases; out: uint8 [3, bh * 8, width].
 extern "C" int jdt_fused_recon(const void* y, const void* cb, const void* cr,
-                               const void* q, const void* basis, int bh,
-                               int bw, int width, void* out, void* stream) {
-  if (bh < 0 || bh > 65535 || bw < 0 || width < 0 || width > bw * 8)
+                               const void* bases, int bh, int bw, int width,
+                               void* out, void* stream) {
+  if (bh < 0 || bw < 0 || width < 0
+      || static_cast<int64_t>(width) > static_cast<int64_t>(bw) * 8)
     return static_cast<int>(cudaErrorInvalidValue);
   if (bh == 0 || bw == 0 || width == 0) return 0;
-  const dim3 grid((bw + kTile - 1) / kTile, bh);
-  fused_recon_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(y), static_cast<const int16_t*>(cb),
-      static_cast<const int16_t*>(cr), static_cast<const float*>(q),
-      static_cast<const float*>(basis), bh, bw, width,
-      static_cast<uint8_t*>(out));
+  if ((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(cb)
+       | reinterpret_cast<uintptr_t>(cr)) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const int tiles_per_row = (bw + kTileBlocks - 1) / kTileBlocks;
+  const int64_t n_tiles = static_cast<int64_t>(bh) * tiles_per_row;
+  if (n_tiles >= (1LL << 31) - (1LL << 20))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ReconArgs a;
+  a.y = static_cast<const int16_t*>(y);
+  a.cb = static_cast<const int16_t*>(cb);
+  a.cr = static_cast<const int16_t*>(cr);
+  a.bases = static_cast<const float*>(bases);
+  a.out = static_cast<uint8_t*>(out);
+  a.bw = bw;
+  a.width = width;
+  a.tiles_per_row = tiles_per_row;
+  a.n_tiles = static_cast<int>(n_tiles);
+  a.out_align = widest(reinterpret_cast<uintptr_t>(out)
+                       | static_cast<uintptr_t>(width));
+  a.plane = static_cast<int64_t>(bh) * 8 * width;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_recon_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const int grid = min((a.n_tiles + kGroups - 1) / kGroups,
+                       jdt_idct::sm_count());
+  fused_recon_kernel<<<grid, kThreads, kSmemBytes,
+                       static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

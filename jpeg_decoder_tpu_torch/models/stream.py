@@ -62,7 +62,7 @@ from ..host.decoder import Decoder
 from ..host.entropy.prescan import AnchoredScan, PrescanFallback
 from ..host.entropy.transcode import transcode_decoded
 from ..host.entropy.wire import WORDS_PAD, pack_delta
-from ..host.errors import FormatError
+from ..host.errors import FormatError, JpegError
 from ..host.ops.pipeline import ImageGeometry, geometry_from_frame
 from ..host.ops.tail import is_420_ycbcr
 from ..host.parser import CodingProcess, Predictor
@@ -393,15 +393,33 @@ class DeviceStreamDecoder:
         return self._run_device(staged, self._to_device(staged))
 
     def decode_stream(self, sources: Iterable, scale_to=None,
-                      batch_size: int = 1) -> list:
+                      batch_size: int = 1, on_error: str = "raise") -> list:
         """Decode all sources, in order, to device tensors. The pool stages
-        later images on the host while earlier ones decode on the device."""
+        later images on the host while earlier ones decode on the device.
+
+        on_error: "raise" propagates the first failure; any other value
+        ("none") isolates a source whose staging raises a JpegError: its
+        slot holds None and later sources still decode, as in the
+        reference."""
         if batch_size != 1:
+            # When batching lands, a None slot must first flush every open
+            # group, as the reference does (jpeg_decoder_tpu/models/
+            # stream.py:1647-1654), so outputs stay in source order.
             raise NotImplementedError(
                 "batch_size > 1 (merged multi-image sweeps) is not ported yet")
         futures = [self.pool.submit(self.stage, s, scale_to) for s in sources]
+
+        def resolve(fut):
+            if on_error == "raise":
+                return fut.result()
+            try:
+                return fut.result()
+            except JpegError:
+                return None
+
         try:
-            return [self.decode_one(f.result()) for f in futures]
+            return [None if st is None else self.decode_one(st)
+                    for st in map(resolve, futures)]
         except BaseException:
             for f in futures:      # stop staging what will not be decoded
                 f.cancel()

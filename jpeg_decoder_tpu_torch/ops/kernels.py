@@ -27,8 +27,10 @@ fused_tail_pallas` (the TPU kernel `_fused_tail_kernel`). Kernel
 K4 `fused_recon`: 4:4:4 YCbCr coefficient stores -> planar RGB in one
 kernel (an fp32 IDCT, block -> raster, color), counterpart of the TPU probe
 `tools/experiments/fused_recon_probe.py::make_kernel`. Kernel
-`csrc/fused_recon.cu`; it keeps the first K2's fp32 FMA order, so on the
-card it is within 3 of K2 + `blocks_to_plane` + color and of its plain
+`csrc/fused_recon.cu`; its IDCT is K2's split-TF32 product
+(`csrc/idct_mma.cuh`) on the same folded bases (`fused_recon_bases`), so on
+the card it is bit-equal to K2 + `blocks_to_plane` + color
+(`fused_recon_plain(..., k2=dequant_idct)`), and within 3 of its plain
 version (the IDCTs round in different places: 1 in the IDCT, times up to
 1.772 through color).
 """
@@ -299,6 +301,13 @@ def _check_recon(y, cb, cr, qts, basis, width: int) -> None:
         raise ValueError(f"width {width} outside 1..{bw * 8}, or no blocks")
 
 
+def fused_recon_bases(qts, basis) -> torch.Tensor:
+    """K4's folded bases, float32 [3, 64, 64]: row c of `basis` times
+    qts[i, c], the fp32 products K2's wrapper forms (`q[:, None] * basis`)
+    and `params.folded_basis` computes."""
+    return (qts[:, :, None] * basis).contiguous()
+
+
 def fused_recon(y, cb, cr, qts, basis, width: int = None) -> torch.Tensor:
     """4:4:4 YCbCr stores, int16 [bh, bw, 64] each (natural order), float32
     [3, 64] dequant factors and the 8x8 [64, 64] basis -> uint8 planar RGB
@@ -310,13 +319,17 @@ def fused_recon(y, cb, cr, qts, basis, width: int = None) -> torch.Tensor:
         return fused_recon_plain(y, cb, cr, qts, basis, width)
     if y.device.type != "cuda":
         raise ValueError(f"no K4 implementation for device {y.device}")
+    if any(s.data_ptr() % 16 for s in (y, cb, cr)):
+        raise ValueError("K4 reads coefficients in 16-byte chunks: each "
+                         "store must start 16-byte aligned")
     bh, bw, _ = y.shape
+    bases = fused_recon_bases(qts, basis)
     out = torch.empty((3, bh * 8, width), dtype=torch.uint8, device=y.device)
     lib = _build.load()
     with torch.cuda.device(y.device):
         err = lib.jdt_fused_recon(
-            y.data_ptr(), cb.data_ptr(), cr.data_ptr(), qts.data_ptr(),
-            basis.data_ptr(), bh, bw, width, out.data_ptr(),
+            y.data_ptr(), cb.data_ptr(), cr.data_ptr(), bases.data_ptr(),
+            bh, bw, width, out.data_ptr(),
             torch.cuda.current_stream(y.device).cuda_stream)
         _build.LAUNCHES["fused_recon"] += 1
     _build.check(lib, err, "fused_recon")
@@ -328,7 +341,7 @@ def fused_recon_plain(y, cb, cr, qts, basis, width: int = None,
     """Plain PyTorch version of K4, the probe's reference "X": per component
     `k2` (dequant + IDCT), `blocks_to_plane`, then `ycbcr_to_rgb` and a
     planar stack. `k2=dequant_idct` gives the unfused path of the decoder,
-    which the kernel matches within 3 on the card."""
+    which the kernel matches bit for bit on the card."""
     bh, bw, _ = y.shape
     width = bw * 8 if width is None else width
     planes = [idct.blocks_to_plane(k2(s.reshape(-1, 64), q, basis)

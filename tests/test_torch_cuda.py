@@ -12,10 +12,13 @@ zeroed); K2 |diff| <= 1 (its split-TF32 tensor-core product rounds in
 other places than the plain fp32 matmul), also with three components in
 one launch, and one launch per image on the fast path; decoded images
 |diff| <= 3 against the CPU port (the K2 difference after color
-conversion); K3 bit-equal (integer math); K4 within 3 of K2 +
-blocks_to_plane + color and of its plain version: K4 keeps the first K2's
-fp32 FMA order, which the redesigned K2 no longer has, so the two IDCTs
-may differ by 1 and color scales that by up to 1.772; the planar layouts
+conversion); K3 bit-equal (integer math); K4 bit-equal to K2 +
+blocks_to_plane + color (the same split-TF32 product on the same folded
+bases), also at bw past its 128-block tiles, bw 1, widths cut mid-block
+and not a multiple of 16, and coefficients >= 2048 in some blocks (the
+lo*hi product each warp may skip), and within 3 of its plain version (1
+in the IDCT, times up to 1.772 through color); a store that does not start
+16-byte aligned is rejected; the planar layouts
 bit-equal to the interleaved output on the card, permuted; K3 also at odd
 widths with pitches 8 mod 16 and bases 8 bytes off 16; L1 bit-equal to its
 plain version (integer math), also at its 32-row band edges and with three
@@ -129,23 +132,53 @@ def test_k3_kernel_bit_equal_to_plain(cuda, name):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("bh,bw,width", [(5, 7, 56), (3, 33, 259), (1, 1, 5)])
-def test_k4_kernel_bit_equal_to_k2_path(cuda, bh, bw, width):
-    """K4 against the decoder's K2 path, within 3 since K2's redesign."""
-    rng = np.random.default_rng(bh * 100 + bw)
-    y, cb, cr = (torch.from_numpy(rng.integers(-300, 300, (bh, bw, 64))
-                                  .astype(np.int16)).to(cuda)
-                 for _ in range(3))
+def _k4_args(cuda, bh, bw, width, big, seed):
+    """Seeded K4 arguments; `big` puts coefficients of magnitude 2048-4095
+    in about one block in 40, so some warps need the lo*hi product and
+    their neighbours do not, in K4's tiles and in K2's alike."""
+    rng = np.random.default_rng(seed)
+    stores = []
+    for _ in range(3):
+        s = rng.integers(-300, 300, (bh, bw, 64))
+        if big:
+            hot = rng.random((bh, bw)) < 1 / 40
+            s[hot, :8] = rng.choice([-1, 1], (int(hot.sum()), 8)) \
+                * rng.integers(2048, 4096, (int(hot.sum()), 8))
+        stores.append(torch.from_numpy(s.astype(np.int16)).to(cuda))
     params = DeviceParams(cuda)
     q = torch.stack([params.qt(rng.integers(1, 60, 64).astype(np.uint16))
                      for _ in range(3)])
-    args = (y, cb, cr, q, params.basis(8), width)
+    return (*stores, q, params.basis(8), width)
+
+
+@pytest.mark.parametrize("bh,bw,width,big", [
+    (5, 7, 56, False), (3, 33, 259, False), (1, 1, 5, False),
+    (4, 129, 1030, False), (2, 300, 2387, False), (9, 1, 8, False),
+    (1, 256, 2048, False), (6, 70, 555, True), (3, 257, 2056, True)])
+def test_k4_kernel_bit_equal_to_k2_path(cuda, bh, bw, width, big):
+    """K4 against the decoder's K2 path: bit for bit."""
+    args = _k4_args(cuda, bh, bw, width, big, bh * 100 + bw)
+    before = jt.LAUNCHES["fused_recon"]
     got = fused_recon(*args)
+    assert jt.LAUNCHES["fused_recon"] == before + 1
     assert tuple(got.shape) == (3, bh * 8, width)
-    for k2 in (dequant_idct, dequant_idct_plain):
-        d = got.to(torch.int32) - fused_recon_plain(*args, k2=k2).to(
-            torch.int32)
-        assert int(d.abs().max()) <= 3
+    torch.testing.assert_close(got, fused_recon_plain(*args, k2=dequant_idct),
+                               rtol=0, atol=0)
+    d = got.to(torch.int32) - fused_recon_plain(
+        *args, k2=dequant_idct_plain).to(torch.int32)
+    assert int(d.abs().max()) <= 3
+
+
+def test_k4_rejects_a_store_not_16_byte_aligned(cuda):
+    y, cb, cr, q, basis, width = _k4_args(cuda, 2, 3, 24, False, 1)
+    buf = torch.empty(y.numel() + 8, dtype=torch.int16, device=cuda)
+    shifted = buf[4:4 + y.numel()].view(y.shape)      # 8 bytes off 16
+    shifted.copy_(y)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 8
+    before = jt.LAUNCHES["fused_recon"]
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_recon(y, shifted, cr, q, basis, width)
+    assert jt.LAUNCHES["fused_recon"] == before
 
 
 @pytest.mark.parametrize("layout", ["planar", "planar-pallas"])

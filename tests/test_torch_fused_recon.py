@@ -9,6 +9,13 @@ On the CPU `fused_recon` runs its plain PyTorch version. Tolerance:
 own order (torch's matmul, numpy's), which may move a pixel across a
 rounding boundary by 1; color conversion scales a chroma difference of 1
 by up to 1.772, and 1 + 1.772 rounds to at most 3.
+
+The pieces the kernel shares with K2, on the CPU: its folded bases
+(`fused_recon_bases`) bit-equal to `params.folded_basis`, and the unfused
+path with K2's split-TF32 scheme as its IDCT (`split_tf32_product`) within
+3 of the numpy X, as the plain version is. On the card the kernel is
+bit-equal to `fused_recon_plain(..., k2=dequant_idct)`
+(tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -19,8 +26,11 @@ from jpeg_decoder_tpu.ops.color import ycbcr_to_rgb
 from jpeg_decoder_tpu.ops.idct import (blocks_to_plane,
                                        dequantize_and_idct_blocks_fast)
 from jpeg_decoder_tpu_torch.ops.kernels import (dequant_idct, fused_recon,
-                                                fused_recon_plain)
-from jpeg_decoder_tpu_torch.params import idct_basis, quant_table
+                                                fused_recon_bases,
+                                                fused_recon_plain,
+                                                split_tf32_product)
+from jpeg_decoder_tpu_torch.params import (folded_basis, idct_basis,
+                                           quant_table)
 
 from torch_inputs import FIXTURE_DIR, fixture
 
@@ -55,15 +65,27 @@ def _image():
     return image_stores(fixture("small_444.jpg"))
 
 
-@pytest.mark.parametrize("case", ["small_444", "seeded_7x5", "seeded_1x1",
-                                  "seeded_33x2"])
-def test_fused_recon_plain_within_3_of_numpy_x(case):
+CASES = ["small_444", "seeded_7x5", "seeded_1x1", "seeded_33x2"]
+
+
+def _case(case):
+    """(stores, qts, width) of one named case."""
     if case == "small_444":
-        stores, qts, width = _image()
-    else:
-        bw, bh = map(int, case.split("_")[1].split("x"))
-        stores, qts = _seeded(bh, bw, seed=bw * 100 + bh)
-        width = bw * 8 - (bw % 3)          # cut columns on some cases
+        return _image()
+    bw, bh = map(int, case.split("_")[1].split("x"))
+    stores, qts = _seeded(bh, bw, seed=bw * 100 + bh)
+    return stores, qts, bw * 8 - (bw % 3)      # cut columns on some cases
+
+
+def _split_tf32_k2(coef, q, basis):
+    """K2's arithmetic on the K2 path's folded basis: the scheme K4 now
+    shares."""
+    return split_tf32_product(coef, q[:, None] * basis)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_fused_recon_plain_within_3_of_numpy_x(case):
+    stores, qts, width = _case(case)
     args = _port_args(stores, qts)
     got = fused_recon(*args, width=width)
     ref = _numpy_x(stores, qts, width)
@@ -79,6 +101,30 @@ def test_fused_recon_plain_within_3_of_numpy_x(case):
     torch.testing.assert_close(got, fused_recon_plain(*args, width,
                                                       k2=dequant_idct),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_fused_recon_bases_bit_equal_to_params_folded_basis(case):
+    stores, qts, _width = _case(case)
+    q, basis = _port_args(stores, qts)[3:]
+    bases = fused_recon_bases(q, basis)
+    assert bases.dtype == torch.float32 and bases.shape == (3, 64, 64)
+    assert bases.is_contiguous()
+    for i, qt in enumerate(qts):
+        want = folded_basis(qt, 8, "cpu")
+        assert torch.equal(bases[i].view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_split_tf32_k2_path_within_3_of_numpy_x(case):
+    stores, qts, width = _case(case)
+    args = _port_args(stores, qts)
+    got = fused_recon_plain(*args, width, k2=_split_tf32_k2)
+    ref = _numpy_x(stores, qts, width)
+    assert tuple(got.shape) == ref.shape
+    d = np.abs(got.numpy().astype(np.int32) - ref.astype(np.int32))
+    print(f"{case}: max |diff| {int(d.max())}, {int((d > 0).sum())} differ")
+    assert int(d.max()) <= TOL
 
 
 def test_fused_recon_default_width_keeps_every_column():

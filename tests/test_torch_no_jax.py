@@ -84,7 +84,9 @@ PORT_SOURCES = (
     sorted((REPO / "jpeg_decoder_tpu_torch").rglob("*.py"))
     + [REPO / "chip_smoke.py", REPO / "tools" / "torch_port_profile.py",
        REPO / "tools" / "experiments" / "fused_recon_probe_torch.py",
-       REPO / "tools" / "experiments" / "k1_step_probe.py"])
+       REPO / "tools" / "experiments" / "k1_step_probe.py",
+       REPO / "tools" / "experiments" / "k4_phase_probe.py",
+       REPO / "tools" / "experiments" / "l1_step_probe.py"])
 
 
 def _imported_modules(path: Path) -> set:

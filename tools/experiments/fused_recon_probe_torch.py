@@ -10,10 +10,14 @@ takes 4:4:4 YCbCr coefficient stores, int16 [bh, bw, 64] per component,
 to planar RGB uint8 [3, bh * 8, W]: dequant + IDCT, block -> raster,
 color, with no uint8 plane written in between.
 
-Two inputs:
+Three inputs:
 - `--image`, a 4:4:4 YCbCr JPEG (default the fixture
   tests/fixtures/torch_port/small_444.jpg), decoded to stores by the host
-  oracle (`jpeg_decoder_tpu.Decoder`, numpy backend);
+  oracle (the port's copy, `jpeg_decoder_tpu_torch.host`, numpy backend);
+- seeded stores at the kernel's edges: 131 x 11 blocks (three blocks past
+  its 128-block tiles), width 1043 (cut mid-block, not a multiple of 16),
+  and coefficients of magnitude 2048-4095 in about one block in 40 (the
+  split product's lo*hi term, which a warp skips where it has none);
 - seeded random stores at the 3.44 Mpix 4:4:4 shape of 256 x 210 blocks
   (2048 x 1680), with the image's quantization tables.
 
@@ -24,11 +28,11 @@ For each it prints one JSON line with the CUDA-event ms of
 - X: the unfused path, K2 (`dequant_idct`) per component,
   `blocks_to_plane` and `ycbcr_to_rgb`;
 - plain: K4's plain version (cuBLAS fp32 matmul, then the same tail);
-and "K4 vs X max |diff|" and K4 vs plain, each 3 at most: the IDCTs round
-in different places (K4 keeps the first K2's fp32 FMA order, K2 now runs
-a split-TF32 tensor-core product, the plain version cuBLAS), 1 in the IDCT,
-times up to 1.772 through color. It exits nonzero if either bound is
-missed.
+and "K4 vs X max |diff|", which must be 0 (K4's IDCT is K2's split-TF32
+tensor-core product on the same folded bases), and K4 vs plain, 3 at most
+(the plain version's cuBLAS fp32 product rounds in other places: 1 in the
+IDCT, times up to 1.772 through color). It exits nonzero if either bound
+is missed.
 
 The TPU probe's stages P0 (copy-through) and P1 (IDCT without the
 shuffle) measured whether Mosaic could afford the block -> raster shuffle
@@ -49,7 +53,10 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 DEFAULT_IMAGE = ROOT / "tests" / "fixtures" / "torch_port" / "small_444.jpg"
 LARGE_BLOCKS = (210, 256)      # (bh, bw): 2048 x 1680, 3.44 Mpix
-PLAIN_TOL = 3
+EDGE_BLOCKS = (11, 131)        # (bh, bw): 3 blocks past K4's 128-block tile
+EDGE_WIDTH = 131 * 8 - 5       # 1043: cut mid-block, not a multiple of 16
+X_TOL = 0                      # K4 vs the K2 path: the same IDCT arithmetic
+PLAIN_TOL = 3                  # vs plain: 1 in the IDCT, x1.772 in color
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -115,12 +122,22 @@ def run_case(name: str, stores, qts, width: int, iters: int) -> dict:
         "device": torch.cuda.get_device_name(0)}
 
 
-def seeded_stores(seed: int = 0) -> list:
-    """Seeded int16 stores at the 3.44 Mpix 4:4:4 shape, [bh, bw, 64] x 3."""
+def seeded_stores(seed: int = 0, blocks=LARGE_BLOCKS,
+                  big: bool = False) -> list:
+    """Seeded int16 stores [bh, bw, 64] x 3, by default at the 3.44 Mpix
+    4:4:4 shape; `big` sets the first 8 coefficients of about one block in
+    40 to magnitudes 2048-4095."""
     rng = np.random.default_rng(seed)
-    bh, bw = LARGE_BLOCKS
-    return [rng.integers(-256, 256, (bh, bw, 64)).astype(np.int16)
-            for _ in range(3)]
+    stores = []
+    for _ in range(3):
+        s = rng.integers(-256, 256, (*blocks, 64))
+        if big:
+            hot = rng.random(blocks) < 1 / 40
+            n = int(hot.sum())
+            s[hot, :8] = rng.choice([-1, 1], (n, 8)) \
+                * rng.integers(2048, 4096, (n, 8))
+        stores.append(s.astype(np.int16))
+    return stores
 
 
 def case_args(stores, qts, width: int) -> tuple:
@@ -135,11 +152,15 @@ def case_args(stores, qts, width: int) -> tuple:
 
 
 def run(image: Path = DEFAULT_IMAGE, iters: int = 20, seed: int = 0) -> list:
-    """Both cases: the image's stores, then seeded stores at 256 x 210
-    blocks with the image's tables."""
+    """The three cases, the 256 x 210 blocks last: the image's stores, then
+    seeded stores at the edges and at 256 x 210 blocks, with the image's
+    tables."""
     stores, qts, width = image_stores(image.read_bytes())
     bw = LARGE_BLOCKS[1]
     return [run_case(image.name, stores, qts, width, iters),
+            run_case(f"seeded_edge_{EDGE_BLOCKS[1]}x{EDGE_BLOCKS[0]}_blocks",
+                     seeded_stores(seed + 1, EDGE_BLOCKS, big=True), qts,
+                     EDGE_WIDTH, iters),
             run_case(f"seeded_{bw}x{LARGE_BLOCKS[0]}_blocks",
                      seeded_stores(seed), qts, bw * 8, iters)]
 
@@ -158,7 +179,7 @@ def main(argv=None) -> int:
         print(json.dumps(res))
         print(f"{res['case']}: K4 vs X max |diff| "
               f"{res['k4_vs_x_max_abs_diff']}")
-        bad += res["k4_vs_x_max_abs_diff"] > PLAIN_TOL \
+        bad += res["k4_vs_x_max_abs_diff"] > X_TOL \
             or res["k4_vs_plain_max_abs_diff"] > PLAIN_TOL
     return 1 if bad else 0
 

@@ -14,15 +14,24 @@ for large_420 the device time of K2 over the image's three components as
 the main path calls it, all from torch.profiler over 50 warm calls
 (`tools/torch_port_profile.py::kernel_device_us` of this checkout); then
 K3 (`fused_tail`) on seeded planes of large_420's shapes (1680 x 2048
-luma, two 840 x 1024 chroma planes at h2v2) and L1 (`lossless_recur`) on
-a seeded [1, 2048, 2048] plane at predictor 6 and on [3, 2048, 2048] in
-one call (50, 10 and 5 calls). Run
-parent, change, change, parent in one call to compare two versions on one
-card. Needs a CUDA device.
+luma, two 840 x 1024 chroma planes at h2v2), K4 (`fused_recon`) on the
+seeded 3 x [210, 256, 64] stores of tools/experiments/
+fused_recon_probe_torch.py with large_420's tables, beside the device time
+of the unfused K2 path it replaces (`fused_recon_plain(k2=dequant_idct)`,
+every kernel it launches), and L1 (`lossless_recur`) on a seeded
+[1, 2048, 2048] plane at predictor 6 and on [3, 2048, 2048] in one call
+(50, 50, 20, 10 and 5 calls). Beside the times, SHA-256 digests of what
+the checkout computes, to show two versions bit-equal: K2's outputs
+(`dequant_idct_multi`, three components in one call) on seeded
+coefficients at scales 8, 4, 2 and 1 and magnitudes up to 300, 1024, 4096
+and 32767, K4's output on the stores above, and the fast interleaved
+decode of every fixture. Run parent, change, change, parent in one call to
+compare two versions on one card. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import sys
 from pathlib import Path
@@ -79,6 +88,7 @@ def main(argv=None) -> int:
         stores = [torch.from_numpy(d._pending_render[i][0].reshape(-1, 64))
                   .to(dev) for i in range(3)]
         qts = [d._pending_render[i][1] for i in range(3)]
+        k4_qts = torch.stack([params.qt(q) for q in qts])
         try:
             from jpeg_decoder_tpu_torch.ops.pipeline import fast_pixels
 
@@ -93,7 +103,9 @@ def main(argv=None) -> int:
         k2 = kernel_device_us(k2_image, "dequant_idct_kernel", iters=50)
         out[name].update(k2_kernel_us=k2["kernel_us"],
                          k2_launches=k2["launches"])
-    from jpeg_decoder_tpu_torch.ops.kernels import fused_tail
+    from jpeg_decoder_tpu_torch.ops.kernels import (dequant_idct, fused_recon,
+                                                    fused_recon_plain,
+                                                    fused_tail)
     from jpeg_decoder_tpu_torch.ops.predictors import lossless_recur
 
     rng = np.random.default_rng(0)
@@ -104,6 +116,19 @@ def main(argv=None) -> int:
                            "ycbcr", 1680, 2048),
         "fused_tail_kernel", iters=50)
     out["k3_large_420_kernel_us"] = k3["kernel_us"]
+    rng4 = np.random.default_rng(0)     # the probe's seeded_stores(0)
+    k4_args = (*[torch.from_numpy(rng4.integers(-256, 256, (210, 256, 64))
+                                  .astype(np.int16)).to(dev)
+                 for _ in range(3)], k4_qts, params.basis(8), 2048)
+    k4 = kernel_device_us(lambda: fused_recon(*k4_args), "fused_recon_kernel",
+                          iters=50)
+    unfused = kernel_device_us(
+        lambda: fused_recon_plain(*k4_args, k2=dequant_idct), "", iters=20)
+    out["k4_256x210_kernel_us"] = k4["kernel_us"]
+    out["k4_256x210_sha256"] = hashlib.sha256(
+        fused_recon(*k4_args).cpu().numpy().tobytes()).hexdigest()
+    out["k4_256x210_unfused_device_us"] = unfused["all_device_us"]
+    out["k4_256x210_unfused_launches"] = unfused["all_launches"]
     for c, iters in ((1, 10), (3, 5)):
         d = torch.from_numpy(rng.integers(0, 65536, (c, 2048, 2048))
                              .astype(np.int32)).to(dev)
@@ -111,8 +136,36 @@ def main(argv=None) -> int:
                               "lossless_recur_kernel", iters=iters)
         out[f"l1_{c}x2048x2048_p6_kernel_us"] = l1["kernel_us"]
         out[f"l1_{c}x2048x2048_p6_launches"] = l1["launches"]
+    out.update(digests(dev, params, fixtures))
     print(json.dumps(out))
     return 0
+
+
+def digests(dev, params, fixtures) -> dict:
+    """SHA-256 of K2's outputs on seeded coefficients and of the fast
+    decode of every fixture, by the imported checkout."""
+    import jpeg_decoder_tpu_torch as jt
+    from jpeg_decoder_tpu_torch.ops.kernels import dequant_idct_multi
+
+    rng = np.random.default_rng(1)
+    k2 = hashlib.sha256()
+    for scale in (8, 4, 2, 1):
+        for lim in (300, 1024, 4096, 32767):
+            coefs = [torch.from_numpy(rng.integers(-lim, lim, (n, 64))
+                                      .astype(np.int16)).to(dev)
+                     for n in (5001, 700, 129)]
+            qs = [params.qt(rng.integers(1, 100, 64).astype(np.uint16))
+                  for _ in range(3)]
+            for o in dequant_idct_multi(coefs, qs, [params.basis(scale)] * 3,
+                                        [scale] * 3):
+                k2.update(o.cpu().numpy().tobytes())
+    images = hashlib.sha256()
+    with jt.DeviceStreamDecoder(device=dev, host_threads=2) as dec:
+        for path in sorted(fixtures.glob("*.jpg")):
+            images.update(dec.decode_stream([path.read_bytes()])[0].cpu()
+                          .numpy().tobytes())
+    return {"k2_sha256": k2.hexdigest(),
+            "fixtures_fast_sha256": images.hexdigest()}
 
 
 if __name__ == "__main__":
