@@ -72,7 +72,19 @@ from csrc/ and holding each against its plain PyTorch version on the card:
    same product), K2's yardstick `torch.addmm` and K4's, the unfused K2
    path, by device time over every kernel they launch, and its launches
    per image on the main path (one large_420 decode: bits, fast,
-   interleaved).
+   interleaved);
+17. batched dispatch, decode_stream(batch_size=N): tower_420 x 32 at 16,
+   large_420 x 4 at 4, the six ImageNet-class mixed sizes (plus two
+   repeats) at 8, tower_420 x 8 at 8 at precision "exact", on the prefix
+   interchange and in layout "planar-pallas", and eight 512 x 512 16-bit
+   SOF3 slices at 8 with predictors 1 and 6: every image bit-equal to its
+   batch_size=1 decode, the launches per group counted (K1 1 per group, K2
+   1 per plan, K3 1 per plan on planar-pallas, L1 1 at predictor 6); the
+   on_error stream inside a batch; batched K2 (48 segments with per-image
+   tables, and 3 merged) and K3 (16 images) SHA-256-equal to per-image
+   launches; device-resident ms/image and launches/image of tower_420 at
+   batch 1, 4 and 16 and large_420 at 4; each kernel's device time at its
+   batched shape beside its bytes bound.
 
 Any failure raises and the script exits nonzero. It needs a CUDA device and
 the repository around it; it imports neither JAX, nor PIL, nor the JAX
@@ -84,6 +96,7 @@ name and power limit, and before that a JSON line with one entry per kernel.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -113,6 +126,9 @@ L1_SHAPES = ((1, 1, 70), (1, 31, 45), (1, 32, 9), (1, 33, 200), (3, 97, 1),
 L1_FULL = (3, 2048, 2048)     # predictor 6 only: plain takes ~1.4 s a plane
 SOF3_SIDE = 2048              # the full-size lossless stream: 2048 x 2048
 SOF3_RGB = (768, 1024)        # the 3-component lossless stream
+SOF3_SLICE = (512, 512)       # 17: a CT series' 16-bit slices
+MIXED = tuple(f"mixed_{w}x{h}.jpg" for w, h in (
+    (500, 375), (375, 500), (500, 333), (333, 500), (448, 448), (320, 240)))
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
 # the least time of a kernel is the larger of its bytes over HBM_BPS and its
 # operations over the peak rate of their type.
@@ -601,6 +617,177 @@ def phase_lossless(jt, dev) -> tuple:
             (lambda: lossless_recur(d, 6, 0, default)), d.numel(), chain)
 
 
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def batch_configs(data: dict) -> list:
+    """17's configurations: (name, decoder options, stream, batch_size,
+    launches the batched run must make, by kernel)."""
+    from tools.make_torch_fixtures import sof3_jpeg, sof3_samples
+
+    tower, large = data["tower_420.jpg"], data["large_420.jpg"]
+    mixed = [(FIXTURES / n).read_bytes() for n in MIXED]
+    sof3 = {p: [sof3_jpeg(sof3_samples(*SOF3_SLICE, 1, 16, 0, seed=s), p, 0,
+                          16) for s in range(8)] for p in (1, 6)}
+    return [
+        ("tower_420 x32 at 16", {}, [tower] * 32, 16,
+         {"huffman_decode": 2, "dequant_idct": 2}),
+        ("large_420 x4 at 4", {}, [large] * 4, 4,
+         {"huffman_decode": 1, "dequant_idct": 1}),
+        # One hetero group: one sweep, one reconstruction per plan.
+        ("mixed sizes x8 at 8", {}, mixed + mixed[:2], 8,
+         {"huffman_decode": 1, "dequant_idct": len(MIXED)}),
+        ("tower_420 x8 at 8 exact", {"precision": "exact"}, [tower] * 8, 8,
+         {"huffman_decode": 1, "dequant_idct": 0}),
+        ("tower_420 x8 at 8 prefix", {"interchange": "prefix"}, [tower] * 8,
+         8, {"huffman_decode": 0, "dequant_idct": 1}),
+        ("tower_420 x8 at 8 planar-pallas", {"layout": "planar-pallas"},
+         [tower] * 8, 8,
+         {"huffman_decode": 1, "dequant_idct": 1, "fused_tail": 1}),
+        ("SOF3 512x512 16-bit x8 at 8 predictor 1", {}, sof3[1], 8,
+         {"lossless_recur": 0}),
+        ("SOF3 512x512 16-bit x8 at 8 predictor 6", {}, sof3[6], 8,
+         {"lossless_recur": 1}),
+    ]
+
+
+def phase_batch(jt, data: dict, params, dev, profile_layers) -> dict:
+    """17. Batched dispatch through decode_stream(batch_size=N)."""
+    from jpeg_decoder_tpu_torch.entropy.chunk_decode import (decode_chunks,
+                                                             unpack_delta)
+    from jpeg_decoder_tpu_torch.models.stream import merge_scans
+    from jpeg_decoder_tpu_torch.ops.kernels import (dequant_idct_batch,
+                                                    dequant_idct_multi,
+                                                    fused_tail)
+    from jpeg_decoder_tpu_torch.ops.predictors import lossless_recur
+    from tools.torch_port_profile import kernel_device_us
+
+    results = {}
+    for name, kw, stream, batch_size, want in batch_configs(data):
+        with jt.DeviceStreamDecoder(device="cuda", host_threads=4,
+                                    **kw) as dec:
+            single = dec.decode_stream(stream)
+            torch.cuda.synchronize()
+            jt.reset_launches()
+            t0 = time.perf_counter()
+            batched = dec.decode_stream(stream, batch_size=batch_size)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(jt.LAUNCHES)
+        for i, (a, b) in enumerate(zip(batched, single)):
+            if not (a.is_cuda and a.shape == b.shape and torch.equal(a, b)):
+                raise AssertionError(f"17 {name}: image {i} differs from "
+                                     "its batch_size=1 decode")
+        wrong = {k: (launches[k], v) for k, v in want.items()
+                 if launches[k] != v}
+        if wrong or len(batched) != len(stream):
+            raise AssertionError(f"17 {name}: launches (got, want) {wrong}")
+        results[name] = {"images": len(stream), "batch_size": batch_size,
+                         "launches": launches, "wall_ms": wall * 1e3}
+    say("17 batches", result="bit-equal to batch_size=1", **results)
+
+    good = data["tower_420.jpg"]
+    with jt.DeviceStreamDecoder(device="cuda", host_threads=4) as dec:
+        outs = dec.decode_stream([good, BAD_JPEG, good, good], batch_size=4,
+                                 on_error="none")
+        single = dec.decode_stream([good])[0]
+    if [o is None for o in outs] != [False, True, False, False] or not all(
+            torch.equal(o, single) for o in (outs[0], outs[2], outs[3])):
+        raise AssertionError("17 on_error inside a batch")
+
+    # Batched K2 and K3 against per-image launches, by SHA-256, at
+    # tower_420's shapes x 16: per-image tables (48 segments) and one
+    # encoder's tables (3 merged segments).
+    rng = np.random.default_rng(17)
+    blocks = (4096, 1024, 1024)
+    coefs = [torch.from_numpy(rng.integers(-1024, 1024, (16, b, 64))
+                              .astype(np.int16)).to(dev) for b in blocks]
+    digests = {}
+    for tables_of in ("per image", "shared"):
+        tabs = [[rng.integers(1, 60, 64).astype(np.uint16) for _ in blocks]
+                for _ in range(16)]
+        if tables_of == "shared":
+            tabs = [tabs[0]] * 16
+        qs = [[params.qt(t[c]) for t in tabs] for c in range(3)]
+        folded = [[params.folded(t[c], 8) for t in tabs] for c in range(3)]
+        bases = [params.basis(8)] * 3
+        got = dequant_idct_batch(coefs, qs, bases, [8] * 3, folded)
+        alone = [dequant_idct_multi([c[i] for c in coefs],
+                                    [q[i] for q in qs], bases, [8] * 3,
+                                    [f[i] for f in folded])
+                 for i in range(16)]
+        digests[f"k2 {tables_of}"] = (
+            _digest(g[i] for i in range(16) for g in got),
+            _digest(a for img in alone for a in img))
+    planes = [torch.from_numpy(rng.integers(0, 256, (16, h, w))
+                               .astype(np.uint8)).to(dev)
+              for h, w in ((512, 512), (256, 256), (256, 256))]
+    k3_args = (("h1v1", "h2v2", "h2v2"), (256, 256), "ycbcr", 512, 512)
+    k3_batched = fused_tail(planes, *k3_args)
+    digests["k3"] = (_digest([k3_batched]), _digest(
+        fused_tail([p[i] for p in planes], *k3_args) for i in range(16)))
+    torch.cuda.synchronize()
+    if any(a != b for a, b in digests.values()):
+        raise AssertionError(f"17 batched K2/K3 bits differ: {digests}")
+
+    # Times: device-resident ms/image and launches/image (profiler).
+    rates = {}
+    for name, batch in (("tower_420.jpg", 1), ("tower_420.jpg", 4),
+                        ("tower_420.jpg", 16), ("large_420.jpg", 4)):
+        with jt.DeviceStreamDecoder(device="cuda", host_threads=4) as dec:
+            rate = dec.device_resident_rate(data[name], iters=20,
+                                            batch=batch)
+            prof, _trace = profile_layers(dec, FIXTURES / name, 10, batch)
+        rates[f"{name} batch {batch}"] = {
+            "ms_per_image": rate["ms_per_image"], "batch": rate["batch"],
+            "host_ms_per_image": rate["host_ms_per_image"],
+            "launches_per_image": prof["launches_per_image"],
+            "device_busy_ms_per_image": prof["device_busy_ms"],
+            "idle_share": prof["idle_share"]}
+
+    # Kernel times at the batched shapes, beside their bounds.
+    tower_scan = jt.stage_host_bits(data["tower_420.jpg"]).scans[0]
+    (words, dm), s_max, n_blocks = merge_scans([tower_scan] * 16)
+    words, dm = torch.from_numpy(words).to(dev), torch.from_numpy(dm).to(dev)
+    ab, _budget, _slot0, base = unpack_delta(dm)
+    k1_args = (words, dm, ab, base, params.tables(tower_scan.scan), s_max,
+               n_blocks)
+    shared_q = [[q[0]] * 16 for q in qs]
+    shared_f = [[f[0]] * 16 for f in folded]
+    sof3_slices = torch.from_numpy(rng.integers(0, 65536, (8, *SOF3_SLICE))
+                                   .astype(np.int32)).to(dev)
+    kernels = {
+        "K1 tower_420 x16 merged wire": (
+            lambda: decode_chunks(*k1_args), "huffman_decode_kernel",
+            4 * sum(a.numel() for a in k1_args[:4]) + 128 * n_blocks),
+        "K2 tower_420 x16, one table set": (
+            lambda: dequant_idct_batch(coefs, shared_q, bases, [8] * 3,
+                                       shared_f),
+            "dequant_idct_kernel", 16 * sum(blocks) * (128 + 64)),
+        "K3 tower_420 planes x16": (
+            lambda: fused_tail(planes, *k3_args), "fused_tail_kernel",
+            sum(p.numel() for p in planes) + 16 * 3 * 512 * 512),
+        "L1 8 x 512 x 512 predictor 6": (
+            lambda: lossless_recur(sof3_slices, 6, 0, 1 << 15),
+            "lossless_recur_kernel", 8 * sof3_slices.numel()),
+    }
+    times = {}
+    for name, (fn, symbol, nbytes) in kernels.items():
+        prof = kernel_device_us(fn, symbol)
+        times[name] = {"kernel_us": prof["kernel_us"],
+                       "launches": prof["launches"],
+                       "bytes_bound_us": nbytes / HBM_BPS * 1e6}
+    say("17 batch times", device_resident=rates, kernels=times,
+        digests={k: v[0][:16] for k, v in digests.items()},
+        digests_equal=True, on_error_none=["cuda tensor", None,
+                                           "cuda tensor", "cuda tensor"])
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -805,10 +992,11 @@ def main() -> int:
     def fixture_planes(name):
         renders = oracle(name)._pending_render
         geometry = staged[name].geometry
-        planes = _planes(
-            geometry, [torch.from_numpy(renders[i][0].reshape(-1, 64)).to(dev)
-                       for i in range(len(renders))],
-            [renders[i][1] for i in range(len(renders))], params)
+        planes = [p[0] for p in _planes(
+            geometry,
+            [torch.from_numpy(renders[i][0].reshape(1, -1, 64)).to(dev)
+             for i in range(len(renders))],
+            [tuple(renders[i][1] for i in range(len(renders)))], params)]
         chroma = next(((c.size_height, c.size_width)
                        for c in geometry.components
                        if c.upsampler_mode != "h1v1"), None)
@@ -945,6 +1133,9 @@ def main() -> int:
         {"K2": ("library", k2_library),
          "K4": ("unfused", lambda: fused_recon_plain(*k4_args,
                                                      k2=dequant_idct))})
+
+    # 17. Batched dispatch.
+    phase_batch(jt, data, params, dev, profile_layers)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
                     in ("jax", "jaxlib", "jpeg_decoder_tpu"))

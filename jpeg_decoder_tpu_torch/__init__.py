@@ -1,9 +1,11 @@
 """jpeg_decoder_tpu_torch: the JPEG decode engine on PyTorch and CUDA.
 
 A port of `jpeg_decoder_tpu` (JAX on a TPU) to PyTorch with kernels written
-by hand for NVIDIA Hopper (H100, sm_90a). It covers the one-image stream
-decoder, `DeviceStreamDecoder`: every JPEG the reference's decodes, one
-image at a time.
+by hand for NVIDIA Hopper (H100, sm_90a). It covers the stream decoder,
+`DeviceStreamDecoder`: every JPEG the reference's decodes, one image at a
+time or, with `decode_stream(batch_size=N)`, in groups of up to N that
+share each kernel launch (one Huffman sweep, one IDCT launch, one tail
+launch per group).
 - Baseline JPEGs on the "bits" interchange: host prescan, the 4 B/chunk
   delta wire (or the 12 B/chunk anchor wire for scans it declines, such
   as more than two table pairs), chunk-parallel Huffman decode on the
@@ -19,6 +21,7 @@ image at a time.
     from jpeg_decoder_tpu_torch import DeviceStreamDecoder
     with DeviceStreamDecoder() as dec:                   # on "cuda"
         images = dec.decode_stream(list_of_jpeg_bytes)   # CUDA tensors
+        images = dec.decode_stream(list_of_jpeg_bytes, batch_size=16)
 
 The host stage is the port's own copy of the JAX package's numpy/C++ code
 (`jpeg_decoder_tpu_torch.host`); neither JAX nor the JAX package is ever

@@ -11,7 +11,8 @@ is compiled or loaded at import time: the first kernel launch calls
 `load()`.
 
 Each wrapper counts its launches in `LAUNCHES` (one per kernel launch, and
-nowhere else), so a caller can show that a run went through the kernels.
+nowhere else), so a caller can show that a run went through the kernels;
+a batched call that is one launch counts one.
 """
 
 from __future__ import annotations
@@ -134,17 +135,19 @@ def load() -> ctypes.CDLL:
             p]              # stream
         lib.jdt_huffman_decode.restype = i
         lib.jdt_dequant_idct.argtypes = [
-            p, p, p,        # host void*[ncomp]: coefs, folded bases, outs
-            p, p,           # host int32[ncomp]: block counts, scales
-            i,              # ncomp
+            p, p, p,        # host void*[nseg]: coefs, folded bases, outs
+            p, p,           # host int32[nseg]: block counts, scales
+            i,              # nseg, the segments (1..64)
             p]              # stream
         lib.jdt_dequant_idct.restype = i
         lib.jdt_fused_tail.argtypes = [
-            p, p, p, p,     # component planes 0..3 (unused ones 0)
-            p,              # host int32[8]: mode codes, then row pitches
+            p, p, p, p,     # component planes 0..3 of image 0 (unused: 0)
+            p,              # host int64[12]: mode codes, row pitches and
+                            # image strides in bytes, per component
             i, i,           # ncomp, transform
             i, i, i, i,     # hc, wc, out_h, out_w
-            p,              # out
+            i,              # images
+            p,              # out, [images, ncomp, out_h, out_w]
             p]              # stream
         lib.jdt_fused_tail.restype = i
         lib.jdt_fused_recon.argtypes = [

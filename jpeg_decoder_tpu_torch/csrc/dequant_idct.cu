@@ -23,8 +23,14 @@
 // took 45.4 us for the three launches, at ~22% of the fp32 peak.
 //
 // What the design does about it:
-// - one launch per image: a descriptor per component (coefficients, block
-//   count, folded basis, output, scale) rides in the kernel's arguments;
+// - one launch per image, or per group of images: a table of up to 64
+//   segments (coefficients, block count, folded basis, output, scale; one
+//   per component and image, the wrapper merging neighbours that share a
+//   basis) rides in the kernel's arguments, 2.6 KB of the 4 KB parameter
+//   space; a tile finds its segment by binary search over the segments'
+//   first tiles. A tile's rows go through the same mma sequence whatever
+//   segment or neighbours they have (idct_mma.cuh), so a group's launch
+//   gives every image the bits of its own launch;
 // - tensor cores with a split-precision product (idct_mma.cuh, shared with
 //   K4): both operands split into TF32 hi and lo parts, three
 //   `mma.sync.m16n8k8` TF32 products, hi*hi + hi*lo + lo*hi, accumulated in
@@ -53,7 +59,7 @@ namespace {
 
 using namespace jdt_idct;
 
-constexpr int kMaxComps = 4;
+constexpr int kMaxSegs = 64;   // 16 images x 4 components
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTileRows = kWarps * kWarpRows;  // blocks per CTA tile
@@ -67,21 +73,26 @@ struct Comp {
   uint8_t* out;          // [n_blocks, scale * scale]
   int n_blocks;
   int scale;             // 8, 4, 2 or 1
-  int tile0;             // the component's first CTA tile
+  int tile0;             // the segment's first CTA tile
 };
 
 struct Args {
-  Comp comp[kMaxComps];
-  int ncomp;
+  Comp comp[kMaxSegs];
+  int ncomp;             // segments
   int n_tiles;
 };
+static_assert(sizeof(Args) <= 4096, "the classic kernel parameter limit");
 
+// The segment of a tile: the last one whose first tile is at or before it
+// (segments of no blocks share their successor's tile0 and lose to it).
 __device__ __forceinline__ int comp_of(const Args& a, int tile) {
-  int c = 0;
-#pragma unroll
-  for (int i = 1; i < kMaxComps; ++i)
-    if (i < a.ncomp && a.comp[i].tile0 <= tile) c = i;
-  return c;
+  int lo = 0, hi = a.ncomp - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (a.comp[mid].tile0 <= tile) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
 }
 
 // Start the copy of one CTA tile's coefficients (128 rows of 128 B) into
@@ -172,13 +183,19 @@ dequant_idct_kernel(const Args a) {
     const int64_t live = cp.n_blocks - row0;
     if (live > 0) {
       uint8_t* dst = cp.out + row0 * n_out;
-      if (live >= kWarpRows) {    // 32 * n_out bytes, a multiple of 32
+      // 32 * n_out bytes, a multiple of 32: 16-byte stores where the
+      // segment's output starts 16-byte aligned (an image's slab of a
+      // scaled decode may not).
+      if (live >= kWarpRows && (reinterpret_cast<uintptr_t>(cp.out) & 15)
+                                   == 0) {
         const int chunks = kWarpRows * n_out / 16;
         for (int q = lane; q < chunks; q += 32)
           reinterpret_cast<int4*>(dst)[q] =
               reinterpret_cast<const int4*>(w_out)[q];
-      } else {
-        const int bytes = static_cast<int>(live) * n_out;
+      } else {                    // this warp's rows only
+        const int rows = live < kWarpRows ? static_cast<int>(live)
+                                          : kWarpRows;
+        const int bytes = rows * n_out;
         for (int q = lane; q < bytes; q += 32) dst[q] = w_out[q];
       }
     }
@@ -188,14 +205,14 @@ dequant_idct_kernel(const Args a) {
 
 }  // namespace
 
-// One launch for `ncomp` components: per component its int16 [n, 64]
-// coefficients, float32 [64, 64] folded basis, uint8 [n, scale^2] output,
-// block count n and scale.
+// One launch for `ncomp` segments (1..64): per segment its int16 [n, 64]
+// coefficients (16-byte aligned), float32 [64, 64] folded basis, uint8
+// [n, scale^2] output, block count n and scale.
 extern "C" int jdt_dequant_idct(const void* const* coefs,
                                 const void* const* bases, void* const* outs,
                                 const int* n_blocks, const int* scales,
                                 int ncomp, void* stream) {
-  if (ncomp < 1 || ncomp > kMaxComps)
+  if (ncomp < 1 || ncomp > kMaxSegs)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = {};
   a.ncomp = ncomp;
@@ -204,8 +221,7 @@ extern "C" int jdt_dequant_idct(const void* const* coefs,
     const int s = scales[i];
     if ((s != 1 && s != 2 && s != 4 && s != 8) || n_blocks[i] < 0)
       return static_cast<int>(cudaErrorInvalidValue);
-    if ((reinterpret_cast<uintptr_t>(coefs[i])
-         | reinterpret_cast<uintptr_t>(outs[i])) & 15)
+    if (reinterpret_cast<uintptr_t>(coefs[i]) & 15)
       return static_cast<int>(cudaErrorMisalignedAddress);
     a.comp[i] = {static_cast<const int16_t*>(coefs[i]),
                  static_cast<const float*>(bases[i]),

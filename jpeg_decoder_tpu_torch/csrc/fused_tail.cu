@@ -48,6 +48,10 @@
 //   compiled with their modes fixed; every other mode and transform (YCCK,
 //   CMYK, h1v2, 4 components) runs the same tiles with the modes read at
 //   run time.
+// - A group of images of one geometry is one launch: blockIdx.z runs over
+//   the images, each plane and the output stepping by a per-image byte
+//   stride (64-bit), so every image's tiles run the code of a one-image
+//   launch on its own planes, and give its bytes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -68,15 +72,17 @@ enum Layout { kAny = 0, k420 = 1, k422 = 2, k444 = 3 };
 
 struct Plane {
   const uint8_t* p;
-  int pitch;   // bytes per row
+  long long stride;  // bytes from one image's plane to the next's
+  int pitch;         // bytes per row
   int mode;
-  int align;   // the widest of 16, 8, 4, 1 dividing the base and the pitch
+  int align;   // the widest of 16, 8, 4, 1 dividing the base, the pitch and
+               // the image stride
 };
 
 struct TailArgs {
   Plane c[kMaxComp];
   int ncomp, transform, hc, wc, out_h, out_w;
-  int out_align;   // the widest of 16, 8, 4, 1 dividing out_w
+  int out_align;   // the widest of 16, 8, 4, 1 dividing out_w and out
 };
 
 template <int L>
@@ -264,6 +270,10 @@ __device__ __forceinline__ void store16(uint8_t* dst, const uint32_t* o,
 template <int L>
 __global__ void __launch_bounds__(kTileX * kTileY)
 fused_tail_kernel(TailArgs a, uint8_t* __restrict__ out) {
+  const long long img = blockIdx.z;
+#pragma unroll
+  for (int c = 0; c < kMaxComp; ++c) a.c[c].p += img * a.c[c].stride;
+  out += img * (static_cast<long long>(a.ncomp) * a.out_h * a.out_w);
   const int pair = blockIdx.y * kTileY + threadIdx.y;
   if (2 * pair >= a.out_h) return;   // whole warps: the shuffles stay full
   // Lanes past the row's end stay for the shuffles and store nothing.
@@ -323,15 +333,19 @@ int widest(uintptr_t v) {
 
 }  // namespace
 
-// meta: int32[8] on the host: the mode codes of components 0..3, then their
-// row pitches in bytes. Entries past ncomp are ignored. Every plane, and the
-// output, must hold fewer than 2^31 bytes.
+// p0..p3: the planes of image 0. meta: int64[12] on the host: the mode codes
+// of components 0..3, their row pitches in bytes, then the byte strides from
+// one image's plane to the next's. Entries past ncomp are ignored. out:
+// [n_images, ncomp, out_h, out_w]. Every image's planes, and its output,
+// must hold fewer than 2^31 bytes; n_images is 1..65535.
 extern "C" int jdt_fused_tail(const void* p0, const void* p1, const void* p2,
                               const void* p3, const void* meta, int ncomp,
                               int transform, int hc, int wc, int out_h,
-                              int out_w, void* out, void* stream) {
+                              int out_w, int n_images, void* out,
+                              void* stream) {
   if (ncomp < 3 || ncomp > kMaxComp || transform < kYCbCr ||
-      transform > kYCCK || hc < 1 || wc < 1)
+      transform > kYCCK || hc < 1 || wc < 1 || n_images < 1 ||
+      n_images > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (out_h <= 0 || out_w <= 0) return 0;
   const long long limit = 1LL << 31;
@@ -339,19 +353,21 @@ extern "C" int jdt_fused_tail(const void* p0, const void* p1, const void* p2,
     return static_cast<int>(cudaErrorInvalidValue);
   TailArgs a;
   const void* planes[kMaxComp] = {p0, p1, p2, p3};
-  const int* m = static_cast<const int*>(meta);
+  const long long* m = static_cast<const long long*>(meta);
   for (int c = 0; c < kMaxComp; ++c) {
     Plane& pl = a.c[c];
     pl.p = static_cast<const uint8_t*>(planes[c]);
-    pl.mode = c < ncomp ? m[c] : kFullRes;
-    pl.pitch = c < ncomp ? m[kMaxComp + c] : 0;
-    pl.align = widest(reinterpret_cast<uintptr_t>(pl.p) |
-                      static_cast<uintptr_t>(pl.pitch));
+    pl.mode = c < ncomp ? static_cast<int>(m[c]) : kFullRes;
+    const long long pitch = c < ncomp ? m[kMaxComp + c] : 0;
+    pl.stride = c < ncomp ? m[2 * kMaxComp + c] : 0;
     if (c < ncomp && (pl.mode < kFullRes || pl.mode > kH2V2 ||
-                      pl.p == nullptr || pl.pitch < 1 ||
-                      static_cast<long long>(max(out_h, hc) + 1) * pl.pitch
-                          >= limit))
+                      pl.p == nullptr || pitch < 1 || pl.stride < 0 ||
+                      (max(out_h, hc) + 1) * pitch >= limit))
       return static_cast<int>(cudaErrorInvalidValue);
+    pl.pitch = static_cast<int>(pitch);
+    pl.align = widest(reinterpret_cast<uintptr_t>(pl.p) |
+                      static_cast<uintptr_t>(pl.pitch) |
+                      static_cast<uintptr_t>(pl.stride));
   }
   a.ncomp = ncomp;
   a.transform = transform;
@@ -364,7 +380,7 @@ extern "C" int jdt_fused_tail(const void* p0, const void* p1, const void* p2,
   const int tiles = (out_w + kCols - 1) / kCols;
   const dim3 block(kTileX, kTileY);
   const dim3 grid((tiles + kTileX - 1) / kTileX,
-                  ((out_h + 1) / 2 + kTileY - 1) / kTileY);
+                  ((out_h + 1) / 2 + kTileY - 1) / kTileY, n_images);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   auto* o = static_cast<uint8_t*>(out);

@@ -27,37 +27,44 @@ import torch
 
 
 def _segmented_dc(diffs: torch.Tensor, seg_blocks: int) -> torch.Tensor:
-    """Prefix sum of int16 DC diffs, restarting every `seg_blocks` blocks
-    (0: one segment). Returns int64."""
-    cum = torch.cumsum(diffs, 0, dtype=torch.int64)
-    n = cum.numel()
+    """Prefix sums of int16 DC diffs along the last axis, restarting every
+    `seg_blocks` blocks (0: one segment) and at every leading index (an
+    image of a group: no sum runs from one image into the next). Returns
+    int64."""
+    cum = torch.cumsum(diffs, -1, dtype=torch.int64)
+    n = cum.shape[-1]
     if 0 < seg_blocks < n:
-        prev = torch.cat([cum.new_zeros(1), cum])
+        prev = torch.cat([cum.new_zeros((*cum.shape[:-1], 1)), cum], -1)
         nseg = -(-n // seg_blocks)
-        seg_base = prev[:nseg * seg_blocks:seg_blocks].repeat_interleave(
-            seg_blocks)[:n]
+        seg_base = prev[..., :nseg * seg_blocks:seg_blocks].repeat_interleave(
+            seg_blocks, dim=-1)[..., :n]
         return cum - seg_base
     return cum
 
 
 def assemble_structured(nat: torch.Tensor, plan) -> list:
-    """`plan.structured` branch. nat: int16 [plan.n_blocks, 64]."""
+    """`plan.structured` branch. nat: int16 [n_blocks, 64] of one image, or
+    [N, n_blocks, 64] of N images of one plan (stores [N, hc * wc, 64],
+    one contiguous tensor per component, each image's as it is alone)."""
+    if nat.dim() == 2:
+        return [s[0] for s in assemble_structured(nat[None], plan)]
     (n_mcus, rows_d, cols_d, plen), specs = plan.structured
-    by_mcu = nat.reshape(n_mcus, plen, 64)
+    n = nat.shape[0]
+    by_mcu = nat.reshape(n, n_mcus, plen, 64)
     stores = []
     for (slot0, bpm, vs, hs, hc, wc, seg_blocks) in specs:
-        rows = by_mcu[:, slot0:slot0 + bpm].reshape(-1, 64)
-        dc = _segmented_dc(rows[:, 0], seg_blocks).to(torch.int16)
+        rows = by_mcu[:, :, slot0:slot0 + bpm].reshape(n, -1, 64)
+        dc = _segmented_dc(rows[..., 0], seg_blocks).to(torch.int16)
 
         def rasterize(t):
-            t = t.reshape(rows_d, cols_d, vs, hs, *t.shape[1:])
-            return t.transpose(1, 2).reshape(rows_d * vs, cols_d * hs,
-                                             *t.shape[4:])
+            t = t.reshape(n, rows_d, cols_d, vs, hs, *t.shape[2:])
+            return t.transpose(2, 3).reshape(n, rows_d * vs, cols_d * hs,
+                                             *t.shape[5:])
 
-        grid = nat.new_zeros((hc, wc, 64))
-        grid[:rows_d * vs, :cols_d * hs] = rasterize(rows)
-        grid[:rows_d * vs, :cols_d * hs, 0] = rasterize(dc)
-        stores.append(grid.reshape(hc * wc, 64))
+        grid = nat.new_zeros((n, hc, wc, 64))
+        grid[:, :rows_d * vs, :cols_d * hs] = rasterize(rows)
+        grid[:, :rows_d * vs, :cols_d * hs, 0] = rasterize(dc)
+        stores.append(grid.reshape(n, hc * wc, 64))
     return stores
 
 
@@ -75,22 +82,27 @@ class GeneralMaps:
 
 
 def assemble_general(nat: torch.Tensor, maps: GeneralMaps) -> list:
-    """`stream_idx`/`raster_src` branch. nat: int16 [n_blocks, 64]."""
+    """`stream_idx`/`raster_src` branch, nat as in `assemble_structured`:
+    the same maps along the leading axis."""
+    if nat.dim() == 2:
+        return [s[0] for s in assemble_general(nat[None], maps)]
+    n = nat.shape[0]
     stores = []
     for s_idx, first, src in zip(maps.stream_idx, maps.seg_first,
                                  maps.raster_src):
-        rows = nat[s_idx]                                   # stream order
-        cum = torch.cumsum(rows[:, 0], 0, dtype=torch.int64)
-        prev = torch.cat([cum.new_zeros(1), cum])
-        rows[:, 0] = (cum - prev[first]).to(torch.int16)    # wrap16
-        ext = torch.cat([rows, rows.new_zeros((1, 64))])
-        stores.append(ext[src])
+        rows = nat[:, s_idx]                                # stream order
+        cum = torch.cumsum(rows[..., 0], -1, dtype=torch.int64)
+        prev = torch.cat([cum.new_zeros((n, 1)), cum], -1)
+        rows[..., 0] = (cum - prev[:, first]).to(torch.int16)   # wrap16
+        ext = torch.cat([rows, rows.new_zeros((n, 1, 64))], 1)
+        stores.append(ext[:, src])
     return stores
 
 
 def assemble_nat(nat: torch.Tensor, plan, maps: GeneralMaps = None) -> list:
     """Structured when the plan has the closed form, else general (`maps`
-    is then required)."""
+    is then required). nat: int16 [n_blocks, 64] of one image, or
+    [N, n_blocks, 64] of N images of one plan."""
     if plan.structured is not None:
         return assemble_structured(nat, plan)
     if maps is None:

@@ -1,10 +1,13 @@
 """Copy of the host packers of `jpeg_decoder_tpu/entropy/pallas_decode.py`
 at commit 0c2d0ea: the 4 B/chunk delta wire (`pack_delta`,
-`pack_delta_meta_np`, `WORDS_PAD`, `DELTA_BITS`) and the constants they
-read (`:41-44`, `:72-108`, `:233-243`, `:422-570`). The Pallas kernel of
-that module is not copied; the port's kernel K1
-(`entropy/chunk_decode.py::decode_chunks`) takes its place. The slot and
-words wires and the batched merge packers are not copied either.
+`pack_delta_meta_np`, `WORDS_PAD`, `DELTA_BITS`), its batch merge
+(`merge_image_packs_delta`) and the constants they read (`:41-44`,
+`:72-108`, `:233-243`, `:422-655`). The Pallas kernel of that module is
+not copied; the port's kernel K1 (`entropy/chunk_decode.py::decode_chunks`)
+takes its place. The slot and words wires and their merges
+(`merge_image_packs`, `merge_image_packs_words`) are not copied: the port
+has neither wire. In their place `merge_anchor_wires` is the port's own
+merge of its 12 B/chunk anchor wire (`models/stream.py::_anchor_scan`).
 """
 
 from __future__ import annotations
@@ -218,3 +221,117 @@ def pack_delta_meta_np(staged: AnchoredScan):
               | slot0.astype(np.uint32))
     dm[n] = d[n].astype(np.uint32) << 9   # terminator: budget 0 = dead
     return dm, cls_count, cls_syms
+
+
+def merge_image_packs_delta(entries, nb_image):
+    """wire="delta" merge: per-image word streams concatenate (each keeps
+    its gather pad); the per-chunk delta arrays concatenate with each
+    image's FIRST delta rebased to the absolute gap from the previous
+    image's terminator (word offsets are whole words, so every span — and
+    with it the class partition and counts — is invariant). Block bases
+    need no explicit offsets at all: each image's budgets sum to its block
+    count, so the device's global budget cumsum lands image i's chunks at
+    its cumulative block offset by construction. `nb_image` is accepted
+    for signature parity with the other merges and only sanity-checked.
+
+    Returns ((words, dm, cnts), shapes) or None on delta overflow at an
+    image boundary / oversize merged stream (callers degrade the group to
+    the words-packed merge).
+
+    Class collapse (pack_delta under JPEG_TPU_CLASS_COLLAPSE): a collapsed
+    input's host counts do NOT follow the span rule the merged device
+    partition re-derives, so merging them under span classes decodes
+    garbage. All-single-class inputs (collapsed or genuinely one-class)
+    merge into ONE union class — the device's single-class shortcut keeps
+    stream order, matching the summed counts for either kind. A mix of
+    single- and multi-class inputs is declined when the single-class ones
+    could be collapsed (callers decode those images singly)."""
+    word_total = sum(len(e[0][0]) for e in entries)
+    if word_total >= (1 << 26):
+        # Absolute anchor bits must fit the device's int32 cumsum.
+        return None
+    single = [len(shapes) == 1 for (_c, shapes) in entries]
+    collapse_merge = all(single)
+    if not collapse_merge and any(
+            s and _class_collapse_enabled() and shapes[0][3] <= COLLAPSE_MAX
+            for s, (_c, shapes) in zip(single, entries)):
+        return None
+    per_class: dict = {}
+    dm_parts = []
+    word_off = 0
+    prev_end = 0
+    words_parts = []
+    total_real = 0
+    for (words, dm, cnts), shapes in entries:
+        dmu = dm.view(np.uint32)
+        n = int(cnts.sum())
+        d = (dmu[:n + 1] >> 9).astype(np.int64)
+        rest = dmu[:n + 1] & 0x1FF
+        first_abs = d[0] + word_off * 32
+        d0 = first_abs - prev_end
+        if d0 < 0 or d0 >= (1 << DELTA_BITS):
+            return None
+        dd = d.copy()
+        dd[0] = d0
+        dm_parts.append(((dd.astype(np.uint32) << 9)
+                         | rest.astype(np.uint32)))
+        prev_end = first_abs + int(d[1:].sum())
+        total_real += n
+        for (sw, sm, _nb, ni) in shapes:
+            key = 0 if collapse_merge else sw
+            c0, s0, w0 = per_class.get(key, (0, 0, 0))
+            per_class[key] = (c0 + ni, max(s0, sm), max(w0, sw))
+        words_parts.append(words)
+        word_off += len(words)
+
+    shapes_out = []
+    cnts_out = []
+    cum = 0
+    max_need = 0
+    for key in sorted(per_class):
+        cnt, sm, sw_max = per_class[key]
+        sw = sw_max if collapse_merge else key
+        nb = _bucket_items(cnt)
+        shapes_out.append((sw, sm, nb, cnt))
+        cnts_out.append(cnt)
+        max_need = max(max_need, cum + nb)
+        cum += cnt
+    dm_real = np.concatenate(dm_parts)
+    n_pad = _bucket_items(max(len(dm_real), max_need))
+    dm_all = np.zeros(n_pad, np.uint32)
+    dm_all[:len(dm_real)] = dm_real
+    wcat = np.zeros(_bucket_words(word_off), np.int32)
+    pos = 0
+    for w in words_parts:
+        wcat[pos:pos + len(w)] = w
+        pos += len(w)
+    return ((wcat, dm_all.view(np.int32), np.asarray(cnts_out, np.int32)),
+            tuple(shapes_out))
+
+
+def merge_anchor_wires(entries):
+    """The port's own merge of its 12 B/chunk anchor wire
+    (`models/stream.py::_anchor_scan`), the counterpart of the 12 B branch
+    of `merge_image_packs_words` (`pallas_decode.py:344`). entries: per
+    image (words, dm, ab, base, n_blocks). The word streams concatenate,
+    each followed by WORDS_PAD zero words, so every chunk reads the same
+    bits past its image's end as it does alone (zeros); each image's `ab`
+    gains 32 x its word offset (uint32 arithmetic), its `base` the blocks
+    of the images before it; `dm` (budget << 4 | slot) stays as it is.
+    Returns (words, dm, ab, base), int32 each, or None when the merged
+    stream reaches 2^26 words (entry bits must stay below 2^31)."""
+    sizes = [len(e[0]) + WORDS_PAD for e in entries]
+    if sum(sizes) >= (1 << 26):
+        return None
+    word_off = np.cumsum([0] + sizes)[:-1]
+    block_off = np.cumsum([0] + [int(e[4]) for e in entries])[:-1]
+    words = np.zeros(sum(sizes), np.int32)
+    for (w, *_rest), off in zip(entries, word_off):
+        words[off:off + len(w)] = w
+    dm = np.concatenate([e[1] for e in entries]).astype(np.int32)
+    ab = np.concatenate([
+        (np.asarray(e[2]).view(np.uint32) + np.uint32(32 * off))
+        for e, off in zip(entries, word_off)]).view(np.int32)
+    base = np.concatenate([np.asarray(e[3], np.int64) + off
+                           for e, off in zip(entries, block_off)])
+    return words, dm, ab, base.astype(np.int32)

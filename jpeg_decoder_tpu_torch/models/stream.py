@@ -1,8 +1,8 @@
-"""Decode-to-device streaming on PyTorch: the one-image stream decoder.
+"""Decode-to-device streaming on PyTorch: the stream decoder.
 
-Port of `jpeg_decoder_tpu/models/stream.py`'s `DeviceStreamDecoder`, one
-image at a time, in both interchanges, both precisions and the three
-layouts. Images come back as tensors on the decoder's device; the host
+Port of `jpeg_decoder_tpu/models/stream.py`'s `DeviceStreamDecoder` on one
+device, one image at a time or in batches, in both interchanges, both
+precisions and the three layouts. Images come back as tensors on the decoder's device; the host
 never reads pixels back:
 - "interleaved": [H, W, C] (or [H, W] for grayscale);
 - "planar": [C, H, W], the interleaved result permuted (2-D outputs as
@@ -33,8 +33,8 @@ made from the stream; it catches no device or kernel error.
 `interchange="prefix"` stages everything through `stage_host`, as the
 reference does.
 
-Device stage (per image, on the caller's thread, asynchronous on the
-current CUDA stream):
+Device stage (per image or per group, on the caller's thread,
+asynchronous on the current CUDA stream):
 - bits: delta unpack (delta wire), kernel K1 (chunk Huffman decode),
   assembly (DC prefix sums, raster placement), then reconstruction: the
   exact int32 IDCT or kernel K2 by precision, then upsampling and color,
@@ -43,13 +43,37 @@ current CUDA stream):
   same reconstruction;
 - lossless: the predictor closed forms or kernel L1, then the interleave.
 
-Not ported yet: batch_size > 1 (merged multi-image sweeps).
+Batches (`decode_stream(batch_size=N)`, the reference's grouping loop,
+`jpeg_decoder_tpu/models/stream.py:1619-1715`, on one device): consecutive
+images join a group of up to N while their key matches, and every device
+step runs once per group:
+- bits: one scan that covers every component, the same Huffman tables,
+  kept components and wire (`_bits_group_key`; images of at most 0.25
+  Mpix by default only need the tables and the MCU pattern to match,
+  `_bits_hetero_key`, so mixed sizes from one encoder share a group). The
+  wires merge on the host (`merge_image_packs_delta`, `merge_anchor_wires`)
+  and go to the device in one copy per array, then one K1 sweep decodes
+  every image, assembly and reconstruction run once per (plan, geometry)
+  over that part's rows (K2 and K3 one launch each, per-image tables in
+  K2's segment table);
+- lossless: the same `StagedLossless.group_key`; the planes stack as
+  [N * C, H, W] through one `reconstruct_planes` (one L1 launch where the
+  predictor needs it);
+- prefix: the same geometry; one store rebuild, one reconstruction.
+Every image comes out bit-equal to its one-image decode, as a view of its
+group's [N, ...] output (the view keeps the group's tensor alive, as the
+reference's `out[i]` does). A `None` slot (on_error="none") flushes every
+open group first, so outputs stay in source order. Groups are not padded
+to a bucket of sizes as the reference's are (`_batch_bucket`, `_bucket`):
+those bound XLA's recompiles, and eager launches have no compile key, so a
+padded image would only be wasted work.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import dataclasses
+import os
 import time
 from typing import Iterable
 
@@ -61,7 +85,8 @@ from ..entropy.chunk_decode import decode_chunks, unpack_delta
 from ..host.decoder import Decoder
 from ..host.entropy.prescan import AnchoredScan, PrescanFallback
 from ..host.entropy.transcode import transcode_decoded
-from ..host.entropy.wire import WORDS_PAD, pack_delta
+from ..host.entropy.wire import (WORDS_PAD, merge_anchor_wires,
+                                 merge_image_packs_delta, pack_delta)
 from ..host.errors import FormatError, JpegError
 from ..host.ops.pipeline import ImageGeometry, geometry_from_frame
 from ..host.ops.tail import is_420_ycbcr
@@ -81,8 +106,10 @@ INTERCHANGES = ("bits", "prefix")
 @dataclasses.dataclass
 class StagedScan:
     """One scan on its wire: the 4 B/chunk delta wire (`ab` and `base`
-    None: the device rebuilds them from `dm`), or the 12 B/chunk anchor
-    wire (`dm` holds `budget << 4 | slot`, `ab` and `base` ride beside)."""
+    None: the device rebuilds them from `dm`; `cnts` and `shapes` are
+    `pack_delta`'s class counts and shapes, which its merge reads), or the
+    12 B/chunk anchor wire (`dm` holds `budget << 4 | slot`, `ab` and
+    `base` ride beside)."""
     scan: AnchoredScan   # the host prescan's staging: plan, tables, n_blocks
     kept: tuple          # ((scan component position, frame component), ...)
     words: np.ndarray    # int32 stream words, zero-padded
@@ -90,6 +117,8 @@ class StagedScan:
     s_max: int           # symbol steps that bound every chunk
     ab: np.ndarray = None     # int32 [n] entry bits (uint32 patterns)
     base: np.ndarray = None   # int32 [n] first stream block of each chunk
+    cnts: np.ndarray = None   # int32 per-class chunk counts (delta wire)
+    shapes: tuple = None      # ((slot_words, s_max, n_bucket, n_items), ...)
 
     @property
     def wire(self) -> str:
@@ -138,11 +167,12 @@ def _wire_scan(scan: AnchoredScan, kept: tuple) -> StagedScan:
     packed = pack_delta(scan)
     if packed is None:
         return _anchor_scan(scan, kept)
-    (words, dm, _cnts), shapes = packed
+    (words, dm, cnts), shapes = packed
     if len(words) < scan.n_words + WORDS_PAD:
         raise FormatError("delta wire without its zero word padding")
     return StagedScan(scan, kept, words, dm,
-                      max(s_max for (_sw, s_max, _nb, _ni) in shapes))
+                      max(s_max for (_sw, s_max, _nb, _ni) in shapes),
+                      cnts=cnts, shapes=shapes)
 
 
 def _port_bits(st) -> StagedBits:
@@ -208,45 +238,134 @@ def stage_host_bits(source, scale_to=None, precision: str = "fast",
                       qts, info.width * info.height / 1e6)
 
 
+def merge_scans(scans: list):
+    """One wire for the scans of a group of images, all on one wire, in
+    order: (arrays, s_max, n_blocks), the arrays being (words, dm) of the
+    delta wire (`merge_image_packs_delta`) or (words, dm, ab, base) of the
+    anchor wire (`merge_anchor_wires`), s_max the most steps any image's
+    chunks need and n_blocks the images' blocks together. None when the
+    merge declines (a field would overflow at an image boundary, a mix of
+    single- and multi-class packs, a stream past 2^26 words): the images
+    then decode one by one, each on its own wire. The delta wire places an
+    image's chunks by the budgets of the images before it, so an image
+    whose budgets do not sum to its blocks is declined too."""
+    nbs = [s.scan.plan.n_blocks for s in scans]
+    if scans[0].wire == "anchor":
+        merged = merge_anchor_wires([(s.words, s.dm, s.ab, s.base, nb)
+                                     for s, nb in zip(scans, nbs)])
+        if merged is None:
+            return None
+        return merged, max(s.s_max for s in scans), sum(nbs)
+    for s, nb in zip(scans, nbs):
+        n = int(s.cnts.sum())
+        if int(((s.dm[:n].view(np.uint32) >> 4) & 31).sum()) != nb:
+            return None
+    merged = merge_image_packs_delta(
+        [((s.words, s.dm, s.cnts), s.shapes) for s in scans], nbs)
+    if merged is None:
+        return None
+    (words, dm, _cnts), shapes = merged
+    return (words, dm), max(sm for (_sw, sm, _nb, _ni) in shapes), sum(nbs)
+
+
+def _bits_hetero_key(st: StagedBits):
+    """The reference's `_bits_hetero_key` (`stream.py:1073`): images sharing
+    it merge into ONE K1 sweep even with different plans and geometries
+    (mixed sizes from one encoder); assembly and reconstruction then run
+    per plan over its part of the sweep's rows. None: decode singly."""
+    if len(st.scans) != 1:
+        return None
+    s = st.scans[0]
+    if len(s.kept) != len(st.qts):
+        return None
+    scan = s.scan
+    mapped_pattern = tuple(scan.comp_to_upair[c] for c in scan.plan.pattern)
+    return (mapped_pattern, s.kept, len(st.qts), s.wire,
+            scan.tab_maxcode.tobytes(), scan.tab_delta.tobytes(),
+            scan.tab_values.tobytes())
+
+
+def _bits_group_key(st: StagedBits):
+    """The reference's `_bits_group_key` (`stream.py:1094`, one device):
+    images sharing it merge into one batched bits dispatch: one scan
+    covering every component, the same geometry, Huffman tables, kept
+    components and wire. None: decode singly."""
+    if len(st.scans) != 1:
+        return None
+    s = st.scans[0]
+    if len(s.kept) != len(st.qts):
+        return None
+    scan = s.scan
+    return (st.geometry, scan.plan._key[:-3], s.kept,
+            tuple(scan.comp_to_upair), len(st.qts), s.wire,
+            scan.tab_maxcode.tobytes(), scan.tab_delta.tobytes(),
+            scan.tab_values.tobytes(), scan.luts.shape)
+
+
+def _hetero_threshold() -> float:
+    """Mpix at or below which bits images group by `_bits_hetero_key`, from
+    JPEG_TPU_HETERO_BITS as the reference reads it (`stream.py:1686-1695`):
+    unset, '' or '1' 0.25; '0' the exact key only; a number that
+    threshold. 'auto' follows the reference's link monitor (`utils/link`,
+    ROADMAP item 15), which the port does not have yet, so it raises."""
+    v = os.environ.get("JPEG_TPU_HETERO_BITS", "1")
+    if v == "auto":
+        raise ValueError("JPEG_TPU_HETERO_BITS=auto needs the link monitor "
+                         "(utils/link, ROADMAP item 15), not ported yet")
+    return 0.0 if v == "0" else 0.25 if v in ("", "1") else float(v)
+
+
+# K1's output holds fewer than 2^31 elements (chunk_decode.py).
+K1_MAX_BLOCKS = (2 ** 31 - 1) // 64
+
+
 def prefix_stores(geometry, dc, ac, resid_idx, resid_vals) -> list:
-    """The reference's `_compiled_prefix_pipeline` up to the stores: int16
-    dc [N] and int8 ac [N, 15] (zigzag slots 1..15) -> a zigzag [N, 64]
-    int16 tensor, permuted to natural order, plus the residuals
-    scatter-added (wrapping in int16). Residual indices outside the stores
-    (the bucket padding, `total`) are dropped, as `mode="drop"` does, by
-    sending them to a sink element past the end. Returns one int16
-    [blocks, 64] store per component."""
-    n = dc.shape[0]
-    padded = torch.cat([dc[:, None], ac.to(torch.int16),
-                        dc.new_zeros((n, 64 - PREFIX_K))], dim=1)
+    """The reference's `_compiled_prefix_pipeline` up to the stores, for one
+    image or a group of N of one geometry: int16 dc [N, n] (or [n]) and int8
+    ac [N, n, 15] (zigzag slots 1..15) -> zigzag [N, n, 64] int16,
+    permuted to natural order, plus the residuals scatter-added (wrapping in
+    int16). `resid_idx` indexes the group's stores flattened image after
+    image (image i's indices offset by i times an image's coefficients);
+    indices outside them (the padding) are dropped, as `mode="drop"` does,
+    by sending them to a sink element past the end. Returns one int16
+    [N, blocks, 64] store per component (views: each image's slab of a
+    component is contiguous)."""
+    dc = dc.reshape(-1, dc.shape[-1])
+    n, nb = dc.shape
+    padded = torch.cat([dc[..., None], ac.reshape(n, nb, -1).to(torch.int16),
+                        dc.new_zeros((n, nb, 64 - PREFIX_K))], dim=-1)
     perm = torch.as_tensor(_ZIGZAG_OF_NATURAL, dtype=torch.int64,
                            device=dc.device)
-    total = n * 64
-    dense = torch.cat([padded[:, perm].reshape(-1), dc.new_zeros(1)])
-    idx = resid_idx.to(torch.int64)
+    total = n * nb * 64
+    dense = torch.cat([padded[..., perm].reshape(-1), dc.new_zeros(1)])
+    idx = resid_idx.reshape(-1).to(torch.int64)
     idx = torch.where((idx >= 0) & (idx < total), idx, total)
-    dense.index_add_(0, idx, resid_vals)
+    dense.index_add_(0, idx, resid_vals.reshape(-1))
     sizes = [c.blocks_high * c.blocks_wide * 64 for c in geometry.components]
-    return [s.view(-1, 64) for s in dense[:total].split(sizes)]
+    return [s.view(n, -1, 64)
+            for s in dense[:total].view(n, nb * 64).split(sizes, dim=1)]
 
 
-def lossless_image(st: StagedLossless, diffs: torch.Tensor) -> torch.Tensor:
-    """The reference's `_compiled_lossless_pipeline` (batch None): `diffs`
-    holds the staged uint16 planes as int16 bit patterns, [C, H, W]. All
-    components through `reconstruct_planes` (kernel L1 once per image where
-    the predictor needs it), then the element-count-bound interleave;
-    uint8 out at precision 8, else uint16."""
+def lossless_images(st: StagedLossless, diffs: torch.Tensor) -> torch.Tensor:
+    """The reference's `_compiled_lossless_pipeline` (vmapped over a
+    group): `diffs` holds N images' staged uint16 planes as int16 bit
+    patterns, [N, C, H, W], of one `group_key` (`st` is any of them). Every
+    plane of the group through one `reconstruct_planes` (kernel L1 once
+    for the group where the predictor needs it), then the
+    element-count-bound interleave per image; uint8 out at precision 8,
+    else uint16: [N, H, W] for one component, else [N, H, W, C]."""
+    n, ncomp, h, w = diffs.shape
     d = diffs.to(torch.int32) & 0xFFFF
-    ncomp = d.shape[0]
-    planes = reconstruct_planes(d, Predictor(st.predictor),
-                                st.point_transform, st.precision,
-                                st.restart_all)
+    planes = reconstruct_planes(d.reshape(n * ncomp, h, w),
+                                Predictor(st.predictor), st.point_transform,
+                                st.precision, st.restart_all)
+    planes = planes.reshape(n, ncomp, h * w)
     if ncomp == 1:
-        img = planes[0]
+        img = planes.reshape(n, h, w)
     else:
         count = st.out_width * st.out_height
-        img = torch.stack([p.reshape(-1)[:count] for p in planes],
-                          dim=-1).reshape(st.out_height, st.out_width, ncomp)
+        img = planes[..., :count].transpose(1, 2).reshape(
+            n, st.out_height, st.out_width, ncomp)
     return img.to(torch.uint8 if st.precision == 8 else torch.uint16)
 
 
@@ -309,21 +428,23 @@ class DeviceStreamDecoder:
         return stage_host(source, scale_to, self.precision,
                           pool_width=self.host_threads)
 
-    def _to_device(self, staged) -> tuple:
-        """H2D copies of the staged wire."""
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _put(self, a) -> torch.Tensor:
+        """One H2D copy of a host array."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _to_device(self, staged) -> tuple:
+        """H2D copies of one image's staged wire."""
         kind = _kind(staged)
         if kind == "bits":
-            return tuple((put(s.words), put(s.dm)) if s.ab is None
-                         else (put(s.words), put(s.dm), put(s.ab),
-                               put(s.base))
+            return tuple((self._put(s.words), self._put(s.dm)) if s.ab is None
+                         else tuple(self._put(a)
+                                    for a in (s.words, s.dm, s.ab, s.base))
                          for s in staged.scans)
         if kind == "lossless":
-            return (put(staged.diffs.view(np.int16)),)
-        return tuple(put(a) for a in (staged.dc, staged.ac, staged.resid_idx,
-                                      staged.resid_vals))
+            return (self._put(staged.diffs.view(np.int16)),)
+        return tuple(self._put(a) for a in (staged.dc, staged.ac,
+                                            staged.resid_idx,
+                                            staged.resid_vals))
 
     def _general_maps(self, plan):
         maps = self._maps.get(plan)
@@ -340,39 +461,45 @@ class DeviceStreamDecoder:
             return "planar"
         return self.layout
 
-    def _reconstruct(self, geometry, stores, qts) -> torch.Tensor:
+    def _reconstruct(self, geometry, stores, qts_b) -> torch.Tensor:
+        """Stores of N images of one geometry ([N, blocks, 64] per
+        component) and their tables -> [N, ...] in the decoder's layout."""
         layout = self._effective_layout(geometry)
         with torch.profiler.record_function("reconstruct"):  # K3: fused_tail
             if layout == "planar-pallas":
-                return reconstruct_planar_pallas(geometry, stores, qts,
+                return reconstruct_planar_pallas(geometry, stores, qts_b,
                                                  self.params)
-            out = reconstruct(geometry, stores, qts, self.params)
-            if layout == "planar" and out.dim() == 3:
-                return out.permute(2, 0, 1).contiguous()
+            out = reconstruct(geometry, stores, qts_b, self.params)
+            if layout == "planar" and out.dim() == 4:
+                return out.permute(0, 3, 1, 2).contiguous()
             return out
 
-    def _bits_stores(self, staged: StagedBits, wires: tuple) -> list:
+    def _decode_scan(self, st: StagedScan, wire: tuple, s_max: int,
+                     n_blocks: int) -> torch.Tensor:
+        """K1 over a scan's wire on the device (one image's, or a group's
+        merged one): int16 nat [n_blocks, 64]."""
         span = torch.profiler.record_function   # layer names in traces
-        stores = [None] * len(staged.qts)
-        for st, wire in zip(staged.scans, wires):
-            plan = st.scan.plan
-            if st.ab is None:
-                words, dm = wire
-                with span("unpack_delta"):
-                    ab, _budget, _slot0, base = unpack_delta(dm)
-            else:
-                words, dm, ab, base = wire
-            with span("k1_decode"):
-                nat = decode_chunks(words, dm, ab, base,
-                                    self.params.tables(st.scan), st.s_max,
-                                    plan.n_blocks)
-            with span("assemble"):
-                maps = None if plan.structured is not None \
-                    else self._general_maps(plan)
-                scan_stores = assemble_nat(nat, plan, maps)
-            for pos, comp_i in st.kept:
-                stores[comp_i] = scan_stores[pos]
-        return stores
+        if st.wire == "delta":
+            words, dm = wire
+            with span("unpack_delta"):
+                ab, _budget, _slot0, base = unpack_delta(dm)
+        else:
+            words, dm, ab, base = wire
+        with span("k1_decode"):
+            return decode_chunks(words, dm, ab, base,
+                                 self.params.tables(st.scan), s_max, n_blocks)
+
+    def _assemble(self, nat: torch.Tensor, st: StagedScan, stores: list
+                  ) -> None:
+        """Assembly of nat [N, n_blocks, 64] (N images of the scan's plan)
+        into `stores`, by frame component: [N, blocks, 64] each."""
+        plan = st.scan.plan
+        with torch.profiler.record_function("assemble"):
+            maps = None if plan.structured is not None \
+                else self._general_maps(plan)
+            scan_stores = assemble_nat(nat, plan, maps)
+        for pos, comp_i in st.kept:
+            stores[comp_i] = scan_stores[pos]
 
     def _run_device(self, staged, wires: tuple) -> torch.Tensor:
         """The device half for one image whose wire is already on the
@@ -380,33 +507,128 @@ class DeviceStreamDecoder:
         kind = _kind(staged)
         if kind == "lossless":
             with torch.profiler.record_function("lossless"):
-                return lossless_image(staged, wires[0])
+                return lossless_images(staged, wires[0][None])[0]
         if kind == "bits":
-            stores = self._bits_stores(staged, wires)
+            stores = [None] * len(staged.qts)
+            for st, wire in zip(staged.scans, wires):
+                nb = st.scan.plan.n_blocks
+                nat = self._decode_scan(st, wire, st.s_max, nb)
+                self._assemble(nat.view(1, nb, 64), st, stores)
         else:
             with torch.profiler.record_function("prefix_stores"):
                 stores = prefix_stores(staged.geometry, *wires)
-        return self._reconstruct(staged.geometry, stores, staged.qts)
+        return self._reconstruct(staged.geometry, stores, [staged.qts])[0]
 
     def decode_one(self, staged) -> torch.Tensor:
         """Decode one staged image (bits, prefix or lossless)."""
         return self._run_device(staged, self._to_device(staged))
+
+    # Groups: `_group_wires` merges a group's wires on the host and copies
+    # each array to the device once; `_run_group` enqueues the device work.
+
+    def _group_wires(self, kind: str, group: list):
+        """The group's merged wire on the device, or None when the host
+        merge declines (the images then decode one by one)."""
+        if kind == "bits":
+            parts: dict = {}       # (plan, geometry) -> images, first seen
+            for i, st in enumerate(group):
+                parts.setdefault((st.scans[0].scan.plan, st.geometry),
+                                 []).append(i)
+            order = [i for members in parts.values() for i in members]
+            merged = merge_scans([group[i].scans[0] for i in order])
+            if merged is None:
+                return None
+            arrays, s_max, n_blocks = merged
+            return parts, tuple(map(self._put, arrays)), s_max, n_blocks
+        if kind == "lossless":
+            return (self._put(np.stack([st.diffs for st in group])
+                              .view(np.int16)),)
+        n = len(group)
+        total = group[0].dc.shape[-1] * 64     # one image's coefficients
+        if n * total >= 2 ** 31:
+            return None
+        width = max(len(st.resid_idx) for st in group)
+        ri = np.full((n, width), n * total, np.int64)   # the sink: dropped
+        rv = np.zeros((n, width), np.int16)
+        for i, st in enumerate(group):
+            idx = st.resid_idx.astype(np.int64)
+            ri[i, :len(idx)] = np.where((idx >= 0) & (idx < total),
+                                        idx + i * total, n * total)
+            rv[i, :len(idx)] = st.resid_vals
+        return tuple(map(self._put, (np.stack([st.dc for st in group]),
+                                     np.stack([st.ac for st in group]),
+                                     ri.astype(np.int32), rv)))
+
+    def _run_group(self, kind: str, group: list, wires) -> list:
+        """The device half of a group whose merged wire is on the device:
+        its images' tensors, in the group's order, each a view of one
+        [N, ...] output per (plan, geometry)."""
+        if kind == "lossless":
+            with torch.profiler.record_function("lossless"):
+                return list(lossless_images(group[0], wires[0]))
+        if kind == "prefix":
+            with torch.profiler.record_function("prefix_stores"):
+                stores = prefix_stores(group[0].geometry, *wires)
+            return list(self._reconstruct(group[0].geometry, stores,
+                                          [st.qts for st in group]))
+        parts, wire, s_max, n_blocks = wires
+        st0 = group[0].scans[0]
+        nat = self._decode_scan(st0, wire, s_max, n_blocks)
+        results = [None] * len(group)
+        off = 0
+        for (plan, geometry), members in parts.items():
+            rows = len(members) * plan.n_blocks
+            stores = [None] * len(group[members[0]].qts)
+            self._assemble(nat[off:off + rows].view(len(members),
+                                                    plan.n_blocks, 64),
+                           group[members[0]].scans[0], stores)
+            out = self._reconstruct(geometry, stores,
+                                    [group[i].qts for i in members])
+            for i, img in zip(members, out):
+                results[i] = img
+            off += rows
+        return results
+
+    def _decode_group(self, kind: str, group: list) -> list:
+        """One group: the reference's `_decode_group_bits` with
+        `_decode_group_bits_hetero` (one K1 sweep, then assembly and
+        reconstruction per plan; a group of one plan is the same-key
+        case), `_decode_group_lossless` and `_decode_group` (prefix). A
+        bits group whose blocks would pass K1's output limit splits."""
+        if kind == "bits":
+            runs, blocks = [[]], 0
+            for st in group:
+                nb = st.scans[0].scan.plan.n_blocks
+                if runs[-1] and blocks + nb > K1_MAX_BLOCKS:
+                    runs.append([])
+                    blocks = 0
+                runs[-1].append(st)
+                blocks += nb
+            if len(runs) > 1:
+                return [img for run in runs
+                        for img in self._decode_group(kind, run)]
+        if len(group) == 1:
+            return [self.decode_one(group[0])]
+        wires = self._group_wires(kind, group)
+        if wires is None:
+            return [self.decode_one(st) for st in group]
+        return self._run_group(kind, group, wires)
 
     def decode_stream(self, sources: Iterable, scale_to=None,
                       batch_size: int = 1, on_error: str = "raise") -> list:
         """Decode all sources, in order, to device tensors. The pool stages
         later images on the host while earlier ones decode on the device.
 
+        batch_size > 1 groups consecutive images into one device dispatch
+        of up to batch_size images, as the reference does (module
+        docstring): every image comes out bit-equal to its one-image
+        decode, a view of its group's output tensor (which the view keeps
+        alive).
+
         on_error: "raise" propagates the first failure; any other value
         ("none") isolates a source whose staging raises a JpegError: its
         slot holds None and later sources still decode, as in the
         reference."""
-        if batch_size != 1:
-            # When batching lands, a None slot must first flush every open
-            # group, as the reference does (jpeg_decoder_tpu/models/
-            # stream.py:1647-1654), so outputs stay in source order.
-            raise NotImplementedError(
-                "batch_size > 1 (merged multi-image sweeps) is not ported yet")
         futures = [self.pool.submit(self.stage, s, scale_to) for s in sources]
 
         def resolve(fut):
@@ -418,28 +640,100 @@ class DeviceStreamDecoder:
                 return None
 
         try:
-            return [None if st is None else self.decode_one(st)
-                    for st in map(resolve, futures)]
+            if batch_size <= 1:
+                return [None if st is None else self.decode_one(st)
+                        for st in map(resolve, futures)]
+            return self._grouped(map(resolve, futures), batch_size)
         except BaseException:
             for f in futures:      # stop staging what will not be decoded
                 f.cancel()
             raise
 
+    def _grouped(self, staged, batch_size: int) -> list:
+        """The reference's grouping loop (`stream.py:1619-1715`): three open
+        groups (prefix, bits, lossless) and its flush rules."""
+        thr = _hetero_threshold()
+        outputs: list = []
+        groups = {"prefix": [], "bits": [], "lossless": []}
+        bits_key = [None]
+
+        def flush(*kinds):
+            for kind in kinds:
+                if groups[kind]:
+                    outputs.extend(self._decode_group(kind, groups[kind]))
+                    groups[kind] = []
+
+        for st in staged:
+            if st is None:
+                flush("prefix", "bits", "lossless")
+                outputs.append(None)
+                continue
+            kind = _kind(st)
+            if kind == "lossless":
+                flush("prefix", "bits")
+                ll = groups["lossless"]
+                if ll and (st.group_key != ll[0].group_key
+                           or len(ll) >= batch_size):
+                    flush("lossless")
+                groups["lossless"].append(st)
+                continue
+            flush("lossless")
+            if kind == "bits":
+                flush("prefix")
+                key = (_bits_hetero_key(st) if st.mpix <= thr
+                       else _bits_group_key(st))
+                if key is None:    # multi-scan or partial: decode singly
+                    flush("bits")
+                    outputs.append(self.decode_one(st))
+                    continue
+                if groups["bits"] and (key != bits_key[0]
+                                       or len(groups["bits"]) >= batch_size):
+                    flush("bits")
+                bits_key[0] = key
+                groups["bits"].append(st)
+                continue
+            flush("bits")
+            pre = groups["prefix"]
+            if pre and (st.geometry != pre[0].geometry
+                        or len(pre) >= batch_size):
+                flush("prefix")
+            groups["prefix"].append(st)
+        flush("prefix", "bits", "lossless")
+        return outputs
+
     def device_resident_rate(self, source, iters: int = 64, scale_to=None,
-                             reps: int = 3) -> dict:
+                             reps: int = 3, batch: int = 1) -> dict:
         """Device time per image of the full device half (for bits: K1,
         assembly, the IDCT of the decoder's precision and the tail of its
         layout; for prefix: the store rebuild and the same reconstruction;
         for lossless: the predictors) over a wire already in device
         memory, staged by the decoder's interchange, timed with CUDA events
-        around `iters` back-to-back decodes; best of `reps`.
+        around `iters` back-to-back decodes; best of `reps`. With batch > 1
+        the wire holds `batch` copies merged into one group dispatch (the
+        reference's `device_resident_rate(batch=...)`, `stream.py:1497`)
+        and the time is per image; an image that cannot group (a bits
+        image with no group key, or a merge that declines) is timed alone
+        and reported with "batch": 1.
         Needs a CUDA device: a measurement finds no card, it fails."""
         if self.device.type != "cuda":
             raise RuntimeError("device_resident_rate measures a CUDA device; "
                                f"this decoder runs on {self.device}")
         staged = self.stage(source, scale_to)
-        wires = self._to_device(staged)
-        self._run_device(staged, wires)                    # warm-up
+        kind = _kind(staged)
+        group = [staged] * batch
+        wires = None
+        if batch > 1 and (kind != "bits" or _bits_group_key(staged)):
+            wires = self._group_wires(kind, group)
+        if wires is None:
+            batch = 1
+            one = self._to_device(staged)
+
+            def run():
+                self._run_device(staged, one)
+        else:
+            def run():
+                self._run_group(kind, group, wires)
+        run()                                              # warm-up
         torch.cuda.synchronize(self.device)
         best = float("inf")
         for _ in range(reps):
@@ -448,17 +742,16 @@ class DeviceStreamDecoder:
             t0 = time.perf_counter()
             start.record()
             for _ in range(iters):
-                self._run_device(staged, wires)
+                run()
             stop.record()
             stop.synchronize()
-            host = (time.perf_counter() - t0) / iters
-            ms = start.elapsed_time(stop) / iters
+            host = (time.perf_counter() - t0) / iters / batch
+            ms = start.elapsed_time(stop) / iters / batch
             if ms < best:
                 best, best_host = ms, host * 1e3
-        kind = _kind(staged)
         return {"ms_per_image": best, "mpix_s": staged.mpix / (best * 1e-3),
                 "host_ms_per_image": best_host, "mpix": staged.mpix,
-                "interchange": kind, "batch": 1,
+                "interchange": kind, "batch": batch,
                 "layout": None if kind == "lossless"
                 else self._effective_layout(staged.geometry),
                 "precision": self.precision,

@@ -28,11 +28,12 @@ def ycbcr_to_rgb(y, cb, cr):
 
 
 def color_convert_image(channels: list, transform: ColorTransform):
-    """uint8 [H, W] planes -> uint8 [H, W, C_out] (for NONE: [H, W * C],
-    the reference's planar-within-row layout)."""
+    """uint8 [..., H, W] planes -> uint8 [..., H, W, C_out] (for NONE:
+    [..., H, W * C], the reference's planar-within-row layout); a leading
+    axis runs over images."""
     validate_transform(len(channels), transform)
     if transform == ColorTransform.NONE:
-        return torch.cat(channels, dim=1)
+        return torch.cat(channels, dim=-1)
     if transform == ColorTransform.RGB:
         return torch.stack(channels, dim=-1)
     if transform == ColorTransform.YCBCR:

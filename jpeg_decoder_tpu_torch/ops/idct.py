@@ -134,23 +134,30 @@ def _idct1x1(s00):
 
 def dequantize_and_idct_blocks(coefficients, q, scale: int = 8
                                ) -> torch.Tensor:
-    """Exact tier: int16 [N, 64] natural-order blocks and the int32 [64]
-    natural-order quantization table (`params.qt_exact`) on one device ->
-    uint8 [N, scale, scale], bit-equal to the reference's
-    `dequantize_and_idct_blocks`."""
-    if q.dtype != torch.int32 or q.numel() != 64:
-        raise TypeError("q must be int32 [64] (params.qt_exact)")
-    c = coefficients.reshape(-1, 8, 8).to(torch.int32)
-    s = c * q.reshape(8, 8)           # wrapping dequantize
+    """Exact tier, bit-equal to the reference's `dequantize_and_idct_blocks`:
+    int16 natural-order blocks, [M, 64] with the int32 [64] natural-order
+    quantization table (`params.qt_exact`), or [N, M, 64] for N images with
+    one table each, int32 [N, 64] (`params.qts_exact`) -> uint8 [M, scale,
+    scale] or [N, M, scale, scale]. The ops run once over all N images."""
+    if q.dtype != torch.int32 or q.shape[-1] != 64 \
+            or q.dim() not in (1, coefficients.dim() - 1):
+        raise TypeError("q must be int32 [64] (params.qt_exact), or [N, 64] "
+                        "for [N, M, 64] blocks (params.qts_exact)")
+    lead = coefficients.shape[:-1]
+    c = coefficients.to(torch.int32)
+    s = c * (q if q.dim() == 1 else q[:, None, :])   # wrapping dequantize
+    c, s = c.reshape(-1, 8, 8), s.reshape(-1, 8, 8)
     if scale == 8:
-        return _idct8x8(s, c)
-    if scale == 4:
-        return _idct4x4(s[:, :4, :4])
-    if scale == 2:
-        return _idct2x2(s[:, :2, :2])
-    if scale == 1:
-        return _idct1x1(s[:, 0, 0])
-    raise ValueError(f"Unsupported IDCT scale {scale}/8")
+        px = _idct8x8(s, c)
+    elif scale == 4:
+        px = _idct4x4(s[:, :4, :4])
+    elif scale == 2:
+        px = _idct2x2(s[:, :2, :2])
+    elif scale == 1:
+        px = _idct1x1(s[:, 0, 0])
+    else:
+        raise ValueError(f"Unsupported IDCT scale {scale}/8")
+    return px.reshape(*lead, scale, scale)
 
 
 def dequantize_and_idct_blocks_fast(coefficients, q, basis,
@@ -165,10 +172,11 @@ def dequantize_and_idct_blocks_fast(coefficients, q, basis,
 
 def blocks_to_plane(block_pixels: torch.Tensor, blocks_wide: int,
                     blocks_high: int) -> torch.Tensor:
-    """[N, s, s] block pixels -> [blocks_high * s, blocks_wide * s] plane."""
-    n, s, _ = block_pixels.shape
+    """[..., N, s, s] block pixels -> [..., blocks_high * s, blocks_wide * s]
+    planes (a leading axis runs over images)."""
+    *lead, n, s, _ = block_pixels.shape
     if n != blocks_wide * blocks_high:
         raise ValueError(f"{n} blocks for a {blocks_wide}x{blocks_high} grid")
-    return (block_pixels.reshape(blocks_high, blocks_wide, s, s)
-            .transpose(1, 2)
-            .reshape(blocks_high * s, blocks_wide * s))
+    return (block_pixels.reshape(*lead, blocks_high, blocks_wide, s, s)
+            .transpose(-3, -2)
+            .reshape(*lead, blocks_high * s, blocks_wide * s))

@@ -3,15 +3,17 @@
 Every wrapper dispatches on the device of its inputs: CPU tensors run the
 plain version, CUDA tensors launch the CUDA kernel, anything else raises.
 
-K2 `dequant_idct_multi` (and its one-component form `dequant_idct`):
-dequantize + IDCT of coefficient blocks, counterpart of
+K2 `dequant_idct_batch` (and its one-image form `dequant_idct_multi`, its
+one-component form `dequant_idct`): dequantize + IDCT of coefficient
+blocks, counterpart of
 `jpeg_decoder_tpu/ops/pallas_kernels.py::dequantize_and_idct_blocks_pallas`
 (the TPU kernel `_kernel_fn`):
     pixels = u8(clip(floor((coef * q) @ basis + 128.5), 0, 255))
 in fp32, on int16 [N, 64] natural-order blocks. Scales 8/4/2/1 share one
 kernel through the zero-padded [64, 64] basis (`params.idct_basis`); only
-the first scale * scale pixel columns are computed. Every component of an
-image goes in one launch.
+the first scale * scale pixel columns are computed. Every component of
+every image of a group goes in one launch, through a table of segments
+(one per component and image, neighbours that share a table merged).
 
 Kernel `csrc/dequant_idct.cu`: tensor cores on a split-precision TF32
 product of the coefficients and the basis with q folded in
@@ -21,7 +23,8 @@ places, so they may differ by 1 where a value lands next to a .5 boundary.
 
 K3 `fused_tail`: chroma upsampling + color conversion into the planar
 layout, counterpart of `jpeg_decoder_tpu/ops/pallas_kernels.py::
-fused_tail_pallas` (the TPU kernel `_fused_tail_kernel`). Kernel
+fused_tail_pallas` (the TPU kernel `_fused_tail_kernel`), for one image or
+a group of images of one geometry in one launch. Kernel
 `csrc/fused_tail.cu`; integer math, bit-equal to its plain version.
 
 K4 `fused_recon`: 4:4:4 YCbCr coefficient stores -> planar RGB in one
@@ -47,74 +50,135 @@ from .color import ycbcr_to_rgb
 from .upsample import _v2_near_far, h2v2_combine
 
 
-K2_MAX_COMPONENTS = 4      # one launch takes a CMYK image
+K2_MAX_COMPONENTS = 4      # one image: a CMYK image
+K2_MAX_SEGMENTS = 64       # one launch's segment table: 16 images x 4
+
+
+def _check_tensor(name, t, dtype, dev) -> None:
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
 
 
 def _check_inputs(coef, q, basis, scale: int, dev=None) -> None:
+    """coef: int16 [..., N, 64] whose [N, 64] slabs are each contiguous (a
+    leading axis runs over images)."""
     dev = coef.device if dev is None else dev
-    for name, t, dtype in (("coef", coef, torch.int16),
-                           ("q", q, torch.float32),
-                           ("basis", basis, torch.float32)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    _check_tensor("coef", coef, torch.int16, dev)
+    for name, t in (("q", q), ("basis", basis)):
+        _check_tensor(name, t, torch.float32, dev)
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if coef.dim() != 2 or coef.shape[1] != 64:
-        raise ValueError(f"coef must be [N, 64], got {tuple(coef.shape)}")
+    if coef.dim() not in (2, 3) or coef.shape[-1] != 64:
+        raise ValueError(f"coef must be [N, 64] or [images, N, 64], got "
+                         f"{tuple(coef.shape)}")
+    if coef.shape[-2] > 1 and coef.stride(-2) != 64 or coef.stride(-1) != 1:
+        raise ValueError("each image's coefficients must be contiguous")
     if q.shape != (64,) or basis.shape != (64, 64):
         raise ValueError("q must be [64] and basis [64, 64]")
     if scale not in (1, 2, 4, 8):
         raise ValueError(f"unsupported IDCT scale {scale}")
-    if coef.shape[0] >= 2 ** 31 // 64:
+    if coef.shape[:-1].numel() >= 2 ** 31 // 64:
         raise ValueError("too many blocks for one launch")
 
 
+def dequant_idct_batch(coefs, qs, bases, scales, folded=None) -> list:
+    """K2 over every component of a group of images, one launch (per
+    K2_MAX_SEGMENTS segments). Per component c: coefs[c] int16 [N, n_c, 64]
+    natural-order blocks of N images (each image's [n_c, 64] slab
+    contiguous; the slabs need not be adjacent), qs[c] a list of N float32
+    [64] dequant factors (the images' tables may differ), bases[c] the
+    float32 [64, 64] basis of scales[c], and optionally folded[c], the N
+    bases with q folded in (`params.folded`; computed on the device when
+    not given) -> per component uint8 [N, n_c, scales[c] ** 2].
+
+    The segment table holds one segment per (component, image), in that
+    order. Before a launch the wrapper merges neighbours that share one
+    folded basis tensor (`params.folded` caches by content) and whose
+    coefficients and outputs lie back to back, so images of one encoder at
+    one quality take one segment per component, as one image does; the
+    kernel reloads a basis only where a tile's segment changes. The plain
+    version runs segment by segment, unmerged: a batched call on the CPU
+    gives the per-image calls' bits."""
+    if not len(coefs) == len(qs) == len(bases) == len(scales) >= 1:
+        raise ValueError("one q list, basis and scale per component")
+    dev = coefs[0].device
+    n = coefs[0].shape[0]
+    for coef, qc, basis, scale in zip(coefs, qs, bases, scales):
+        if coef.dim() != 3 or coef.shape[0] != n or len(qc) != n:
+            raise ValueError("coefs[c] must be [N, n_c, 64] with N tables, "
+                             "one N for every component")
+        for q in qc:
+            _check_inputs(coef, q, basis, scale, dev)
+    if dev.type == "cpu":
+        return [torch.stack([dequant_idct_plain(coef[i], qc[i], basis, scale)
+                             for i in range(n)])
+                for coef, qc, basis, scale in zip(coefs, qs, bases, scales)]
+    if dev.type != "cuda":
+        raise ValueError(f"no K2 implementation for device {dev}")
+    if folded is None:
+        folded = [[q[:, None] * basis for q in qc]
+                  for qc, basis in zip(qs, bases)]
+    for f in (f for fc in folded for f in fc):
+        if f.device != dev or f.dtype != torch.float32 \
+                or f.shape != (64, 64) or not f.is_contiguous():
+            raise ValueError("folded bases must be contiguous float32 "
+                             f"[64, 64] on {dev}")
+    if any(c.data_ptr() % 16 or n > 1 and c.stride(0) % 8 for c in coefs):
+        raise ValueError("K2 reads coefficients in 16-byte chunks: each "
+                         "store must start 16-byte aligned")
+    outs = [torch.empty((n, c.shape[1], s * s), dtype=torch.uint8,
+                        device=dev) for c, s in zip(coefs, scales)]
+    segs = []       # [coef pointer, folded basis, out pointer, blocks, scale]
+    for coef, fc, out, scale in zip(coefs, folded, outs, scales):
+        rows = coef.shape[1]
+        for i in range(n):
+            seg = [coef.data_ptr() + coef.stride(0) * 2 * i, fc[i],
+                   out.data_ptr() + out.stride(0) * i, rows, scale]
+            last = segs[-1] if segs else None
+            if last is not None and last[1].data_ptr() == fc[i].data_ptr() \
+                    and last[4] == scale \
+                    and last[0] + last[3] * 128 == seg[0] \
+                    and last[2] + last[3] * scale * scale == seg[2]:
+                last[3] += rows
+            elif rows:
+                segs.append(seg)
+    lib = _build.load()
+    for lo in range(0, len(segs), K2_MAX_SEGMENTS):
+        part = segs[lo:lo + K2_MAX_SEGMENTS]
+        ptrs = ctypes.c_void_p * len(part)
+        ints = ctypes.c_int * len(part)
+        with torch.cuda.device(dev):
+            err = lib.jdt_dequant_idct(
+                ptrs(*[s[0] for s in part]),
+                ptrs(*[s[1].data_ptr() for s in part]),
+                ptrs(*[s[2] for s in part]),
+                ints(*[s[3] for s in part]), ints(*[s[4] for s in part]),
+                len(part), torch.cuda.current_stream(dev).cuda_stream)
+            _build.LAUNCHES["dequant_idct"] += 1
+        _build.check(lib, err, "dequant_idct")
+    return outs
+
+
 def dequant_idct_multi(coefs, qs, bases, scales, folded=None) -> list:
-    """K2 over several components in one launch: per component int16
-    [N_i, 64] coefficients, float32 [64] dequant factors, float32 [64, 64]
-    basis and its scale -> uint8 [N_i, scale_i ** 2] pixels. `folded[i]`,
-    the basis with q folded in (`params.folded_basis`), is computed on the
-    device when not given."""
+    """K2 over the components of one image in one launch: per component
+    int16 [N_i, 64] coefficients, float32 [64] dequant factors, float32
+    [64, 64] basis and its scale -> uint8 [N_i, scale_i ** 2] pixels.
+    `folded[i]`, the basis with q folded in (`params.folded_basis`), is
+    computed on the device when not given."""
     n = len(coefs)
     if not 1 <= n <= K2_MAX_COMPONENTS \
             or not len(qs) == len(bases) == len(scales) == n:
         raise ValueError(f"1..{K2_MAX_COMPONENTS} components, with one q, "
                          "basis and scale each")
-    dev = coefs[0].device
-    for coef, q, basis, scale in zip(coefs, qs, bases, scales):
-        _check_inputs(coef, q, basis, scale, dev)
-    if dev.type == "cpu":
-        return [dequant_idct_plain(*args)
-                for args in zip(coefs, qs, bases, scales)]
-    if dev.type != "cuda":
-        raise ValueError(f"no K2 implementation for device {dev}")
-    if folded is None:
-        folded = [q[:, None] * basis for q, basis in zip(qs, bases)]
-    for f in folded:
-        if f.device != dev or f.dtype != torch.float32 \
-                or f.shape != (64, 64) or not f.is_contiguous():
-            raise ValueError("folded bases must be contiguous float32 "
-                             f"[64, 64] on {dev}")
-    if any(c.data_ptr() % 16 for c in coefs):
-        raise ValueError("K2 reads coefficients in 16-byte chunks: each "
-                         "store must start 16-byte aligned")
-    outs = [torch.empty((c.shape[0], s * s), dtype=torch.uint8, device=dev)
-            for c, s in zip(coefs, scales)]
-    ptrs = ctypes.c_void_p * n
-    ints = ctypes.c_int * n
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        err = lib.jdt_dequant_idct(
-            ptrs(*[c.data_ptr() for c in coefs]),
-            ptrs(*[f.data_ptr() for f in folded]),
-            ptrs(*[o.data_ptr() for o in outs]),
-            ints(*[c.shape[0] for c in coefs]), ints(*scales), n,
-            torch.cuda.current_stream(dev).cuda_stream)
-        _build.LAUNCHES["dequant_idct"] += 1
-    _build.check(lib, err, "dequant_idct")
-    return outs
+    for coef in coefs:
+        if coef.dim() != 2:
+            raise ValueError(f"coef must be [N, 64], got {tuple(coef.shape)}")
+    outs = dequant_idct_batch([c[None] for c in coefs], [[q] for q in qs],
+                              bases, scales,
+                              None if folded is None else [[f] for f in folded])
+    return [o[0] for o in outs]
 
 
 def dequant_idct(coef, q, basis, scale: int = 8) -> torch.Tensor:
@@ -196,12 +260,15 @@ def _check_tail(planes, comp_modes, chroma_dims, transform, out_h,
     else:
         hc, wc = chroma_dims
     dev = planes[0].device
+    lead = planes[0].shape[:-2]
     for p, m in zip(planes, comp_modes):
-        if p.device != dev or p.dtype != torch.uint8 or p.dim() != 2 \
+        if p.device != dev or p.dtype != torch.uint8 \
+                or p.dim() not in (2, 3) or p.shape[:-2] != lead \
                 or not p.is_contiguous():
-            raise ValueError("planes must be contiguous uint8 [rows, cols] "
+            raise ValueError("planes must be contiguous uint8 [rows, cols], "
+                             "or [images, rows, cols] with one image count, "
                              "on one device")
-        rows, cols = p.shape
+        rows, cols = p.shape[-2:]
         need_h = out_h if m == "h1v1" else hc
         need_w = wc if m.startswith("h2") else out_w
         covers_h = {"h1v1": True, "h2v1": hc >= out_h}.get(m, 2 * hc >= out_h)
@@ -210,15 +277,18 @@ def _check_tail(planes, comp_modes, chroma_dims, transform, out_h,
                 or not (covers_h and covers_w):
             raise ValueError(f"{m} plane {tuple(p.shape)} with chroma "
                              f"{hc}x{wc} does not cover {out_h}x{out_w}")
+    if lead and not 1 <= lead[0] <= 65535:
+        raise ValueError(f"{lead[0]} images: K3 takes 1..65535 in a launch")
 
 
 def fused_tail(planes, comp_modes, chroma_dims, transform: str, out_h: int,
                out_w: int) -> torch.Tensor:
-    """uint8 component planes (block-padded IDCT output, full rows) ->
-    uint8 planar [C_out, out_h, out_w]. `comp_modes[i]` in TAIL_MODES,
-    `chroma_dims` = (hc, wc) shared by every subsampled component (None
-    when all are h1v1), `transform` in TAIL_TRANSFORMS; the arguments of
-    `fused_tail_pallas`."""
+    """uint8 component planes (block-padded IDCT output, full rows),
+    [rows, cols] each, or [N, rows, cols] for N images of one geometry ->
+    uint8 planar [C_out, out_h, out_w], or [N, C_out, out_h, out_w] from one
+    launch. `comp_modes[i]` in TAIL_MODES, `chroma_dims` = (hc, wc) shared
+    by every subsampled component (None when all are h1v1), `transform` in
+    TAIL_TRANSFORMS; the arguments of `fused_tail_pallas`."""
     _check_tail(planes, comp_modes, chroma_dims, transform, out_h, out_w)
     dev = planes[0].device
     if dev.type == "cpu":
@@ -227,19 +297,23 @@ def fused_tail(planes, comp_modes, chroma_dims, transform: str, out_h: int,
     if dev.type != "cuda":
         raise ValueError(f"no K3 implementation for device {dev}")
     hc, wc = chroma_dims if chroma_dims is not None else (out_h, out_w)
-    out = torch.empty((len(planes), out_h, out_w), dtype=torch.uint8,
+    lead = tuple(planes[0].shape[:-2])
+    out = torch.empty((*lead, len(planes), out_h, out_w), dtype=torch.uint8,
                       device=dev)
     ptrs = [p.data_ptr() for p in planes] + [0] * (4 - len(planes))
-    # Per component: mode code, row pitch in bytes.
-    meta = (ctypes.c_int * 8)(
-        *[TAIL_MODES.index(m) for m in comp_modes], *[0] * (4 - len(planes)),
-        *[p.shape[1] for p in planes], *[0] * (4 - len(planes)))
+    # Per component: mode code, row pitch and image stride in bytes.
+    pad = [0] * (4 - len(planes))
+    meta = (ctypes.c_longlong * 12)(
+        *[TAIL_MODES.index(m) for m in comp_modes], *pad,
+        *[p.shape[-1] for p in planes], *pad,
+        *[p.stride(0) if lead else 0 for p in planes], *pad)
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.jdt_fused_tail(
             *ptrs, ctypes.addressof(meta), len(planes),
             TAIL_TRANSFORMS.index(transform), hc, wc, out_h, out_w,
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            lead[0] if lead else 1, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
         _build.LAUNCHES["fused_tail"] += 1
     _build.check(lib, err, "fused_tail")
     return out
@@ -261,25 +335,26 @@ def fused_tail_plain(planes, comp_modes, chroma_dims, transform: str,
     rows (`near_far`), the V2 triangle taps, the H2 taps with the
     quarter-weight edges and the column interleave (`h2taps` and the final
     stack, which `upsample.h2v2_combine` computes in one step), then
-    `_tail_color`. A full-resolution component's column-parity split is the
-    identity once the interleave is undone, so it is read as is; the row-tile
-    padding changes no value and is left out."""
+    `_tail_color`, all over the leading image axis where there is one. A
+    full-resolution component's column-parity split is the identity once
+    the interleave is undone, so it is read as is; the row-tile padding
+    changes no value and is left out."""
     hc, wc = chroma_dims if chroma_dims is not None else (out_h, out_w)
     chans = []
     for p, m in zip(planes, comp_modes):
         if m == "h1v1":
-            chans.append(p[:out_h, :out_w].to(torch.int32))
+            chans.append(p[..., :out_h, :out_w].to(torch.int32))
             continue
         if m.endswith("v2"):
             near, far = _v2_near_far(p, hc, out_h)
         else:
-            near = far = p[:hc][:out_h].to(torch.int32)
+            near = far = p[..., :hc, :][..., :out_h, :].to(torch.int32)
         if m == "h1v2":
-            chans.append((3 * near[:, :out_w] + far[:, :out_w] + 2) >> 2)
+            chans.append((3 * near[..., :out_w] + far[..., :out_w] + 2) >> 2)
         else:
-            chans.append(h2v2_combine(near[:, :wc], far[:, :wc], wc)
-                         [:, :out_w].to(torch.int32))
-    return torch.stack(_tail_color(transform, chans), dim=0)
+            chans.append(h2v2_combine(near[..., :wc], far[..., :wc], wc)
+                         [..., :out_w].to(torch.int32))
+    return torch.stack(_tail_color(transform, chans), dim=-3)
 
 
 def _check_recon(y, cb, cr, qts, basis, width: int) -> None:

@@ -1,4 +1,4 @@
-"""Reconstruction: coefficient stores -> image tensor, on the stores' device.
+"""Reconstruction: coefficient stores -> image tensors, on the stores' device.
 
 Port of `jpeg_decoder_tpu/ops/pipeline.py::_reconstruct` (`reconstruct`:
 per component dequant + IDCT and block -> plane, then chroma upsampling
@@ -9,11 +9,18 @@ Geometry comes from `ImageGeometry` / `geometry_from_frame`, and the
 planar tail's coverage rule from `pallas_tail_mode`, all in the port's
 host copy (`host/ops/pipeline.py`, `host/ops/tail.py`).
 
+Both take a group of N images of one geometry, the reference's vmapped
+reconstruction (`stream.py:1012`): per component an int16 [N, n_c, 64]
+store (each image's [n_c, 64] slab contiguous) and one tuple of
+quantization tables per image (the same geometry does not mean the same
+tables), and run every op once for the group; one image is a group of
+one.
+
 The IDCT tier follows `geometry.precision` as `_reconstruct` does: "fast"
-runs kernel K2 (one launch for every component), anything else the exact
-int32 IDCT. The planar tail runs
-K2 at either precision, as the reference's `reconstruct_planar_pallas`
-runs its fp32 Pallas IDCT whatever the precision.
+runs kernel K2 (one launch for every component of every image), anything
+else the exact int32 IDCT. The planar tail runs K2 at either precision, as
+the reference's `reconstruct_planar_pallas` runs its fp32 Pallas IDCT
+whatever the precision.
 """
 
 from __future__ import annotations
@@ -25,46 +32,56 @@ from ..host.ops.tail import _TAIL_TRANSFORMS, pallas_tail_mode
 from ..params import DeviceParams
 from .color import color_convert_image
 from .idct import blocks_to_plane, dequantize_and_idct_blocks
-from .kernels import dequant_idct_multi, fused_tail
+from .kernels import dequant_idct_batch, fused_tail
 from .upsample import upsample_component
+
+
+def fast_pixels_batch(geometry, stores, qts_b, params: DeviceParams) -> list:
+    """Kernel K2 over every component of N images in one launch: uint8
+    [N, n_c, s, s] block pixels per component."""
+    scales = [c.dct_scale for c in geometry.components]
+    pixels = dequant_idct_batch(
+        stores,
+        [[params.qt(qts[c]) for qts in qts_b] for c in range(len(scales))],
+        [params.basis(s) for s in scales], scales,
+        folded=[[params.folded(qts[c], s) for qts in qts_b]
+                for c, s in enumerate(scales)])
+    return [px.reshape(*px.shape[:2], s, s) for px, s in zip(pixels, scales)]
 
 
 def fast_pixels(geometry, stores, qts, params: DeviceParams) -> list:
     """Kernel K2 over every component of one image, in one launch: uint8
     [N, s, s] block pixels per component."""
-    comps = geometry.components
-    scales = [c.dct_scale for c in comps]
-    pixels = dequant_idct_multi(
-        [s.reshape(-1, 64) for s in stores],
-        [params.qt(qt) for qt in qts],
-        [params.basis(s) for s in scales], scales,
-        folded=[params.folded(qt, s) for qt, s in zip(qts, scales)])
-    return [px.reshape(-1, s, s) for px, s in zip(pixels, scales)]
+    return [px[0] for px in fast_pixels_batch(
+        geometry, [s.reshape(1, -1, 64) for s in stores], [qts], params)]
 
 
-def _planes(geometry, stores, qts, params: DeviceParams,
+def _planes(geometry, stores, qts_b, params: DeviceParams,
             fp32: bool = False) -> list:
-    """IDCT + block -> plane per component: block-padded uint8 planes. K2
-    when `fp32` or at precision "fast", else the exact int32 IDCT."""
+    """IDCT + block -> plane per component: block-padded uint8 planes
+    [N, rows, cols]. K2 when `fp32` or at precision "fast", else the exact
+    int32 IDCT."""
     comps = geometry.components
     if fp32 or geometry.precision == "fast":
-        pixels = fast_pixels(geometry, stores, qts, params)
+        pixels = fast_pixels_batch(geometry, stores, qts_b, params)
     else:
-        pixels = [dequantize_and_idct_blocks(store, params.qt_exact(qt),
-                                             comp.dct_scale)
-                  for comp, store, qt in zip(comps, stores, qts)]
+        pixels = [dequantize_and_idct_blocks(
+                      store, params.qts_exact([qts[c] for qts in qts_b]),
+                      comp.dct_scale)
+                  for c, (comp, store) in enumerate(zip(comps, stores))]
     return [blocks_to_plane(px, comp.blocks_wide, comp.blocks_high)
             for comp, px in zip(comps, pixels)]
 
 
-def reconstruct(geometry, stores, qts, params: DeviceParams) -> torch.Tensor:
-    """`stores`: int16 [blocks_high * blocks_wide, 64] per component;
-    `qts`: uint16[64] natural-order numpy tables. Returns uint8 [H, W] for
-    one component, else [H, W, C]."""
-    planes = _planes(geometry, stores, qts, params)
+def reconstruct(geometry, stores, qts_b,
+                params: DeviceParams) -> torch.Tensor:
+    """`stores`: int16 [N, blocks_high * blocks_wide, 64] per component;
+    `qts_b`: per image, its uint16[64] natural-order numpy tables. Returns
+    uint8 [N, H, W] for one component, else [N, H, W, C]."""
+    planes = _planes(geometry, stores, qts_b, params)
     if geometry.transform is None:
         comp = geometry.components[0]
-        return planes[0][:comp.size_height, :comp.size_width]
+        return planes[0][:, :comp.size_height, :comp.size_width]
     channels = [
         upsample_component(plane, comp.upsampler_mode,
                            input_width=comp.size_width,
@@ -76,25 +93,26 @@ def reconstruct(geometry, stores, qts, params: DeviceParams) -> torch.Tensor:
     return color_convert_image(channels, geometry.transform)
 
 
-def reconstruct_planar_pallas(geometry, stores, qts,
+def reconstruct_planar_pallas(geometry, stores, qts_b,
                               params: DeviceParams) -> torch.Tensor:
-    """Planar reconstruction for the geometries `pallas_tail_mode` admits:
-    uint8 [H, W] for one component ("gray", a crop), [C, H, W] for RGB
-    4:4:4 ("stack") and through kernel K3 for YCbCr / CMYK / YCCK with any
-    h1/h2 x v1/v2 chroma it admits ("fused"). Other geometries raise: the
-    decoder sends them to layout "planar". The IDCT is K2 at either
-    precision, as in the reference."""
+    """Planar reconstruction of N images for the geometries
+    `pallas_tail_mode` admits: uint8 [N, H, W] for one component ("gray", a
+    crop), [N, C, H, W] for RGB 4:4:4 ("stack") and through one launch of
+    kernel K3 for YCbCr / CMYK / YCCK with any h1/h2 x v1/v2 chroma it
+    admits ("fused"). Other geometries raise: the decoder sends them to
+    layout "planar". The IDCT is K2 at either precision, as in the
+    reference."""
     mode = pallas_tail_mode(geometry)
     if mode is None:
         raise ValueError("the planar tail does not cover this geometry "
                          "(pallas_tail_mode is None)")
-    planes = _planes(geometry, stores, qts, params, fp32=True)
+    planes = _planes(geometry, stores, qts_b, params, fp32=True)
     comps = geometry.components
     out_h, out_w = geometry.out_height, geometry.out_width
     if mode == "gray":
-        return planes[0][:comps[0].size_height, :comps[0].size_width]
+        return planes[0][:, :comps[0].size_height, :comps[0].size_width]
     if mode == "stack":
-        return torch.stack([p[:out_h, :out_w] for p in planes], dim=0)
+        return torch.stack([p[:, :out_h, :out_w] for p in planes], dim=1)
     chroma_dims = next(((c.size_height, c.size_width) for c in comps
                         if c.upsampler_mode != "h1v1"), None)
     with torch.profiler.record_function("fused_tail"):

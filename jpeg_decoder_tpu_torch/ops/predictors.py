@@ -122,22 +122,22 @@ def lossless_recur_plain(diffs, predictor: int, pt: int, default: int
 
 def reconstruct_lossless_device(d, predictor, pt: int, precision: int,
                                 restart_all: bool) -> torch.Tensor:
-    """Closed forms: int32 [H, W] differences in [0, 2^16) -> int32 [H, W]
-    stored samples, for Ra at pt 0, `restart_all`, and what
-    `device_supported` names. Sums run in int64 (torch's default for an
-    integer cumsum) and are masked to 16 bits, as the reference's
-    wrapping int32 sums are."""
-    h, w = d.shape
+    """Closed forms: int32 [..., H, W] differences in [0, 2^16) -> int32
+    [..., H, W] stored samples, for Ra at pt 0, `restart_all`, and what
+    `device_supported` names; every op runs once over the leading planes.
+    Sums run in int64 (torch's default for an integer cumsum) and are
+    masked to 16 bits, as the reference's wrapping int32 sums are."""
+    h, w = d.shape[-2:]
     if predictor == Predictor.RA:
         # Dispatched before the restart check, with the unguarded default.
         if pt != 0:
             raise ValueError("Ra with a point transform has no device form "
                              "(staging sends it to the host)")
-        col0 = (torch.cumsum(d[:, 0], 0) + (1 << (precision - 1))) & MASK
+        col0 = (torch.cumsum(d[..., 0], -1) + (1 << (precision - 1))) & MASK
         if w == 1:
-            return col0[:, None].to(torch.int32)
-        rows = (torch.cumsum(d[:, 1:], 1) + col0[:, None]) & MASK
-        return torch.cat([col0[:, None], rows], 1).to(torch.int32)
+            return col0[..., None].to(torch.int32)
+        rows = (torch.cumsum(d[..., 1:], -1) + col0[..., None]) & MASK
+        return torch.cat([col0[..., None], rows], -1).to(torch.int32)
 
     if restart_all:
         default = _default_prediction(precision, pt)
@@ -148,21 +148,22 @@ def reconstruct_lossless_device(d, predictor, pt: int, precision: int,
                          "form; use reconstruct_lossless_wavefront")
     default = _default_prediction(precision, 0)
     if predictor == Predictor.RC:
-        return lossless_recur(d[None].contiguous(), Predictor.RC, 0,
-                              default)[0]
-    row0 = (torch.cumsum(d[0], 0) + default) & MASK
+        return lossless_recur(d.reshape(-1, h, w).contiguous(), Predictor.RC,
+                              0, default).reshape(d.shape)
+    row0 = (torch.cumsum(d[..., 0, :], -1) + default) & MASK
     if h == 1:
-        return row0[None, :].to(torch.int32)
+        return row0[..., None, :].to(torch.int32)
     if predictor == Predictor.RB:
-        body = (torch.cumsum(d[1:], 0) + row0[None, :]) & MASK
+        body = (torch.cumsum(d[..., 1:, :], -2) + row0[..., None, :]) & MASK
     elif predictor == Predictor.NO_PREDICTION:
-        col0 = (torch.cumsum(d[1:, 0], 0) + row0[0]) & MASK
-        body = torch.cat([col0[:, None].to(torch.int32), d[1:, 1:] & MASK],
-                         1)
+        col0 = (torch.cumsum(d[..., 1:, 0], -1) + row0[..., :1]) & MASK
+        body = torch.cat([col0[..., None].to(torch.int32),
+                          d[..., 1:, 1:] & MASK], -1)
     else:                                           # RA_RB_RC_1
-        body = (torch.cumsum(torch.cumsum(d[1:], 1), 0) + row0[None, :]) \
-            & MASK
-    return torch.cat([row0[None, :].to(torch.int32), body.to(torch.int32)])
+        body = (torch.cumsum(torch.cumsum(d[..., 1:, :], -1), -2)
+                + row0[..., None, :]) & MASK
+    return torch.cat([row0[..., None, :].to(torch.int32),
+                      body.to(torch.int32)], -2)
 
 
 def reconstruct_lossless_wavefront(d, predictor, pt: int, precision: int
@@ -185,14 +186,13 @@ def runs_l1(predictor, pt: int, restart_all: bool) -> bool:
 
 def reconstruct_planes(d, predictor, pt: int, precision: int,
                        restart_all: bool) -> torch.Tensor:
-    """Every component, int32 [C, H, W] differences -> int32 [C, H, W]
-    stored samples, by the rule of the reference's
-    `_compiled_lossless_pipeline`: the closed forms component by component,
-    or L1 once for all components (one launch per image)."""
+    """Every plane, int32 [P, H, W] differences -> int32 [P, H, W] stored
+    samples (P = C components of one image, or N * C for a group of N), by
+    the rule of the reference's `_compiled_lossless_pipeline`: the closed
+    forms, vectorised over the planes, or L1 once for all planes (one
+    launch per image or per group)."""
     if runs_l1(predictor, pt, restart_all):
         return lossless_recur(d.contiguous(), predictor, pt,
                               _default_prediction(precision, pt))
-    return torch.stack([reconstruct_lossless_device(p, predictor, pt,
-                                                    precision, restart_all)
-                        for p in d])
-
+    return reconstruct_lossless_device(d, predictor, pt, precision,
+                                       restart_all)

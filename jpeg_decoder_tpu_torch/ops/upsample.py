@@ -4,7 +4,8 @@ Port of `jpeg_decoder_tpu/ops/upsample.py::upsample_component` and its
 helpers, every mode: h1v1 (copy), h2v1 and h1v2 (triangle filters,
 (3a + b + 2) >> 2), h2v2 ((3 t1 + t0 + 8) >> 4 over vertical sums t) and
 generic (nearest-neighbour integer scaling). Integer torch ops on int32;
-the values stay below 2^12, so no step overflows.
+the values stay below 2^12, so no step overflows. Planes are the last two
+axes: a leading axis runs over the images of a batch.
 """
 
 from __future__ import annotations
@@ -30,14 +31,14 @@ def _h2_horizontal(rows: torch.Tensor, input_width: int) -> torch.Tensor:
 
 def _v2_near_far(p: torch.Tensor, input_height: int, out_rows: int):
     """Output row r reads near = in[r // 2] and far = in[r // 2 - 1] (even r)
-    or in[r // 2 + 1] (odd r), clamped to the plane."""
-    p2 = p[:input_height].to(torch.int32)
-    near = p2.repeat_interleave(2, dim=0)[:out_rows]
-    down = torch.cat([p2[:1], p2[:-1]], dim=0)
-    up = torch.cat([p2[1:], p2[-1:]], dim=0)
-    far = torch.stack([down, up], dim=1).reshape(2 * input_height,
-                                                 *p2.shape[1:])
-    return near, far[:out_rows]
+    or in[r // 2 + 1] (odd r), clamped to the plane; rows are axis -2."""
+    p2 = p[..., :input_height, :].to(torch.int32)
+    near = p2.repeat_interleave(2, dim=-2)[..., :out_rows, :]
+    down = torch.cat([p2[..., :1, :], p2[..., :-1, :]], dim=-2)
+    up = torch.cat([p2[..., 1:, :], p2[..., -1:, :]], dim=-2)
+    far = torch.stack([down, up], dim=-2).reshape(
+        *p2.shape[:-2], 2 * input_height, p2.shape[-1])
+    return near, far[..., :out_rows, :]
 
 
 def h2v2_combine(near: torch.Tensor, far: torch.Tensor,
@@ -58,24 +59,26 @@ def h2v2_combine(near: torch.Tensor, far: torch.Tensor,
 def upsample_component(plane: torch.Tensor, mode: str, input_width: int,
                        input_height: int, out_rows: int, out_width: int,
                        h_scale: int = 1, v_scale: int = 1) -> torch.Tensor:
-    """Upsample one uint8 component plane (block-padded IDCT output) to
-    uint8 [out_rows, out_width]; see the reference for the row-stride
-    semantics (look-ahead reads extra columns, never extra rows)."""
+    """Upsample uint8 component planes (block-padded IDCT output, [..., rows,
+    cols]) to uint8 [..., out_rows, out_width]; see the reference for the
+    row-stride semantics (look-ahead reads extra columns, never extra
+    rows)."""
     p = plane
     if mode == H1V1:
-        return p[:out_rows, :out_width]
+        return p[..., :out_rows, :out_width]
     if mode == H2V1:
-        rows = p[:out_rows, :input_width].to(torch.int32)
-        return _h2_horizontal(rows, input_width)[:, :out_width].to(torch.uint8)
+        rows = p[..., :out_rows, :input_width].to(torch.int32)
+        return _h2_horizontal(rows, input_width)[..., :out_width] \
+            .to(torch.uint8)
     if mode == H1V2:
-        near, far = _v2_near_far(p[:, :out_width], input_height, out_rows)
+        near, far = _v2_near_far(p[..., :out_width], input_height, out_rows)
         return ((3 * near + far + 2) >> 2).to(torch.uint8)
     if mode == H2V2:
-        near, far = _v2_near_far(p[:, :input_width], input_height, out_rows)
-        return h2v2_combine(near, far, input_width)[:, :out_width]
+        near, far = _v2_near_far(p[..., :input_width], input_height, out_rows)
+        return h2v2_combine(near, far, input_width)[..., :out_width]
     if mode == GENERIC:
         in_rows = -(-out_rows // v_scale)
-        rep = p[:in_rows, :input_width].repeat_interleave(
-            v_scale, dim=0)[:out_rows]
-        return rep.repeat_interleave(h_scale, dim=-1)[:, :out_width]
+        rep = p[..., :in_rows, :input_width].repeat_interleave(
+            v_scale, dim=-2)[..., :out_rows, :]
+        return rep.repeat_interleave(h_scale, dim=-1)[..., :out_width]
     raise ValueError(f"unknown upsampler mode {mode}")

@@ -240,6 +240,16 @@ class DeviceParams:
         return self._get(("qt_exact", np.asarray(qt).tobytes()),
                          lambda: quant_table(qt, self.device, np.int32))
 
+    def qts_exact(self, qts) -> torch.Tensor:
+        """int32 [N, 64]: one exact-tier table per image of a group."""
+        def make():
+            q = np.stack([np.asarray(t).astype(np.int32).reshape(64)
+                          for t in qts])
+            return torch.from_numpy(q).to(self.device)
+
+        return self._get(("qts_exact",) + tuple(np.asarray(t).tobytes()
+                                                for t in qts), make)
+
     def basis(self, scale: int) -> torch.Tensor:
         return self._get(("basis", scale),
                          lambda: idct_basis(scale, self.device))

@@ -24,7 +24,13 @@ widths with pitches 8 mod 16 and bases 8 bytes off 16; L1 bit-equal to its
 plain version (integer math), also at its 32-row band edges and with three
 components in one launch, and one L1 launch for a 3-component SOF3
 image; exact-precision, prefix and lossless decodes bit-equal to the CPU
-port (integer math throughout).
+port (integer math throughout). Batches: K2's segment table (more than 4
+segments, per-image tables, more than 64 segments in two launches) and
+K3's image axis give each image the bits of its own launch (SHA-256
+equal; K2 within 1 of plain, K3 equal to plain), and
+`decode_stream(batch_size=8)` gives every image of every layout,
+precision and interchange bit-equal to batch_size=1, with K1 once per
+group, K2 and K3 once per plan and L1 once per lossless group.
 """
 
 import numpy as np
@@ -372,3 +378,109 @@ def test_k2_launches_once_per_image_on_the_fast_path(cuda):
             jt.reset_launches()
             dec._run_device(staged, wires)
             assert jt.LAUNCHES["dequant_idct"] == 1, len(staged.qts)
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("n,ncomp,scale", [
+    (7, 3, 8), (7, 3, 4), (5, 3, 2), (5, 3, 1), (18, 4, 8)])
+def test_k2_segment_table_bit_equal_to_per_image_launches(cuda, n, ncomp,
+                                                          scale):
+    """A group of n images with their own tables (two neighbours share
+    theirs, so the wrapper merges them), coefficients >= 2048 in some
+    blocks: one launch per 64 segments, each image's pixels those of its
+    own launch (SHA-256 equal), within 1 of plain."""
+    from jpeg_decoder_tpu_torch.ops.kernels import (K2_MAX_SEGMENTS,
+                                                    dequant_idct_batch)
+
+    params = DeviceParams(cuda)
+    rng = np.random.default_rng(n * 10 + scale)
+    blocks = (301, 37, 37, 300)[:ncomp]
+    coefs = []
+    for b in blocks:
+        c = rng.integers(-300, 300, (n, b, 64))
+        hot = rng.random((n, b)) < 1 / 40
+        c[hot, :8] = rng.integers(2048, 4096, (int(hot.sum()), 8))
+        coefs.append(torch.from_numpy(c.astype(np.int16)).to(cuda))
+    tables = [[rng.integers(1, 60, 64).astype(np.uint16) for _ in blocks]
+              for _ in range(n)]
+    tables[2] = tables[1]
+    qs = [[params.qt(tables[i][c]) for i in range(n)] for c in range(ncomp)]
+    folded = [[params.folded(tables[i][c], scale) for i in range(n)]
+              for c in range(ncomp)]
+    bases = [params.basis(scale)] * ncomp
+    before = jt.LAUNCHES["dequant_idct"]
+    got = dequant_idct_batch(coefs, qs, bases, [scale] * ncomp, folded)
+    segs = n * ncomp - ncomp             # images 1 and 2 share a segment
+    assert jt.LAUNCHES["dequant_idct"] - before \
+        == -(-segs // K2_MAX_SEGMENTS)
+    for i in range(n):
+        alone = dequant_idct_multi(
+            [c[i] for c in coefs], [q[i] for q in qs], bases,
+            [scale] * ncomp, [f[i] for f in folded])
+        assert _digest(g[i] for g in got) == _digest(alone)
+        for g, c, q in zip(got, coefs, qs):
+            want = dequant_idct_plain(c[i], q[i], params.basis(scale), scale)
+            assert int((g[i].to(torch.int32) - want.to(torch.int32)).abs()
+                       .max()) <= 1
+
+
+@pytest.mark.parametrize("name", sorted(TAIL_CASES))
+def test_k3_image_axis_bit_equal_to_per_image_launches(cuda, name):
+    modes, transform, out_h, out_w, chroma = TAIL_CASES[name]
+    per_image = [[torch.from_numpy(p).to(cuda) for p in tail_planes(name, s)]
+                 for s in range(5)]
+    stacked = [torch.stack(ps) for ps in zip(*per_image)]
+    before = jt.LAUNCHES["fused_tail"]
+    got = fused_tail(stacked, modes, chroma, transform, out_h, out_w)
+    assert jt.LAUNCHES["fused_tail"] == before + 1
+    alone = [fused_tail(p, modes, chroma, transform, out_h, out_w)
+             for p in per_image]
+    assert _digest(got) == _digest(alone)
+    torch.testing.assert_close(
+        got, fused_tail_plain(stacked, modes, chroma, transform, out_h,
+                              out_w), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("interchange", ["bits", "prefix"])
+@pytest.mark.parametrize("precision", ["fast", "exact"])
+@pytest.mark.parametrize("layout", ["interleaved", "planar",
+                                    "planar-pallas"])
+def test_batched_stream_on_card_bit_equal_to_batch_1(cuda, layout, precision,
+                                                     interchange):
+    """Same-key groups, a mixed-size group and a lossless group; K1, K2 and
+    K3 once per group (K2 and K3 once per plan of a mixed group), L1 once
+    for the predictor-6 group."""
+    from tools.make_torch_fixtures import sof3_jpeg, sof3_samples
+
+    mixed = ["mixed_500x375.jpg", "mixed_375x500.jpg", "mixed_320x240.jpg"]
+    stream = ([fixture("small_dri.jpg")] * 3 + [fixture(n) for n in mixed]
+              + [sof3_jpeg(sof3_samples(40, 30, 3, 16, 0, seed=s), 6, 0, 16)
+                 for s in range(3)])
+    kw = {"layout": layout, "precision": precision,
+          "interchange": interchange}
+    with jt.DeviceStreamDecoder(host_threads=2, **kw) as dec:
+        single = dec.decode_stream(stream)
+        torch.cuda.synchronize()
+        jt.reset_launches()
+        batched = dec.decode_stream(stream, batch_size=8)
+        torch.cuda.synchronize()
+    for a, b in zip(batched, single):
+        assert a.is_cuda and a.dtype == b.dtype
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # bits: one sweep for all six JPEGs (one hetero key), then one
+    # reconstruction per plan; prefix: small_dri's group and three of one.
+    plans = 1 + len(mixed)
+    assert jt.LAUNCHES["huffman_decode"] == (interchange == "bits")
+    assert jt.LAUNCHES["lossless_recur"] == 1
+    if precision == "fast" or layout == "planar-pallas":
+        assert jt.LAUNCHES["dequant_idct"] == plans
+    assert jt.LAUNCHES["fused_tail"] == (
+        plans if layout == "planar-pallas" else 0)

@@ -69,8 +69,8 @@ def _planar_vs_jax(data: bytes, scale_to=None):
         ref_geometry, [jnp.asarray(s) for s in stores],
         [jnp.asarray(q) for q in qts], interpret=True))
     got = reconstruct_planar_pallas(
-        geometry, [torch.from_numpy(s) for s in stores], qts,
-        DeviceParams("cpu"))
+        geometry, [torch.from_numpy(s)[None] for s in stores], [qts],
+        DeviceParams("cpu"))[0]
     assert got.dtype == torch.uint8 and tuple(got.shape) == ref.shape
     np.testing.assert_array_equal(got.numpy(), ref)
     return geometry

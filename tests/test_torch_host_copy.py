@@ -14,7 +14,12 @@ SOF3 streams:
   bits and block bases, `s_max`, the block count and the Huffman table
   arrays;
 - the malformed `restart_underrun_prescan.jpg` raises FormatError with the
-  same message from both.
+  same message from both;
+- the copied batch merge `merge_image_packs_delta` gives the reference's
+  merged wire for pairs and triples of fixtures (collapsed packs: one
+  union class), merges multi-class packs as it does and declines a mix of
+  single- and multi-class packs as it does; the port's own merge of its
+  anchor wire decodes every image as its own wire does.
 Tolerance: equal, element for element (the copy is the same code).
 """
 
@@ -191,3 +196,120 @@ def test_restart_underrun_raises_the_same_format_error():
     with pytest.raises(FormatError) as staged:
         stage_host_bits(data)
     assert str(port.value) == str(staged.value) == str(ref.value)
+
+
+# The batch merge of the delta wire (`merge_image_packs_delta`, copied) and
+# the port's own anchor-wire merge.
+MERGE_GROUPS = {
+    "pair-444-422": ("small_444.jpg", "small_422.jpg"),
+    "pair-tower-dri": ("tower_420.jpg", "small_dri.jpg"),
+    "triple-gray-cmyk-rgb": ("small_gray.jpg", "small_cmyk_420.jpg",
+                             "small_rgb_444.jpg"),
+    "triple-large-444-progressive": ("large_420.jpg", "small_444.jpg",
+                                     "small_422_progressive.jpg"),
+}
+
+
+def _delta_entries(names):
+    """(port entries, reference entries, block counts) of the fixtures'
+    delta-wire packs, staged by each package."""
+    port, ref, nbs = [], [], []
+    for name in names:
+        data = fixture(name)
+        (st,) = stage_host_bits(data).scans
+        (scan, _kept), = _reference_scans(data, None)
+        assert st.wire == "delta"
+        port.append(((st.words, st.dm, st.cnts), st.shapes))
+        ref.append(ref_pack_delta(scan))
+        nbs.append(st.scan.plan.n_blocks)
+    return port, ref, nbs
+
+
+def _assert_merges_equal(got, want):
+    if want is None:
+        assert got is None
+        return
+    (gw, gd, gc), gs = got
+    (ww, wd, wc), ws = want
+    for a, b in ((gw, ww), (gd, wd), (gc, wc)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert gs == ws
+
+
+@pytest.mark.parametrize("group", list(MERGE_GROUPS))
+def test_delta_merge_equals_the_reference(group):
+    """Collapsed (single-class) packs, the default: their classes union."""
+    from jpeg_decoder_tpu.entropy.pallas_decode import \
+        merge_image_packs_delta as ref_merge
+    from jpeg_decoder_tpu_torch.host.entropy.wire import \
+        merge_image_packs_delta
+
+    port, ref, nbs = _delta_entries(MERGE_GROUPS[group])
+    want = ref_merge(ref, nbs)
+    assert want is not None and len(want[1]) == 1     # one union class
+    _assert_merges_equal(merge_image_packs_delta(port, nbs), want)
+
+
+def _split_classes(entry):
+    """The pack's chunks as two classes (its first half one class wider),
+    as span classes would give them."""
+    (words, dm, cnts), ((sw, sm, nb, n),) = entry
+    a = n // 2
+    return ((words, dm, np.asarray([a, n - a], np.int32)),
+            ((sw, sm, nb, a), (sw + 8, sm, nb, n - a)))
+
+
+@pytest.mark.parametrize("multi", ["first", "all"])
+def test_delta_merge_of_multi_class_packs_equals_the_reference(multi):
+    """A mix of single- and multi-class packs: both decline. Multi-class
+    packs alone: both merge per class."""
+    from jpeg_decoder_tpu.entropy.pallas_decode import \
+        merge_image_packs_delta as ref_merge
+    from jpeg_decoder_tpu_torch.host.entropy.wire import \
+        merge_image_packs_delta
+
+    port, ref, nbs = _delta_entries(("small_444.jpg", "small_dri.jpg"))
+    for entries in (port, ref):
+        for i in range(len(entries) if multi == "all" else 1):
+            entries[i] = _split_classes(entries[i])
+    want = ref_merge(ref, nbs)
+    assert (want is None) == (multi == "first")
+    _assert_merges_equal(merge_image_packs_delta(port, nbs), want)
+
+
+def test_merged_anchor_wire_decodes_bit_equal_to_each_image():
+    """Two three-table-pair streams (the anchor wire) merged: one K1 sweep
+    gives each image's rows of its own sweep, and a batched stream each
+    image's own decode."""
+    import torch
+
+    from jpeg_decoder_tpu_torch import DeviceStreamDecoder
+    from jpeg_decoder_tpu_torch.entropy.chunk_decode import decode_chunks
+    from jpeg_decoder_tpu_torch.models.stream import merge_scans
+    from jpeg_decoder_tpu_torch.params import DeviceParams
+
+    blobs = [three_table_pairs(fixture(n))
+             for n in ("small_dri.jpg", "small_444.jpg")]
+    scans = [stage_host_bits(b).scans[0] for b in blobs]
+    assert [s.wire for s in scans] == ["anchor", "anchor"]
+    params = DeviceParams("cpu")
+
+    def sweep(arrays, s_max, n_blocks):
+        return decode_chunks(*map(torch.from_numpy, arrays),
+                             params.tables(scans[0].scan), s_max, n_blocks)
+
+    arrays, s_max, n_blocks = merge_scans(scans)
+    merged = sweep(arrays, s_max, n_blocks)
+    off = 0
+    for s in scans:
+        nb = s.scan.plan.n_blocks
+        alone = sweep((s.words, s.dm, s.ab, s.base), s.s_max, nb)
+        assert torch.equal(merged[off:off + nb], alone)
+        off += nb
+    assert off == n_blocks
+    stream = [blobs[0], blobs[0], blobs[0]]
+    with DeviceStreamDecoder(device="cpu", host_threads=1) as dec:
+        single = dec.decode_stream(stream[:1])[0]
+        for img in dec.decode_stream(stream, batch_size=3):
+            assert torch.equal(img, single)

@@ -3,7 +3,8 @@
   on the CPU in the interleaved and the planar-pallas layouts, and through
   every other path of the one-image decoder (exact precision, progressive
   and quirk streams through transcode, the three-table-pair anchor wire,
-  the prefix interchange and lossless), and must end with no `jax`,
+  the prefix interchange and lossless) and in batches (`batch_size=3`),
+  and must end with no `jax`,
   `jaxlib`, `triton` or `jpeg_decoder_tpu` module loaded and no CUDA
   library built or loaded: the port stages through its own copy of the
   host code, `jpeg_decoder_tpu_torch.host`;
@@ -61,6 +62,15 @@ with jt.DeviceStreamDecoder(device="cpu", host_threads=1) as dec:
     out = dec.decode_stream(lossless)
 assert [(tuple(o.shape), str(o.dtype)) for o in out] == [
     ((9, 11), "torch.uint16"), ((9, 11, 3), "torch.uint8")], out
+# Batches: a bits group (merged wire, one sweep), a lossless group and a
+# prefix group.
+for interchange in ("bits", "prefix"):
+    with jt.DeviceStreamDecoder(device="cpu", host_threads=1,
+                                interchange=interchange) as dec:
+        out = dec.decode_stream([data, data, data] + lossless[:1] * 2,
+                                batch_size=3)
+    assert [tuple(o.shape) for o in out] == [(190, 250, 3)] * 3 + [(9, 11)] * 2
+    assert all((o == out[0]).all() for o in out[1:3])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton",
                                     "jpeg_decoder_tpu"))

@@ -12,8 +12,9 @@ Tolerances:
   bit-equal (the same IDCT, and integer math after it);
 - lossless: bit-equal.
 Progressive, lossless and quirk streams decode (tests/
-test_torch_stream_paths.py and test_torch_lossless.py hold them in full);
-options the port lacks raise a typed error naming what is missing.
+test_torch_stream_paths.py and test_torch_lossless.py hold them in full),
+and so does batch_size > 1 (tests/test_torch_batch.py); options the port
+lacks raise a typed error naming what is missing.
 """
 
 import numpy as np
@@ -185,7 +186,13 @@ def test_options_outside_the_slice_raise():
         with pytest.raises(ValueError, match=what):
             DeviceStreamDecoder(device="cpu", **kw)
     with DeviceStreamDecoder(device="cpu", host_threads=1) as dec:
-        with pytest.raises(NotImplementedError, match="batch_size"):
-            dec.decode_stream([fixture("small_gray.jpg")], batch_size=2)
+        # batch_size > 1, once refused, decodes: each image bit-equal to
+        # its one-image decode (tests/test_torch_batch.py holds the rest).
+        gray = fixture("small_gray.jpg")
+        single = dec.decode_stream([gray])[0]
+        batched = dec.decode_stream([gray, gray], batch_size=2)
+        assert len(batched) == 2
+        for img in batched:
+            torch.testing.assert_close(img, single, rtol=0, atol=0)
         with pytest.raises(RuntimeError, match="CUDA"):
-            dec.device_resident_rate(fixture("small_gray.jpg"))
+            dec.device_resident_rate(gray)

@@ -10,8 +10,9 @@ the files can be regenerated bit for bit on the same PIL/libjpeg build:
 The set covers the main path's shapes: one ~3.4 Mpix 4:2:0 image (the
 `large_image.jpg` class), one 512x512 4:2:0 image, and small 4:4:4, 4:2:2,
 grayscale, restart-interval (DRI), subsampled CMYK and RGB-stored images
-with edges that are not MCU multiples; and two progressive ones, the
-large image's own array and a small 4:2:2 image.
+with edges that are not MCU multiples; two progressive ones, the large
+image's own array and a small 4:2:2 image; and six 4:2:0 images of the
+mixed sizes of an ImageNet-class data set (at most 0.25 Mpix each).
 
 Lossless (SOF3) streams are not committed: `sof3_jpeg` writes them at run
 time from seeded samples (`sof3_samples`), with numpy alone (no PIL, no
@@ -52,6 +53,11 @@ FIXTURES = {
     "small_422_progressive.jpg": (197, 131, "RGB",
                                   {"subsampling": 1, "progressive": True},
                                   4.0, 8),
+    # ImageNet-class mixed sizes (at most 0.25 Mpix), 4:2:0: one encoder's
+    # images, which a batch decodes in one Huffman sweep.
+    **{f"mixed_{w}x{h}.jpg": (w, h, "RGB", {"subsampling": 2}, 3.3, 20 + i)
+       for i, (w, h) in enumerate(((500, 375), (375, 500), (500, 333),
+                                   (333, 500), (448, 448), (320, 240)))},
 }
 QUALITY = 85
 

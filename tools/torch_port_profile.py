@@ -1,20 +1,26 @@
 """Where the device time of the PyTorch port's main path goes, on a CUDA card.
 
-    python tools/torch_port_profile.py [--iters N] [--stream N]
+    python tools/torch_port_profile.py [--iters N] [--stream N] [--batch N]
                                        [--layout L] [--precision P]
                                        [--interchange I] [--trace out.json]
                                        [fixture ...]
 
 For each fixture (default: the 3.4 Mpix and 512x512 4:2:0 fixtures in
 tests/fixtures/torch_port/) it first times `decode_stream` end to end over
-`stream` copies (host staging on 4 pool threads, H2D, device), then stages
-the wire and copies it to the card once and runs `iters` device-resident
-decodes, unprofiled (CUDA events, `device_resident_rate`) and under
-torch.profiler, in the decoder layout `--layout` (default interleaved;
-"planar-pallas" runs kernel K3), precision `--precision` (default fast;
-"exact" runs the int32 IDCT) and interchange `--interchange` (default
-bits). Printed per fixture, as JSON lines:
-- wall ms/image over the profiled window (host clock, synchronised);
+`stream` copies at `batch_size=batch` (host staging on 4 pool threads, H2D,
+device), then runs it again under torch.profiler for the card's idle share
+over that run; then it stages the wire and copies it to the card once (for
+batch > 1, `batch` copies merged into one group, as `decode_stream` merges
+a group) and runs `iters` device-resident decodes, unprofiled (CUDA events,
+`device_resident_rate`) and under torch.profiler, in the decoder layout
+`--layout` (default interleaved; "planar-pallas" runs kernel K3),
+precision `--precision` (default fast; "exact" runs the int32 IDCT) and
+interchange `--interchange` (default bits). Printed per fixture, as JSON
+lines (per image: a group's numbers divided by its images):
+- end to end: ms/image, Mpix/s and the card's idle share (1 - the union
+  of kernel intervals over the wall time of the profiled run);
+- wall ms/image over the profiled device-resident window (host clock,
+  synchronised);
 - device busy ms/image (union of kernel intervals) and the idle share;
 - kernel ms/image per layer (a kernel belongs to the innermost of the
   decoder's record_function ranges it starts in: unpack_delta, k1_decode,
@@ -90,34 +96,56 @@ def kernel_device_us(fn, symbol: str, iters: int = 20) -> dict:
             "all_launches": round(len(on_card) / iters)}
 
 
-def profile(dec, path: Path, iters: int):
+def _kernels(prof) -> list:
+    """The card's kernels of a profile; record_function ranges also appear
+    on the device timeline, as spans around kernels, not kernels."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name not in LAYERS]
+
+
+def profile(dec, path: Path, iters: int, batch: int = 1):
     """Profile `iters` device-resident decodes of the JPEG at `path`,
-    staged by the decoder's interchange and precision."""
+    staged by the decoder's interchange and precision: of one image, or of
+    a group of `batch` copies (per-image numbers divide by `batch`)."""
     from torch.profiler import ProfilerActivity
 
+    from jpeg_decoder_tpu_torch.models.stream import _kind
+
     staged = dec.stage(path.read_bytes())
-    wires = dec._to_device(staged)
+    if batch > 1:
+        group = [staged] * batch
+        wires = dec._group_wires(_kind(staged), group)
+        if wires is None:
+            raise ValueError(f"{path.name} does not group")
+
+        def run():
+            dec._run_group(_kind(staged), group, wires)
+    else:
+        one = dec._to_device(staged)
+
+        def run():
+            dec._run_device(staged, one)
     for _ in range(3):
-        dec._run_device(staged, wires)
+        run()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            dec._run_device(staged, wires)
+            run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     on_card = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    # record_function ranges also appear on the device timeline; they are
-    # spans around kernels, not kernels.
     spans = [e for e in on_card if e.name in LAYERS]
-    kernels = [e for e in on_card if e.name not in LAYERS]
+    kernels = _kernels(prof)
     busy = _busy_us((e.time_range.start, e.time_range.end) for e in kernels)
+    images = iters * batch
     by_kernel = defaultdict(float)
     layers = defaultdict(float)
     for e in kernels:
-        ms = e.time_range.elapsed_us() / iters / 1e3
+        ms = e.time_range.elapsed_us() / images / 1e3
         by_kernel[e.name] += ms
         owners = [s for s in spans if s.time_range.start
                   <= e.time_range.start < s.time_range.end]
@@ -127,29 +155,46 @@ def profile(dec, path: Path, iters: int):
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
     return {"fixture": path.name, "layout": dec.layout,
             "precision": dec.precision, "interchange": dec.interchange,
-            "mpix": staged.mpix,
-            "wall_ms": wall / iters * 1e3, "device_busy_ms": busy / iters / 1e3,
+            "batch": batch, "mpix": staged.mpix,
+            "wall_ms": wall / images * 1e3,
+            "device_busy_ms": busy / images / 1e3,
             "idle_share": 1 - busy / (wall * 1e6),
-            "launches_per_image": len(kernels) / iters,
+            "launches_per_image": len(kernels) / images,
             "layer_kernel_ms": dict(layers), "top_kernels_ms": top,
             "device": torch.cuda.get_device_name(0)}, prof
 
 
-def stream_rate(dec, path: Path, n: int) -> dict:
-    """End to end: decode_stream over n copies (host staging in the pool,
-    H2D, device), wall clock until the last image is on the card."""
+def stream_rate(dec, path: Path, n: int, batch: int = 1) -> dict:
+    """End to end: decode_stream over n copies at batch_size `batch` (host
+    staging in the pool, H2D, device), wall clock until the last image is
+    on the card; then the same run under torch.profiler for the card's
+    idle share (the profiler's own cost lengthens that run's wall time, so
+    the share is an upper bound)."""
+    from torch.profiler import ProfilerActivity
+
     data = [path.read_bytes()] * n
-    dec.decode_stream(data[:2])
+    dec.decode_stream(data[:2], batch_size=batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = dec.decode_stream(data)
+    out = dec.decode_stream(data, batch_size=batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        dec.decode_stream(data, batch_size=batch)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t1
+    busy = _busy_us((e.time_range.start, e.time_range.end)
+                    for e in _kernels(prof))
     h, w = out[0].shape[-2:] if dec.layout.startswith("planar") \
         else out[0].shape[:2]          # [C, H, W] or [H, W, C]; gray [H, W]
     mpix = h * w / 1e6
-    return {"fixture": path.name, "images": n, "ms_per_image": wall / n * 1e3,
-            "mpix_s": mpix * n / wall, "host_threads": dec.host_threads}
+    return {"fixture": path.name, "images": n, "batch": batch,
+            "ms_per_image": wall / n * 1e3, "mpix_s": mpix * n / wall,
+            "host_threads": dec.host_threads,
+            "profiled_ms_per_image": prof_wall / n * 1e3,
+            "device_busy_ms_per_image": busy / n / 1e3,
+            "idle_share": 1 - busy / (prof_wall * 1e6)}
 
 
 def main(argv=None) -> int:
@@ -159,6 +204,9 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--stream", type=int, default=32,
                     help="images per end-to-end decode_stream run")
+    ap.add_argument("--batch", type=int, default=1,
+                    help="decode_stream's batch_size, and the images of "
+                    "one device-resident group")
     ap.add_argument("--layout", default="interleaved",
                     choices=("interleaved", "planar", "planar-pallas"))
     ap.add_argument("--precision", default="fast", choices=("fast", "exact"))
@@ -176,11 +224,12 @@ def main(argv=None) -> int:
                              layout=args.layout, precision=args.precision,
                              interchange=args.interchange) as dec:
         for name in args.fixtures:
-            print(json.dumps({"stream": stream_rate(dec, FIXTURES / name,
-                                                    args.stream)}))
+            print(json.dumps({"stream": stream_rate(
+                dec, FIXTURES / name, args.stream, args.batch)}))
             print(json.dumps({"device_resident": dec.device_resident_rate(
-                (FIXTURES / name).read_bytes(), iters=args.iters)}))
-            res, prof = profile(dec, FIXTURES / name, args.iters)
+                (FIXTURES / name).read_bytes(), iters=args.iters,
+                batch=args.batch)}))
+            res, prof = profile(dec, FIXTURES / name, args.iters, args.batch)
             print(json.dumps(res))
         if args.trace is not None:
             args.trace.parent.mkdir(parents=True, exist_ok=True)
