@@ -84,7 +84,25 @@ from csrc/ and holding each against its plain PyTorch version on the card:
    tables, and 3 merged) and K3 (16 images) SHA-256-equal to per-image
    launches; device-resident ms/image and launches/image of tower_420 at
    batch 1, 4 and 16 and large_420 at 4; each kernel's device time at its
-   batched shape beside its bytes bound.
+   batched shape beside its bytes bound;
+18. the front end and the service: `Decoder(backend="torch")` over every
+   fixture and small_422_progressive, bit-equal to the host decode at
+   "exact" and within 3 at "fast" (K2 launched), large_420 scaled 1/2,
+   1/4 and 1/8 at both precisions; the 2048 x 2048 16-bit SOF3 stream at
+   predictors 1 and 6 and the 768 x 1024 x 3 one at predictor 6,
+   bit-equal, L1 once per component at predictor 6; backend "auto" with no
+   launch on an image of at most 128 x 128 (small_gray at 1/8, a 96 x 96
+   SOF3) and K2 on tower_420 at "fast"; `BatchDecodeService` equal byte
+   for byte to the per-image `Decoder`, a mesh raising;
+   `decode_stream(timer=StageTimer())` of tower_420 x 64 at batch 16 and
+   large_420 x 4 at batch 4, twice, SHA-256-equal across the runs and to
+   the run without a timer, with "host_stage", "h2d_submit" and
+   "device_dispatch" counted; times: `Decoder.decode` ms/image of
+   large_420 and tower_420 by backend and precision with its split (host
+   entropy, H2D, device enqueue, D2H) and the reconstruction's CUDA-event
+   time, the stream's h2d_submit ms and bytes/s per image and its
+   pageable-to-pinned copy time, pinned against pageable H2D rates,
+   `utils.link.probe()`'s reading and the pinned pool's peak bytes.
 
 Any failure raises and the script exits nonzero. It needs a CUDA device and
 the repository around it; it imports neither JAX, nor PIL, nor the JAX
@@ -127,6 +145,8 @@ L1_FULL = (3, 2048, 2048)     # predictor 6 only: plain takes ~1.4 s a plane
 SOF3_SIDE = 2048              # the full-size lossless stream: 2048 x 2048
 SOF3_RGB = (768, 1024)        # the 3-component lossless stream
 SOF3_SLICE = (512, 512)       # 17: a CT series' 16-bit slices
+FRONT_SCALES = ((1024, 840), (512, 420), (256, 210))   # 18: large_420 / 2..8
+H2D_SIZES = (64 << 10, 1 << 20, 8 << 20)    # 18: pinned vs pageable copies
 MIXED = tuple(f"mixed_{w}x{h}.jpg" for w, h in (
     (500, 375), (375, 500), (500, 333), (333, 500), (448, 448), (320, 240)))
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
@@ -788,6 +808,223 @@ def phase_batch(jt, data: dict, params, dev, profile_layers) -> dict:
     return results
 
 
+def _split_ms(decode, reps: int = 5) -> dict:
+    """Median ms per decode of `decode(timer)` over `reps` runs after a
+    warm-up: the wall time (host clock, the result on the host) and its
+    split by the timer's stages; host entropy is the rest."""
+    decode(jt_timer())
+    rows = []
+    for _ in range(reps):
+        timer = jt_timer()
+        t0 = time.perf_counter()
+        decode(timer)
+        wall = (time.perf_counter() - t0) * 1e3
+        stages = {k: v * 1e3 for k, v in timer.totals.items()}
+        rows.append({"wall_ms": wall, **stages,
+                     "host_entropy_ms": wall - sum(stages.values())})
+    return {k: float(np.median([r.get(k, 0.0) for r in rows]))
+            for k in rows[0]}
+
+
+def jt_timer():
+    from jpeg_decoder_tpu_torch.utils.timing import StageTimer
+
+    return StageTimer()
+
+
+def phase_front_end(jt, data: dict, dev) -> dict:
+    """18. The front end (`Decoder`) and the service on the card; returns
+    the launches of K2 and L1 it counted."""
+    from jpeg_decoder_tpu_torch.decoder import device_params
+    from jpeg_decoder_tpu_torch.host.decoder import Decoder as HostDecoder
+    from jpeg_decoder_tpu_torch.host.ops.pipeline import geometry_from_frame
+    from jpeg_decoder_tpu_torch.ops.pipeline import reconstruct
+    from jpeg_decoder_tpu_torch.transfer import pinned_pool, put
+    from jpeg_decoder_tpu_torch.utils import link
+    from tools.make_torch_fixtures import sof3_jpeg, sof3_samples
+
+    def host(blob, precision="exact", scale_to=None):
+        d = HostDecoder(blob, precision=precision)
+        if scale_to is not None:
+            d.scale(*scale_to)
+        return d.decode()
+
+    def port(blob, precision="exact", scale_to=None, backend="torch"):
+        d = jt.Decoder(blob, backend=backend, precision=precision)
+        if scale_to is not None:
+            d.scale(*scale_to)
+        return d.decode()
+
+    def worst(a: bytes, b: bytes) -> int:
+        if len(a) != len(b):
+            raise AssertionError(f"{len(a)} bytes vs {len(b)}")
+        return int(np.abs(np.frombuffer(a, np.uint8).astype(np.int16)
+                          - np.frombuffer(b, np.uint8)).max())
+
+    names = ORDER + ("small_422_progressive.jpg",)
+    blobs = {n: data.get(n) or (FIXTURES / n).read_bytes() for n in names}
+    cases = [(n, blobs[n], None) for n in names] + [
+        (f"large_420 {s}", blobs["large_420.jpg"], s) for s in FRONT_SCALES]
+    counted = {}
+    fast_err = {}
+    exact_out = {}
+    for precision in ("exact", "fast"):
+        torch.cuda.synchronize()
+        jt.reset_launches()
+        for name, blob, size in cases:
+            got = port(blob, precision, size)
+            want = host(blob, "exact", size)
+            if precision == "exact":
+                exact_out[name] = got
+                if got != want:
+                    raise AssertionError(f"18 Decoder exact {name} differs "
+                                         "from the host decode")
+            else:
+                fast_err[name] = worst(got, want)
+                if fast_err[name] > PIXEL_TOL:
+                    raise AssertionError(f"18 Decoder fast {name}: max |diff| "
+                                         f"{fast_err[name]} > {PIXEL_TOL}")
+        torch.cuda.synchronize()
+        counted[precision] = dict(jt.LAUNCHES)
+    if counted["fast"]["dequant_idct"] < len(cases):
+        raise AssertionError(f"18 K2 launches at fast: {counted['fast']}")
+
+    # Lossless through the Decoder: L1 once per component at predictor 6.
+    sof3 = sof3_samples(SOF3_SIDE, SOF3_SIDE, 1, 16, 0, seed=0)
+    rgb = sof3_samples(*SOF3_RGB, 3, 16, 0, seed=1)
+    ll_cases = {"2048x2048 p1": (sof3_jpeg(sof3, 1, 0, 16), 1, 0),
+                "2048x2048 p6": (sof3_jpeg(sof3, 6, 0, 16), 1, 1),
+                "768x1024x3 p6": (sof3_jpeg(rgb, 6, 0, 16), 3, 3)}
+    ll_launches = {}
+    for name, (blob, _ncomp, want_l1) in ll_cases.items():
+        torch.cuda.synchronize()
+        jt.reset_launches()
+        got = port(blob)
+        torch.cuda.synchronize()
+        ll_launches[name] = jt.LAUNCHES["lossless_recur"]
+        if got != host(blob) or ll_launches[name] != want_l1:
+            raise AssertionError(f"18 SOF3 {name}: L1 launches "
+                                 f"{ll_launches[name]} (want {want_l1}), or "
+                                 "the samples differ from the host decode")
+
+    # "auto": the host at or below 128 x 128, the card above.
+    auto = {}
+    small_ll = sof3_jpeg(sof3_samples(96, 96, 1, 16, 0, seed=2), 6, 0, 16)
+    for name, blob, size, precision in (
+            ("small_gray 1/8", blobs["small_gray.jpg"], (22, 15), "fast"),
+            ("SOF3 96x96 p6", small_ll, None, "exact"),
+            ("tower_420", blobs["tower_420.jpg"], None, "fast")):
+        torch.cuda.synchronize()
+        jt.reset_launches()
+        got = port(blob, precision, size, backend="auto")
+        torch.cuda.synchronize()
+        auto[name] = sum(jt.LAUNCHES.values())
+        if worst(got, host(blob, "exact", size)) > PIXEL_TOL:
+            raise AssertionError(f"18 auto {name} differs from the host")
+    if auto["small_gray 1/8"] or auto["SOF3 96x96 p6"] \
+            or jt.LAUNCHES["dequant_idct"] < 1:
+        raise AssertionError(f"18 auto launches: {auto}")
+
+    # The service against the per-image Decoder.
+    service = jt.BatchDecodeService().decode_all([blobs[n] for n in names])
+    for name, img in zip(names, service):
+        if img.tobytes() != exact_out[name]:
+            raise AssertionError(f"18 service {name} differs from Decoder")
+    try:
+        jt.BatchDecodeService(mesh=object())
+        raise AssertionError("18 a mesh did not raise")
+    except NotImplementedError:
+        pass
+
+    # The stream with a timer: twice, and once without, SHA-256-equal.
+    pool = pinned_pool(dev)
+    streams = {"tower_420 x64 at 16": ([blobs["tower_420.jpg"]] * 64, 16),
+               "large_420 x4 at 4": ([blobs["large_420.jpg"]] * 4, 4)}
+    stream_rows = {}
+    for name, (stream, batch) in streams.items():
+        digests = []
+        for timed in (True, True, False):
+            timer = jt_timer() if timed else None
+            copy_s, copied = pool.copy_seconds, pool.copied_bytes
+            with jt.DeviceStreamDecoder(host_threads=4, timer=timer) as dec:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = dec.decode_stream(stream, batch_size=batch)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            h2d_bytes = pool.copied_bytes - copied
+            digests.append([_digest([img]) for img in out])
+            if timed:
+                counts = dict(timer.counts)
+                if min(counts.get(k, 0) for k in (
+                        "host_stage", "h2d_submit", "device_dispatch")) < 1:
+                    raise AssertionError(f"18 stages not counted: {counts}")
+                h2d_s = timer.totals["h2d_submit"]
+                stream_rows[name] = {
+                    "ms_per_image": wall * 1e3 / len(stream),
+                    "stage_ms_per_image": {
+                        k: v * 1e3 / len(stream)
+                        for k, v in timer.totals.items()},
+                    "stage_counts": counts,
+                    "h2d_bytes_per_image": h2d_bytes / len(stream),
+                    "h2d_submit_bytes_per_s": h2d_bytes / h2d_s,
+                    "pinned_copy_ms_per_image":
+                        (pool.copy_seconds - copy_s) * 1e3 / len(stream)}
+        if any(d != digests[0] for d in digests[1:]):
+            raise AssertionError(f"18 {name}: images differ between runs")
+        stream_rows[name]["first_image_sha256"] = digests[0][0][:16]
+
+    # Times of Decoder.decode, split by stage, beside the host backend.
+    decode_rows = {}
+    for name in RATE_FIXTURES:
+        blob = blobs[name]
+        for backend, precision in (("torch", "exact"), ("torch", "fast"),
+                                   ("numpy", "exact")):
+            row = _split_ms(lambda t: jt.Decoder(
+                blob, backend=backend, precision=precision,
+                timer=t).decode())
+            if backend == "torch":
+                d = HostDecoder(blob, precision=precision)
+                d._decode_entropy_only()
+                n = len(d.frame.components)
+                geometry = geometry_from_frame(
+                    d.frame, None if n == 1 else
+                    d._determine_color_transform(), precision=precision)
+                stores = put([d._pending_render[i][0].reshape(1, -1, 64)
+                              for i in range(n)], dev)
+                qts = [tuple(d._pending_render[i][1] for i in range(n))]
+                params = device_params(dev)
+                row["reconstruct_device_ms"] = cuda_ms(
+                    lambda: reconstruct(geometry, stores, qts, params), 10)
+            decode_rows[f"{name} {backend} {precision}"] = row
+
+    # H2D: pinned (through the pool) against pageable, by CUDA events.
+    h2d = {}
+    for size in H2D_SIZES:
+        a = np.random.default_rng(size).integers(0, 255, size, np.uint8)
+        locked = torch.from_numpy(a).pin_memory()
+        pinned = cuda_ms(lambda: put((a,), dev), 20)
+        dma = cuda_ms(lambda: locked.to(dev, non_blocking=True), 20)
+        pageable = cuda_ms(lambda: torch.from_numpy(a).to(dev), 20)
+        h2d[size] = {"put_ms": pinned, "pinned_dma_ms": dma,
+                     "pageable_ms": pageable,
+                     "put_gb_s": size / pinned / 1e6,
+                     "pinned_dma_gb_s": size / dma / 1e6,
+                     "pageable_gb_s": size / pageable / 1e6}
+    probe_mb_s = link.probe()
+    say("18 front end", exact="bit-equal to the host decode",
+        images=len(cases), fast_max_abs_diff=fast_err, tolerance=PIXEL_TOL,
+        launches=counted, lossless_l1_launches=ll_launches,
+        auto_launches=auto, service="equal to Decoder", mesh="raises")
+    say("18 stream with a timer", result="SHA-256-equal across two timed "
+        "runs and the untimed run", **stream_rows)
+    say("18 times", decode_ms=decode_rows, h2d=h2d,
+        link_probe_mb_s=probe_mb_s, link_degraded=link.degraded(),
+        pinned_peak_bytes=pool.peak_bytes, pinned_bytes=pool.bytes)
+    return {"K2": counted["fast"]["dequant_idct"],
+            "L1": sum(ll_launches.values())}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1137,6 +1374,9 @@ def main() -> int:
     # 17. Batched dispatch.
     phase_batch(jt, data, params, dev, profile_layers)
 
+    # 18. The front end and the service.
+    front = phase_front_end(jt, data, dev)
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
                     in ("jax", "jaxlib", "jpeg_decoder_tpu"))
     if loaded:
@@ -1176,6 +1416,8 @@ def main() -> int:
                    bound_ms=tab["bound_us"] / 1e3, bound_by=tab["bound_by"],
                    launches_per_image=tab["launches_per_image"])
     kernels[1]["library_device_us"] = table["K2"]["library_device_us"]
+    kernels[1]["front_end_launches"] = front["K2"]
+    kernels[4]["front_end_launches"] = front["L1"]
     kernels[3].update(
         max_abs_err_vs_k2_path=k4_x_err,
         unfused_device_us=table["K4"]["unfused_device_us"],

@@ -23,6 +23,15 @@ launch per group).
         images = dec.decode_stream(list_of_jpeg_bytes)   # CUDA tensors
         images = dec.decode_stream(list_of_jpeg_bytes, batch_size=16)
 
+The public API of the reference is here too: `Decoder` (the reference's
+`Decoder` with `backend="torch"`, on "cuda" by default: the entropy stage
+on the host, the reconstruction on the card, numpy out), the batch
+service `BatchDecodeService` / `decode_many`, and `StageTimer`, which
+`DeviceStreamDecoder(timer=...)` and `Decoder(timer=...)` fill per stage.
+
+    from jpeg_decoder_tpu_torch import Decoder
+    pixels = Decoder(jpeg_bytes, precision="fast").decode_array()
+
 The host stage is the port's own copy of the JAX package's numpy/C++ code
 (`jpeg_decoder_tpu_torch.host`); neither JAX nor the JAX package is ever
 imported. Kernels:
@@ -39,7 +48,36 @@ launches of each.
 """
 
 from ._build import LAUNCHES, reset_launches
+from .decoder import Decoder
+from .host.decoder import MAX_COMPONENTS, ImageInfo, PixelFormat
+from .host.errors import (FormatError, InternalError, IoError, JpegError,
+                          UnsupportedError, UnsupportedFeature)
+from .host.ops.color import ColorTransform
+from .host.parser import CodingProcess, Predictor
+from .models.service import BatchDecodeService, decode_many
 from .models.stream import DeviceStreamDecoder, StagedBits, stage_host_bits
+from .utils.timing import StageTimer
 
-__all__ = ["DeviceStreamDecoder", "StagedBits", "stage_host_bits",
-           "LAUNCHES", "reset_launches"]
+__all__ = [
+    "Decoder",
+    "ImageInfo",
+    "PixelFormat",
+    "ColorTransform",
+    "CodingProcess",
+    "Predictor",
+    "JpegError",
+    "FormatError",
+    "UnsupportedError",
+    "UnsupportedFeature",
+    "IoError",
+    "InternalError",
+    "MAX_COMPONENTS",
+    "BatchDecodeService",
+    "decode_many",
+    "StageTimer",
+    "DeviceStreamDecoder",
+    "StagedBits",
+    "stage_host_bits",
+    "LAUNCHES",
+    "reset_launches",
+]

@@ -554,11 +554,19 @@ class Decoder:
                 self, frame, scan, diffs, restart_all, marker)
 
         for pos, comp_i in enumerate(scan.component_indices):
-            self._planes_u16[comp_i] = reconstruct_lossless(
+            self._planes_u16[comp_i] = self._reconstruct_lossless_plane(
                 diffs[pos], scan.predictor_selection, scan.point_transform,
                 frame.precision, restart_all)
 
         return marker
+
+    def _reconstruct_lossless_plane(self, diffs, predictor, pt, precision,
+                                    restart_all):
+        """One component's predictor reconstruction: the host oracle here;
+        the port's device `Decoder` (`jpeg_decoder_tpu_torch/decoder.py`)
+        overrides it, where the reference branches on its backend."""
+        return reconstruct_lossless(diffs, predictor, pt, precision,
+                                    restart_all)
 
     # -- final assembly ------------------------------------------------------
 
@@ -645,8 +653,14 @@ class Decoder:
         geometry = geometry_from_frame(frame, transform, precision=self._precision)
         stores = [self._pending_render[i][0].reshape(-1, 64) for i in range(n)]
         qts = [self._pending_render[i][1] for i in range(n)]
-        image = reconstruct_image(geometry, stores, qts)
+        image = self._reconstruct_image(geometry, stores, qts)
         return np.ascontiguousarray(image).tobytes()
+
+    def _reconstruct_image(self, geometry, stores, qts) -> np.ndarray:
+        """Dequant + IDCT + upsample + color of the whole image: the host
+        oracle here; the port's device `Decoder` overrides it, where the
+        reference picks `reconstruct_image`'s backend."""
+        return reconstruct_image(geometry, stores, qts)
 
     def _compute_image_lossless(self) -> bytes:
         """Lossless assembly (`src/decoder/lossless.rs:228-260`):

@@ -1,12 +1,12 @@
 """Copy of the host stage of `jpeg_decoder_tpu/models/stream.py` at
 commit 0c2d0ea: the constants and `_bucket` (`:36-72`), `StagedImage`
-(`:214`), `PrefixCapture` and `stage_host` (`:274-570`), `StagedBits` and
-`BitstreamCapture` (`:570-615`) and the lossless staging (`:673-760`).
+(`:214`), `_BufferPool` (`:225-271`), `PrefixCapture` and `stage_host`
+(`:274-570`), `StagedBits` and `BitstreamCapture` (`:570-615`) and the
+lossless staging (`:673-760`).
 
-Left out: `_BufferPool` (the staging arrays here are plain numpy
-allocations; the pool only kept their pages resident), the reference's
-`stage_host_bits` (the port's `models/stream.py` routes a stream itself)
-and everything that runs on JAX. The device stage is the port's.
+Left out: the reference's `stage_host_bits` (the port's
+`models/stream.py` routes a stream itself) and everything that runs on
+JAX. The device stage is the port's.
 
 Per image the host runs the bit-serial entropy stage and either keeps the
 entropy-coded words for the device's Huffman decode (`BitstreamCapture`,
@@ -20,6 +20,7 @@ nonzeros beyond the prefix. Lossless frames ship their difference planes
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 
@@ -93,6 +94,55 @@ class StagedImage:
     mpix: float
 
 
+class _BufferPool:
+    """Reusable host buffers keyed by (dtype, size). Large per-image numpy
+    allocations hit mmap/page-fault churn (~100s of ms for 20MB-class
+    tensors); pooling keeps the pages resident across images.
+
+    Bounded: at most `depth` buffers per (dtype, size) and `budget` total
+    bytes — a long-lived service decoding diverse image sizes must not grow
+    without limit. Eviction drops the least-recently-released size class."""
+
+    def __init__(self, depth: int = 8, budget: int = 1 << 30):
+        self._lock = threading.Lock()
+        self._free: dict = {}
+        self._depth = depth
+        self._budget = budget
+        self._bytes = 0
+
+    def acquire(self, size: int, dtype) -> np.ndarray:
+        key = (np.dtype(dtype).str, size)
+        with self._lock:
+            stack = self._free.get(key)
+            if stack:
+                arr = stack.pop()
+                self._bytes -= arr.nbytes
+                return arr
+        return np.empty(size, dtype=dtype)
+
+    def release(self, arr: np.ndarray) -> None:
+        key = (arr.dtype.str, arr.size)
+        with self._lock:
+            stack = self._free.setdefault(key, [])
+            if len(stack) >= self._depth:
+                return  # drop: per-class cap
+            stack.append(arr)
+            self._free[key] = stack
+            # Move to MRU position for budget eviction order.
+            self._free.pop(key)
+            self._free[key] = stack
+            self._bytes += arr.nbytes
+            while self._bytes > self._budget and len(self._free) > 1:
+                old_key = next(iter(self._free))
+                if old_key == key:
+                    break
+                for dropped in self._free.pop(old_key):
+                    self._bytes -= dropped.nbytes
+
+
+_pool = _BufferPool()
+
+
 class PrefixCapture:
     """Receives baseline scan output in the device interchange format straight
     from the native entropy kernel — no dense 64-coefficient stores ever exist
@@ -122,15 +172,15 @@ class PrefixCapture:
                       for c in frame.components]
         self.bases = list(np.cumsum([0] + self.sizes)[:-1])
         self.total = int(sum(self.sizes))
-        self.resid_idx = np.empty(self.total, np.int32)
-        self.resid_vals = np.empty(self.total, np.int16)
+        self.resid_idx = _pool.acquire(self.total, np.int32)
+        self.resid_vals = _pool.acquire(self.total, np.int16)
 
     def _prefix_for(self, comp_i: int, frame):
         pair = self.prefix_arrays.get(comp_i)
         if pair is None:
             nblocks = self.sizes[comp_i] // 64
-            dc = np.empty(nblocks, np.int16)
-            ac_flat = np.empty(nblocks * (self.k - 1), np.int8)
+            dc = _pool.acquire(nblocks, np.int16)
+            ac_flat = _pool.acquire(nblocks * (self.k - 1), np.int8)
             self.native.zero_buffer(dc)
             self.native.zero_buffer(ac_flat)
             pair = (dc, ac_flat.reshape(nblocks, self.k - 1))
@@ -223,14 +273,25 @@ class PrefixCapture:
         self.resid_count = count
         return (pending,)
 
+    def release(self) -> None:
+        for dc, ac in self.prefix_arrays.values():
+            _pool.release(dc)
+            _pool.release(ac.reshape(-1))
+        if self.resid_idx is not None:
+            _pool.release(self.resid_idx)
+            _pool.release(self.resid_vals)
 
-def _staged_from_capture(d: Decoder, capture: PrefixCapture,
-                         precision: str) -> StagedImage:
+
+def _staged_from_capture(d: Decoder, capture: PrefixCapture, precision: str,
+                         pooled: list) -> StagedImage:
     from .errors import FormatError
 
     frame = d.frame
     n = len(frame.components)
     if any(i not in d._pending_render for i in range(n)):
+        capture.release()
+        for buf in pooled:
+            _pool.release(buf)
         raise FormatError("not all components have data")
 
     transform = None if n == 1 else d._determine_color_transform()
@@ -259,6 +320,10 @@ def _staged_from_capture(d: Decoder, capture: PrefixCapture,
     resid_idx[:r] = capture.resid_idx[:r]
     resid_vals[:r] = capture.resid_vals[:r]
 
+    capture.release()
+    for buf in pooled:
+        _pool.release(buf)
+
     info = d.info()
     return StagedImage(geometry, dc, ac, resid_idx, resid_vals, qts,
                        capture.total, info.width * info.height / 1e6)
@@ -279,11 +344,13 @@ def stage_host(source, scale_to=None, precision: str = "fast",
     native = get_native()
 
     d = Decoder(source, backend="numpy")
+    pooled: list = []
     capture = None
     if native is not None:
         def alloc(size: int) -> np.ndarray:
-            buf = np.empty(size, np.int16)
+            buf = _pool.acquire(size, np.int16)
             native.zero_buffer(buf)
+            pooled.append(buf)
             return buf
         d._store_allocator = alloc
         capture = PrefixCapture(native, pool_width=pool_width)
@@ -296,12 +363,16 @@ def stage_host(source, scale_to=None, precision: str = "fast",
     d._decode_entropy_only()
 
     if ll_cap.scans:
+        for buf in pooled:
+            _pool.release(buf)
         return _staged_lossless_from_capture(d, ll_cap)
     if capture is not None and capture.used:
-        return _staged_from_capture(d, capture, precision)
+        return _staged_from_capture(d, capture, precision, pooled)
 
     n_comp = len(d.frame.components) if d.frame is not None else 0
     if n_comp == 0 or any(i not in d._pending_render for i in range(n_comp)):
+        for buf in pooled:
+            _pool.release(buf)
         from .errors import FormatError
         raise FormatError("not all components have data")
     n = len(d.frame.components)
@@ -316,8 +387,8 @@ def stage_host(source, scale_to=None, precision: str = "fast",
 
     dc = np.empty(total_blocks, np.int16)
     ac = np.empty((total_blocks, PREFIX_K - 1), np.int8)
-    scratch_idx = np.empty(total, np.int32)
-    scratch_vals = np.empty(total, np.int16)
+    scratch_idx = _pool.acquire(total, np.int32)
+    scratch_vals = _pool.acquire(total, np.int16)
 
     r = 0
     brow = 0
@@ -357,6 +428,11 @@ def stage_host(source, scale_to=None, precision: str = "fast",
     resid_vals = np.zeros(bucket, np.int16)
     resid_idx[:r] = scratch_idx[:r]
     resid_vals[:r] = scratch_vals[:r]
+    _pool.release(scratch_idx)
+    _pool.release(scratch_vals)
+    for buf in pooled:
+        _pool.release(buf)
+
     info = d.info()
     return StagedImage(geometry, dc, ac, resid_idx, resid_vals, qts, total,
                        info.width * info.height / 1e6)

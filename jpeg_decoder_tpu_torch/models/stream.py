@@ -33,8 +33,16 @@ made from the stream; it catches no device or kernel error.
 `interchange="prefix"` stages everything through `stage_host`, as the
 reference does.
 
+H2D (on the caller's thread, `h2d_submit`): the arrays of an image's or a
+group's wire go to the device together through `transfer.put`, the
+counterpart of the reference's asynchronous `device_put`: on a CUDA
+device a copy into one page-locked buffer of the device's bounded pool,
+then one non-blocking copy on the current stream; `_put_recorded` folds
+submissions of 4 MB or more into `utils.link`'s rate estimate, as the
+reference's does, and adds no synchronisation.
+
 Device stage (per image or per group, on the caller's thread,
-asynchronous on the current CUDA stream):
+`device_dispatch`, asynchronous on the current CUDA stream):
 - bits: delta unpack (delta wire), kernel K1 (chunk Huffman decode),
   assembly (DC prefix sums, raster placement), then reconstruction: the
   exact int32 IDCT or kernel K2 by precision, then upsampling and color,
@@ -97,6 +105,9 @@ from ..host.staging import (_ZIGZAG_OF_NATURAL, PREFIX_K, BitstreamCapture,
 from ..ops.pipeline import reconstruct, reconstruct_planar_pallas
 from ..ops.predictors import reconstruct_planes
 from ..params import DeviceParams
+from ..transfer import checked_device, put
+from ..utils import link
+from ..utils.timing import timed_stage
 
 LAYOUTS = ("interleaved", "planar", "planar-pallas")
 PRECISIONS = ("fast", "exact")
@@ -184,7 +195,7 @@ def _port_bits(st) -> StagedBits:
 
 
 def _stage_host_decoded_bits(source, scale_to, precision: str,
-                             pool_width: int):
+                             pool_width: int = 1):
     """Full host decode into dense stores, then transcode into the bits
     interchange; prefix fallback when the transcoder declines (the
     reference's `_stage_host_decoded_bits`)."""
@@ -199,10 +210,17 @@ def _stage_host_decoded_bits(source, scale_to, precision: str,
 
 
 def stage_host_bits(source, scale_to=None, precision: str = "fast",
-                    pool_width: int = 1):
+                    timer=None, pool_width: int = 1):
     """Stage one JPEG (bytes, path or file-like) for the device: a
     StagedBits, or a StagedLossless (SOF3), or a StagedImage (the prefix
-    interchange) for what the bits wire cannot carry."""
+    interchange) for what the bits wire cannot carry. `timer` (a
+    `utils.timing.StageTimer`) records this as the "host_stage" stage;
+    `pool_width` reaches the prefix fallback's anchored-thread gate (see
+    `stage_host`). The reference's signature (`stream.py:616-617`)."""
+    if timer is not None:
+        with timer.stage("host_stage"):
+            return stage_host_bits(source, scale_to, precision, None,
+                                   pool_width)
     d = Decoder(source, backend="numpy")
     capture = BitstreamCapture()
     d._prefix_capture = capture
@@ -306,12 +324,11 @@ def _hetero_threshold() -> float:
     """Mpix at or below which bits images group by `_bits_hetero_key`, from
     JPEG_TPU_HETERO_BITS as the reference reads it (`stream.py:1686-1695`):
     unset, '' or '1' 0.25; '0' the exact key only; a number that
-    threshold. 'auto' follows the reference's link monitor (`utils/link`,
-    ROADMAP item 15), which the port does not have yet, so it raises."""
+    threshold; 'auto' 0.0 when the link monitor (`utils.link`) reads a
+    degraded link, else 0.25."""
     v = os.environ.get("JPEG_TPU_HETERO_BITS", "1")
     if v == "auto":
-        raise ValueError("JPEG_TPU_HETERO_BITS=auto needs the link monitor "
-                         "(utils/link, ROADMAP item 15), not ported yet")
+        return 0.0 if link.degraded() else 0.25
     return 0.0 if v == "0" else 0.25 if v in ("", "1") else float(v)
 
 
@@ -383,17 +400,19 @@ class DeviceStreamDecoder:
     """Streaming decode to tensors on `device` ("cuda", the default,
     "cuda:N", or "cpu" when the caller asks for it). On the CPU the
     kernels' plain PyTorch versions run; on a CUDA device the hand-written
-    kernels do. Asking for CUDA where there is no card raises."""
+    kernels do. Asking for CUDA where there is no card raises.
+
+    `timer`: optional `utils.timing.StageTimer`; records "host_stage"
+    (parse + entropy/prescan + pack, per image, in the staging threads),
+    "h2d_submit" (the wire's host-to-device submission, per image or
+    group) and "device_dispatch" (enqueueing the device work), as the
+    reference's does. Device execution itself is asynchronous: end-to-end
+    wall time is the caller's to measure after a synchronisation."""
 
     def __init__(self, *, device="cuda", host_threads: int = 4,
                  precision: str = "fast", layout: str = "interleaved",
-                 interchange: str = "bits"):
-        dev = torch.device(device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {device!r} requested but "
-                               "torch.cuda.is_available() is False")
-        if dev.type not in ("cpu", "cuda"):
-            raise ValueError(f"unsupported device {device!r}")
+                 interchange: str = "bits", timer=None):
+        dev = checked_device(device)
         if precision not in PRECISIONS:
             raise ValueError(f"unknown precision {precision!r}; one of "
                              f"{PRECISIONS}")
@@ -407,6 +426,7 @@ class DeviceStreamDecoder:
         self.layout = layout
         self.interchange = interchange
         self.host_threads = host_threads
+        self.timer = timer
         self.params = DeviceParams(dev)
         self._maps: dict = {}
         self.pool = cf.ThreadPoolExecutor(max_workers=host_threads)
@@ -424,27 +444,43 @@ class DeviceStreamDecoder:
         """Host stage of one image, by the decoder's interchange."""
         if self.interchange == "bits":
             return stage_host_bits(source, scale_to, self.precision,
-                                   self.host_threads)
-        return stage_host(source, scale_to, self.precision,
+                                   self.timer, self.host_threads)
+        return stage_host(source, scale_to, self.precision, self.timer,
                           pool_width=self.host_threads)
 
-    def _put(self, a) -> torch.Tensor:
-        """One H2D copy of a host array."""
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _put_recorded(self, arrs) -> tuple:
+        """One H2D submission of a tuple of host arrays (`transfer.put`:
+        non-blocking through one pinned buffer on a CUDA device), folding
+        its rate into `utils.link`'s EMA when the payload is big enough to
+        time bandwidth (the reference's `_put_recorded`). Never adds a
+        synchronisation: the time is the pinned copy's and the enqueue's,
+        so on a card the rate passes the link model's cap and is dropped
+        by construction."""
+        nbytes = sum(a.nbytes for a in arrs)
+        t0 = time.perf_counter()
+        out = put(arrs, self.device)
+        if nbytes >= (4 << 20):
+            link.record_transfer(nbytes, time.perf_counter() - t0)
+        return out
 
     def _to_device(self, staged) -> tuple:
-        """H2D copies of one image's staged wire."""
+        """One H2D submission of one image's staged wire."""
         kind = _kind(staged)
         if kind == "bits":
-            return tuple((self._put(s.words), self._put(s.dm)) if s.ab is None
-                         else tuple(self._put(a)
-                                    for a in (s.words, s.dm, s.ab, s.base))
-                         for s in staged.scans)
+            flat = self._put_recorded(tuple(
+                a for s in staged.scans
+                for a in ((s.words, s.dm) if s.ab is None
+                          else (s.words, s.dm, s.ab, s.base))))
+            wires, i = [], 0
+            for s in staged.scans:
+                n = 2 if s.ab is None else 4
+                wires.append(flat[i:i + n])
+                i += n
+            return tuple(wires)
         if kind == "lossless":
-            return (self._put(staged.diffs.view(np.int16)),)
-        return tuple(self._put(a) for a in (staged.dc, staged.ac,
-                                            staged.resid_idx,
-                                            staged.resid_vals))
+            return self._put_recorded((staged.diffs.view(np.int16),))
+        return self._put_recorded((staged.dc, staged.ac, staged.resid_idx,
+                                   staged.resid_vals))
 
     def _general_maps(self, plan):
         maps = self._maps.get(plan)
@@ -521,10 +557,13 @@ class DeviceStreamDecoder:
 
     def decode_one(self, staged) -> torch.Tensor:
         """Decode one staged image (bits, prefix or lossless)."""
-        return self._run_device(staged, self._to_device(staged))
+        with timed_stage(self.timer, "h2d_submit"):
+            wires = self._to_device(staged)
+        with timed_stage(self.timer, "device_dispatch"):
+            return self._run_device(staged, wires)
 
-    # Groups: `_group_wires` merges a group's wires on the host and copies
-    # each array to the device once; `_run_group` enqueues the device work.
+    # Groups: `_group_wires` merges a group's wires on the host and submits
+    # them to the device in one copy; `_run_group` enqueues the device work.
 
     def _group_wires(self, kind: str, group: list):
         """The group's merged wire on the device, or None when the host
@@ -539,10 +578,10 @@ class DeviceStreamDecoder:
             if merged is None:
                 return None
             arrays, s_max, n_blocks = merged
-            return parts, tuple(map(self._put, arrays)), s_max, n_blocks
+            return parts, self._put_recorded(tuple(arrays)), s_max, n_blocks
         if kind == "lossless":
-            return (self._put(np.stack([st.diffs for st in group])
-                              .view(np.int16)),)
+            return self._put_recorded(
+                (np.stack([st.diffs for st in group]).view(np.int16),))
         n = len(group)
         total = group[0].dc.shape[-1] * 64     # one image's coefficients
         if n * total >= 2 ** 31:
@@ -555,9 +594,9 @@ class DeviceStreamDecoder:
             ri[i, :len(idx)] = np.where((idx >= 0) & (idx < total),
                                         idx + i * total, n * total)
             rv[i, :len(idx)] = st.resid_vals
-        return tuple(map(self._put, (np.stack([st.dc for st in group]),
-                                     np.stack([st.ac for st in group]),
-                                     ri.astype(np.int32), rv)))
+        return self._put_recorded((np.stack([st.dc for st in group]),
+                                   np.stack([st.ac for st in group]),
+                                   ri.astype(np.int32), rv))
 
     def _run_group(self, kind: str, group: list, wires) -> list:
         """The device half of a group whose merged wire is on the device:
@@ -609,10 +648,12 @@ class DeviceStreamDecoder:
                         for img in self._decode_group(kind, run)]
         if len(group) == 1:
             return [self.decode_one(group[0])]
-        wires = self._group_wires(kind, group)
+        with timed_stage(self.timer, "h2d_submit"):
+            wires = self._group_wires(kind, group)
         if wires is None:
             return [self.decode_one(st) for st in group]
-        return self._run_group(kind, group, wires)
+        with timed_stage(self.timer, "device_dispatch"):
+            return self._run_group(kind, group, wires)
 
     def decode_stream(self, sources: Iterable, scale_to=None,
                       batch_size: int = 1, on_error: str = "raise") -> list:

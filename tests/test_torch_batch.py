@@ -188,8 +188,7 @@ for value in sys.argv[1:]:
             print(value, "raised", e)
 """
 HETERO_VALUES = {"0": "sweeps 3", "1": "sweeps 1", "0.001": "sweeps 3",
-                 "auto": "raised JPEG_TPU_HETERO_BITS=auto needs the link "
-                         "monitor (utils/link, ROADMAP item 15)"}
+                 "auto": "sweeps 1"}
 
 
 @pytest.fixture(scope="module")
@@ -209,7 +208,9 @@ def hetero_runs() -> dict:
 @pytest.mark.parametrize("value", list(HETERO_VALUES))
 def test_hetero_threshold_from_the_environment(hetero_runs, value):
     """'' / '1' merge sizes of at most 0.25 Mpix into one sweep, '0' keeps
-    each size apart, a number is the threshold, 'auto' raises."""
+    each size apart, a number is the threshold, 'auto' follows the link
+    monitor, which with no observation reads a healthy link (0.25), as the
+    reference's does."""
     assert hetero_runs[value].startswith(HETERO_VALUES[value])
 
 

@@ -30,8 +30,17 @@ K3's image axis give each image the bits of its own launch (SHA-256
 equal; K2 within 1 of plain, K3 equal to plain), and
 `decode_stream(batch_size=8)` gives every image of every layout,
 precision and interchange bit-equal to batch_size=1, with K1 once per
-group, K2 and K3 once per plan and L1 once per lossless group.
+group, K2 and K3 once per plan and L1 once per lossless group. The
+pinned host-to-card path: every put lands with its values, dtype and
+shape; the pool stays within its budget and depth; a buffer is not
+refilled before its copy has run; a put returns before queued work ends.
+The front end: `Decoder` bit-equal to the host decode at "exact" and
+within 3 at "fast" with one K2 launch, lossless with one L1 launch per
+component at predictors 6 and 7 and none at 1; the service equal to the
+`Decoder`; a timed stream equal to an untimed one.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -484,3 +493,121 @@ def test_batched_stream_on_card_bit_equal_to_batch_1(cuda, layout, precision,
         assert jt.LAUNCHES["dequant_idct"] == plans
     assert jt.LAUNCHES["fused_tail"] == (
         plans if layout == "planar-pallas" else 0)
+
+
+# The pinned host-to-card path, the front end and the service on the card.
+
+def test_pinned_put_values_dtypes_and_bounds(cuda):
+    """Puts of one to four arrays of the dtypes the stream ships, many
+    sizes, through a small pool: each array lands with its own values,
+    dtype and shape; the pool never holds more than its budget nor more
+    than `depth` buffers a class."""
+    from jpeg_decoder_tpu_torch.transfer import PinnedPool
+
+    pool = PinnedPool(cuda, depth=2, budget=1 << 20)
+    rng = np.random.default_rng(80)
+    sent, got = [], []
+    for i in range(120):
+        arrays = []
+        for j in range(1 + i % 4):
+            dtype = (np.int16, np.int32, np.int8, np.uint8)[(i + j) % 4]
+            n = int(rng.integers(0, 30_000 // np.dtype(dtype).itemsize))
+            arrays.append(rng.integers(-100, 100, n).astype(dtype)
+                          .reshape(-1, 1))
+        sent += arrays
+        got += pool.put(arrays)
+        assert pool.bytes <= 1 << 20
+        assert all(v <= 2 for v in pool._held.values())
+    torch.cuda.synchronize()
+    for a, t in zip(sent, got):
+        assert t.is_cuda and tuple(t.shape) == a.shape
+        np.testing.assert_array_equal(t.cpu().numpy(), a)
+    assert pool.peak_bytes <= 1 << 20 and pool.copied_bytes == sum(
+        a.nbytes for a in sent)
+
+
+def test_pinned_buffer_waits_for_its_copy(cuda):
+    """With one buffer per class, a second put of the same class while the
+    first copy still waits behind a long kernel must not overwrite it."""
+    from jpeg_decoder_tpu_torch.transfer import PinnedPool
+
+    pool = PinnedPool(cuda, depth=1, budget=1 << 20)
+    a = np.full(50_000, 7, np.int16)
+    b = np.full(50_000, -3, np.int16)
+    torch.cuda._sleep(200_000_000)          # ~0.1 s of the card's clock
+    (first,) = pool.put((a,))
+    (second,) = pool.put((b,))              # same class: waits for `first`
+    torch.cuda.synchronize()
+    assert int(pool._held[1 << 17]) == 1
+    assert bool((first == 7).all()) and bool((second == -3).all())
+
+
+def test_pinned_put_does_not_wait_for_the_card(cuda):
+    """The copy is enqueued behind queued work: put returns before it."""
+    from jpeg_decoder_tpu_torch.transfer import PinnedPool
+
+    pool = PinnedPool(cuda)
+    a = np.arange(1 << 18, dtype=np.int32)
+    pool.put((a,))                          # allocate and register first
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)        # ~0.5 s of the card's clock
+    t0 = time.perf_counter()
+    (out,) = pool.put((a,))
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    assert enqueue < 0.1
+    np.testing.assert_array_equal(out.cpu().numpy(), a)
+
+
+@pytest.mark.parametrize("name", SMALL_FIXTURES
+                         + ("small_422_progressive.jpg",))
+def test_decoder_on_card_equals_host(cuda, name):
+    from jpeg_decoder_tpu_torch.host.decoder import Decoder as HostDecoder
+
+    data = fixture(name)
+    want = HostDecoder(data).decode()
+    assert jt.Decoder(data).decode() == want
+    before = jt.LAUNCHES["dequant_idct"]
+    fast = np.frombuffer(jt.Decoder(data, precision="fast").decode(),
+                         np.uint8)
+    assert jt.LAUNCHES["dequant_idct"] == before + 1
+    assert int(np.abs(fast.astype(np.int16)
+                      - np.frombuffer(want, np.uint8)).max()) <= 3
+
+
+def test_decoder_lossless_on_card_one_l1_per_component(cuda):
+    from jpeg_decoder_tpu_torch.host.decoder import Decoder as HostDecoder
+    from tools.make_torch_fixtures import sof3_jpeg, sof3_samples
+
+    for predictor, ncomp, want in ((6, 3, 3), (1, 1, 0), (7, 1, 1)):
+        data = sof3_jpeg(sof3_samples(70, 45, ncomp, 16, 0, seed=predictor),
+                         predictor, 0, 16)
+        before = jt.LAUNCHES["lossless_recur"]
+        assert jt.Decoder(data).decode() == HostDecoder(data).decode()
+        assert jt.LAUNCHES["lossless_recur"] == before + want
+
+
+def test_service_on_card_equals_decoder(cuda):
+    names = SMALL_FIXTURES + ("tower_420.jpg",)
+    out = jt.BatchDecodeService(host_threads=2).decode_all(
+        [fixture(n) for n in names])
+    for name, img in zip(names, out):
+        assert img.tobytes() == jt.Decoder(fixture(name)).decode()
+
+
+def test_stream_with_timer_on_card_unchanged(cuda):
+    stream = [fixture("tower_420.jpg")] * 12 + [fixture("small_444.jpg")] * 3
+    timer = jt.StageTimer()
+    with jt.DeviceStreamDecoder(host_threads=2, timer=timer) as dec:
+        timed = dec.decode_stream(stream, batch_size=4)
+    with jt.DeviceStreamDecoder(host_threads=2) as dec:
+        plain = dec.decode_stream(stream, batch_size=4)
+    assert all(torch.equal(a, b) for a, b in zip(timed, plain))
+    assert {"host_stage", "h2d_submit", "device_dispatch"} <= set(
+        timer.counts)
+
+
+def test_link_probe_on_card(cuda):
+    from jpeg_decoder_tpu_torch.utils import link
+
+    assert link.probe() > 0

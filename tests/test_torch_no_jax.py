@@ -11,8 +11,8 @@
 - no source of the port, nor `chip_smoke.py` or the tools it imports,
   imports `jax` or `jpeg_decoder_tpu` (read with `ast`, so a function-level
   import counts too);
-- `DeviceStreamDecoder()` targets the card unless the caller asks for the
-  CPU."""
+- `DeviceStreamDecoder()`, `Decoder()` and `BatchDecodeService()` target
+  the card unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -71,6 +71,18 @@ for interchange in ("bits", "prefix"):
                                 batch_size=3)
     assert [tuple(o.shape) for o in out] == [(190, 250, 3)] * 3 + [(9, 11)] * 2
     assert all((o == out[0]).all() for o in out[1:3])
+# The front end, the service and the stage timer.
+timer = jt.StageTimer()
+pixels = jt.Decoder(data, precision="fast", device="cpu",
+                    timer=timer).decode_array()
+assert pixels.shape == (190, 250, 3) and dict(timer.counts)["d2h"] == 1
+assert jt.Decoder(lossless[0], device="cpu").decode_array().shape == (9, 11)
+assert [a.shape for a in jt.decode_many([data, prog], device="cpu")] == [
+    (190, 250, 3), (131, 197, 3)]
+with jt.DeviceStreamDecoder(device="cpu", host_threads=1,
+                            timer=timer) as dec:
+    dec.decode_stream([data, data], batch_size=2)
+assert timer.counts["host_stage"] == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton",
                                     "jpeg_decoder_tpu"))
@@ -96,7 +108,9 @@ PORT_SOURCES = (
        REPO / "tools" / "experiments" / "fused_recon_probe_torch.py",
        REPO / "tools" / "experiments" / "k1_step_probe.py",
        REPO / "tools" / "experiments" / "k4_phase_probe.py",
-       REPO / "tools" / "experiments" / "l1_step_probe.py"])
+       REPO / "tools" / "experiments" / "l1_step_probe.py",
+       REPO / "tools" / "experiments" / "h2d_probe.py",
+       REPO / "tools" / "experiments" / "stream_ab.py"])
 
 
 def _imported_modules(path: Path) -> set:
@@ -134,3 +148,29 @@ def test_device_stream_decoder_targets_cuda_by_default():
             DeviceStreamDecoder()
     with DeviceStreamDecoder(device="cpu", host_threads=1) as dec:
         assert dec.device.type == "cpu"
+
+
+def test_decoder_and_service_target_cuda_by_default():
+    """The front end and the service default to backend "torch" on "cuda"
+    and raise without a card; "auto" never turns the card into the CPU."""
+    import inspect
+
+    import torch
+
+    import jpeg_decoder_tpu_torch as jt
+
+    data = (REPO / "tests/fixtures/torch_port/small_gray.jpg").read_bytes()
+    for cls in (jt.Decoder, jt.BatchDecodeService):
+        params = inspect.signature(cls).parameters
+        assert params["device"].default == "cuda"
+        assert params["backend"].default == "torch"
+    if torch.cuda.is_available():
+        assert jt.Decoder(data).device.type == "cuda"
+        return
+    for backend in ("torch", "auto"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            jt.Decoder(data, backend=backend)
+    with pytest.raises(RuntimeError, match="cuda"):
+        jt.BatchDecodeService()
+    assert jt.Decoder(data, backend="numpy").decode_array().shape \
+        == (117, 171)
