@@ -93,7 +93,7 @@ from csrc/ and holding each against its plain PyTorch version on the card:
    bit-equal, L1 once per component at predictor 6; backend "auto" with no
    launch on an image of at most 128 x 128 (small_gray at 1/8, a 96 x 96
    SOF3) and K2 on tower_420 at "fast"; `BatchDecodeService` equal byte
-   for byte to the per-image `Decoder`, a mesh raising;
+   for byte to the per-image `Decoder`;
    `decode_stream(timer=StageTimer())` of tower_420 x 64 at batch 16 and
    large_420 x 4 at batch 4, twice, SHA-256-equal across the runs and to
    the run without a timer, with "host_stage", "h2d_submit" and
@@ -102,7 +102,25 @@ from csrc/ and holding each against its plain PyTorch version on the card:
    entropy, H2D, device enqueue, D2H) and the reconstruction's CUDA-event
    time, the stream's h2d_submit ms and bytes/s per image and its
    pageable-to-pinned copy time, pinned against pageable H2D rates,
-   `utils.link.probe()`'s reading and the pinned pool's peak bytes.
+   `utils.link.probe()`'s reading and the pinned pool's peak bytes;
+19. the mesh (`jpeg_decoder_tpu_torch.parallel`), on slots of the card
+   (a mesh may name one device several times; on a machine with more
+   cards the slots go round them): large_420 through
+   `DeviceStreamDecoder(mesh=...).decode_striped` at 4 and 8 stripes,
+   bit-equal to the host exact decode with K1 launched once per stripe;
+   K1 bit-equal to its plain version on every stripe wire of large_420 at
+   4 and 8 stripes and of stripe_420.jpg at 8 (first blocks negative);
+   tower_420 x 16 at batch 16 on {"data": 4}, a prefix group of tower_420
+   x 8 and eight 512 x 512 16-bit SOF3 slices (predictor 6) at batch 8 on
+   {"data": 4}, every image SHA-256-equal to the meshless decode, with K1,
+   K2 and L1 once per shard; 4 x tower_420 through
+   `decode_bits_striped_batch` on {"data": 2, "stripe": 2}; the service on
+   the fixtures with a mesh, equal to the meshless service; and
+   `parallel.dryrun.dryrun_multichip(4, ["cuda:0"] * 4)`. Times (each
+   beside the card's name and power limit): CUDA-event ms per image of the
+   striped decode's device half at 4 and 8 stripes beside the meshless
+   exact decode's, launches per image, the halo, carry and gather bytes,
+   and each DP shard's device ms.
 
 Any failure raises and the script exits nonzero. It needs a CUDA device and
 the repository around it; it imports neither JAX, nor PIL, nor the JAX
@@ -930,11 +948,6 @@ def phase_front_end(jt, data: dict, dev) -> dict:
     for name, img in zip(names, service):
         if img.tobytes() != exact_out[name]:
             raise AssertionError(f"18 service {name} differs from Decoder")
-    try:
-        jt.BatchDecodeService(mesh=object())
-        raise AssertionError("18 a mesh did not raise")
-    except NotImplementedError:
-        pass
 
     # The stream with a timer: twice, and once without, SHA-256-equal.
     pool = pinned_pool(dev)
@@ -1015,7 +1028,7 @@ def phase_front_end(jt, data: dict, dev) -> dict:
     say("18 front end", exact="bit-equal to the host decode",
         images=len(cases), fast_max_abs_diff=fast_err, tolerance=PIXEL_TOL,
         launches=counted, lossless_l1_launches=ll_launches,
-        auto_launches=auto, service="equal to Decoder", mesh="raises")
+        auto_launches=auto, service="equal to Decoder")
     say("18 stream with a timer", result="SHA-256-equal across two timed "
         "runs and the untimed run", **stream_rows)
     say("18 times", decode_ms=decode_rows, h2d=h2d,
@@ -1023,6 +1036,165 @@ def phase_front_end(jt, data: dict, dev) -> dict:
         pinned_peak_bytes=pool.peak_bytes, pinned_bytes=pool.bytes)
     return {"K2": counted["fast"]["dequant_idct"],
             "L1": sum(ll_launches.values())}
+
+
+MESH_SLOTS = 4          # 19: a mesh of this many slots
+STRIPES = (4, 8)        # 19: large_420's stripe counts
+
+
+def mesh_devices(n: int) -> list:
+    """n mesh slots: the card's (cuda:0 n times on a machine with one),
+    going round the cards where there are more."""
+    return [f"cuda:{i % torch.cuda.device_count()}" for i in range(n)]
+
+
+def counted(jt, fn):
+    """fn() with every launch count set to 0 just before and read just
+    after: (its result, the counts)."""
+    torch.cuda.synchronize()
+    jt.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(jt.LAUNCHES)
+
+
+def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
+    """19. The mesh on slots of the card; returns K1's stripe launches and
+    its largest difference from plain on the stripe wires."""
+    from jpeg_decoder_tpu_torch.entropy.chunk_decode import (
+        decode_chunks, decode_chunks_plain)
+    from jpeg_decoder_tpu_torch.parallel import make_mesh
+    from jpeg_decoder_tpu_torch.parallel import mesh as mesh_mod
+    from jpeg_decoder_tpu_torch.parallel.dryrun import dryrun_multichip
+    from jpeg_decoder_tpu_torch.parallel.stripe_bits import (
+        decode_bits_striped, decode_bits_striped_batch,
+        split_anchored_stripes, stripe_wire)
+    from tools.make_torch_fixtures import sof3_jpeg, sof3_samples
+    from tools.torch_port_profile import kernel_device_us
+
+    large, tower = data["large_420.jpg"], data["tower_420.jpg"]
+    large_gold = host_exact(large)
+    tower_gold = host_exact(tower)
+
+    # K1 against its plain version on every stripe wire.
+    k1_err, negative = 0, 0
+    for name, n in (("large_420.jpg", 4), ("large_420.jpg", 8),
+                    ("stripe_420.jpg", 8)):
+        blob = data.get(name) or (FIXTURES / name).read_bytes()
+        scan = jt.stage_host_bits(blob).scans[0].scan
+        split = split_anchored_stripes(scan, n)
+        for d in range(n):
+            arrays, s_max = stripe_wire(split, d)
+            args = tuple(torch.from_numpy(a).to(dev) for a in arrays) + (
+                params.tables(scan), s_max, split.n_blocks_local)
+            err = int((decode_chunks(*args).to(torch.int32)
+                       - decode_chunks_plain(*args).to(torch.int32))
+                      .abs().max())
+            k1_err = max(k1_err, err)
+            negative += int(len(arrays[3]) > 0 and arrays[3][0] < 0)
+    torch.cuda.synchronize()
+    if k1_err or negative < 4:
+        raise AssertionError(f"19 K1 on the stripe wires: max |diff| "
+                             f"{k1_err}, negative first blocks {negative}")
+
+    # large_420 striped: bit-equal, one K1 launch per stripe.
+    striped, stripe_launches = {}, 0
+    staged = jt.stage_host_bits(large)
+    exact = jt.stage_host_bits(large, precision="exact")
+    with jt.DeviceStreamDecoder(host_threads=1, precision="exact") as plain:
+        exact_ms = cuda_ms(lambda: plain.decode_one(exact), 5)
+        exact_prof = kernel_device_us(lambda: plain.decode_one(exact),
+                                      "huffman_decode_kernel", iters=3)
+    for n in STRIPES:
+        mesh = make_mesh({"stripe": n}, mesh_devices(n))
+        with jt.DeviceStreamDecoder(mesh=mesh, host_threads=1) as dec:
+            mesh_mod.reset_exchanged()
+            img, launches = counted(jt, lambda: dec.decode_striped(large))
+            exchanged = dict(mesh_mod.EXCHANGED)
+        if launches["huffman_decode"] != n or launches["dequant_idct"]:
+            raise AssertionError(f"19 {n} stripes launched {launches}")
+        if not np.array_equal(img.cpu().numpy(), large_gold):
+            raise AssertionError(f"19 large_420 at {n} stripes differs from "
+                                 "the host exact decode")
+        stripe_launches += launches["huffman_decode"]
+        prof = kernel_device_us(lambda: decode_bits_striped(staged, mesh),
+                                "huffman_decode_kernel", iters=3)
+        striped[f"{n} stripes"] = {
+            "ms_per_image": cuda_ms(
+                lambda: decode_bits_striped(staged, mesh), 5),
+            "launches_per_image": prof["all_launches"],
+            "k1_launches": launches["huffman_decode"],
+            "device_busy_ms": prof["all_device_us"] / 1e3,
+            "halo_bytes": exchanged["halo"], "carry_bytes":
+            exchanged["carry"], "gather_bytes": exchanged["gather"]}
+    striped["meshless exact"] = {
+        "ms_per_image": exact_ms,
+        "launches_per_image": exact_prof["all_launches"],
+        "device_busy_ms": exact_prof["all_device_us"] / 1e3}
+    say("19 striped large_420", card=card, result="bit-equal to the host "
+        "exact decode", k1_vs_plain_on_stripe_wires=k1_err,
+        stripe_wires_with_negative_first_block=negative, **striped)
+
+    # Groups over {"data": 4}: every image SHA-256-equal to the meshless
+    # decode, each kernel once per shard.
+    sof3 = [sof3_jpeg(sof3_samples(*SOF3_SLICE, 1, 16, 0, seed=s), 6, 0, 16)
+            for s in range(8)]
+    data_mesh = make_mesh({"data": MESH_SLOTS}, mesh_devices(MESH_SLOTS))
+    groups = {}
+    for name, kw, stream, batch, want in (
+            ("tower_420 x16 at 16", {}, [tower] * 16, 16,
+             {"huffman_decode": 4, "dequant_idct": 4}),
+            ("prefix tower_420 x8 at 8", {"interchange": "prefix"},
+             [tower] * 8, 8, {"huffman_decode": 0, "dequant_idct": 4}),
+            ("SOF3 512x512 16-bit x8 at 8 predictor 6", {}, sof3, 8,
+             {"lossless_recur": 4})):
+        with jt.DeviceStreamDecoder(host_threads=4, **kw) as plain:
+            single = plain.decode_stream(stream)
+        with jt.DeviceStreamDecoder(mesh=data_mesh, host_threads=4,
+                                    **kw) as dec:
+            out, launches = counted(
+                jt, lambda: dec.decode_stream(stream, batch_size=batch))
+        if [_digest([o]) for o in out] != [_digest([o]) for o in single]:
+            raise AssertionError(f"19 {name}: an image differs from the "
+                                 "meshless decode")
+        wrong = {k: (launches[k], v) for k, v in want.items()
+                 if launches[k] != v}
+        if wrong:
+            raise AssertionError(f"19 {name}: launches (got, want) {wrong}")
+        groups[name] = {"images": len(stream), "launches": launches}
+
+    # Each DP shard's device ms: tower_420 x 4 per shard, wire on the card.
+    with jt.DeviceStreamDecoder(mesh=data_mesh, host_threads=1) as dec:
+        shard = [dec.stage(tower) for _ in range(4)]
+        shard_ms = []
+        for sdev in data_mesh.axis_devices("data"):
+            wires = dec._group_wires("bits", shard, sdev)
+            shard_ms.append(cuda_ms(
+                lambda: dec._run_group("bits", shard, wires), 20))
+
+    # DP x SP on the bits path.
+    pair_mesh = make_mesh({"data": 2, "stripe": 2}, mesh_devices(4))
+    out, launches = counted(jt, lambda: decode_bits_striped_batch(
+        [jt.stage_host_bits(tower) for _ in range(4)], pair_mesh))
+    if out is None or launches["huffman_decode"] != 8 or not all(
+            np.array_equal(o.cpu().numpy(), tower_gold) for o in out):
+        raise AssertionError(f"19 DP x SP bits batch: {launches}")
+
+    # The service with a mesh, against the meshless service.
+    blobs = [data[n] for n in ORDER] + [tower] * 3
+    meshless = jt.BatchDecodeService().decode_all(blobs)
+    (served, service_launches) = counted(
+        jt, lambda: jt.BatchDecodeService(data_mesh).decode_all(blobs))
+    if any(a.tobytes() != b.tobytes() for a, b in zip(served, meshless)):
+        raise AssertionError("19 the service on a mesh differs")
+
+    ran = dryrun_multichip(MESH_SLOTS, ["cuda:0"] * MESH_SLOTS)
+    say("19 mesh", card=card, groups=groups, result="SHA-256-equal to the "
+        "meshless decode", dp_shard_device_ms_tower_420_x4=shard_ms,
+        dp_x_sp_bits={"images": 4, "launches": launches},
+        service={"images": len(blobs), "launches": service_launches},
+        dryrun=ran, cards=torch.cuda.device_count())
+    return {"stripe_launches": stripe_launches, "k1_err": k1_err}
 
 
 def main() -> int:
@@ -1377,6 +1549,10 @@ def main() -> int:
     # 18. The front end and the service.
     front = phase_front_end(jt, data, dev)
 
+    # 19. The mesh.
+    mesh = phase_mesh(jt, data, params, dev, card)
+    k1_err = max(k1_err, mesh["k1_err"])
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
                     in ("jax", "jaxlib", "jpeg_decoder_tpu"))
     if loaded:
@@ -1415,6 +1591,7 @@ def main() -> int:
         row.update(kernel_us=tab["kernel_us"], bound_us=tab["bound_us"],
                    bound_ms=tab["bound_us"] / 1e3, bound_by=tab["bound_by"],
                    launches_per_image=tab["launches_per_image"])
+    kernels[0]["stripe_launches"] = mesh["stripe_launches"]
     kernels[1]["library_device_us"] = table["K2"]["library_device_us"]
     kernels[1]["front_end_launches"] = front["K2"]
     kernels[4]["front_end_launches"] = front["L1"]

@@ -230,13 +230,18 @@ extern "C" int jdt_dequant_idct(const void* const* coefs,
   }
   a.n_tiles = tiles;
   if (tiles == 0) return 0;
-  static bool configured = false;
-  if (!configured) {
+  // The opt-in holds for one device: keep one flag per card (a mesh
+  // may launch on several).
+  static uint64_t configured = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) dev = 64;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(configured & bit)) {
     const cudaError_t err = cudaFuncSetAttribute(
         dequant_idct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    configured |= bit;
   }
   const int grid = min(tiles, 2 * jdt_idct::sm_count());
   dequant_idct_kernel<<<grid, kThreads, kSmemBytes,

@@ -322,13 +322,18 @@ extern "C" int jdt_fused_recon(const void* y, const void* cb, const void* cr,
   a.out_align = widest(reinterpret_cast<uintptr_t>(out)
                        | static_cast<uintptr_t>(width));
   a.plane = static_cast<int64_t>(bh) * 8 * width;
-  static bool configured = false;
-  if (!configured) {
+  // The opt-in holds for one device: keep one flag per card (a mesh
+  // may launch on several).
+  static uint64_t configured = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) dev = 64;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(configured & bit)) {
     const cudaError_t err = cudaFuncSetAttribute(
         fused_recon_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    configured |= bit;
   }
   const int grid = min((a.n_tiles + kGroups - 1) / kGroups,
                        jdt_idct::sm_count());

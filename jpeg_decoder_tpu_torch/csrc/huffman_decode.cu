@@ -512,13 +512,18 @@ extern "C" int jdt_huffman_decode(const void* words, int n_words,
                      static_cast<cudaStream_t>(stream)))
                : 0;
   }
-  static bool configured = false;
-  if (!configured) {   // past 48 KB a kernel must opt in
+  // The opt-in holds for one device: keep one flag per card (a mesh
+  // may launch on several).
+  static uint64_t configured = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) dev = 64;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(configured & bit)) {   // past 48 KB a kernel must opt in
     const cudaError_t err = cudaFuncSetAttribute(
         huffman_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         2 * kMaxTabs * kLutSize * 4);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    configured |= bit;
   }
   const int seg = (s_max + kSegs - 1) / kSegs;   // kSegs * seg >= s_max
   const int grid = (n_items + kChunks - 1) / kChunks;

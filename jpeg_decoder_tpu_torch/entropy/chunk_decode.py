@@ -113,9 +113,11 @@ def decode_chunks(words, dm, ab, base, tables: ScanTables, s_max: int,
     wire's meta word); ab (entry bit, a uint32 bit pattern), base (first
     stream block): from `unpack_delta(dm)` or shipped on the anchor wire.
     Stops each chunk after `s_max` symbol steps or when its budget of
-    blocks is done. The kernel writes every row of `nat` itself (no zero
-    fill first), which needs the chunks' first blocks `base` to be
-    nondecreasing, as both wires make them."""
+    blocks is done. Blocks outside [0, n_blocks) are not stored: a stripe's
+    first chunk may begin before the stripe (`parallel/stripe_bits.py`,
+    base < 0). The kernel writes every row of `nat` itself (no zero fill
+    first), which needs the chunks' first blocks `base` to be
+    nondecreasing, as both wires and the stripe wire make them."""
     _check_inputs(words, dm, ab, base, tables, s_max, n_blocks)
     if words.device.type == "cpu":
         return decode_chunks_plain(words, dm, ab, base, tables, s_max,
@@ -210,8 +212,11 @@ def decode_chunks_plain(words, dm, ab, base, tables: ScanTables, s_max: int,
         is_eob = ~is_dc & (s == 0) & (r != 15)
         kc = torch.where(is_dc, 0, (k + r).clamp(max=63))
         blk_abs = blk0 + blk
+        # A stripe's first chunk may start before the stripe (a negative
+        # base): its lead-in blocks belong to the stripe above and are
+        # dropped, as the kernel drops them (index_put_ would wrap them).
         emits = (active & (is_dc | (~is_zrl & ~is_eob))
-                 & (blk_abs < n_blocks))
+                 & (blk_abs >= 0) & (blk_abs < n_blocks))
         idx = torch.where(emits, blk_abs * 64 + unzig[kc], sink)
         flat.index_put_((idx,), (ext & 0xFFFF).to(torch.int16))  # wraps
 

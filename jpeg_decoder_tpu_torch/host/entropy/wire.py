@@ -7,13 +7,16 @@ not copied; the port's kernel K1 (`entropy/chunk_decode.py::decode_chunks`)
 takes its place. The slot and words wires and their merges
 (`merge_image_packs`, `merge_image_packs_words`) are not copied: the port
 has neither wire. In their place `merge_anchor_wires` is the port's own
-merge of its 12 B/chunk anchor wire (`models/stream.py::_anchor_scan`).
+merge of its 12 B/chunk anchor wire (`models/stream.py::_anchor_scan`),
+and `anchor_meta` packs that wire's meta word (the image's, and a
+stripe's, `parallel/stripe_bits.py::stripe_wire`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..errors import FormatError
 from .prescan import AnchoredScan
 
 SLOT_CLASSES = (32, 48, 64, 96, 128, 256, 512)   # slot bytes
@@ -307,6 +310,20 @@ def merge_image_packs_delta(entries, nb_image):
         pos += len(w)
     return ((wcat, dm_all.view(np.int32), np.asarray(cnts_out, np.int32)),
             tuple(shapes_out))
+
+
+def anchor_meta(budget, slot) -> np.ndarray:
+    """The anchor wire's per-chunk meta word, `budget << 4 | slot` (int32),
+    from int64 budgets (blocks a chunk decodes) and MCU-pattern slots.
+    Raises FormatError when a field does not fit: a budget outside 0-31 or
+    a slot outside 0-15."""
+    budget = np.asarray(budget, np.int64)
+    slot = np.asarray(slot, np.int64)
+    if budget.size and (budget.min() < 0 or budget.max() > 31
+                        or slot.min() < 0 or slot.max() > 15):
+        raise FormatError("chunk budget or slot outside the anchor wire's "
+                          "fields")
+    return (budget << 4 | slot).astype(np.int32)
 
 
 def merge_anchor_wires(entries):

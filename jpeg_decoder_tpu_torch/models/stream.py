@@ -75,6 +75,16 @@ open group first, so outputs stay in source order. Groups are not padded
 to a bucket of sizes as the reference's are (`_batch_bucket`, `_bucket`):
 those bound XLA's recompiles, and eager launches have no compile key, so a
 padded image would only be wasted work.
+
+On a mesh (`DeviceStreamDecoder(mesh=...)`, the reference's mesh mode,
+`jpeg_decoder_tpu/models/stream.py:1243-1317`, `:1856-1995`), bits groups
+key on the reference's mesh key (the whole plan and the LUT bytes: no
+merge across plans), and each group splits over the mesh's data axis as
+the reference shards it: `_batch_bucket(n)` rounded up to a multiple of
+the axis size sets the rows per device, and each device runs the group
+path above on its rows (its padding rows hold no image and are not
+decoded). `decode_striped` decodes one image's MCU rows across a stripe
+axis (`parallel/stripe_bits.py`).
 """
 
 from __future__ import annotations
@@ -93,7 +103,7 @@ from ..entropy.chunk_decode import decode_chunks, unpack_delta
 from ..host.decoder import Decoder
 from ..host.entropy.prescan import AnchoredScan, PrescanFallback
 from ..host.entropy.transcode import transcode_decoded
-from ..host.entropy.wire import (WORDS_PAD, merge_anchor_wires,
+from ..host.entropy.wire import (WORDS_PAD, anchor_meta, merge_anchor_wires,
                                  merge_image_packs_delta, pack_delta)
 from ..host.errors import FormatError, JpegError
 from ..host.ops.pipeline import ImageGeometry, geometry_from_frame
@@ -104,6 +114,8 @@ from ..host.staging import (_ZIGZAG_OF_NATURAL, PREFIX_K, BitstreamCapture,
                             _staged_lossless_from_capture, stage_host)
 from ..ops.pipeline import reconstruct, reconstruct_planar_pallas
 from ..ops.predictors import reconstruct_planes
+from ..parallel.mesh import mesh_device
+from ..parallel.stripe_bits import check_engine, decode_bits_striped
 from ..params import DeviceParams
 from ..transfer import checked_device, put
 from ..utils import link
@@ -150,13 +162,8 @@ def _anchor_scan(scan: AnchoredScan, kept: tuple) -> StagedScan:
     """The 12 B/chunk anchor wire: the fields the reference's XLA engine
     takes (`anchor_bits`, `anchor_block`, `anchor_slot`), in K1's layout."""
     n = scan.n_items
-    budget = scan.anchor_block[1:n + 1].astype(np.int64) \
-        - scan.anchor_block[:n]
-    slot = scan.anchor_slot[:n].astype(np.int64)
-    if n and (budget.min() < 0 or budget.max() > 31 or slot.min() < 0
-              or slot.max() > 15):
-        raise FormatError("chunk budget or slot outside the anchor wire's "
-                          "fields")
+    dm = anchor_meta(scan.anchor_block[1:n + 1].astype(np.int64)
+                     - scan.anchor_block[:n], scan.anchor_slot[:n])
     if scan.chunk_syms is not None and n:
         s_max = int(scan.chunk_syms[:n].max())
     else:
@@ -165,7 +172,7 @@ def _anchor_scan(scan: AnchoredScan, kept: tuple) -> StagedScan:
         scan, kept,
         words=np.ascontiguousarray(scan.words[:max(scan.n_words, 1)],
                                    np.uint32).view(np.int32),
-        dm=(budget << 4 | slot).astype(np.int32),
+        dm=dm,
         s_max=max(s_max, 1),
         ab=np.ascontiguousarray(scan.anchor_bits[:n], np.uint32)
         .view(np.int32),
@@ -263,11 +270,14 @@ def merge_scans(scans: list):
     anchor wire (`merge_anchor_wires`), s_max the most steps any image's
     chunks need and n_blocks the images' blocks together. None when the
     merge declines (a field would overflow at an image boundary, a mix of
-    single- and multi-class packs, a stream past 2^26 words): the images
+    single- and multi-class packs, a stream past 2^26 words, scans on
+    different wires, which a mesh group's key allows): the images
     then decode one by one, each on its own wire. The delta wire places an
     image's chunks by the budgets of the images before it, so an image
     whose budgets do not sum to its blocks is declined too."""
     nbs = [s.scan.plan.n_blocks for s in scans]
+    if len({s.wire for s in scans}) > 1:
+        return None
     if scans[0].wire == "anchor":
         merged = merge_anchor_wires([(s.words, s.dm, s.ab, s.base, nb)
                                      for s, nb in zip(scans, nbs)])
@@ -303,17 +313,25 @@ def _bits_hetero_key(st: StagedBits):
             scan.tab_values.tobytes())
 
 
-def _bits_group_key(st: StagedBits):
-    """The reference's `_bits_group_key` (`stream.py:1094`, one device):
-    images sharing it merge into one batched bits dispatch: one scan
-    covering every component, the same geometry, Huffman tables, kept
-    components and wire. None: decode singly."""
+def _bits_group_key(st: StagedBits, mesh_mode: bool = False):
+    """The reference's `_bits_group_key` (`stream.py:1094`): images sharing
+    it merge into one batched bits dispatch: one scan covering every
+    component, the same geometry, Huffman tables, kept components and
+    wire. With `mesh_mode` (a decoder with a mesh), the reference's mesh
+    key: the geometry, the whole plan (its buckets included), the kept
+    components, the component count and the LUT bytes. None: decode
+    singly."""
     if len(st.scans) != 1:
         return None
     s = st.scans[0]
     if len(s.kept) != len(st.qts):
         return None
     scan = s.scan
+    if mesh_mode:
+        if scan.luts is None:
+            return None
+        return (st.geometry, scan.plan, s.kept, len(st.qts),
+                scan.luts.tobytes())
     return (st.geometry, scan.plan._key[:-3], s.kept,
             tuple(scan.comp_to_upair), len(st.qts), s.wire,
             scan.tab_maxcode.tobytes(), scan.tab_delta.tobytes(),
@@ -334,6 +352,15 @@ def _hetero_threshold() -> float:
 
 # K1's output holds fewer than 2^31 elements (chunk_decode.py).
 K1_MAX_BLOCKS = (2 ** 31 - 1) // 64
+
+
+def _batch_bucket(n: int) -> int:
+    """The reference's group bucket (`stream.py:206`): the least power of
+    two >= n. On a mesh it sets the shards' rows; no image is padded."""
+    size = 1
+    while size < n:
+        size *= 2
+    return size
 
 
 def prefix_stores(geometry, dc, ac, resid_idx, resid_vals) -> list:
@@ -402,6 +429,14 @@ class DeviceStreamDecoder:
     kernels' plain PyTorch versions run; on a CUDA device the hand-written
     kernels do. Asking for CUDA where there is no card raises.
 
+    `mesh` (`parallel.make_mesh`; `device` then stays at its default or
+    names the mesh's first device): the reference's
+    `DeviceStreamDecoder(mesh=, data_axis=)`. Batched groups split over
+    the mesh's `data_axis` (`_decode_group_mesh`), each image's tensor on
+    its shard's device; `decode_striped` splits one image's MCU rows over
+    a "stripe" axis; all other work runs on the mesh's first device, the
+    counterpart of the reference's default device.
+
     `timer`: optional `utils.timing.StageTimer`; records "host_stage"
     (parse + entropy/prescan + pack, per image, in the staging threads),
     "h2d_submit" (the wire's host-to-device submission, per image or
@@ -411,8 +446,10 @@ class DeviceStreamDecoder:
 
     def __init__(self, *, device="cuda", host_threads: int = 4,
                  precision: str = "fast", layout: str = "interleaved",
-                 interchange: str = "bits", timer=None):
-        dev = checked_device(device)
+                 interchange: str = "bits", timer=None, mesh=None,
+                 data_axis: str = "data"):
+        dev = checked_device(device) if mesh is None \
+            else mesh_device(mesh, device)
         if precision not in PRECISIONS:
             raise ValueError(f"unknown precision {precision!r}; one of "
                              f"{PRECISIONS}")
@@ -427,7 +464,9 @@ class DeviceStreamDecoder:
         self.interchange = interchange
         self.host_threads = host_threads
         self.timer = timer
-        self.params = DeviceParams(dev)
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.params = DeviceParams(dev) if mesh is None else mesh.params(dev)
         self._maps: dict = {}
         self.pool = cf.ThreadPoolExecutor(max_workers=host_threads)
 
@@ -448,7 +487,12 @@ class DeviceStreamDecoder:
         return stage_host(source, scale_to, self.precision, self.timer,
                           pool_width=self.host_threads)
 
-    def _put_recorded(self, arrs) -> tuple:
+    def _params_of(self, dev) -> DeviceParams:
+        """The constants' copies on `dev`: one `DeviceParams` per device
+        (the mesh's, on a mesh)."""
+        return self.params if self.mesh is None else self.mesh.params(dev)
+
+    def _put_recorded(self, arrs, dev=None) -> tuple:
         """One H2D submission of a tuple of host arrays (`transfer.put`:
         non-blocking through one pinned buffer on a CUDA device), folding
         its rate into `utils.link`'s EMA when the payload is big enough to
@@ -458,19 +502,20 @@ class DeviceStreamDecoder:
         by construction."""
         nbytes = sum(a.nbytes for a in arrs)
         t0 = time.perf_counter()
-        out = put(arrs, self.device)
+        out = put(arrs, self.device if dev is None else dev)
         if nbytes >= (4 << 20):
             link.record_transfer(nbytes, time.perf_counter() - t0)
         return out
 
-    def _to_device(self, staged) -> tuple:
-        """One H2D submission of one image's staged wire."""
+    def _to_device(self, staged, dev=None) -> tuple:
+        """One H2D submission of one image's staged wire (to `dev`, by
+        default the decoder's device)."""
         kind = _kind(staged)
         if kind == "bits":
             flat = self._put_recorded(tuple(
                 a for s in staged.scans
                 for a in ((s.words, s.dm) if s.ab is None
-                          else (s.words, s.dm, s.ab, s.base))))
+                          else (s.words, s.dm, s.ab, s.base))), dev)
             wires, i = [], 0
             for s in staged.scans:
                 n = 2 if s.ab is None else 4
@@ -478,16 +523,16 @@ class DeviceStreamDecoder:
                 i += n
             return tuple(wires)
         if kind == "lossless":
-            return self._put_recorded((staged.diffs.view(np.int16),))
+            return self._put_recorded((staged.diffs.view(np.int16),), dev)
         return self._put_recorded((staged.dc, staged.ac, staged.resid_idx,
-                                   staged.resid_vals))
+                                   staged.resid_vals), dev)
 
-    def _general_maps(self, plan):
-        maps = self._maps.get(plan)
+    def _general_maps(self, plan, dev):
+        maps = self._maps.get((plan, dev))
         if maps is None:
             if len(self._maps) > 64:
                 self._maps.clear()
-            maps = self._maps[plan] = GeneralMaps(plan, self.device)
+            maps = self._maps[plan, dev] = GeneralMaps(plan, dev)
         return maps
 
     def _effective_layout(self, geometry) -> str:
@@ -499,13 +544,15 @@ class DeviceStreamDecoder:
 
     def _reconstruct(self, geometry, stores, qts_b) -> torch.Tensor:
         """Stores of N images of one geometry ([N, blocks, 64] per
-        component) and their tables -> [N, ...] in the decoder's layout."""
+        component, on one device) and their tables -> [N, ...] in the
+        decoder's layout, on that device."""
         layout = self._effective_layout(geometry)
+        params = self._params_of(stores[0].device)
         with torch.profiler.record_function("reconstruct"):  # K3: fused_tail
             if layout == "planar-pallas":
                 return reconstruct_planar_pallas(geometry, stores, qts_b,
-                                                 self.params)
-            out = reconstruct(geometry, stores, qts_b, self.params)
+                                                 params)
+            out = reconstruct(geometry, stores, qts_b, params)
             if layout == "planar" and out.dim() == 4:
                 return out.permute(0, 3, 1, 2).contiguous()
             return out
@@ -522,8 +569,10 @@ class DeviceStreamDecoder:
         else:
             words, dm, ab, base = wire
         with span("k1_decode"):
-            return decode_chunks(words, dm, ab, base,
-                                 self.params.tables(st.scan), s_max, n_blocks)
+            return decode_chunks(
+                words, dm, ab, base,
+                self._params_of(words.device).tables(st.scan), s_max,
+                n_blocks)
 
     def _assemble(self, nat: torch.Tensor, st: StagedScan, stores: list
                   ) -> None:
@@ -532,7 +581,7 @@ class DeviceStreamDecoder:
         plan = st.scan.plan
         with torch.profiler.record_function("assemble"):
             maps = None if plan.structured is not None \
-                else self._general_maps(plan)
+                else self._general_maps(plan, nat.device)
             scan_stores = assemble_nat(nat, plan, maps)
         for pos, comp_i in st.kept:
             stores[comp_i] = scan_stores[pos]
@@ -555,19 +604,45 @@ class DeviceStreamDecoder:
                 stores = prefix_stores(staged.geometry, *wires)
         return self._reconstruct(staged.geometry, stores, [staged.qts])[0]
 
-    def decode_one(self, staged) -> torch.Tensor:
-        """Decode one staged image (bits, prefix or lossless)."""
+    def decode_one(self, staged, dev=None) -> torch.Tensor:
+        """Decode one staged image (bits, prefix or lossless), on `dev` (by
+        default the decoder's device)."""
         with timed_stage(self.timer, "h2d_submit"):
-            wires = self._to_device(staged)
+            wires = self._to_device(staged, dev)
         with timed_stage(self.timer, "device_dispatch"):
             return self._run_device(staged, wires)
+
+    def decode_striped(self, source, scale_to=None,
+                       stripe_axis: str = "stripe", engine: str = None):
+        """Decode ONE image with its MCU rows, entropy decode included,
+        split over the mesh's `stripe_axis` (`parallel/stripe_bits.py`):
+        each device Huffman-decodes its stripe's anchored chunks, assembles
+        with the DC seam carry and reconstructs behind a 1-row halo
+        exchange, always at the exact integer IDCT, in the interleaved
+        layout (the reference's `decode_striped`, `stream.py:1296`).
+        Returns one tensor on the mesh's first device, the stripes' rows
+        gathered there (the reference returns an array sharded on rows).
+        Falls back to `decode_one` when there is no mesh, the mesh has no
+        such axis or the image declines. `engine`: None or "xla"
+        (`stripe_bits.check_engine`)."""
+        check_engine(engine)
+        staged = stage_host_bits(source, scale_to, self.precision,
+                                 self.timer, self.host_threads)
+        if (self.mesh is not None and stripe_axis in self.mesh.shape
+                and isinstance(staged, StagedBits)):
+            with timed_stage(self.timer, "device_dispatch"):
+                out = decode_bits_striped(staged, self.mesh, stripe_axis)
+            if out is not None:
+                return out
+        return self.decode_one(staged)
 
     # Groups: `_group_wires` merges a group's wires on the host and submits
     # them to the device in one copy; `_run_group` enqueues the device work.
 
-    def _group_wires(self, kind: str, group: list):
-        """The group's merged wire on the device, or None when the host
-        merge declines (the images then decode one by one)."""
+    def _group_wires(self, kind: str, group: list, dev=None):
+        """The group's merged wire on `dev` (by default the decoder's
+        device), or None when the host merge declines (the images then
+        decode one by one)."""
         if kind == "bits":
             parts: dict = {}       # (plan, geometry) -> images, first seen
             for i, st in enumerate(group):
@@ -578,10 +653,11 @@ class DeviceStreamDecoder:
             if merged is None:
                 return None
             arrays, s_max, n_blocks = merged
-            return parts, self._put_recorded(tuple(arrays)), s_max, n_blocks
+            return (parts, self._put_recorded(tuple(arrays), dev), s_max,
+                    n_blocks)
         if kind == "lossless":
             return self._put_recorded(
-                (np.stack([st.diffs for st in group]).view(np.int16),))
+                (np.stack([st.diffs for st in group]).view(np.int16),), dev)
         n = len(group)
         total = group[0].dc.shape[-1] * 64     # one image's coefficients
         if n * total >= 2 ** 31:
@@ -596,7 +672,7 @@ class DeviceStreamDecoder:
             rv[i, :len(idx)] = st.resid_vals
         return self._put_recorded((np.stack([st.dc for st in group]),
                                    np.stack([st.ac for st in group]),
-                                   ri.astype(np.int32), rv))
+                                   ri.astype(np.int32), rv), dev)
 
     def _run_group(self, kind: str, group: list, wires) -> list:
         """The device half of a group whose merged wire is on the device:
@@ -628,12 +704,13 @@ class DeviceStreamDecoder:
             off += rows
         return results
 
-    def _decode_group(self, kind: str, group: list) -> list:
-        """One group: the reference's `_decode_group_bits` with
-        `_decode_group_bits_hetero` (one K1 sweep, then assembly and
-        reconstruction per plan; a group of one plan is the same-key
-        case), `_decode_group_lossless` and `_decode_group` (prefix). A
-        bits group whose blocks would pass K1's output limit splits."""
+    def _decode_group(self, kind: str, group: list, dev=None) -> list:
+        """One group, on `dev` (by default the decoder's device): the
+        reference's `_decode_group_bits` with `_decode_group_bits_hetero`
+        (one K1 sweep, then assembly and reconstruction per plan; a group
+        of one plan is the same-key case), `_decode_group_lossless` and
+        `_decode_group` (prefix). A bits group whose blocks would pass K1's
+        output limit splits."""
         if kind == "bits":
             runs, blocks = [[]], 0
             for st in group:
@@ -645,15 +722,32 @@ class DeviceStreamDecoder:
                 blocks += nb
             if len(runs) > 1:
                 return [img for run in runs
-                        for img in self._decode_group(kind, run)]
+                        for img in self._decode_group(kind, run, dev)]
         if len(group) == 1:
-            return [self.decode_one(group[0])]
+            return [self.decode_one(group[0], dev)]
         with timed_stage(self.timer, "h2d_submit"):
-            wires = self._group_wires(kind, group)
+            wires = self._group_wires(kind, group, dev)
         if wires is None:
-            return [self.decode_one(st) for st in group]
+            return [self.decode_one(st, dev) for st in group]
         with timed_stage(self.timer, "device_dispatch"):
             return self._run_group(kind, group, wires)
+
+    def _decode_group_mesh(self, kind: str, group: list) -> list:
+        """A group on the mesh: the reference's `_decode_group_bits_mesh`,
+        and `_decode_group_lossless` and `_decode_group` (prefix) with a
+        mesh. The batch is `_batch_bucket(n)` rounded up to a multiple of
+        the data axis's size n_d, device k takes rows [k B / n_d,
+        (k + 1) B / n_d), and each device runs the one-device group path
+        on its rows (one K1 sweep, K2 on its segment table, K3 on
+        planar-pallas, L1 for a lossless shard). Rows past the images are
+        the reference's padding: no image, so nothing is decoded there.
+        Each image's tensor lives on its shard's device."""
+        devs = list(self.mesh.axis_devices(self.data_axis))
+        per = -(-_batch_bucket(len(group)) // len(devs))
+        return [img for k, dev in enumerate(devs)
+                if group[k * per:(k + 1) * per]
+                for img in self._decode_group(
+                    kind, group[k * per:(k + 1) * per], dev)]
 
     def decode_stream(self, sources: Iterable, scale_to=None,
                       batch_size: int = 1, on_error: str = "raise") -> list:
@@ -692,16 +786,20 @@ class DeviceStreamDecoder:
 
     def _grouped(self, staged, batch_size: int) -> list:
         """The reference's grouping loop (`stream.py:1619-1715`): three open
-        groups (prefix, bits, lossless) and its flush rules."""
+        groups (prefix, bits, lossless) and its flush rules; on a mesh the
+        bits key is the mesh key (no merge across plans) and groups split
+        over the data axis."""
         thr = _hetero_threshold()
         outputs: list = []
         groups = {"prefix": [], "bits": [], "lossless": []}
         bits_key = [None]
+        decode = (self._decode_group if self.mesh is None
+                  else self._decode_group_mesh)
 
         def flush(*kinds):
             for kind in kinds:
                 if groups[kind]:
-                    outputs.extend(self._decode_group(kind, groups[kind]))
+                    outputs.extend(decode(kind, groups[kind]))
                     groups[kind] = []
 
         for st in staged:
@@ -721,8 +819,12 @@ class DeviceStreamDecoder:
             flush("lossless")
             if kind == "bits":
                 flush("prefix")
-                key = (_bits_hetero_key(st) if st.mpix <= thr
-                       else _bits_group_key(st))
+                if self.mesh is not None:
+                    key = _bits_group_key(st, mesh_mode=True)
+                elif st.mpix <= thr:
+                    key = _bits_hetero_key(st)
+                else:
+                    key = _bits_group_key(st)
                 if key is None:    # multi-scan or partial: decode singly
                     flush("bits")
                     outputs.append(self.decode_one(st))

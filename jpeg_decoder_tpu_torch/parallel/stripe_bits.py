@@ -1,0 +1,351 @@
+"""Port of `jpeg_decoder_tpu/parallel/stripe_bits.py`: one image's device
+entropy decode, assembly and reconstruction across the mesh's "stripe"
+axis.
+
+Anchored chunks are independent by construction, so the image's MCU rows
+split into contiguous stripes whose chunks each device Huffman-decodes,
+assembles and reconstructs locally. The couplings between stripes, and
+how they close:
+- **The DC predictor chain** (`/root/reference/src/decoder.rs:1102-1118`):
+  kernel K1 emits stream-ordered DC differences, so a stripe's absolute
+  DC is its local prefix sum plus the sum of every earlier stripe's
+  differences: one value per stripe and component, `mesh.exclusive_carry`
+  of `entropy/assemble.py::dc_totals` (the reference's all_gather in
+  `device_scan._dc_carry`). Restart-interval streams carry nothing: the
+  splitter accepts them only when the restart segments lie inside the
+  stripes, so every DC reset is stripe-local.
+- **The chunk straddling a stripe's entry**: anchors fall every ~K_CAP
+  blocks, not on MCU-row boundaries, so stripe d's first chunk is the last
+  one anchored at or before its first block. Its lead-in blocks belong to
+  stripe d-1, which decodes the same chunk as its tail (less than one
+  chunk of duplicate work per seam): its rebased first block is negative,
+  and K1 drops the stores outside the stripe (the kernel's row guard, and
+  the plain version's `blk_abs >= 0`).
+- **The V2 chroma halo** (`/root/reference/src/upsampler.rs:174-177`):
+  `stripes.build_stripe_local_recon`.
+
+Host half, copied from the reference (`StripeSplit`, `_stripe_ranges`,
+`split_anchored_stripes`, `stripe_bits.py:50-191`) on the host copy's
+prescan (`AnchoredScan`, `_plan_for`, `_bucket_up`) and parser
+(`Dimensions`, `update_component_sizes`), without `_pack_stripes_words`
+and the split's `pallas` field: those build the Pallas words wire, and K1
+reads the anchor wire, so the port has one engine (the reference's XLA
+one, `engine="xla"`). The split also records what the per-stripe launch
+needs: each stripe's real chunk count, words and symbol bound.
+
+Device half: per stripe, on its device, the 12 B/chunk anchor wire
+(`stripe_wire`: the stripe's words, `budget << 4 | slot` with the last
+real chunk's budget stopping at the stripe's real block extent, entry bits
+rebased to the words, first blocks rebased, the straddler's negative),
+K1 over the stripe's blocks, assembly with the carry of every earlier
+stripe, then the halo'd exact reconstruction. Each stripe runs its real
+chunk count: eager launches need no bucket-padded items.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..entropy.assemble import assemble_nat, dc_totals
+from ..entropy.chunk_decode import decode_chunks
+from ..host.entropy.prescan import (AnchoredScan, ScanPlan, _bucket_up,
+                                    _plan_for)
+from ..host.entropy.wire import WORDS_PAD, anchor_meta
+from ..host.parser import Dimensions, update_component_sizes
+from ..transfer import put
+from .mesh import exclusive_carry, gather_rows
+from .stripes import build_stripe_local_recon
+
+
+@dataclasses.dataclass
+class StripeSplit:
+    """One scan partitioned into per-stripe sub-scans (uniform layout)."""
+    plan: ScanPlan            # per-stripe plan (shared by every stripe)
+    n_stripes: int
+    mcu_rows: int             # full-image decoded MCU rows
+    k_mcu: int                # MCU rows per stripe
+    n_blocks_local: int
+    # The reference's XLA-engine arrays, stacked on a leading stripe axis:
+    words: np.ndarray         # uint32 [n, Wb]
+    anchor_bits: np.ndarray   # uint32 [n, I]
+    anchor_block: np.ndarray  # int32  [n, I + 1]
+    anchor_slot: np.ndarray   # int32  [n, I]
+    luts: np.ndarray
+    tabs: tuple = None        # (maxcode, delta, values) or None
+    comp_to_upair: tuple = None
+    # Per stripe, for its launch: real chunks, words they read, and the
+    # most symbol steps any of them takes.
+    n_items: tuple = ()
+    n_words: tuple = ()
+    s_max: tuple = ()
+
+
+def _stripe_ranges(blk, n_items, nb_local, n_stripes, n_blocks_real):
+    """Per-stripe chunk index ranges [i0, i1): i0 = last chunk anchored
+    at-or-before the stripe's first block (the straddler), i1 = first chunk
+    anchored at-or-after the stripe end."""
+    ranges = []
+    for d in range(n_stripes):
+        b0 = d * nb_local
+        if b0 >= n_blocks_real or n_items == 0:
+            ranges.append((0, 0))
+            continue
+        b1 = b0 + nb_local
+        i0 = int(np.searchsorted(blk[:n_items], b0, side="right")) - 1
+        i0 = max(i0, 0)
+        i1 = int(np.searchsorted(blk[:n_items], b1, side="left"))
+        ranges.append((i0, i1))
+    return ranges
+
+
+def split_anchored_stripes(staged: AnchoredScan, n_stripes: int):
+    """Partition one anchored scan into `n_stripes` MCU-row stripes.
+
+    Returns a StripeSplit, or None when the scan isn't stripe-eligible
+    (no structured plan, too few MCU rows, restart segments that would
+    straddle a stripe, non-1x1-sampled non-interleaved scan)."""
+    plan = staged.plan
+    if (staged.frame is None or staged.scan is None
+            or plan.structured is None or n_stripes < 2):
+        return None
+    (n_mcus, rows_d, cols_d, plen), specs = plan.structured
+    if rows_d < n_stripes:
+        return None
+    f = staged.frame
+    interleaved = len(staged.scan.component_indices) > 1
+    if interleaved:
+        if rows_d != f.mcu_size.height:
+            return None          # clip-quirk geometry; keep single-device
+    else:
+        comp = f.components[staged.scan.component_indices[0]]
+        if (len(f.components) != 1
+                or comp.horizontal_sampling_factor != 1
+                or comp.vertical_sampling_factor != 1):
+            return None
+
+    k = -(-rows_d // n_stripes)
+    bpr = cols_d * plen                      # blocks per MCU row
+    nb_local = k * bpr
+    for (_s0, bpm, _vs, _hs, _Hc, _W, seg_blocks) in specs:
+        if seg_blocks and (k * cols_d * bpm) % seg_blocks:
+            return None          # a restart segment would straddle a stripe
+
+    # Per-stripe sub-plan: the stripe is a sub-image of k whole MCU rows.
+    sub = copy.deepcopy(f)
+    v_max = (max(c.vertical_sampling_factor for c in f.components)
+             if interleaved else 1)
+    sub.image_size = Dimensions(f.image_size.width, k * 8 * v_max)
+    sub.mcu_size = update_component_sizes(sub.image_size, sub.components)
+
+    n = staged.n_items
+    blk = staged.anchor_block[:n].astype(np.int64)
+    ab = staged.anchor_bits[:n].astype(np.int64)
+    ranges = _stripe_ranges(blk, n, nb_local, n_stripes, staged.n_blocks)
+
+    # Uniform buckets across stripes.
+    items_max = max((i1 - i0) for i0, i1 in ranges)
+    if items_max == 0:
+        return None
+    I = _bucket_up(items_max)
+
+    # Word windows: stripe d's bits end at the entry of chunk i1 (chunks
+    # tile the bitstream; the truncated last chunk never reads past the
+    # next anchor) or at the scan end for the final data stripe.
+    w0s, w_his = [], []
+    for d, (i0, i1) in enumerate(ranges):
+        if i1 <= i0:
+            w0s.append(0)
+            w_his.append(0)
+            continue
+        bit_hi = int(ab[i1]) if i1 < n else staged.n_words * 32
+        w0s.append(int(ab[i0]) >> 5)
+        w_his.append(min(staged.n_words, (bit_hi >> 5) + 2))
+    Wb = _bucket_up(max(h - l for l, h in zip(w0s, w_his)) + WORDS_PAD, 1024)
+
+    words_s = np.zeros((n_stripes, Wb), np.uint32)
+    abits_s = np.zeros((n_stripes, I), np.uint32)
+    ablk_s = np.empty((n_stripes, I + 1), np.int32)
+    aslot_s = np.zeros((n_stripes, I), np.int32)
+    for d, (i0, i1) in enumerate(ranges):
+        b0 = d * nb_local
+        m = i1 - i0
+        # Sentinel/pad: the true remaining block count, so the final data
+        # stripe's last chunk stops at the real stream end instead of
+        # decoding zero-padding bits across the crop region.
+        fill = int(min(nb_local, max(staged.n_blocks - b0, 0)))
+        ablk_s[d] = fill
+        if m == 0:
+            continue
+        words_s[d, :w_his[d] - w0s[d]] = staged.words[w0s[d]:w_his[d]]
+        abits_s[d, :m] = (ab[i0:i1] - (w0s[d] << 5)).astype(np.uint32)
+        ablk_s[d, :m] = (blk[i0:i1] - b0).astype(np.int32)
+        aslot_s[d, :m] = staged.anchor_slot[i0:i1]
+
+    words_bucket = Wb
+    sub_plan = _plan_for(sub, staged.scan, plan.restart_interval, I,
+                         words_bucket, plan.s_max)
+    st = sub_plan.structured
+    if (st is None or st[0][0] != k * cols_d or st[0][3] != plen
+            or sub_plan.n_blocks != nb_local):
+        return None              # sub-geometry didn't reproduce the stream
+
+    syms = staged.chunk_syms
+    return StripeSplit(
+        plan=sub_plan, n_stripes=n_stripes, mcu_rows=rows_d, k_mcu=k,
+        n_blocks_local=nb_local, words=words_s, anchor_bits=abits_s,
+        anchor_block=ablk_s, anchor_slot=aslot_s, luts=staged.luts,
+        tabs=(None if staged.tab_maxcode is None else
+              (staged.tab_maxcode, staged.tab_delta,
+               staged.tab_values.view(np.int32))),
+        comp_to_upair=staged.comp_to_upair,
+        n_items=tuple(i1 - i0 for i0, i1 in ranges),
+        n_words=tuple(h - l for l, h in zip(w0s, w_his)),
+        s_max=tuple(int(syms[i0:i1].max()) if syms is not None and i1 > i0
+                    else plan.s_max for i0, i1 in ranges))
+
+
+def stripe_wire(split: StripeSplit, d: int) -> tuple:
+    """Stripe d's 12 B/chunk anchor wire, int32 numpy arrays (words, dm,
+    ab, base) for K1 (`entropy/chunk_decode.py::decode_chunks`), and its
+    s_max: the stripe's words, `budget << 4 | slot` per real chunk (each
+    budget the distance to the next chunk's first block, the last one's to
+    the stripe's real block extent, `anchor_block[d, m]`: never more than
+    the chunk's own budget, so the fields hold), entry bits and first
+    blocks rebased to the stripe (the straddler's negative)."""
+    m = split.n_items[d]
+    ablk = split.anchor_block[d].astype(np.int64)
+    dm = anchor_meta(ablk[1:m + 1] - ablk[:m],
+                     split.anchor_slot[d, :m].astype(np.int64))
+    words = np.ascontiguousarray(
+        split.words[d, :max(split.n_words[d], 1)]).view(np.int32)
+    return (words, dm, np.ascontiguousarray(split.anchor_bits[d, :m])
+            .view(np.int32), ablk[:m].astype(np.int32)), \
+        max(split.s_max[d], 1)
+
+
+def _decode_stripes(staged_list: list, splits: list, devs, mesh) -> list:
+    """The images of one data shard (one plan), each striped over `devs`:
+    per stripe, on its device, K1 over each image's stripe wire, the DC
+    totals, then assembly with the carry of the earlier stripes and the
+    halo'd reconstruction of every image of the shard at once. Returns
+    per stripe uint8 [b, R, W(, C)] on its device."""
+    s0, st0 = splits[0], staged_list[0]
+    n = s0.n_stripes
+    nats, totals = [], []
+    for d, dev in enumerate(devs):
+        params = mesh.params(dev)
+        per_image = []
+        for st, sp in zip(staged_list, splits):
+            scan = st.scans[0].scan
+            arrays, s_max = stripe_wire(sp, d)
+            words, dm, ab, base = put(arrays, dev)
+            with torch.profiler.record_function("k1_decode"):
+                per_image.append(decode_chunks(
+                    words, dm, ab, base, params.tables(scan), s_max,
+                    sp.n_blocks_local))
+        nat = torch.stack(per_image)
+        nats.append(nat)
+        totals.append(dc_totals(nat, s0.plan))         # [b, ncomp] int64
+    carries = exclusive_carry(totals)
+    kept = st0.scans[0].kept
+    stores = []
+    for d in range(n):
+        with torch.profiler.record_function("assemble"):
+            scan_stores = assemble_nat(nats[d], s0.plan, None, carries[d].T)
+        local = [None] * len(st0.qts)
+        for pos, comp_i in kept:
+            local[comp_i] = scan_stores[pos]
+        stores.append(local)
+    recon = build_stripe_local_recon(st0.geometry, s0.mcu_rows, n)
+    with torch.profiler.record_function("reconstruct"):
+        return recon(stores, [st.qts for st in staged_list],
+                     [mesh.params(dev) for dev in devs])
+
+
+def _crop_rows(outs: list, rows: int) -> list:
+    """The stripes' outputs [b, R, ...] cut to the image's `rows` output
+    rows (the padding stripes' rows dropped before the gather)."""
+    cut, off = [], 0
+    for o in outs:
+        take = max(0, min(o.shape[1], rows - off))
+        off += o.shape[1]
+        if take:
+            cut.append(o[:, :take])
+    return cut
+
+
+def _split_one(st, n: int):
+    """The StripeSplit of a StagedBits whose one scan covers every
+    component, or None."""
+    if st is None or len(st.scans) != 1:
+        return None
+    if len(st.scans[0].kept) != len(st.qts):
+        return None
+    return split_anchored_stripes(st.scans[0].scan, n)
+
+
+def check_engine(engine) -> None:
+    """The reference's `engine` argument: None or "xla", the port's one
+    engine (K1 on the anchor wire); anything else raises."""
+    if engine not in (None, "xla"):
+        raise ValueError(f"engine {engine!r}: the port has one engine (K1 "
+                         "on the anchor wire); pass None or 'xla'")
+
+
+def decode_bits_striped(staged_bits, mesh, stripe_axis: str = "stripe",
+                        engine: str = None):
+    """Decode ONE staged image with its MCU rows, entropy decode included,
+    split over `mesh`'s stripe axis. Returns uint8 [H, W(, C)] on the
+    mesh's first device (the stripes' rows gathered there, cropped to the
+    output size), or None when the image isn't stripe-eligible (the caller
+    falls back to the one-device pipeline).
+
+    `staged_bits`: a `models.stream.StagedBits` with one scan covering
+    every component. `engine`: `check_engine`."""
+    check_engine(engine)
+    n = int(mesh.shape[stripe_axis])
+    split = _split_one(staged_bits, n)
+    if split is None:
+        return None
+    geometry = staged_bits.geometry
+    outs = _decode_stripes([staged_bits], [split],
+                           mesh.axis_devices(stripe_axis), mesh)
+    return gather_rows(_crop_rows(outs, geometry.out_height), mesh.first,
+                       dim=1)[0]
+
+
+def decode_bits_striped_batch(staged_list, mesh, data_axis: str = "data",
+                              stripe_axis: str = "stripe"):
+    """Decode a batch of SAME-LAYOUT staged images with batch DP over
+    `data_axis` and per-image MCU-row stripes (entropy included) over
+    `stripe_axis`: the DP x SP composition on the bits path. Returns uint8
+    [B, H, W(, C)] on the mesh's first device, or None when an image
+    declines (different plans or geometries, stripe-ineligible). The batch
+    must be a multiple of the data-axis size. Plans compare by their key
+    (equal plans built after a cache eviction are the same layout). Each
+    image decodes with its own Huffman and quantization tables."""
+    n = int(mesh.shape[stripe_axis])
+    nd = int(mesh.shape[data_axis])
+    if not staged_list or len(staged_list) % nd:
+        return None
+    splits = [_split_one(st, n) for st in staged_list]
+    if any(sp is None for sp in splits):
+        return None
+    if any(sp.plan != splits[0].plan for sp in splits[1:]):
+        return None
+    g0 = staged_list[0].geometry
+    if any(st.geometry != g0 for st in staged_list[1:]):
+        return None
+    per = len(staged_list) // nd
+    grid = mesh.axis_devices(data_axis, stripe_axis)
+    parts = []
+    for k, devs in enumerate(grid):
+        outs = _decode_stripes(staged_list[k * per:(k + 1) * per],
+                               splits[k * per:(k + 1) * per], devs, mesh)
+        parts.append(gather_rows(_crop_rows(outs, g0.out_height), mesh.first,
+                                 dim=1))
+    return torch.cat(parts)

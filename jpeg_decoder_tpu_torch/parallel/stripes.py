@@ -1,0 +1,227 @@
+"""Port of `jpeg_decoder_tpu/parallel/stripes.py`: MCU-row stripe
+parallelism, one image's rows over the mesh's "stripe" axis.
+
+The image's MCU rows split into contiguous stripes of k = ceil(mcu_rows /
+n) rows, one per device. Dequantize + IDCT is local to a stripe; the only
+cross-stripe dependency is the V2 vertical chroma filter, whose far row
+can reach one plane row into the neighbouring stripe
+(`/root/reference/src/upsampler.rs:174-177`). Each device sends its edge
+rows to its neighbours (`mesh.halo_rows`, the reference's `lax.ppermute`),
+after which upsampling and color conversion are local again. Output rows
+come back one block per stripe and are gathered on one device.
+
+Bit-exactness: every stripe runs the exact int32 IDCT
+(`ops/idct.py::dequantize_and_idct_blocks`, as the reference's stripes do
+at any precision) and evaluates the same integer filter taps over
+globally indexed near and far rows; padding stripes (when the MCU rows do
+not divide evenly) make rows that are cropped off.
+
+Each stripe's work is eager PyTorch on its own device, enqueued by one
+caller: the exact IDCT is ~130 ops per component, so a stripe costs
+about as many launches as a whole image does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..host.ops.upsample import GENERIC, H1V1, H1V2, H2V1, H2V2
+from ..ops.color import color_convert_image
+from ..ops.idct import blocks_to_plane, dequantize_and_idct_blocks
+from ..ops.upsample import _h2_horizontal, h2v2_combine
+from ..transfer import put
+from .mesh import gather_rows, halo_rows
+
+
+def build_stripe_local_recon(geometry, mcu_rows: int, n_stripes: int):
+    """The per-stripe reconstruction of `geometry` cut into `n_stripes`
+    stripes of ceil(mcu_rows / n_stripes) MCU rows: dequantize + IDCT, the
+    1-row V2 chroma halo exchange, upsampling and color. Returns
+    recon(stores, qts_b, params) -> list, one uint8 [N, R, out_w(, C)]
+    per stripe on its device (R the stripe's output rows), where
+    stores[d] holds stripe d's per-component int16 [N, k * v_i *
+    blocks_wide_i, 64] on its device, qts_b per image its per-component
+    uint16[64] tables and params[d] the `DeviceParams` of stripe d's
+    device. The reference's `build_stripe_local_recon` runs inside
+    shard_map over the stripe axis; here the lists run along it. Shared
+    by the store-level stripe pipeline (`make_stripe_pipeline`) and the
+    entropy-included one (`stripe_bits.py`)."""
+    comps = geometry.components
+    k_mcu = -(-mcu_rows // n_stripes)            # MCU rows per stripe
+    v = [c.blocks_high // mcu_rows for c in comps]
+    scale = comps[0].dct_scale
+    R = k_mcu * max(v) * scale                   # output rows per stripe
+    lp = [k_mcu * vi * scale for vi in v]        # plane rows per component
+    out_w = geometry.out_width
+
+    def recon(stores, qts_b, params) -> list:
+        planes = [
+            [blocks_to_plane(
+                dequantize_and_idct_blocks(
+                    store, params[d].qts_exact([q[ci] for q in qts_b]),
+                    comp.dct_scale),
+                comp.blocks_wide, k_mcu * v[ci])
+             for ci, (comp, store) in enumerate(zip(comps, stores[d]))]
+            for d in range(n_stripes)]
+        halos = {ci: halo_rows([planes[d][ci] for d in range(n_stripes)])
+                 for ci, comp in enumerate(comps)
+                 if comp.upsampler_mode in (H1V2, H2V2)}
+        outs = []
+        for d in range(n_stripes):
+            dev = planes[d][0].device
+            r_g = d * R + torch.arange(R, device=dev)
+            channels = []
+            for ci, comp in enumerate(comps):
+                plane = planes[d][ci]
+                mode, iw, ih = (comp.upsampler_mode, comp.size_width,
+                                comp.size_height)
+                if mode == H1V1:
+                    channels.append(plane[..., :R, :out_w])
+                elif mode == H2V1:
+                    rows = plane[..., :R, :iw].to(torch.int32)
+                    channels.append(_h2_horizontal(rows, iw)[..., :out_w]
+                                    .to(torch.uint8))
+                elif mode in (H1V2, H2V2):
+                    top, bot = halos[ci][d]
+                    ext = torch.cat([top, plane, bot], dim=-2)
+                    near_g = r_g // 2
+                    far_g = torch.where(r_g % 2 == 0, near_g - 1,
+                                        near_g + 1).clamp(0, ih - 1)
+                    base = d * lp[ci]
+                    near_l = (near_g - base + 1).clamp(0, lp[ci] + 1)
+                    far_l = (far_g - base + 1).clamp(0, lp[ci] + 1)
+                    width = out_w if mode == H1V2 else iw
+                    near = ext[..., near_l, :width].to(torch.int32)
+                    far = ext[..., far_l, :width].to(torch.int32)
+                    if mode == H1V2:
+                        channels.append(((3 * near + far + 2) >> 2)
+                                        .to(torch.uint8))
+                    else:
+                        channels.append(
+                            h2v2_combine(near, far, iw)[..., :out_w])
+                elif mode == GENERIC:   # nearest neighbour: stripe-local
+                    src = (r_g // comp.v_scale - d * lp[ci]).clamp(
+                        0, plane.shape[-2] - 1)
+                    out = plane[..., src, :iw].repeat_interleave(
+                        comp.h_scale, dim=-1)
+                    channels.append(out[..., :out_w])
+                else:
+                    raise ValueError(f"unknown upsampler mode {mode}")
+            if geometry.transform is None:
+                outs.append(channels[0])
+            else:
+                outs.append(color_convert_image(channels,
+                                                geometry.transform))
+        return outs
+
+    return recon
+
+
+def _shards(batch: int, n_data: int) -> list:
+    """The reference's `PartitionSpec(data)` split of `batch` rows over
+    `n_data` devices: contiguous blocks of ceil(batch / n_data) (a batch
+    that does not divide leaves the last blocks short or empty, where the
+    reference refuses it). [(first, end), ...] per device."""
+    per = -(-batch // n_data)
+    return [(min(i * per, batch), min((i + 1) * per, batch))
+            for i in range(n_data)]
+
+
+def make_stripe_pipeline(geometry, mcu_rows: int, n_stripes: int, mesh,
+                         stripe_axis: str = "stripe", data_axis: str = None):
+    """The striped reconstruction over `mesh`.
+
+    Expects per-component numpy stores padded to ceil(mcu_rows/n) * n MCU
+    rows. Returns fn(stores, qts) -> uint8 [n * R, W(, C)] on the mesh's
+    first device, the stripes' rows gathered there (R = a stripe's output
+    rows).
+
+    With `data_axis` set, the stores carry a leading batch axis split over
+    that mesh axis, each image's rows striped over `stripe_axis` (batch DP
+    and stripe SP composed; the halo exchanges run along the stripe axis,
+    the data axis needs none): fn -> [B, n * R, W(, C)]. `qts` is one
+    per-component table tuple shared by every image, as in the
+    reference."""
+    recon = build_stripe_local_recon(geometry, mcu_rows, n_stripes)
+    if data_axis is None:
+        grid = mesh.axis_devices(stripe_axis)[None]
+    else:
+        grid = mesh.axis_devices(data_axis, stripe_axis)
+    if grid.shape[1] != n_stripes:
+        raise ValueError(f"mesh axis {stripe_axis!r} has {grid.shape[1]} "
+                         f"devices, not {n_stripes}")
+
+    def run(stores, qts):
+        stores = [np.asarray(s) for s in stores]
+        if data_axis is None:
+            stores = [s[None] for s in stores]
+        batch = stores[0].shape[0]
+        parts = []
+        for devs, (b0, b1) in zip(grid, _shards(batch, len(grid))):
+            if b1 <= b0:
+                continue
+            local = [[put((np.ascontiguousarray(
+                s[b0:b1].reshape(b1 - b0, n_stripes, -1, 64)[:, d]),),
+                dev)[0] for s in stores]
+                for d, dev in enumerate(devs)]
+            outs = recon(local, [qts] * (b1 - b0),
+                         [mesh.params(dev) for dev in devs])
+            parts.append(gather_rows(outs, mesh.first, dim=1))
+        out = torch.cat(parts) if len(parts) > 1 else parts[0]
+        return out if data_axis is not None else out[0]
+
+    return run
+
+
+def _pad_rows(geometry, stores, mcu_rows: int, n: int, batched: bool):
+    """Stores padded with zero blocks to ceil(mcu_rows / n) * n MCU rows."""
+    k = -(-mcu_rows // n)
+    padded = []
+    for c, store in zip(geometry.components, stores):
+        want = k * n * (c.blocks_high // mcu_rows)
+        s = np.asarray(store)
+        lead = s.shape[:1] if batched else ()
+        blocks = s.reshape(*lead, c.blocks_high, c.blocks_wide, 64)
+        if want > c.blocks_high:
+            pad = np.zeros((*lead, want - c.blocks_high, c.blocks_wide, 64),
+                           np.int16)
+            blocks = np.concatenate([blocks, pad], axis=len(lead))
+        padded.append(blocks.reshape(*lead, -1, 64))
+    return padded
+
+
+def decode_striped(geometry, stores, qts, mesh, mcu_rows: int,
+                   stripe_axis: str = "stripe") -> np.ndarray:
+    """Decode one image with its MCU rows split over `mesh`'s stripe axis.
+
+    stores: np.int16 [blocks_high_i * blocks_wide_i, 64] per component (the
+    full grids); qts: np.uint16[64] per component. Returns the np.uint8
+    image cropped to the geometry's output size."""
+    n = mesh.shape[stripe_axis]
+    fn = make_stripe_pipeline(geometry, mcu_rows, n, mesh, stripe_axis)
+    out = fn(_pad_rows(geometry, stores, mcu_rows, n, False),
+             tuple(np.asarray(q) for q in qts)).cpu().numpy()
+    if geometry.transform is None:
+        comp = geometry.components[0]
+        return out[:comp.size_height, :comp.size_width]
+    return out[:geometry.out_height]
+
+
+def decode_striped_batch(geometry, stores_batched, qts, mesh, mcu_rows: int,
+                         data_axis: str = "data",
+                         stripe_axis: str = "stripe") -> np.ndarray:
+    """A batch of same-geometry images, each striped: DP x SP.
+
+    stores_batched: np.int16 [B, blocks_high_i * blocks_wide_i, 64] per
+    component. Returns np.uint8 [B, ...] cropped to the geometry's output
+    size."""
+    n = mesh.shape[stripe_axis]
+    fn = make_stripe_pipeline(geometry, mcu_rows, n, mesh, stripe_axis,
+                              data_axis=data_axis)
+    out = fn(_pad_rows(geometry, stores_batched, mcu_rows, n, True),
+             tuple(np.asarray(q) for q in qts)).cpu().numpy()
+    if geometry.transform is None:
+        comp = geometry.components[0]
+        return out[:, :comp.size_height, :comp.size_width]
+    return out[:, :geometry.out_height]

@@ -37,7 +37,13 @@ refilled before its copy has run; a put returns before queued work ends.
 The front end: `Decoder` bit-equal to the host decode at "exact" and
 within 3 at "fast" with one K2 launch, lossless with one L1 launch per
 component at predictors 6 and 7 and none at 1; the service equal to the
-`Decoder`; a timed stream equal to an untimed one.
+`Decoder`; a timed stream equal to an untimed one. The mesh, on slots of
+the card: K1 bit-equal to its plain version on every stripe wire (first
+blocks negative where a stripe starts inside a chunk, last chunks cut at
+the stripe's end) of stripe_420.jpg at 8 stripes and large_420 at 4 and
+8; `decode_striped` bit-equal to the host exact decode with one K1 launch
+per stripe; mesh groups bit-equal to the meshless decode with K1 and K2
+once per shard.
 """
 
 import time
@@ -611,3 +617,64 @@ def test_link_probe_on_card(cuda):
     from jpeg_decoder_tpu_torch.utils import link
 
     assert link.probe() > 0
+
+
+@pytest.mark.parametrize("name,n", [("stripe_420.jpg", 8),
+                                    ("large_420.jpg", 4),
+                                    ("large_420.jpg", 8)])
+def test_k1_bit_equal_to_plain_on_every_stripe_wire(cuda, name, n):
+    from jpeg_decoder_tpu_torch.parallel.stripe_bits import (
+        split_anchored_stripes, stripe_wire)
+
+    params = DeviceParams(cuda)
+    scan = jt.stage_host_bits(fixture(name)).scans[0].scan
+    split = split_anchored_stripes(scan, n)
+    negative = 0
+    for d in range(n):
+        arrays, s_max = stripe_wire(split, d)
+        args = tuple(torch.from_numpy(a).to(cuda) for a in arrays) + (
+            params.tables(scan), s_max, split.n_blocks_local)
+        torch.testing.assert_close(decode_chunks(*args),
+                                   decode_chunks_plain(*args), rtol=0,
+                                   atol=0)
+        negative += int(len(arrays[3]) > 0 and arrays[3][0] < 0)
+    if name == "stripe_420.jpg":
+        assert negative >= 4
+
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_decode_striped_on_card_slots(cuda, n):
+    from jpeg_decoder_tpu_torch.host.decoder import Decoder as HostDecoder
+    from jpeg_decoder_tpu_torch.parallel import make_mesh
+
+    data = fixture("tower_420.jpg")
+    mesh = make_mesh({"stripe": n}, ["cuda:0"] * n)
+    jt.reset_launches()
+    with jt.DeviceStreamDecoder(mesh=mesh, host_threads=1) as dec:
+        img = dec.decode_striped(data)
+    torch.cuda.synchronize()
+    assert jt.LAUNCHES["huffman_decode"] == n and img.is_cuda
+    gold = HostDecoder(data, backend="numpy", precision="exact")
+    assert np.array_equal(img.cpu().numpy(), gold.decode_array())
+
+
+@pytest.mark.parametrize("interchange", ["bits", "prefix"])
+def test_mesh_groups_on_card_slots(cuda, interchange):
+    from jpeg_decoder_tpu_torch.parallel import make_mesh
+
+    stream = [fixture("tower_420.jpg")] * 8 + [fixture("small_444.jpg")] * 3
+    with jt.DeviceStreamDecoder(host_threads=2,
+                                interchange=interchange) as dec:
+        want = dec.decode_stream(stream)
+    mesh = make_mesh({"data": 4}, ["cuda:0"] * 4)
+    jt.reset_launches()
+    with jt.DeviceStreamDecoder(mesh=mesh, host_threads=2,
+                                interchange=interchange) as dec:
+        got = dec.decode_stream(stream, batch_size=8)
+    torch.cuda.synchronize()
+    # tower_420 x 8: 4 shards of 2; small_444 x 3 (bucket 4): 3 shards of 1.
+    assert jt.LAUNCHES["dequant_idct"] == 7
+    assert jt.LAUNCHES["huffman_decode"] == (7 if interchange == "bits"
+                                             else 0)
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)

@@ -3,7 +3,8 @@
   on the CPU in the interleaved and the planar-pallas layouts, and through
   every other path of the one-image decoder (exact precision, progressive
   and quirk streams through transcode, the three-table-pair anchor wire,
-  the prefix interchange and lossless) and in batches (`batch_size=3`),
+  the prefix interchange and lossless), in batches (`batch_size=3`) and
+  on a mesh of CPU slots (groups over "data", `decode_striped`),
   and must end with no `jax`,
   `jaxlib`, `triton` or `jpeg_decoder_tpu` module loaded and no CUDA
   library built or loaded: the port stages through its own copy of the
@@ -83,6 +84,13 @@ with jt.DeviceStreamDecoder(device="cpu", host_threads=1,
                             timer=timer) as dec:
     dec.decode_stream([data, data], batch_size=2)
 assert timer.counts["host_stage"] == 2
+# The mesh: groups over "data", one image's stripes over "stripe".
+from jpeg_decoder_tpu_torch.parallel import make_mesh
+mesh = make_mesh({"data": 2, "stripe": 2}, ["cpu"] * 4)
+with jt.DeviceStreamDecoder(mesh=mesh, host_threads=1) as dec:
+    out = dec.decode_stream([data] * 3, batch_size=3)
+    assert all((o == img).all() for o in out)
+    assert tuple(dec.decode_striped(data).shape) == (190, 250, 3)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton",
                                     "jpeg_decoder_tpu"))

@@ -3,8 +3,8 @@
 backend="numpy")` and `backend="jax"` on CPU JAX, on the committed
 fixtures and a synthesized stream of mixed geometries. Tolerance:
 bit-equal (the staging builds each geometry at precision "exact", so every
-reconstruction is integer math). The reference's mesh-sharded batches are
-ROADMAP item 14: a mesh raises.
+reconstruction is integer math). The service on a mesh is held against
+the reference's in tests/test_torch_mesh.py.
 """
 
 import numpy as np
@@ -75,9 +75,15 @@ def test_service_matches_the_decoder(sources):
 
 
 def test_mesh_and_unknown_backend_raise():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        jt.BatchDecodeService(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        jt.decode_many([], mesh=object(), device="cpu")
+    """A mesh with a device it does not hold raises (the mesh places the
+    work; the mesh path itself: tests/test_torch_mesh.py), as does an
+    unknown backend."""
+    from jpeg_decoder_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"data": 2}, ["cpu"] * 2)
+    with pytest.raises(ValueError, match="with a mesh"):
+        jt.BatchDecodeService(mesh=mesh, device="cuda:1")
+    with pytest.raises(ValueError, match="with a mesh"):
+        jt.decode_many([], mesh=mesh, device="cuda:1")
     with pytest.raises(ValueError, match="backend"):
         jt.BatchDecodeService(backend="jax", device="cpu")

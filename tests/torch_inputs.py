@@ -261,3 +261,47 @@ def quirk_jpeg(seed: int = 0) -> bytes:
     return (b"\xff\xd8" + segment(0xDB, dqt) + segment(0xC4, dc_dht)
             + segment(0xC4, ac_dht) + segment(0xC0, sof)
             + segment(0xDA, sos) + scan.tobytes() + b"\xff\xd9")
+
+
+def stripe_jpeg(h: int, w: int, mode: str = "RGB", seed: int = 0,
+                **save_kw) -> bytes:
+    """The recipe of tests/test_stripe_bits.py (`_jpeg`): random pixels in
+    [0, 255), PIL quality 80, `save_kw` passed to PIL (subsampling,
+    restart_marker_blocks)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    if mode == "L":
+        im = Image.fromarray(rng.integers(0, 255, (h, w)).astype(np.uint8),
+                             "L")
+    else:
+        im = Image.fromarray(rng.integers(0, 255, (h, w, 3))
+                             .astype(np.uint8))
+    buf = io.BytesIO()
+    im.save(buf, format="JPEG", quality=80, **save_kw)
+    return buf.getvalue()
+
+
+# The reference's stripe cases (tests/test_stripe_bits.py:55-69), plus one
+# whose last stripes hold no chunk (9 MCU rows over 8 stripes of 2):
+# (name, seed, h, w, mode, n_stripes, save_kw).
+STRIPE_CASES = [
+    ("420", 101, 488, 648, "RGB", 8, dict(subsampling=2)),
+    ("444", 102, 333, 500, "RGB", 8, dict(subsampling=0)),
+    ("422", 103, 256, 256, "RGB", 8, dict(subsampling=1)),
+    ("gray", 104, 300, 400, "L", 8, {}),
+    ("420-dri-aligned", 105, 512, 512, "RGB", 4,
+     dict(subsampling=2, restart_marker_blocks=4)),
+    ("420-dri-one-seg-per-stripe", 106, 512, 512, "RGB", 4,
+     dict(subsampling=2, restart_marker_blocks=256)),
+    ("444-small", 107, 64, 64, "RGB", 8, dict(subsampling=0)),
+    ("420-mesh4-odd", 108, 100, 90, "RGB", 4, dict(subsampling=2)),
+    ("444-empty-stripes", 109, 72, 64, "RGB", 8, dict(subsampling=0)),
+]
+
+
+def stripe_case(name: str) -> tuple:
+    """(jpeg bytes, n_stripes) of one STRIPE_CASES entry."""
+    _name, seed, h, w, mode, n, kw = next(c for c in STRIPE_CASES
+                                          if c[0] == name)
+    return stripe_jpeg(h, w, mode, seed, **kw), n

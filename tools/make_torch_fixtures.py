@@ -12,7 +12,11 @@ The set covers the main path's shapes: one ~3.4 Mpix 4:2:0 image (the
 grayscale, restart-interval (DRI), subsampled CMYK and RGB-stored images
 with edges that are not MCU multiples; two progressive ones, the large
 image's own array and a small 4:2:2 image; and six 4:2:0 images of the
-mixed sizes of an ImageNet-class data set (at most 0.25 Mpix each).
+mixed sizes of an ImageNet-class data set (at most 0.25 Mpix each). One
+more, `stripe_420.jpg`, is pure noise by the recipe of the JAX package's
+stripe tests (`tests/test_stripe_bits.py:38-69`, case "420": random pixels
+in [0, 255), seed 101, q80): its 8-stripe split starts stripes inside
+chunks, which the card tests of the stripe wire need.
 
 Lossless (SOF3) streams are not committed: `sof3_jpeg` writes them at run
 time from seeded samples (`sof3_samples`), with numpy alone (no PIL, no
@@ -60,6 +64,10 @@ FIXTURES = {
                                    (333, 500), (448, 448), (320, 240)))},
 }
 QUALITY = 85
+# name -> (width, height, PIL save options, seed): random pixels, q80.
+NOISE_FIXTURES = {
+    "stripe_420.jpg": (648, 488, {"subsampling": 2}, 101),
+}
 
 
 def textured(h: int, w: int, channels: int, noise: float,
@@ -86,6 +94,13 @@ def textured(h: int, w: int, channels: int, noise: float,
 def encode(name: str) -> bytes:
     from PIL import Image
 
+    if name in NOISE_FIXTURES:
+        w, h, opts, seed = NOISE_FIXTURES[name]
+        rng = np.random.default_rng(seed)
+        arr = rng.integers(0, 255, (h, w, 3)).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format="JPEG", quality=80, **opts)
+        return buf.getvalue()
     w, h, mode, opts, noise, seed = FIXTURES[name]
     arr = textured(h, w, {"L": 1, "CMYK": 4}.get(mode, 3), noise, seed)
     buf = io.BytesIO()
@@ -217,7 +232,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     bad = 0
-    for name in FIXTURES:
+    for name in (*FIXTURES, *NOISE_FIXTURES):
         data = encode(name)
         path = OUT_DIR / name
         if args.check:
