@@ -120,7 +120,21 @@ from csrc/ and holding each against its plain PyTorch version on the card:
    beside the card's name and power limit): CUDA-event ms per image of the
    striped decode's device half at 4 and 8 stripes beside the meshless
    exact decode's, launches per image, the halo, carry and gather bytes,
-   and each DP shard's device ms.
+   and each DP shard's device ms;
+20. the mesh across two processes: `tools/multiproc_mesh_torch.py --device
+   cuda`, two ranks joined by torch.distributed (gloo over 127.0.0.1), each
+   driving 4 slots of the card, every exchange between them staged through
+   host memory: DP over "data"=8 with each rank staging its own rows, SP
+   over "stripe"=8 with the halo across the process seam, tower_420 and
+   tower_420_q92 in a prefix group (exact) and a bits group (fast), eight
+   512 x 512 16-bit SOF3 slices (predictor 6), and large_420 and
+   stripe_420.jpg striped over 8 with entropy decode (the DC carry and the
+   halo across the seam). Per rank: every phase bit-equal to the same
+   decode in that process, K1, K2 and L1 launched once per shard, stripe or
+   plan as the phase says, K1 bit-equal to its plain version on the rank's
+   own stripe wires, the bytes that crossed between the processes by kind,
+   and the CUDA-event ms of the striped large_420 decode beside phase 19's
+   one-process figure. A rank's failure or timeout fails the run.
 
 Any failure raises and the script exits nonzero. It needs a CUDA device and
 the repository around it; it imports neither JAX, nor PIL, nor the JAX
@@ -1194,7 +1208,85 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
         dp_x_sp_bits={"images": 4, "launches": launches},
         service={"images": len(blobs), "launches": service_launches},
         dryrun=ran, cards=torch.cuda.device_count())
-    return {"stripe_launches": stripe_launches, "k1_err": k1_err}
+    return {"stripe_launches": stripe_launches, "k1_err": k1_err,
+            "striped_8_ms": striped["8 stripes"]["ms_per_image"]}
+
+
+MULTIPROC_TIMEOUT = 480     # 20: seconds for the two-process harness
+MULTIPROC_MARK = "MULTIPROC-MESH-TORCH OK"
+
+
+def phase_multiproc(jt, card: str, one_process_ms: float) -> dict:
+    """20. The mesh across two processes on the card. Returns each rank's
+    launches per kernel over the harness's phases."""
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "multiproc_mesh_torch.py"),
+         "--device", "cuda", "--timeout", str(MULTIPROC_TIMEOUT)],
+        cwd=ROOT, capture_output=True, text=True,
+        timeout=MULTIPROC_TIMEOUT + 60)
+    if res.returncode != 0 or res.stdout.count(MULTIPROC_MARK) != 2:
+        raise AssertionError(f"20 the two-process harness failed (exit "
+                             f"{res.returncode}):\n{res.stdout[-4000:]}\n"
+                             f"{res.stderr[-2000:]}")
+    reports = {}
+    for line in res.stdout.splitlines():
+        if line.startswith('{"rank"'):
+            rep = json.loads(line)
+            reports[rep["rank"]] = rep
+    if sorted(reports) != [0, 1]:
+        raise AssertionError(f"20 rank reports {sorted(reports)}")
+    per_rank = {}
+    for rank, rep in sorted(reports.items()):
+        phases = rep["phases"]
+        want = {  # phase -> launches each rank must count
+            "3 bits": {"huffman_decode": phases["3 bits"]["local_shards"],
+                       "dequant_idct":
+                       sum(phases["3 bits"]["plans_per_shard"])},
+            "4 lossless": {"lossless_recur": 4},
+            "5 large_420": {"huffman_decode": 4, "dequant_idct": 0},
+            "5 stripe_420": {"huffman_decode": 4, "dequant_idct": 0}}
+        wrong = {name: {k: (phases[name]["launches"][k], v)
+                        for k, v in counts.items()
+                        if phases[name]["launches"][k] != v}
+                 for name, counts in want.items()}
+        wrong = {k: v for k, v in wrong.items() if v}
+        unequal = [name for name, rec in phases.items()
+                   if rec.get("equal") is not True]
+        k1_err = max(phases[f"5 {n}"]["k1_vs_plain_on_own_stripe_wires"]
+                     for n in ("large_420", "stripe_420"))
+        crossed = {name: rec["crossed"] for name, rec in phases.items()}
+        quiet = [name for name in ("1 dp", "3 prefix", "3 bits",
+                                   "4 lossless") if any(crossed[name].values())]
+        seamless = [name for name in ("2 sp", "5 large_420", "5 stripe_420")
+                    if not crossed[name]["halo"]]
+        if wrong or unequal or k1_err or quiet or seamless or (
+                rank == 1 and not crossed["5 large_420"]["carry"]):
+            raise AssertionError(
+                f"20 rank {rank}: launches (got, want) {wrong}, not equal "
+                f"{unequal}, K1 vs plain {k1_err}, crossed {crossed}")
+        per_rank[rank] = {k: sum(rec["launches"][k] for rec in phases.values())
+                          for k in jt.LAUNCHES}
+        say(f"20 rank {rank}", card=card, device=rep["device"],
+            slots=rep["local_slots"],
+            verdicts={name: "bit-equal" for name in phases},
+            launches={name: {k: rec["launches"][k] for k in
+                             ("huffman_decode", "dequant_idct",
+                              "lossless_recur")}
+                      for name, rec in phases.items()},
+            k1_vs_plain_on_own_stripe_wires=k1_err,
+            own_wires_with_negative_first_block={
+                n: phases[f"5 {n}"]["own_wires_with_negative_first_block"]
+                for n in ("large_420", "stripe_420")},
+            crossed_bytes=crossed,
+            exchanged_bytes={name: rec["exchanged"]
+                             for name, rec in phases.items()},
+            staged_rows={name: rec["staged_rows"] for name, rec in
+                         phases.items() if "staged_rows" in rec},
+            phase_ms={name: rec["ms"] for name, rec in phases.items()},
+            striped_large_420_cuda_event_ms=phases["5 large_420"][
+                "cuda_event_ms_per_image"],
+            one_process_19_striped_8_ms=one_process_ms)
+    return per_rank
 
 
 def main() -> int:
@@ -1553,6 +1645,9 @@ def main() -> int:
     mesh = phase_mesh(jt, data, params, dev, card)
     k1_err = max(k1_err, mesh["k1_err"])
 
+    # 20. The mesh across two processes.
+    multiproc = phase_multiproc(jt, card, mesh["striped_8_ms"])
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
                     in ("jax", "jaxlib", "jpeg_decoder_tpu"))
     if loaded:
@@ -1592,6 +1687,9 @@ def main() -> int:
                    bound_ms=tab["bound_us"] / 1e3, bound_by=tab["bound_by"],
                    launches_per_image=tab["launches_per_image"])
     kernels[0]["stripe_launches"] = mesh["stripe_launches"]
+    for row, key in zip(kernels, _build.LAUNCHES):
+        row["multiproc_launches"] = {f"rank {rank}": counts[key]
+                                     for rank, counts in multiproc.items()}
     kernels[1]["library_device_us"] = table["K2"]["library_device_us"]
     kernels[1]["front_end_launches"] = front["K2"]
     kernels[4]["front_end_launches"] = front["L1"]

@@ -63,6 +63,11 @@ class BatchDecodeService:
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of "
                              f"{BACKENDS}")
+        if mesh is not None and mesh.processes > 1:
+            raise NotImplementedError(
+                "BatchDecodeService on a mesh across processes is not "
+                "ported (the rest of ROADMAP item 16): pass a mesh of this "
+                "process's devices")
         self.mesh = mesh
         self.host_threads = host_threads
         self.backend = backend

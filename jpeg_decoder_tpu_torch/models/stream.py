@@ -84,7 +84,11 @@ the reference shards it: `_batch_bucket(n)` rounded up to a multiple of
 the axis size sets the rows per device, and each device runs the group
 path above on its rows (its padding rows hold no image and are not
 decoded). `decode_striped` decodes one image's MCU rows across a stripe
-axis (`parallel/stripe_bits.py`).
+axis (`parallel/stripe_bits.py`). On a mesh across processes
+(`parallel/dist.py`) the decode is SPMD, as the reference's under
+`jax.distributed`: every process gets the same sources and stages them,
+runs only its own shards, and holds `Remote(rank)` in the places of the
+other processes' images.
 """
 
 from __future__ import annotations
@@ -114,6 +118,7 @@ from ..host.staging import (_ZIGZAG_OF_NATURAL, PREFIX_K, BitstreamCapture,
                             _staged_lossless_from_capture, stage_host)
 from ..ops.pipeline import reconstruct, reconstruct_planar_pallas
 from ..ops.predictors import reconstruct_planes
+from ..parallel.dist import Remote, Shard
 from ..parallel.mesh import mesh_device
 from ..parallel.stripe_bits import check_engine, decode_bits_striped
 from ..params import DeviceParams
@@ -621,10 +626,12 @@ class DeviceStreamDecoder:
         exchange, always at the exact integer IDCT, in the interleaved
         layout (the reference's `decode_striped`, `stream.py:1296`).
         Returns one tensor on the mesh's first device, the stripes' rows
-        gathered there (the reference returns an array sharded on rows).
+        gathered there (the reference returns an array sharded on rows);
+        on a mesh across processes, this process's `Shard`s of the rows.
         Falls back to `decode_one` when there is no mesh, the mesh has no
-        such axis or the image declines. `engine`: None or "xla"
-        (`stripe_bits.check_engine`)."""
+        such axis or the image declines (on a mesh across processes, the
+        whole image as this process's one `Shard`). `engine`: None or
+        "xla" (`stripe_bits.check_engine`)."""
         check_engine(engine)
         staged = stage_host_bits(source, scale_to, self.precision,
                                  self.timer, self.host_threads)
@@ -634,7 +641,10 @@ class DeviceStreamDecoder:
                 out = decode_bits_striped(staged, self.mesh, stripe_axis)
             if out is not None:
                 return out
-        return self.decode_one(staged)
+        img = self.decode_one(staged)
+        if self.mesh is not None and self.mesh.processes > 1:
+            return [Shard((slice(0, img.shape[0]),), img)]
+        return img
 
     # Groups: `_group_wires` merges a group's wires on the host and submits
     # them to the device in one copy; `_run_group` enqueues the device work.
@@ -741,13 +751,28 @@ class DeviceStreamDecoder:
         on its rows (one K1 sweep, K2 on its segment table, K3 on
         planar-pallas, L1 for a lossless shard). Rows past the images are
         the reference's padding: no image, so nothing is decoded there.
-        Each image's tensor lives on its shard's device."""
+        Each image's tensor lives on its shard's device. On a mesh across
+        processes only this process's shards run, as in the reference's
+        SPMD decode; a row of another process's shard is `Remote(rank)`
+        and is not read (the caller may leave anything there)."""
+        out = []
+        for dev, owner, (b0, b1) in self.mesh_shards(len(group)):
+            rows = group[b0:b1]
+            out.extend(self._decode_group(kind, rows, dev)
+                       if owner == self.mesh.rank
+                       else [Remote(owner)] * len(rows))
+        return out
+
+    def mesh_shards(self, n: int) -> list:
+        """How a group of n images splits over the mesh's data axis:
+        (device, owner rank, (first, end)) per shard that holds images.
+        Each process stages only the rows of its own shards when it builds
+        a group itself (the reference's process-local staging)."""
         devs = list(self.mesh.axis_devices(self.data_axis))
-        per = -(-_batch_bucket(len(group)) // len(devs))
-        return [img for k, dev in enumerate(devs)
-                if group[k * per:(k + 1) * per]
-                for img in self._decode_group(
-                    kind, group[k * per:(k + 1) * per], dev)]
+        owners = self.mesh.axis_owners(self.data_axis)
+        per = -(-_batch_bucket(n) // len(devs))
+        return [(dev, int(owners[k]), (k * per, min((k + 1) * per, n)))
+                for k, dev in enumerate(devs) if k * per < n]
 
     def decode_stream(self, sources: Iterable, scale_to=None,
                       batch_size: int = 1, on_error: str = "raise") -> list:

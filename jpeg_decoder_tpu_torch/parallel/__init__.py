@@ -12,7 +12,9 @@ those intra-image axes are array dimensions of the batched kernels in
   1-row halo exchange for the V2 chroma upsamplers (SP); `stripe_bits`
   the same with the entropy decode included (the DC seam carry).
 - `mesh`: the mesh of `torch.device`s and its exchanges, device-to-device
-  copies enqueued by one caller (one process, as in the reference).
+  copies enqueued by one caller (one process, as in the reference), or
+  across processes (`dist`: a gloo process group, host-staged transfers
+  between ranks, `Shard` and `Remote`).
 - `dryrun`: `dryrun_multichip`, DP, SP and DP x SP checked end to end.
 """
 

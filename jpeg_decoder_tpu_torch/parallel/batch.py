@@ -18,40 +18,61 @@ import numpy as np
 
 from ..ops.pipeline import reconstruct
 from ..transfer import put
+from .dist import Shard
 from .stripes import _shards
 
 
 def make_batch_pipeline(geometry, mesh, data_axis: str = "data"):
     """The batched reconstruction of `geometry` over `mesh`. Returns
-    fn(stores, qts) -> list of uint8 [b, H, W(, C)] tensors, one per data
-    shard that holds images, each on its shard's device (the reference's
-    array sharded on B), where `stores` is a tuple of int16 [B, N_i, 64]
-    numpy arrays per component and `qts` one tuple of uint16 [64] tables
-    shared by every image."""
-    devices = list(mesh.axis_devices(data_axis))
+    fn(stores, qts, batch=None) -> list of uint8 [b, H, W(, C)] tensors,
+    one per data shard that holds images, each on its shard's device (the
+    reference's array sharded on B), where `stores` is a tuple of int16
+    [B, N_i, 64] numpy arrays per component and `qts` one tuple of
+    uint16 [64] tables shared by every image.
 
-    def run(stores, qts):
-        stores = [np.asarray(s) for s in stores]
+    `stores` may instead be `rows_of(b0, b1)`, which returns those arrays'
+    rows [b0, b1) (then `batch` gives B): a shard's rows are staged only
+    where the shard runs, the counterpart of the reference harness's
+    `piece_of` (`tools/multiproc_mesh.py:51-63`). On a mesh across
+    processes only this process's shards run, and fn returns its `Shard`s
+    (index (rows,))."""
+    devices = list(mesh.axis_devices(data_axis))
+    owners = mesh.axis_owners(data_axis)
+
+    def run(stores, qts, batch: int = None):
+        if callable(stores):
+            rows_of = stores
+        else:
+            stores = [np.asarray(s) for s in stores]
+            batch = stores[0].shape[0]
+
+            def rows_of(b0, b1):
+                return tuple(s[b0:b1] for s in stores)
         parts = []
-        for dev, (b0, b1) in zip(devices, _shards(stores[0].shape[0],
-                                                  len(devices))):
-            if b1 <= b0:
+        for k, (dev, (b0, b1)) in enumerate(zip(
+                devices, _shards(batch, len(devices)))):
+            if b1 <= b0 or owners[k] != mesh.rank:
                 continue
-            local = put(tuple(s[b0:b1] for s in stores), dev)
-            parts.append(reconstruct(geometry, list(local),
-                                     [tuple(qts)] * (b1 - b0),
-                                     mesh.params(dev)))
+            local = put(tuple(rows_of(b0, b1)), dev)
+            out = reconstruct(geometry, list(local),
+                              [tuple(qts)] * (b1 - b0), mesh.params(dev))
+            parts.append(out if mesh.processes == 1
+                         else Shard((slice(b0, b1),), out))
         return parts
 
     return run
 
 
 def decode_batch_sharded(geometry, stores_batched, qts, mesh,
-                         data_axis: str = "data") -> np.ndarray:
+                         data_axis: str = "data"):
     """Decode B same-geometry images split over the data axis.
 
     stores_batched: np.int16 [B, N_i, 64] per component; qts: np.uint16[64]
-    per component. Returns np.uint8 [B, H, W, C] (or [B, H, W])."""
+    per component. Returns np.uint8 [B, H, W, C] (or [B, H, W]); on a mesh
+    across processes, this process's rows as `Shard`s (index (rows,),
+    numpy data)."""
     fn = make_batch_pipeline(geometry, mesh, data_axis)
-    return np.concatenate([p.cpu().numpy() for p in fn(
-        tuple(stores_batched), tuple(np.asarray(q) for q in qts))])
+    parts = fn(tuple(stores_batched), tuple(np.asarray(q) for q in qts))
+    if mesh.processes > 1:
+        return [Shard(p.index, p.data.cpu().numpy()) for p in parts]
+    return np.concatenate([p.cpu().numpy() for p in parts])

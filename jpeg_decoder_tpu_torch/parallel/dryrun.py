@@ -22,6 +22,13 @@ lossless (SOF3) stream over the mesh, bit-equal to the host decode.
 `devices` defaults to every CUDA device; a caller may repeat one
 (["cpu"] * 8 in the CPU tests, ["cuda:0"] * 4 on a machine with one
 card). Raises AssertionError on any mismatch.
+
+Under a process group (`dist.init_process_mesh`), `devices` are this
+process's and `n_devices` counts the mesh across every process (each
+gives n_devices / processes of its devices; the stripe-only mesh takes
+sp / processes from each, so its halo and carry cross between
+processes). Every process then checks only its own shards, against its
+own oracle, and skips the images of the others (`dist.Remote`).
 """
 
 from __future__ import annotations
@@ -35,7 +42,8 @@ from ..host.ops.color import ColorTransform
 from ..host.ops.pipeline import (ComponentGeometry, ImageGeometry,
                                  _reconstruct)
 from .batch import decode_batch_sharded
-from .mesh import make_mesh
+from .dist import Remote, world_size
+from .mesh import cuda_devices, make_mesh
 from .stripes import decode_striped, decode_striped_batch
 
 TOWER = (Path(__file__).resolve().parents[2] / "tests" / "fixtures"
@@ -72,10 +80,25 @@ def _example_inputs(geometry: ImageGeometry, batch: int = 0, seed: int = 0):
 
 
 def _equal(got, want, what: str) -> None:
+    """`got` equal to `want`; where `got` is a list of `Shard`s, each equal
+    to its slice of `want`."""
+    if isinstance(got, list):
+        for shard in got:
+            _equal(shard.data, np.asarray(want)[shard.index],
+                   f"{what} shard {shard.index}")
+        return
     got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
     want = want.cpu().numpy() if isinstance(want, torch.Tensor) else want
     if got.shape != want.shape or not np.array_equal(got, want):
         raise AssertionError(f"{what} diverged from its reference")
+
+
+def _equal_images(got: list, want: list, what: str) -> None:
+    """Each image of a stream equal to its reference; `Remote` places
+    (another process's images) skipped."""
+    for i, (y, x) in enumerate(zip(got, want)):
+        if not isinstance(y, Remote):
+            _equal(y, x, f"{what} image {i}")
 
 
 def dryrun_multichip(n_devices: int, devices=None) -> dict:
@@ -87,13 +110,17 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     from .stripe_bits import decode_bits_striped_batch
 
     if devices is None:
-        devices = make_mesh({"all": n_devices}).devices.tolist()
-    if len(devices) < n_devices:
-        raise AssertionError(f"need {n_devices} devices, have "
-                             f"{len(devices)}")
+        devices = cuda_devices()
+    procs = world_size()
     dp = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
     sp = n_devices // dp
-    mesh = make_mesh({"data": dp, "stripe": sp}, devices[:n_devices])
+    if n_devices % procs or sp % procs or len(devices) * procs < n_devices:
+        raise AssertionError(f"need {n_devices} devices in {procs} equal "
+                             f"parts of at most {len(devices)}, with "
+                             f"{sp} stripes among them")
+    mesh = make_mesh({"data": dp, "stripe": sp},
+                     devices[:n_devices // procs])
+    stripe_mesh = make_mesh({"stripe": sp}, devices[:sp // procs])
     checks = []
 
     geometry = _example_geometry(mcu_rows=max(2 * sp, 8))
@@ -104,13 +131,12 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     stores_b, qts = _example_inputs(geometry, batch=batch)
     out = decode_batch_sharded(geometry, list(stores_b), list(qts), mesh,
                                data_axis="data")
-    for b in range(batch):
-        _equal(out[b], _reconstruct(geometry, [s[b] for s in stores_b], qts,
-                                    np), f"DP image {b}")
+    _equal(out, np.stack([_reconstruct(geometry, [s[b] for s in stores_b],
+                                       qts, np) for b in range(batch)]),
+           "DP batch")
     checks.append("dp")
 
     # SP: one image's MCU rows over "stripe", with the halo exchange.
-    stripe_mesh = make_mesh({"stripe": sp}, devices[:sp])
     stores, qts = _example_inputs(geometry)
     ref = _reconstruct(geometry, stores, qts, np)
     img = decode_striped(geometry, list(stores), list(qts), stripe_mesh,
@@ -124,8 +150,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
                     for s in stores]
         combined = decode_striped_batch(geometry, stores_b, list(qts), mesh,
                                         mcu_rows=mcu_rows)
-        for b in range(dp):
-            _equal(combined[b], ref, f"DP x SP image {b}")
+        _equal(combined, np.stack([ref] * dp), "DP x SP batch")
         checks.append("dp x sp")
 
     # Real JPEGs through the stream decoder on the mesh.
@@ -141,8 +166,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
                 want = plain.decode_stream([data] * n_imgs)
                 got = sharded.decode_stream([data] * n_imgs,
                                             batch_size=n_imgs)
-            for i, (x, y) in enumerate(zip(want, got)):
-                _equal(y, x, f"mesh {interchange} stream image {i}")
+            _equal_images(got, want, f"mesh {interchange} stream")
             checks.append(f"{interchange} stream")
 
         # The entropy-included stripes: one image, then DP x SP.
@@ -158,8 +182,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
                     [stage_host_bits(data) for _ in range(dp)], mesh)
                 if out_b is None:
                     raise AssertionError("DP x SP bits batch declined")
-                for b in range(dp):
-                    _equal(out_b[b], gold, f"DP x SP bits image {b}")
+                _equal(out_b, np.stack([gold] * dp), "DP x SP bits batch")
                 checks.append("dp x sp bits")
 
         # Lossless over the mesh, where the checkout's recipe is at hand.
@@ -172,8 +195,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
             want = Decoder(ll, backend="numpy", precision="exact"
                            ).decode_array()
             with DeviceStreamDecoder(mesh=mesh, host_threads=2) as dec:
-                for i, y in enumerate(dec.decode_stream(
-                        [ll] * n_imgs, batch_size=n_imgs)):
-                    _equal(y, want, f"mesh lossless image {i}")
+                _equal_images(dec.decode_stream([ll] * n_imgs,
+                                                batch_size=n_imgs),
+                              [want] * n_imgs, "mesh lossless")
             checks.append("lossless stream")
     return {"mesh": dict(mesh.shape), "checks": checks}

@@ -57,7 +57,8 @@ from ..host.entropy.prescan import (AnchoredScan, ScanPlan, _bucket_up,
 from ..host.entropy.wire import WORDS_PAD, anchor_meta
 from ..host.parser import Dimensions, update_component_sizes
 from ..transfer import put
-from .mesh import exclusive_carry, gather_rows
+from .dist import Shard
+from .mesh import exclusive_carry, gather_rows, local_positions
 from .stripes import build_stripe_local_recon
 
 
@@ -227,22 +228,26 @@ def stripe_wire(split: StripeSplit, d: int) -> tuple:
         max(split.s_max[d], 1)
 
 
-def _decode_stripes(staged_list: list, splits: list, devs, mesh) -> list:
+def _decode_stripes(staged_list: list, splits: list, devs, mesh,
+                    owners=None) -> list:
     """The images of one data shard (one plan), each striped over `devs`:
     per stripe, on its device, K1 over each image's stripe wire, the DC
     totals, then assembly with the carry of the earlier stripes and the
     halo'd reconstruction of every image of the shard at once. Returns
-    per stripe uint8 [b, R, W(, C)] on its device."""
+    per stripe uint8 [b, R, W(, C)] on its device. With `owners` (the rank
+    of each stripe, on a mesh across processes) only this process's
+    stripes run, and the carry and the halo cross from the others."""
     s0, st0 = splits[0], staged_list[0]
     n = s0.n_stripes
+    at = range(n) if owners is None else local_positions(owners)
     nats, totals = [], []
-    for d, dev in enumerate(devs):
-        params = mesh.params(dev)
+    for d in at:
+        params = mesh.params(devs[d])
         per_image = []
         for st, sp in zip(staged_list, splits):
             scan = st.scans[0].scan
             arrays, s_max = stripe_wire(sp, d)
-            words, dm, ab, base = put(arrays, dev)
+            words, dm, ab, base = put(arrays, devs[d])
             with torch.profiler.record_function("k1_decode"):
                 per_image.append(decode_chunks(
                     words, dm, ab, base, params.tables(scan), s_max,
@@ -250,12 +255,12 @@ def _decode_stripes(staged_list: list, splits: list, devs, mesh) -> list:
         nat = torch.stack(per_image)
         nats.append(nat)
         totals.append(dc_totals(nat, s0.plan))         # [b, ncomp] int64
-    carries = exclusive_carry(totals)
+    carries = exclusive_carry(totals, owners)
     kept = st0.scans[0].kept
     stores = []
-    for d in range(n):
+    for nat, carry in zip(nats, carries):
         with torch.profiler.record_function("assemble"):
-            scan_stores = assemble_nat(nats[d], s0.plan, None, carries[d].T)
+            scan_stores = assemble_nat(nat, s0.plan, None, carry.T)
         local = [None] * len(st0.qts)
         for pos, comp_i in kept:
             local[comp_i] = scan_stores[pos]
@@ -263,18 +268,19 @@ def _decode_stripes(staged_list: list, splits: list, devs, mesh) -> list:
     recon = build_stripe_local_recon(st0.geometry, s0.mcu_rows, n)
     with torch.profiler.record_function("reconstruct"):
         return recon(stores, [st.qts for st in staged_list],
-                     [mesh.params(dev) for dev in devs])
+                     [mesh.params(devs[d]) for d in at], owners)
 
 
-def _crop_rows(outs: list, rows: int) -> list:
-    """The stripes' outputs [b, R, ...] cut to the image's `rows` output
-    rows (the padding stripes' rows dropped before the gather)."""
-    cut, off = [], 0
-    for o in outs:
-        take = max(0, min(o.shape[1], rows - off))
-        off += o.shape[1]
+def _crop_rows(outs: list, at, rows: int) -> list:
+    """The stripes' outputs [b, R, ...] at positions `at` cut to the
+    image's `rows` output rows: [(global rows, tensor)], the padding
+    stripes' rows dropped."""
+    cut = []
+    for d, o in zip(at, outs):
+        r0 = d * o.shape[1]
+        take = max(0, min(o.shape[1], rows - r0))
         if take:
-            cut.append(o[:, :take])
+            cut.append((slice(r0, r0 + take), o[:, :take]))
     return cut
 
 
@@ -302,7 +308,9 @@ def decode_bits_striped(staged_bits, mesh, stripe_axis: str = "stripe",
     split over `mesh`'s stripe axis. Returns uint8 [H, W(, C)] on the
     mesh's first device (the stripes' rows gathered there, cropped to the
     output size), or None when the image isn't stripe-eligible (the caller
-    falls back to the one-device pipeline).
+    falls back to the one-device pipeline). On a mesh across processes it
+    returns this process's `Shard`s (index (rows,), cropped), each on its
+    stripe's device.
 
     `staged_bits`: a `models.stream.StagedBits` with one scan covering
     every component. `engine`: `check_engine`."""
@@ -311,11 +319,17 @@ def decode_bits_striped(staged_bits, mesh, stripe_axis: str = "stripe",
     split = _split_one(staged_bits, n)
     if split is None:
         return None
-    geometry = staged_bits.geometry
-    outs = _decode_stripes([staged_bits], [split],
-                           mesh.axis_devices(stripe_axis), mesh)
-    return gather_rows(_crop_rows(outs, geometry.out_height), mesh.first,
-                       dim=1)[0]
+    rows = staged_bits.geometry.out_height
+    devs = mesh.axis_devices(stripe_axis)
+    if mesh.processes > 1:
+        owners = mesh.axis_owners(stripe_axis)
+        at = local_positions(owners)
+        outs = _decode_stripes([staged_bits], [split], devs, mesh,
+                               owners) if at else []
+        return [Shard((r,), o[0]) for r, o in _crop_rows(outs, at, rows)]
+    outs = _decode_stripes([staged_bits], [split], devs, mesh)
+    return gather_rows([o for _, o in _crop_rows(outs, range(n), rows)],
+                       mesh.first, dim=1)[0]
 
 
 def decode_bits_striped_batch(staged_list, mesh, data_axis: str = "data",
@@ -327,7 +341,9 @@ def decode_bits_striped_batch(staged_list, mesh, data_axis: str = "data",
     declines (different plans or geometries, stripe-ineligible). The batch
     must be a multiple of the data-axis size. Plans compare by their key
     (equal plans built after a cache eviction are the same layout). Each
-    image decodes with its own Huffman and quantization tables."""
+    image decodes with its own Huffman and quantization tables. On a mesh
+    across processes it returns this process's `Shard`s (index (images,
+    rows)); every process passes the whole batch."""
     n = int(mesh.shape[stripe_axis])
     nd = int(mesh.shape[data_axis])
     if not staged_list or len(staged_list) % nd:
@@ -342,10 +358,20 @@ def decode_bits_striped_batch(staged_list, mesh, data_axis: str = "data",
         return None
     per = len(staged_list) // nd
     grid = mesh.axis_devices(data_axis, stripe_axis)
+    lines = mesh.axis_owners(data_axis, stripe_axis)
+    spread = mesh.processes > 1
     parts = []
-    for k, devs in enumerate(grid):
-        outs = _decode_stripes(staged_list[k * per:(k + 1) * per],
-                               splits[k * per:(k + 1) * per], devs, mesh)
-        parts.append(gather_rows(_crop_rows(outs, g0.out_height), mesh.first,
-                                 dim=1))
-    return torch.cat(parts)
+    for k, (devs, line) in enumerate(zip(grid, lines)):
+        at = local_positions(line) if spread else range(n)
+        if not at:
+            continue
+        images = slice(k * per, (k + 1) * per)
+        outs = _decode_stripes(staged_list[images], splits[images], devs,
+                               mesh, line if spread else None)
+        cut = _crop_rows(outs, at, g0.out_height)
+        if spread:
+            parts.extend(Shard((images, r), o) for r, o in cut)
+        else:
+            parts.append(gather_rows([o for _, o in cut], mesh.first,
+                                     dim=1))
+    return parts if spread else torch.cat(parts)

@@ -31,22 +31,26 @@ from ..ops.color import color_convert_image
 from ..ops.idct import blocks_to_plane, dequantize_and_idct_blocks
 from ..ops.upsample import _h2_horizontal, h2v2_combine
 from ..transfer import put
-from .mesh import gather_rows, halo_rows
+from .dist import Shard
+from .mesh import gather_rows, halo_rows, local_positions
 
 
 def build_stripe_local_recon(geometry, mcu_rows: int, n_stripes: int):
     """The per-stripe reconstruction of `geometry` cut into `n_stripes`
     stripes of ceil(mcu_rows / n_stripes) MCU rows: dequantize + IDCT, the
     1-row V2 chroma halo exchange, upsampling and color. Returns
-    recon(stores, qts_b, params) -> list, one uint8 [N, R, out_w(, C)]
-    per stripe on its device (R the stripe's output rows), where
-    stores[d] holds stripe d's per-component int16 [N, k * v_i *
-    blocks_wide_i, 64] on its device, qts_b per image its per-component
-    uint16[64] tables and params[d] the `DeviceParams` of stripe d's
-    device. The reference's `build_stripe_local_recon` runs inside
-    shard_map over the stripe axis; here the lists run along it. Shared
-    by the store-level stripe pipeline (`make_stripe_pipeline`) and the
-    entropy-included one (`stripe_bits.py`)."""
+    recon(stores, qts_b, params, owners=None) -> list, one uint8
+    [N, R, out_w(, C)] per stripe on its device (R the stripe's output
+    rows), where stores[d] holds stripe d's per-component int16 [N, k *
+    v_i * blocks_wide_i, 64] on its device, qts_b per image its
+    per-component uint16[64] tables and params[d] the `DeviceParams` of
+    stripe d's device. With `owners` (the rank of each stripe, on a mesh
+    across processes) the lists hold this process's stripes only, in
+    order, and the halo crosses to the neighbours of other processes. The
+    reference's `build_stripe_local_recon` runs inside shard_map over the
+    stripe axis; here the lists run along it. Shared by the store-level
+    stripe pipeline (`make_stripe_pipeline`) and the entropy-included one
+    (`stripe_bits.py`)."""
     comps = geometry.components
     k_mcu = -(-mcu_rows // n_stripes)            # MCU rows per stripe
     v = [c.blocks_high // mcu_rows for c in comps]
@@ -55,25 +59,27 @@ def build_stripe_local_recon(geometry, mcu_rows: int, n_stripes: int):
     lp = [k_mcu * vi * scale for vi in v]        # plane rows per component
     out_w = geometry.out_width
 
-    def recon(stores, qts_b, params) -> list:
+    def recon(stores, qts_b, params, owners=None) -> list:
+        at = (range(n_stripes) if owners is None
+              else local_positions(owners))
         planes = [
             [blocks_to_plane(
                 dequantize_and_idct_blocks(
-                    store, params[d].qts_exact([q[ci] for q in qts_b]),
+                    store, params[j].qts_exact([q[ci] for q in qts_b]),
                     comp.dct_scale),
                 comp.blocks_wide, k_mcu * v[ci])
-             for ci, (comp, store) in enumerate(zip(comps, stores[d]))]
-            for d in range(n_stripes)]
-        halos = {ci: halo_rows([planes[d][ci] for d in range(n_stripes)])
+             for ci, (comp, store) in enumerate(zip(comps, stores[j]))]
+            for j in range(len(at))]
+        halos = {ci: halo_rows([p[ci] for p in planes], owners)
                  for ci, comp in enumerate(comps)
                  if comp.upsampler_mode in (H1V2, H2V2)}
         outs = []
-        for d in range(n_stripes):
-            dev = planes[d][0].device
+        for j, d in enumerate(at):
+            dev = planes[j][0].device
             r_g = d * R + torch.arange(R, device=dev)
             channels = []
             for ci, comp in enumerate(comps):
-                plane = planes[d][ci]
+                plane = planes[j][ci]
                 mode, iw, ih = (comp.upsampler_mode, comp.size_width,
                                 comp.size_height)
                 if mode == H1V1:
@@ -83,7 +89,7 @@ def build_stripe_local_recon(geometry, mcu_rows: int, n_stripes: int):
                     channels.append(_h2_horizontal(rows, iw)[..., :out_w]
                                     .to(torch.uint8))
                 elif mode in (H1V2, H2V2):
-                    top, bot = halos[ci][d]
+                    top, bot = halos[ci][j]
                     ext = torch.cat([top, plane, bot], dim=-2)
                     near_g = r_g // 2
                     far_g = torch.where(r_g % 2 == 0, near_g - 1,
@@ -142,15 +148,23 @@ def make_stripe_pipeline(geometry, mcu_rows: int, n_stripes: int, mesh,
     and stripe SP composed; the halo exchanges run along the stripe axis,
     the data axis needs none): fn -> [B, n * R, W(, C)]. `qts` is one
     per-component table tuple shared by every image, as in the
-    reference."""
+    reference.
+
+    On a mesh across processes each process reconstructs only the stripes
+    it holds, and fn returns its `Shard`s of that result: index (rows,),
+    or (images, rows) with `data_axis`, and the stripe's tensor on its
+    device."""
     recon = build_stripe_local_recon(geometry, mcu_rows, n_stripes)
     if data_axis is None:
         grid = mesh.axis_devices(stripe_axis)[None]
+        lines = mesh.axis_owners(stripe_axis)[None]
     else:
         grid = mesh.axis_devices(data_axis, stripe_axis)
+        lines = mesh.axis_owners(data_axis, stripe_axis)
     if grid.shape[1] != n_stripes:
         raise ValueError(f"mesh axis {stripe_axis!r} has {grid.shape[1]} "
                          f"devices, not {n_stripes}")
+    spread = mesh.processes > 1
 
     def run(stores, qts):
         stores = [np.asarray(s) for s in stores]
@@ -158,20 +172,56 @@ def make_stripe_pipeline(geometry, mcu_rows: int, n_stripes: int, mesh,
             stores = [s[None] for s in stores]
         batch = stores[0].shape[0]
         parts = []
-        for devs, (b0, b1) in zip(grid, _shards(batch, len(grid))):
-            if b1 <= b0:
+        for devs, line, (b0, b1) in zip(grid, lines,
+                                        _shards(batch, len(grid))):
+            at = local_positions(line) if spread else range(n_stripes)
+            if b1 <= b0 or not at:
                 continue
             local = [[put((np.ascontiguousarray(
                 s[b0:b1].reshape(b1 - b0, n_stripes, -1, 64)[:, d]),),
-                dev)[0] for s in stores]
-                for d, dev in enumerate(devs)]
+                devs[d])[0] for s in stores]
+                for d in at]
             outs = recon(local, [qts] * (b1 - b0),
-                         [mesh.params(dev) for dev in devs])
-            parts.append(gather_rows(outs, mesh.first, dim=1))
+                         [mesh.params(devs[d]) for d in at],
+                         line if spread else None)
+            if not spread:
+                parts.append(gather_rows(outs, mesh.first, dim=1))
+                continue
+            for d, o in zip(at, outs):
+                rows = slice(d * o.shape[1], (d + 1) * o.shape[1])
+                parts.append(Shard((rows,), o[0]) if data_axis is None
+                             else Shard((slice(b0, b1), rows), o))
+        if spread:
+            return parts
         out = torch.cat(parts) if len(parts) > 1 else parts[0]
         return out if data_axis is not None else out[0]
 
     return run
+
+
+def _cropped_shards(shards: list, rows: int, cols=None) -> list:
+    """Shards of a striped result (index (..., rows)) cut to the image's
+    first `rows` output rows and `cols` columns (all when None), as numpy;
+    shards of padding rows only are dropped."""
+    out = []
+    for s in shards:
+        r = s.index[-1]
+        take = min(r.stop, rows) - r.start
+        if take <= 0:
+            continue
+        lead = (slice(None),) * (len(s.index) - 1)
+        out.append(Shard((*s.index[:-1], slice(r.start, r.start + take)),
+                         s.data[(*lead, slice(0, take), slice(0, cols))]
+                         .cpu().numpy()))
+    return out
+
+
+def _out_size(geometry) -> tuple:
+    """(rows, columns or None) of the decoded image: gray crops both."""
+    if geometry.transform is None:
+        comp = geometry.components[0]
+        return comp.size_height, comp.size_width
+    return geometry.out_height, None
 
 
 def _pad_rows(geometry, stores, mcu_rows: int, n: int, batched: bool):
@@ -192,36 +242,37 @@ def _pad_rows(geometry, stores, mcu_rows: int, n: int, batched: bool):
 
 
 def decode_striped(geometry, stores, qts, mesh, mcu_rows: int,
-                   stripe_axis: str = "stripe") -> np.ndarray:
+                   stripe_axis: str = "stripe"):
     """Decode one image with its MCU rows split over `mesh`'s stripe axis.
 
     stores: np.int16 [blocks_high_i * blocks_wide_i, 64] per component (the
     full grids); qts: np.uint16[64] per component. Returns the np.uint8
-    image cropped to the geometry's output size."""
+    image cropped to the geometry's output size; on a mesh across
+    processes, this process's `Shard`s of it (numpy, cropped)."""
     n = mesh.shape[stripe_axis]
     fn = make_stripe_pipeline(geometry, mcu_rows, n, mesh, stripe_axis)
     out = fn(_pad_rows(geometry, stores, mcu_rows, n, False),
-             tuple(np.asarray(q) for q in qts)).cpu().numpy()
-    if geometry.transform is None:
-        comp = geometry.components[0]
-        return out[:comp.size_height, :comp.size_width]
-    return out[:geometry.out_height]
+             tuple(np.asarray(q) for q in qts))
+    rows, cols = _out_size(geometry)
+    if mesh.processes > 1:
+        return _cropped_shards(out, rows, cols)
+    return out.cpu().numpy()[:rows, :cols]
 
 
 def decode_striped_batch(geometry, stores_batched, qts, mesh, mcu_rows: int,
                          data_axis: str = "data",
-                         stripe_axis: str = "stripe") -> np.ndarray:
+                         stripe_axis: str = "stripe"):
     """A batch of same-geometry images, each striped: DP x SP.
 
     stores_batched: np.int16 [B, blocks_high_i * blocks_wide_i, 64] per
     component. Returns np.uint8 [B, ...] cropped to the geometry's output
-    size."""
+    size; on a mesh across processes, this process's `Shard`s of it."""
     n = mesh.shape[stripe_axis]
     fn = make_stripe_pipeline(geometry, mcu_rows, n, mesh, stripe_axis,
                               data_axis=data_axis)
     out = fn(_pad_rows(geometry, stores_batched, mcu_rows, n, True),
-             tuple(np.asarray(q) for q in qts)).cpu().numpy()
-    if geometry.transform is None:
-        comp = geometry.components[0]
-        return out[:, :comp.size_height, :comp.size_width]
-    return out[:, :geometry.out_height]
+             tuple(np.asarray(q) for q in qts))
+    rows, cols = _out_size(geometry)
+    if mesh.processes > 1:
+        return _cropped_shards(out, rows, cols)
+    return out.cpu().numpy()[:, :rows, :cols]

@@ -4,7 +4,9 @@
   every other path of the one-image decoder (exact precision, progressive
   and quirk streams through transcode, the three-table-pair anchor wire,
   the prefix interchange and lossless), in batches (`batch_size=3`) and
-  on a mesh of CPU slots (groups over "data", `decode_striped`),
+  on a mesh of CPU slots (groups over "data", `decode_striped`), with
+  the process group's module (`parallel/dist.py`) and the multi-process
+  harness (`tools/multiproc_mesh_torch.py`) imported,
   and must end with no `jax`,
   `jaxlib`, `triton` or `jpeg_decoder_tpu` module loaded and no CUDA
   library built or loaded: the port stages through its own copy of the
@@ -91,6 +93,12 @@ with jt.DeviceStreamDecoder(mesh=mesh, host_threads=1) as dec:
     out = dec.decode_stream([data] * 3, batch_size=3)
     assert all((o == img).all() for o in out)
     assert tuple(dec.decode_striped(data).shape) == (190, 250, 3)
+# The process group's module and the multi-process harness: outside a
+# group the mesh is one process and a transfer round is empty.
+from jpeg_decoder_tpu_torch.parallel import dist
+import tools.multiproc_mesh_torch as harness
+assert (dist.current_rank(), dist.world_size()) == (0, 1)
+assert dist.Transport().run() == [] and harness.N_PROCS == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton",
                                     "jpeg_decoder_tpu"))
@@ -118,7 +126,8 @@ PORT_SOURCES = (
        REPO / "tools" / "experiments" / "k4_phase_probe.py",
        REPO / "tools" / "experiments" / "l1_step_probe.py",
        REPO / "tools" / "experiments" / "h2d_probe.py",
-       REPO / "tools" / "experiments" / "stream_ab.py"])
+       REPO / "tools" / "experiments" / "stream_ab.py",
+       REPO / "tools" / "multiproc_mesh_torch.py"])
 
 
 def _imported_modules(path: Path) -> set:

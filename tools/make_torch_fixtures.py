@@ -8,7 +8,8 @@ the files can be regenerated bit for bit on the same PIL/libjpeg build:
     python tools/make_torch_fixtures.py --check    # verify they still match
 
 The set covers the main path's shapes: one ~3.4 Mpix 4:2:0 image (the
-`large_image.jpg` class), one 512x512 4:2:0 image, and small 4:4:4, 4:2:2,
+`large_image.jpg` class), one 512x512 4:2:0 image (and the same array at
+q92, a second quality variant of one geometry), and small 4:4:4, 4:2:2,
 grayscale, restart-interval (DRI), subsampled CMYK and RGB-stored images
 with edges that are not MCU multiples; two progressive ones, the large
 image's own array and a small 4:2:2 image; and six 4:2:0 images of the
@@ -40,6 +41,10 @@ OUT_DIR = (Path(__file__).resolve().parent.parent
 FIXTURES = {
     "large_420.jpg": (2048, 1680, "RGB", {"subsampling": 2}, 3.3, 0),
     "tower_420.jpg": (512, 512, "RGB", {"subsampling": 2}, 3.3, 1),
+    # tower_420's array at q92: the same geometry, other tables and bits
+    # (a second quality variant, as the multi-process harness alternates).
+    "tower_420_q92.jpg": (512, 512, "RGB", {"subsampling": 2, "quality": 92},
+                          3.3, 1),
     "small_444.jpg": (203, 141, "RGB", {"subsampling": 0}, 4.0, 2),
     "small_422.jpg": (237, 157, "RGB", {"subsampling": 1}, 4.0, 3),
     "small_gray.jpg": (171, 117, "L", {}, 4.0, 4),
@@ -104,7 +109,8 @@ def encode(name: str) -> bytes:
     w, h, mode, opts, noise, seed = FIXTURES[name]
     arr = textured(h, w, {"L": 1, "CMYK": 4}.get(mode, 3), noise, seed)
     buf = io.BytesIO()
-    Image.fromarray(arr, mode).save(buf, "JPEG", quality=QUALITY, **opts)
+    Image.fromarray(arr, mode).save(buf, "JPEG",
+                                    **{"quality": QUALITY, **opts})
     return buf.getvalue()
 
 
