@@ -134,7 +134,31 @@ from csrc/ and holding each against its plain PyTorch version on the card:
    plan as the phase says, K1 bit-equal to its plain version on the rank's
    own stripe wires, the bytes that crossed between the processes by kind,
    and the CUDA-event ms of the striped large_420 decode beside phase 19's
-   one-process figure. A rank's failure or timeout fails the run.
+   one-process figure. A rank's failure or timeout fails the run;
+21. the mutation fuzzer on the card (`tools/fuzz_torch.py`'s device mode
+   over 300 sources, about 70% of them mutants writing 1-8 bytes after the
+   first SOS header, in streams of 6): `decode_stream(on_error="none")` at
+   batch 1 and 4 on bits/prefix x fast/exact, planar-pallas at bits/fast,
+   and `Decoder(backend="torch")`, every source against the host oracle
+   (the same typed error, exact and lossless bit-equal, fast within 3,
+   batches bit-equal to batch 1); K1 bit-equal to the oracle's stores and
+   to its plain version on the card on every staged scan, launched once
+   per scan; K3 and L1 bit-equal to their plain versions on mutated input,
+   each launched at least once. Prints the counts (mutants, accepted,
+   fallbacks, lossless, typed errors, failures, fast misses), K1, K2, K3
+   and L1 launches under the fuzz and the seconds; any failure fails the
+   run. Where `compute-sanitizer` is on PATH and its memcheck runs a
+   control (one `torch.ones` on the card) clean, 50 more sources run under
+   it in a subprocess and any report fails the run; where it is absent, or
+   fails the control (the H100 machine's reports "Device not supported"),
+   the phase says so;
+22. the tools: `tools/scaling_bench_torch.py`'s sweep at 1, 2 and 4 slots
+   of the card on large_420 (DP throughput, fixed-batch and stripe-bits
+   overhead: ms, Mpix/s, launches per image, t1/tN, every output
+   bit-equal), and `examples/decode_torch.py` writing tower_420 (exact and
+   fast) and a 512 x 512 16-bit SOF3 stream (predictor 6) to PNGs under
+   chiprun_out/, each read back equal to `Decoder(backend="numpy")` (fast
+   within 3), K2 launched at fast and L1 on the SOF3 stream.
 
 Any failure raises and the script exits nonzero. It needs a CUDA device and
 the repository around it; it imports neither JAX, nor PIL, nor the JAX
@@ -148,6 +172,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -1289,6 +1314,143 @@ def phase_multiproc(jt, card: str, one_process_ms: float) -> dict:
     return per_rank
 
 
+FUZZ_SOURCES = 300          # 21: device-mode sources on the card
+FUZZ_SEED = 11
+SANITIZED_SOURCES = 50      # 21: more under compute-sanitizer, where it is
+SWEEP_SLOTS = (1, 2, 4)     # 22: slots of cuda:0 in the scaling sweep
+OUT = ROOT / "chiprun_out"
+
+
+def phase_fuzz(jt, card: str) -> dict:
+    """21. The mutation fuzzer's device mode on the card
+    (`tools/fuzz_torch.py::run_device`); returns its counts."""
+    from tools import fuzz_torch
+
+    t0 = time.perf_counter()
+    res = fuzz_torch.run_device(FUZZ_SOURCES, FUZZ_SEED,
+                                out=str(OUT / "fuzz_torch"), device="cuda")
+    seconds = time.perf_counter() - t0
+    launches = res["launches"]
+    missing = [k for k in ("huffman_decode", "dequant_idct", "fused_tail",
+                           "lossless_recur") if launches[k] < 1]
+    if res["failures"] or missing \
+            or res["k1_vs_plain_checked"] != res["k1_scans_checked"] \
+            or not (res["k3_checked_on_mutants"]
+                    and res["l1_checked_on_mutants"]):
+        raise AssertionError(f"21 the device fuzz: {res}; kernels never "
+                             f"launched {missing}")
+    say("21 fuzz", card=card, sources=res["sources"],
+        mutants=res["mutants"], accepted=res["accepted"],
+        fallbacks=res["fallbacks"], lossless=res["lossless"],
+        typed_errors=res["typed_errors"], failures=res["failures"],
+        fast_misses=res["fast_misses"],
+        fast_miss_max_dequantized=res["fast_miss_max_dequantized"],
+        k1_scans_vs_oracle_and_plain=res["k1_vs_plain_checked"],
+        k3_vs_plain=res["k3_checked"],
+        k3_vs_plain_on_mutants=res["k3_checked_on_mutants"],
+        l1_vs_plain=res["l1_checked"],
+        l1_vs_plain_on_mutants=res["l1_checked_on_mutants"],
+        decoder_checked=res["decoder_checked"],
+        launches={"K1": launches["huffman_decode"],
+                  "K2": launches["dequant_idct"],
+                  "K3": launches["fused_tail"],
+                  "L1": launches["lossless_recur"]},
+        seconds=seconds)
+    sanitizer = shutil.which("compute-sanitizer")
+    if sanitizer is None:
+        say("21 compute-sanitizer", result="absent: not on PATH, the "
+            "memcheck leg did not run")
+        return res
+    # A control first: one PyTorch allocation on the card under memcheck.
+    # Where the tool cannot run a CUDA program at all (it reports errors on
+    # the control), its reports on the fuzz would say nothing of the port.
+    control = memcheck(sanitizer, ["-c", "import torch; "
+                                   "torch.ones(4, device='cuda').sum()"])
+    if not control["clean"]:
+        say("21 compute-sanitizer", path=sanitizer, result="present but "
+            "unusable on this machine: memcheck reports errors on the "
+            "control (one torch.ones on the card), so the fuzz leg did not "
+            "run", control=control)
+        return res
+    t0 = time.perf_counter()
+    run = memcheck(sanitizer, [str(ROOT / "tools" / "fuzz_torch.py"),
+                               str(SANITIZED_SOURCES), str(FUZZ_SEED + 1),
+                               "--device", "--out",
+                               str(OUT / "fuzz_torch_memcheck")])
+    if not run["clean"]:
+        raise AssertionError(f"21 compute-sanitizer memcheck on the fuzz: "
+                             f"{run}")
+    say("21 compute-sanitizer", path=sanitizer, sources=SANITIZED_SOURCES,
+        control=control["summary"], summary=run["summary"],
+        seconds=time.perf_counter() - t0)
+    return res
+
+
+def memcheck(sanitizer: str, args: list) -> dict:
+    """`python args` under compute-sanitizer's memcheck: its exit code,
+    its ERROR SUMMARY line, its first reports, and whether it is clean
+    (exit 0 and 0 errors)."""
+    run = subprocess.run([sanitizer, "--tool", "memcheck", sys.executable,
+                          *args], cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    lines = run.stdout.splitlines()
+    summary = next((line for line in reversed(lines)
+                    if "ERROR SUMMARY" in line), None)
+    reports = [line for line in lines if line.startswith("========= ")
+               and "Host Frame" not in line][:8]
+    return {"exit": run.returncode, "summary": summary, "reports": reports,
+            "clean": run.returncode == 0 and summary is not None
+            and "ERROR SUMMARY: 0 errors" in summary}
+
+
+def phase_tools(jt, card: str) -> dict:
+    """22. The scaling sweep on slots of the card, and the jpg -> png CLI,
+    each PNG against the host decode. Returns the sweep's rows."""
+    from examples.decode_torch import main as cli
+    from examples.decode_torch import read_png, viewable
+    from jpeg_decoder_tpu_torch.host.decoder import Decoder
+    from tools import scaling_bench_torch
+    from tools.make_torch_fixtures import sof3_jpeg, sof3_samples
+
+    rows = scaling_bench_torch.sweep((FIXTURES / "large_420.jpg")
+                                     .read_bytes(), SWEEP_SLOTS, "cuda",
+                                     log=lambda line: None)
+    if not all(r.get("equal") for r in rows):
+        raise AssertionError(f"22 a sweep output differs: {rows}")
+    for row in rows:
+        say("22 sweep", card=card, **row)
+    OUT.mkdir(exist_ok=True)
+    sof3 = OUT / "sof3_p6_16.jpg"
+    sof3.write_bytes(sof3_jpeg(sof3_samples(512, 512, 1, 16, 0, seed=4), 6,
+                               0, 16))
+    cases = ((FIXTURES / "tower_420.jpg", "exact", "dequant_idct", 0),
+             (FIXTURES / "tower_420.jpg", "fast", "dequant_idct", PIXEL_TOL),
+             (sof3, "exact", "lossless_recur", 0))
+    done = {}
+    for src, precision, kernel, tol in cases:
+        png = OUT / f"{src.stem}_{precision}.png"
+        (_, launches) = counted(jt, lambda: cli(
+            [str(src), str(png), "--precision", precision]))
+        d = Decoder(src.read_bytes(), backend="numpy", precision="exact")
+        want = viewable(d.decode_array(), d.info().pixel_format)
+        got = read_png(png.read_bytes())
+        if got.shape != want.shape:
+            raise AssertionError(f"22 {png.name}: {got.shape} vs "
+                                 f"{want.shape}")
+        err = int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max())
+        if err > tol or (kernel == "lossless_recur") != bool(
+                launches["lossless_recur"]) or (
+                    precision == "fast") != bool(launches["dequant_idct"]):
+            raise AssertionError(f"22 the CLI on {src.name} at {precision}: "
+                                 f"max |diff| {err} > {tol}, launches "
+                                 f"{launches}")
+        done[png.name] = {"shape": list(got.shape), "max_abs_diff": err,
+                          "tolerance": tol, "launches": launches}
+    say("22 CLI", card=card, pngs=done,
+        result="equal to Decoder(backend='numpy') within the tolerance")
+    return {"rows": rows, "cli": done}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1647,6 +1809,10 @@ def main() -> int:
 
     # 20. The mesh across two processes.
     multiproc = phase_multiproc(jt, card, mesh["striped_8_ms"])
+
+    # 21. The mutation fuzzer on the card; 22. the sweep and the CLI.
+    phase_fuzz(jt, card)
+    phase_tools(jt, card)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
                     in ("jax", "jaxlib", "jpeg_decoder_tpu"))

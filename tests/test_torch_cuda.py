@@ -43,7 +43,8 @@ blocks negative where a stripe starts inside a chunk, last chunks cut at
 the stripe's end) of stripe_420.jpg at 8 stripes and large_420 at 4 and
 8; `decode_striped` bit-equal to the host exact decode with one K1 launch
 per stripe; mesh groups bit-equal to the meshless decode with K1 and K2
-once per shard.
+once per shard. Malformed streams: the fuzzer's device mode
+(`tools/fuzz_torch.py`) over 36 sources, with no failure.
 """
 
 import time
@@ -678,3 +679,17 @@ def test_mesh_groups_on_card_slots(cuda, interchange):
                                              else 0)
     for g, w in zip(got, want):
         assert g.is_cuda and torch.equal(g, w)
+
+
+def test_device_fuzz_on_card(cuda, tmp_path):
+    """Malformed streams on the card (`tools/fuzz_torch.py`'s device mode):
+    every check against the host oracle holds, K1 is bit-equal to its
+    plain version on every staged scan, and K3 and L1 to theirs."""
+    from tools import fuzz_torch
+
+    res = fuzz_torch.run_device(36, 5, out=str(tmp_path), device="cuda",
+                                log=lambda line: None)
+    assert res["failures"] == 0
+    assert res["k1_vs_plain_checked"] == res["k1_scans_checked"] > 0
+    assert res["launches"]["huffman_decode"] >= res["k1_scans_checked"]
+    assert res["k3_checked"] > 0 and res["l1_checked"] > 0

@@ -6,7 +6,9 @@
   the prefix interchange and lossless), in batches (`batch_size=3`) and
   on a mesh of CPU slots (groups over "data", `decode_striped`), with
   the process group's module (`parallel/dist.py`) and the multi-process
-  harness (`tools/multiproc_mesh_torch.py`) imported,
+  harness (`tools/multiproc_mesh_torch.py`) imported, and through the
+  port's tools (the fuzzer's device mode, the mesh sweep, the jpg -> png
+  CLI),
   and must end with no `jax`,
   `jaxlib`, `triton` or `jpeg_decoder_tpu` module loaded and no CUDA
   library built or loaded: the port stages through its own copy of the
@@ -29,6 +31,8 @@ REPO = Path(__file__).resolve().parent.parent
 
 SCRIPT = r"""
 import sys
+import torch
+torch.set_num_threads(1)   # small images; the test workers share the cores
 import jpeg_decoder_tpu_torch as jt
 from jpeg_decoder_tpu_torch import _build
 assert "jax" not in sys.modules, "import loaded jax"
@@ -99,6 +103,24 @@ from jpeg_decoder_tpu_torch.parallel import dist
 import tools.multiproc_mesh_torch as harness
 assert (dist.current_rank(), dist.world_size()) == (0, 1)
 assert dist.Transport().run() == [] and harness.N_PROCS == 2
+# The port's tools: the fuzzer's device mode, the sweep and the CLI.
+import importlib.util
+import tempfile
+import tools.fuzz_torch as fuzz
+import tools.scaling_bench_torch as sweep
+res = fuzz.run_device(6, 0, seeds=["small_gray.jpg", "sof3_p7_8.jpg"],
+                      device="cpu", log=lambda line: None)
+assert res["failures"] == 0 and res["sources"] == 6, res
+rows = sweep.sweep(open("tests/fixtures/torch_port/small_gray.jpg",
+                        "rb").read(), (1,), "cpu", 1, log=lambda line: None)
+assert all(r["equal"] for r in rows), rows
+spec = importlib.util.spec_from_file_location("decode_torch",
+                                              "examples/decode_torch.py")
+cli = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cli)
+with tempfile.TemporaryDirectory() as tmp:
+    assert cli.main(["tests/fixtures/torch_port/small_gray.jpg",
+                     tmp + "/g.png", "--device", "cpu"]) == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton",
                                     "jpeg_decoder_tpu"))
@@ -127,7 +149,10 @@ PORT_SOURCES = (
        REPO / "tools" / "experiments" / "l1_step_probe.py",
        REPO / "tools" / "experiments" / "h2d_probe.py",
        REPO / "tools" / "experiments" / "stream_ab.py",
-       REPO / "tools" / "multiproc_mesh_torch.py"])
+       REPO / "tools" / "multiproc_mesh_torch.py",
+       REPO / "tools" / "fuzz_torch.py",
+       REPO / "tools" / "scaling_bench_torch.py",
+       REPO / "examples" / "decode_torch.py"])
 
 
 def _imported_modules(path: Path) -> set:
