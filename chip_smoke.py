@@ -6,7 +6,8 @@ Drives the port's paths (jpeg_decoder_tpu_torch.DeviceStreamDecoder on
 "cuda" in the interleaved and planar layouts, and the K4 probe
 tools/experiments/fused_recon_probe_torch.py) over the committed fixtures
 in tests/fixtures/torch_port/, after building every hand-written kernel
-from csrc/ and holding each against its plain PyTorch version on the card:
+from csrc/ and holding each against its plain PyTorch version on the card
+(K1-K4, L1, and E1, the exact tier's int32 IDCT):
 
 1. card name and power limit (nvidia-smi), native host library status;
 2. kernel build (nvcc), with its time;
@@ -41,8 +42,10 @@ from csrc/ and holding each against its plain PyTorch version on the card:
    image (profiler) of planar-pallas beside interleaved, and K3 beside its
    plain version at large_420's planes;
 11. precision "exact": every fixture, and large_420 scaled 1/2, 1/4 and
-   1/8, bit-equal to the host exact decode; device-resident ms/image of
-   exact beside fast at large_420, and exact's launches per image;
+   1/8, bit-equal to the host exact decode, with E1 once per image and no
+   K2; device-resident ms/image of exact beside fast at large_420, and
+   launches per image and device busy time (profiler) of exact beside
+   fast, exact no more than 10 launches above fast;
 12. progressive and quirk streams (host decode + transcode, then K1):
    large_420_progressive, small_422_progressive and a synthesized quirk
    stream; K1 on the card bit-equal to its plain version and the oracle's
@@ -72,28 +75,34 @@ from csrc/ and holding each against its plain PyTorch version on the card:
    same product), K2's yardstick `torch.addmm` and K4's, the unfused K2
    path, by device time over every kernel they launch, and its launches
    per image on the main path (one large_420 decode: bits, fast,
-   interleaved);
+   interleaved; for E1 the same decode at exact); E1's bound counts
+   E1_OPS_PER_BLOCK int32 operations a block at INT32_OPS, a multiply-add
+   counted as two operations against a peak of two a lane a clock;
 17. batched dispatch, decode_stream(batch_size=N): tower_420 x 32 at 16,
    large_420 x 4 at 4, the six ImageNet-class mixed sizes (plus two
-   repeats) at 8, tower_420 x 8 at 8 at precision "exact", on the prefix
-   interchange and in layout "planar-pallas", and eight 512 x 512 16-bit
-   SOF3 slices at 8 with predictors 1 and 6: every image bit-equal to its
-   batch_size=1 decode, the launches per group counted (K1 1 per group, K2
-   1 per plan, K3 1 per plan on planar-pallas, L1 1 at predictor 6); the
+   repeats) at 8 at both precisions, tower_420 x 8 at 8 at precision
+   "exact", on the prefix interchange at both precisions and in layout
+   "planar-pallas", and eight 512 x 512 16-bit SOF3 slices at 8 with
+   predictors 1 and 6: every image bit-equal to its batch_size=1 decode,
+   the launches per group counted (K1 1 per group, K2 1 per plan at fast,
+   E1 1 per plan at exact, K3 1 per plan on planar-pallas, L1 1 at
+   predictor 6); the
    on_error stream inside a batch; batched K2 (48 segments with per-image
    tables, and 3 merged) and K3 (16 images) SHA-256-equal to per-image
    launches; device-resident ms/image and launches/image of tower_420 at
-   batch 1, 4 and 16 and large_420 at 4; each kernel's device time at its
-   batched shape beside its bytes bound;
+   batch 1, 4 and 16 and large_420 at 4, and of tower_420 at exact at 1
+   and 16; each kernel's device time at its batched shape (E1 too) beside
+   its bytes bound;
 18. the front end and the service: `Decoder(backend="torch")` over every
    fixture and small_422_progressive, bit-equal to the host decode at
-   "exact" and within 3 at "fast" (K2 launched), large_420 scaled 1/2,
+   "exact" (E1 once per image) and within 3 at "fast" (K2 launched),
+   large_420 scaled 1/2,
    1/4 and 1/8 at both precisions; the 2048 x 2048 16-bit SOF3 stream at
    predictors 1 and 6 and the 768 x 1024 x 3 one at predictor 6,
    bit-equal, L1 once per component at predictor 6; backend "auto" with no
    launch on an image of at most 128 x 128 (small_gray at 1/8, a 96 x 96
    SOF3) and K2 on tower_420 at "fast"; `BatchDecodeService` equal byte
-   for byte to the per-image `Decoder`;
+   for byte to the per-image `Decoder`, E1 once per image;
    `decode_stream(timer=StageTimer())` of tower_420 x 64 at batch 16 and
    large_420 x 4 at batch 4, twice, SHA-256-equal across the runs and to
    the run without a timer, with "host_stage", "h2d_submit" and
@@ -107,19 +116,22 @@ from csrc/ and holding each against its plain PyTorch version on the card:
    (a mesh may name one device several times; on a machine with more
    cards the slots go round them): large_420 through
    `DeviceStreamDecoder(mesh=...).decode_striped` at 4 and 8 stripes,
-   bit-equal to the host exact decode with K1 launched once per stripe;
+   bit-equal to the host exact decode with K1 and E1 launched once per
+   stripe;
    K1 bit-equal to its plain version on every stripe wire of large_420 at
    4 and 8 stripes and of stripe_420.jpg at 8 (first blocks negative);
    tower_420 x 16 at batch 16 on {"data": 4}, a prefix group of tower_420
    x 8 and eight 512 x 512 16-bit SOF3 slices (predictor 6) at batch 8 on
    {"data": 4}, every image SHA-256-equal to the meshless decode, with K1,
    K2 and L1 once per shard; 4 x tower_420 through
-   `decode_bits_striped_batch` on {"data": 2, "stripe": 2}; the service on
-   the fixtures with a mesh, equal to the meshless service; and
+   `decode_bits_striped_batch` on {"data": 2, "stripe": 2} (E1 once per
+   shard and stripe); the service on the fixtures with a mesh, equal to
+   the meshless service (E1 once per image); and
    `parallel.dryrun.dryrun_multichip(4, ["cuda:0"] * 4)`. Times (each
-   beside the card's name and power limit): CUDA-event ms per image of the
-   striped decode's device half at 4 and 8 stripes beside the meshless
-   exact decode's, launches per image, the halo, carry and gather bytes,
+   beside the card's name and power limit): CUDA-event ms per image and
+   per stripe of the striped decode's device half at 4 and 8 stripes
+   beside the meshless exact decode's, launches per image and per stripe,
+   the halo, carry and gather bytes,
    and each DP shard's device ms;
 20. the mesh across two processes: `tools/multiproc_mesh_torch.py --device
    cuda`, two ranks joined by torch.distributed (gloo over 127.0.0.1), each
@@ -145,8 +157,9 @@ from csrc/ and holding each against its plain PyTorch version on the card:
    to its plain version on the card on every staged scan, launched once
    per scan; K3 and L1 bit-equal to their plain versions on mutated input,
    each launched at least once. Prints the counts (mutants, accepted,
-   fallbacks, lossless, typed errors, failures, fast misses), K1, K2, K3
-   and L1 launches under the fuzz and the seconds; any failure fails the
+   fallbacks, lossless, typed errors, failures, fast misses), K1, K2, K3,
+   L1 and E1 launches under the fuzz (E1 in the exact legs, each launched
+   at least once) and the seconds; any failure fails the
    run. Where `compute-sanitizer` is on PATH and its memcheck runs a
    control (one `torch.ones` on the card) clean, 50 more sources run under
    it in a subprocess and any report fails the run; where it is absent, or
@@ -158,7 +171,16 @@ from csrc/ and holding each against its plain PyTorch version on the card:
    bit-equal), and `examples/decode_torch.py` writing tower_420 (exact and
    fast) and a 512 x 512 16-bit SOF3 stream (predictor 6) to PNGs under
    chiprun_out/, each read back equal to `Decoder(backend="numpy")` (fast
-   within 3), K2 launched at fast and L1 on the SOF3 stream.
+   within 3), K2 launched at fast, E1 at exact and L1 on the SOF3 stream;
+23. E1 (the exact tier's int32 IDCT, csrc/idct_exact.cu) against its
+   plain version on the card and on the CPU, tolerance 0: scales 8/4/2/1
+   on `tests/torch_inputs.py::adversarial_blocks` (16-bit tables times
+   full-range coefficients) and on every fixture's stores; 16 images x 3
+   components with per-image tables (48 segments) in one launch,
+   SHA-256-equal to per-image launches; 17 x 4 segments in two launches;
+   a store off a 16-byte boundary refused; one E1 launch for one exact
+   large_420 decode; E1's CUDA-event ms at large_420's shapes beside its
+   plain version's.
 
 Any failure raises and the script exits nonzero. It needs a CUDA device and
 the repository around it; it imports neither JAX, nor PIL, nor the JAX
@@ -212,6 +234,20 @@ MIXED = tuple(f"mixed_{w}x{h}.jpg" for w, h in (
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12   # tensor cores; K2's split product takes 3 TF32 products
+# int32 on the CUDA cores: 132 SMs x 64 INT32 lanes x 1.98 GHz (boost),
+# each lane doing one IMAD, IADD3 or LEA a clock, which E1_OPS_PER_BLOCK
+# counts as two operations (a multiply and its add, two adds, a shift and
+# its add): two operations a lane a clock, as FP32_FLOPS counts an FMA.
+INT32_OPS = 2 * 132 * 64 * 1.98e9
+# E1's int32 operations per block at scale 8, counted from
+# csrc/idct_exact.cu, every multiply, add, shift and compare as one:
+# dequantize 64 products; the shortcut's test 56 compares and 56 ORs (rows
+# 1-7 of 8 columns); the column pass 8 x 58 (`pass8`: 18 even, 24 odd, 16
+# sums and shifts) and 8 x 9 for the shortcut (dc << 2, 8 selects); the
+# row pass 8 x 58; the clamp 2 a pixel.
+E1_OPS_PER_BLOCK = 64 + 56 + 56 + 8 * 58 + 8 * 9 + 8 * 58 + 2 * 64
+E1_GROUP = (16, (4096, 1024, 1024))   # 23: tower_420's stores x 16 images
+E1_ADVERSARIAL = 30000                # 23: blocks per seed and scale
 # K3 geometries beyond the fixtures': (comp_modes, transform, out_h, out_w,
 # chroma_dims).
 TAIL_CASES = (
@@ -364,10 +400,10 @@ def bound(nbytes: float, flops: float = 0.0, rate: float = FP32_FLOPS
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def main_path_launches(jt, blob: bytes) -> dict:
+def main_path_launches(jt, blob: bytes, precision: str = "fast") -> dict:
     """Kernel launches of one large_420 decode on the main path: bits
-    interchange, precision fast, interleaved."""
-    with jt.DeviceStreamDecoder(host_threads=1) as dec:
+    interchange, interleaved, at `precision` (fast, or exact for E1)."""
+    with jt.DeviceStreamDecoder(host_threads=1, precision=precision) as dec:
         staged = dec.stage(blob)
         wires = dec._to_device(staged)
         torch.cuda.synchronize()
@@ -410,14 +446,16 @@ def phase_kernel_table(jt, measured: dict, per_image: dict, l1_chain: dict,
         rows[name][f"{label}_device_us"] = prof["all_device_us"]
         rows[name][f"{label}_launches_per_call"] = prof["all_launches"]
     say("16 kernel table", **rows)
-    if per_image["K2"] != 1 or rows["K1"]["wrapper_launches_per_call"] != 1:
-        raise AssertionError("K2 must launch once per image and K1's wrapper "
-                             f"once per call: {rows}")
+    if per_image["K2"] != 1 or per_image["E1"] != 1 \
+            or rows["K1"]["wrapper_launches_per_call"] != 1:
+        raise AssertionError("K2 (fast) and E1 (exact) must launch once per "
+                             f"image and K1's wrapper once per call: {rows}")
     return rows
 
 
-def phase_exact(jt, data: dict, profile_layers) -> None:
-    """11. Precision "exact" through the user entry point."""
+def phase_exact(jt, data: dict, profile_layers) -> dict:
+    """11. Precision "exact" through the user entry point: E1 once per
+    image; returns the launches of the run."""
     large = data["large_420.jpg"]
     torch.cuda.synchronize()
     jt.reset_launches()
@@ -434,12 +472,20 @@ def phase_exact(jt, data: dict, profile_layers) -> None:
         for size, img in zip(EXACT_SCALES, scaled):
             if max_diff(img, host_exact(large, size), f"large {size}"):
                 raise AssertionError(f"exact large_420 at {size} differs")
-        if launches["huffman_decode"] < 1:
-            raise AssertionError(f"K1 never ran: {launches}")
+        if launches["huffman_decode"] < 1 or launches["dequant_idct"] \
+                or launches["idct_exact"] != len(images) + len(scaled):
+            raise AssertionError(f"K1 never ran, K2 ran, or E1 not once per "
+                                 f"image: {launches}")
         exact = dec.device_resident_rate(large, iters=20)
         prof, _trace = profile_layers(dec, FIXTURES / "large_420.jpg", 10)
     with jt.DeviceStreamDecoder(device="cuda", host_threads=4) as dec:
         fast = dec.device_resident_rate(large, iters=20)
+        fast_prof, _trace = profile_layers(dec, FIXTURES / "large_420.jpg",
+                                           10)
+    if prof["launches_per_image"] > fast_prof["launches_per_image"] + 10:
+        raise AssertionError(
+            f"exact takes {prof['launches_per_image']} launches per image, "
+            f"more than 10 above fast's {fast_prof['launches_per_image']}")
     say("11 exact", images=len(ORDER) + len(EXACT_SCALES),
         scales=EXACT_SCALES, launches=launches, result="bit-equal to host",
         large_420_exact_ms=exact["ms_per_image"],
@@ -447,8 +493,12 @@ def phase_exact(jt, data: dict, profile_layers) -> None:
         large_420_fast_ms=fast["ms_per_image"],
         large_420_fast_host_ms=fast["host_ms_per_image"],
         exact_launches_per_image=prof["launches_per_image"],
+        fast_launches_per_image=fast_prof["launches_per_image"],
         exact_device_busy_ms=prof["device_busy_ms"],
-        exact_layer_kernel_ms=prof["layer_kernel_ms"])
+        fast_device_busy_ms=fast_prof["device_busy_ms"],
+        exact_layer_kernel_ms=prof["layer_kernel_ms"],
+        exact_top_kernels_ms=prof["top_kernels_ms"])
+    return launches
 
 
 def phase_transcoded(jt, data: dict, params, dev) -> int:
@@ -712,16 +762,22 @@ def batch_configs(data: dict) -> list:
                           16) for s in range(8)] for p in (1, 6)}
     return [
         ("tower_420 x32 at 16", {}, [tower] * 32, 16,
-         {"huffman_decode": 2, "dequant_idct": 2}),
+         {"huffman_decode": 2, "dequant_idct": 2, "idct_exact": 0}),
         ("large_420 x4 at 4", {}, [large] * 4, 4,
-         {"huffman_decode": 1, "dequant_idct": 1}),
+         {"huffman_decode": 1, "dequant_idct": 1, "idct_exact": 0}),
         # One hetero group: one sweep, one reconstruction per plan.
         ("mixed sizes x8 at 8", {}, mixed + mixed[:2], 8,
          {"huffman_decode": 1, "dequant_idct": len(MIXED)}),
+        ("mixed sizes x8 at 8 exact", {"precision": "exact"},
+         mixed + mixed[:2], 8,
+         {"huffman_decode": 1, "dequant_idct": 0, "idct_exact": len(MIXED)}),
         ("tower_420 x8 at 8 exact", {"precision": "exact"}, [tower] * 8, 8,
-         {"huffman_decode": 1, "dequant_idct": 0}),
+         {"huffman_decode": 1, "dequant_idct": 0, "idct_exact": 1}),
         ("tower_420 x8 at 8 prefix", {"interchange": "prefix"}, [tower] * 8,
-         8, {"huffman_decode": 0, "dequant_idct": 1}),
+         8, {"huffman_decode": 0, "dequant_idct": 1, "idct_exact": 0}),
+        ("tower_420 x8 at 8 prefix exact",
+         {"interchange": "prefix", "precision": "exact"}, [tower] * 8, 8,
+         {"huffman_decode": 0, "dequant_idct": 0, "idct_exact": 1}),
         ("tower_420 x8 at 8 planar-pallas", {"layout": "planar-pallas"},
          [tower] * 8, 8,
          {"huffman_decode": 1, "dequant_idct": 1, "fused_tail": 1}),
@@ -739,7 +795,8 @@ def phase_batch(jt, data: dict, params, dev, profile_layers) -> dict:
     from jpeg_decoder_tpu_torch.models.stream import merge_scans
     from jpeg_decoder_tpu_torch.ops.kernels import (dequant_idct_batch,
                                                     dequant_idct_multi,
-                                                    fused_tail)
+                                                    fused_tail,
+                                                    idct_exact_batch)
     from jpeg_decoder_tpu_torch.ops.predictors import lossless_recur
     from tools.torch_port_profile import kernel_device_us
 
@@ -813,13 +870,16 @@ def phase_batch(jt, data: dict, params, dev, profile_layers) -> dict:
 
     # Times: device-resident ms/image and launches/image (profiler).
     rates = {}
-    for name, batch in (("tower_420.jpg", 1), ("tower_420.jpg", 4),
-                        ("tower_420.jpg", 16), ("large_420.jpg", 4)):
-        with jt.DeviceStreamDecoder(device="cuda", host_threads=4) as dec:
+    for name, batch, precision in (
+            ("tower_420.jpg", 1, "fast"), ("tower_420.jpg", 4, "fast"),
+            ("tower_420.jpg", 16, "fast"), ("large_420.jpg", 4, "fast"),
+            ("tower_420.jpg", 1, "exact"), ("tower_420.jpg", 16, "exact")):
+        with jt.DeviceStreamDecoder(device="cuda", host_threads=4,
+                                    precision=precision) as dec:
             rate = dec.device_resident_rate(data[name], iters=20,
                                             batch=batch)
             prof, _trace = profile_layers(dec, FIXTURES / name, 10, batch)
-        rates[f"{name} batch {batch}"] = {
+        rates[f"{name} batch {batch} {precision}"] = {
             "ms_per_image": rate["ms_per_image"], "batch": rate["batch"],
             "host_ms_per_image": rate["host_ms_per_image"],
             "launches_per_image": prof["launches_per_image"],
@@ -835,6 +895,7 @@ def phase_batch(jt, data: dict, params, dev, profile_layers) -> dict:
                n_blocks)
     shared_q = [[q[0]] * 16 for q in qs]
     shared_f = [[f[0]] * 16 for f in folded]
+    shared_e1 = [[params.qt_exact(tabs[0][c])] * 16 for c in range(3)]
     sof3_slices = torch.from_numpy(rng.integers(0, 65536, (8, *SOF3_SLICE))
                                    .astype(np.int32)).to(dev)
     kernels = {
@@ -845,6 +906,9 @@ def phase_batch(jt, data: dict, params, dev, profile_layers) -> dict:
             lambda: dequant_idct_batch(coefs, shared_q, bases, [8] * 3,
                                        shared_f),
             "dequant_idct_kernel", 16 * sum(blocks) * (128 + 64)),
+        "E1 tower_420 x16, one table set": (
+            lambda: idct_exact_batch(coefs, shared_e1, [8] * 3),
+            "idct_exact_kernel", 16 * sum(blocks) * (128 + 64)),
         "K3 tower_420 planes x16": (
             lambda: fused_tail(planes, *k3_args), "fused_tail_kernel",
             sum(p.numel() for p in planes) + 16 * 3 * 512 * 512),
@@ -891,7 +955,7 @@ def jt_timer():
 
 def phase_front_end(jt, data: dict, dev) -> dict:
     """18. The front end (`Decoder`) and the service on the card; returns
-    the launches of K2 and L1 it counted."""
+    the launches of K2, E1 and L1 it counted."""
     from jpeg_decoder_tpu_torch.decoder import device_params
     from jpeg_decoder_tpu_torch.host.decoder import Decoder as HostDecoder
     from jpeg_decoder_tpu_torch.host.ops.pipeline import geometry_from_frame
@@ -943,8 +1007,11 @@ def phase_front_end(jt, data: dict, dev) -> dict:
                                          f"{fast_err[name]} > {PIXEL_TOL}")
         torch.cuda.synchronize()
         counted[precision] = dict(jt.LAUNCHES)
-    if counted["fast"]["dequant_idct"] < len(cases):
-        raise AssertionError(f"18 K2 launches at fast: {counted['fast']}")
+    if counted["fast"]["dequant_idct"] < len(cases) \
+            or counted["exact"]["idct_exact"] != len(cases) \
+            or counted["exact"]["dequant_idct"] or counted["fast"]["idct_exact"]:
+        raise AssertionError(f"18 K2 once per image at fast, E1 at exact: "
+                             f"{counted}")
 
     # Lossless through the Decoder: L1 once per component at predictor 6.
     sof3 = sof3_samples(SOF3_SIDE, SOF3_SIDE, 1, 16, 0, seed=0)
@@ -982,8 +1049,13 @@ def phase_front_end(jt, data: dict, dev) -> dict:
             or jt.LAUNCHES["dequant_idct"] < 1:
         raise AssertionError(f"18 auto launches: {auto}")
 
-    # The service against the per-image Decoder.
+    # The service against the per-image Decoder: E1 once per image.
+    torch.cuda.synchronize()
+    jt.reset_launches()
     service = jt.BatchDecodeService().decode_all([blobs[n] for n in names])
+    service_launches = dict(jt.LAUNCHES)
+    if service_launches["idct_exact"] != len(names):
+        raise AssertionError(f"18 service launches: {service_launches}")
     for name, img in zip(names, service):
         if img.tobytes() != exact_out[name]:
             raise AssertionError(f"18 service {name} differs from Decoder")
@@ -1067,13 +1139,16 @@ def phase_front_end(jt, data: dict, dev) -> dict:
     say("18 front end", exact="bit-equal to the host decode",
         images=len(cases), fast_max_abs_diff=fast_err, tolerance=PIXEL_TOL,
         launches=counted, lossless_l1_launches=ll_launches,
-        auto_launches=auto, service="equal to Decoder")
+        auto_launches=auto, service="equal to Decoder",
+        service_launches=service_launches)
     say("18 stream with a timer", result="SHA-256-equal across two timed "
         "runs and the untimed run", **stream_rows)
     say("18 times", decode_ms=decode_rows, h2d=h2d,
         link_probe_mb_s=probe_mb_s, link_degraded=link.degraded(),
         pinned_peak_bytes=pool.peak_bytes, pinned_bytes=pool.bytes)
     return {"K2": counted["fast"]["dequant_idct"],
+            "E1": counted["exact"]["idct_exact"]
+            + service_launches["idct_exact"],
             "L1": sum(ll_launches.values())}
 
 
@@ -1098,8 +1173,9 @@ def counted(jt, fn):
 
 
 def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
-    """19. The mesh on slots of the card; returns K1's stripe launches and
-    its largest difference from plain on the stripe wires."""
+    """19. The mesh on slots of the card; returns K1's and E1's stripe
+    launches and K1's largest difference from plain on the stripe
+    wires."""
     from jpeg_decoder_tpu_torch.entropy.chunk_decode import (
         decode_chunks, decode_chunks_plain)
     from jpeg_decoder_tpu_torch.parallel import make_mesh
@@ -1137,7 +1213,7 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
                              f"{k1_err}, negative first blocks {negative}")
 
     # large_420 striped: bit-equal, one K1 launch per stripe.
-    striped, stripe_launches = {}, 0
+    striped, stripe_launches, e1_stripe_launches = {}, 0, 0
     staged = jt.stage_host_bits(large)
     exact = jt.stage_host_bits(large, precision="exact")
     with jt.DeviceStreamDecoder(host_threads=1, precision="exact") as plain:
@@ -1150,19 +1226,23 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
             mesh_mod.reset_exchanged()
             img, launches = counted(jt, lambda: dec.decode_striped(large))
             exchanged = dict(mesh_mod.EXCHANGED)
-        if launches["huffman_decode"] != n or launches["dequant_idct"]:
+        if launches["huffman_decode"] != n or launches["dequant_idct"] \
+                or launches["idct_exact"] != n:
             raise AssertionError(f"19 {n} stripes launched {launches}")
         if not np.array_equal(img.cpu().numpy(), large_gold):
             raise AssertionError(f"19 large_420 at {n} stripes differs from "
                                  "the host exact decode")
         stripe_launches += launches["huffman_decode"]
+        e1_stripe_launches += launches["idct_exact"]
         prof = kernel_device_us(lambda: decode_bits_striped(staged, mesh),
                                 "huffman_decode_kernel", iters=3)
+        ms = cuda_ms(lambda: decode_bits_striped(staged, mesh), 5)
         striped[f"{n} stripes"] = {
-            "ms_per_image": cuda_ms(
-                lambda: decode_bits_striped(staged, mesh), 5),
+            "ms_per_image": ms, "ms_per_stripe": ms / n,
             "launches_per_image": prof["all_launches"],
+            "launches_per_stripe": prof["all_launches"] / n,
             "k1_launches": launches["huffman_decode"],
+            "e1_launches": launches["idct_exact"],
             "device_busy_ms": prof["all_device_us"] / 1e3,
             "halo_bytes": exchanged["halo"], "carry_bytes":
             exchanged["carry"], "gather_bytes": exchanged["gather"]}
@@ -1215,8 +1295,10 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
     pair_mesh = make_mesh({"data": 2, "stripe": 2}, mesh_devices(4))
     out, launches = counted(jt, lambda: decode_bits_striped_batch(
         [jt.stage_host_bits(tower) for _ in range(4)], pair_mesh))
-    if out is None or launches["huffman_decode"] != 8 or not all(
-            np.array_equal(o.cpu().numpy(), tower_gold) for o in out):
+    # K1 per image and stripe; E1 per (data shard, stripe), 2 images each.
+    if out is None or launches["huffman_decode"] != 8 \
+            or launches["idct_exact"] != 4 or not all(
+                np.array_equal(o.cpu().numpy(), tower_gold) for o in out):
         raise AssertionError(f"19 DP x SP bits batch: {launches}")
 
     # The service with a mesh, against the meshless service.
@@ -1224,8 +1306,10 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
     meshless = jt.BatchDecodeService().decode_all(blobs)
     (served, service_launches) = counted(
         jt, lambda: jt.BatchDecodeService(data_mesh).decode_all(blobs))
-    if any(a.tobytes() != b.tobytes() for a, b in zip(served, meshless)):
-        raise AssertionError("19 the service on a mesh differs")
+    if any(a.tobytes() != b.tobytes() for a, b in zip(served, meshless)) \
+            or service_launches["idct_exact"] != len(blobs):
+        raise AssertionError(f"19 the service on a mesh differs, or E1 not "
+                             f"once per image: {service_launches}")
 
     ran = dryrun_multichip(MESH_SLOTS, ["cuda:0"] * MESH_SLOTS)
     say("19 mesh", card=card, groups=groups, result="SHA-256-equal to the "
@@ -1233,7 +1317,8 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
         dp_x_sp_bits={"images": 4, "launches": launches},
         service={"images": len(blobs), "launches": service_launches},
         dryrun=ran, cards=torch.cuda.device_count())
-    return {"stripe_launches": stripe_launches, "k1_err": k1_err,
+    return {"stripe_launches": stripe_launches,
+            "e1_stripe_launches": e1_stripe_launches, "k1_err": k1_err,
             "striped_8_ms": striped["8 stripes"]["ms_per_image"]}
 
 
@@ -1296,7 +1381,7 @@ def phase_multiproc(jt, card: str, one_process_ms: float) -> dict:
             verdicts={name: "bit-equal" for name in phases},
             launches={name: {k: rec["launches"][k] for k in
                              ("huffman_decode", "dequant_idct",
-                              "lossless_recur")}
+                              "lossless_recur", "idct_exact")}
                       for name, rec in phases.items()},
             k1_vs_plain_on_own_stripe_wires=k1_err,
             own_wires_with_negative_first_block={
@@ -1332,7 +1417,7 @@ def phase_fuzz(jt, card: str) -> dict:
     seconds = time.perf_counter() - t0
     launches = res["launches"]
     missing = [k for k in ("huffman_decode", "dequant_idct", "fused_tail",
-                           "lossless_recur") if launches[k] < 1]
+                           "lossless_recur", "idct_exact") if launches[k] < 1]
     if res["failures"] or missing \
             or res["k1_vs_plain_checked"] != res["k1_scans_checked"] \
             or not (res["k3_checked_on_mutants"]
@@ -1354,7 +1439,8 @@ def phase_fuzz(jt, card: str) -> dict:
         launches={"K1": launches["huffman_decode"],
                   "K2": launches["dequant_idct"],
                   "K3": launches["fused_tail"],
-                  "L1": launches["lossless_recur"]},
+                  "L1": launches["lossless_recur"],
+                  "E1": launches["idct_exact"]},
         seconds=seconds)
     sanitizer = shutil.which("compute-sanitizer")
     if sanitizer is None:
@@ -1438,9 +1524,11 @@ def phase_tools(jt, card: str) -> dict:
             raise AssertionError(f"22 {png.name}: {got.shape} vs "
                                  f"{want.shape}")
         err = int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max())
+        lossy_exact = precision == "exact" and kernel != "lossless_recur"
         if err > tol or (kernel == "lossless_recur") != bool(
                 launches["lossless_recur"]) or (
-                    precision == "fast") != bool(launches["dequant_idct"]):
+                    precision == "fast") != bool(launches["dequant_idct"]) \
+                or lossy_exact != bool(launches["idct_exact"]):
             raise AssertionError(f"22 the CLI on {src.name} at {precision}: "
                                  f"max |diff| {err} > {tol}, launches "
                                  f"{launches}")
@@ -1449,6 +1537,109 @@ def phase_tools(jt, card: str) -> dict:
     say("22 CLI", card=card, pngs=done,
         result="equal to Decoder(backend='numpy') within the tolerance")
     return {"rows": rows, "cli": done}
+
+
+def phase_e1(jt, data: dict, params, dev, card: str) -> dict:
+    """23. E1 against its plain version on the card, tolerance 0: at every
+    scale on `adversarial_blocks` (16-bit tables times full-range
+    coefficients, zeroed AC columns under large DC) and on every fixture's
+    stores with its tables, also against the plain version on the CPU; a
+    group of 16 images x 3 components with per-image tables (48 segments)
+    SHA-256-equal to per-image launches in one launch, 17 x 4 segments in
+    two; a store off a 16-byte boundary refused; one exact large_420
+    decode, one E1 launch. Times at large_420's main-path shapes: E1 and
+    its plain version by CUDA events. Returns E1's numbers."""
+    from torch_inputs import adversarial_blocks
+    from jpeg_decoder_tpu_torch.ops.idct import dequantize_and_idct_blocks
+    from jpeg_decoder_tpu_torch.ops.kernels import idct_exact_batch
+
+    def plain(coef, q, scale):
+        return dequantize_and_idct_blocks(coef, q, scale).reshape(
+            coef.shape[0], scale * scale)
+
+    cases = []      # (label, int16 [n, 64] numpy, uint16 [64] table, scale)
+    for seed in (0, 1):
+        coef, qt = adversarial_blocks(seed, E1_ADVERSARIAL)
+        cases += [(f"adversarial {seed}", coef, qt, s) for s in (8, 4, 2, 1)]
+    for name in ORDER:
+        for store, qt in host_oracle(data[name])._pending_render.values():
+            cases += [(name, store.reshape(-1, 64), qt, s)
+                      for s in (8, 4, 2, 1)]
+    worst, pixels = 0, 0
+    for label, coef_np, qt, scale in cases:
+        coef = torch.from_numpy(np.ascontiguousarray(coef_np)).to(dev)
+        q = params.qt_exact(qt)
+        got = idct_exact_batch([coef[None]], [[q]], [scale])[0][0]
+        on_card = plain(coef, q, scale)
+        on_cpu = plain(coef.cpu(), q.cpu(), scale)
+        err = max(int((got.to(torch.int32) - on_card.to(torch.int32))
+                      .abs().max()) if got.numel() else 0,
+                  int((got.cpu().to(torch.int32) - on_cpu.to(torch.int32))
+                      .abs().max()) if got.numel() else 0)
+        if err:
+            raise AssertionError(f"23 E1 {label} at scale {scale}: max "
+                                 f"|diff| {err} from its plain version")
+        worst = max(worst, err)
+        pixels += got.numel()
+
+    # A group with per-image tables: one launch, each image's own bits.
+    rng = np.random.default_rng(23)
+    n, blocks = E1_GROUP
+    coefs = [torch.from_numpy(rng.integers(-32768, 32768, (n, b, 64))
+                              .astype(np.int16)).to(dev) for b in blocks]
+    qts = [[params.qt_exact(rng.integers(1, 65536, 64).astype(np.uint16))
+            for _ in range(n)] for _ in blocks]
+    group, group_launches = counted(
+        jt, lambda: idct_exact_batch(coefs, qts, [8, 4, 8]))
+    alone = [idct_exact_batch([c[i:i + 1] for c in coefs],
+                              [[q[i]] for q in qts], [8, 4, 8])
+             for i in range(n)]
+    want = [plain(c[i], q[i], s) for i in range(n)
+            for c, q, s in zip(coefs, qts, [8, 4, 8])]
+    got = [g[i] for i in range(n) for g in group]
+    if group_launches["idct_exact"] != 1 \
+            or _digest(got) != _digest(a[0] for img in alone for a in img) \
+            or any(not torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"23 E1's 48-segment group: {group_launches}")
+    wide = [c[:, :8] for c in coefs] + [coefs[0][:, 8:16]]
+    wide_q = [[params.qt_exact(rng.integers(1, 256, 64).astype(np.uint16))
+               for _ in range(n + 1)] for _ in wide]
+    wide = [torch.cat([w, w[:1]]) for w in wide]          # 17 images x 4
+    wide_out, wide_launches = counted(
+        jt, lambda: idct_exact_batch(wide, wide_q, [8, 4, 2, 1]))
+    if wide_launches["idct_exact"] != 2 or any(
+            not torch.equal(o[i], plain(w[i], q[i], s))
+            for o, w, q, s in zip(wide_out, wide, wide_q, [8, 4, 2, 1])
+            for i in range(n + 1)):
+        raise AssertionError(f"23 E1 over 68 segments: {wide_launches}")
+    odd = torch.zeros(2 * 64 + 4, dtype=torch.int16, device=dev)[4:]
+    try:
+        idct_exact_batch([odd.view(1, 2, 64)], [[qts[0][0]]], [8])
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("23 E1 took a store off a 16-byte boundary")
+    per_image = main_path_launches(jt, data["large_420.jpg"], "exact")
+    if per_image["idct_exact"] != 1 or per_image["dequant_idct"]:
+        raise AssertionError(f"23 one exact large_420 decode: {per_image}")
+
+    # Times at large_420's shapes, as the exact main path calls it.
+    renders = host_oracle(data["large_420.jpg"])._pending_render
+    stores = [torch.from_numpy(renders[i][0].reshape(1, -1, 64)).to(dev)
+              for i in range(len(renders))]
+    tables = [params.qt_exact(renders[i][1]) for i in range(len(renders))]
+    ms = cuda_ms(lambda: idct_exact_batch(stores, [[q] for q in tables],
+                                          [8] * len(stores)), 50)
+    plain_ms = cuda_ms(lambda: [plain(s[0], q, 8) for s, q in
+                                zip(stores, tables)], 20)
+    n_blocks = sum(int(s.shape[1]) for s in stores)
+    say("23 E1 vs plain", card=card, cases=len(cases), pixels=pixels,
+        max_abs_err=worst, tolerance=0, group_segments=3 * n,
+        group_launches=group_launches["idct_exact"],
+        group_sha256_equal=True, segments_68_launches=wide_launches[
+            "idct_exact"], exact_large_420_launches=per_image,
+        large_420_blocks=n_blocks, e1_ms=ms, plain_ms=plain_ms)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
 def main() -> int:
@@ -1473,7 +1664,8 @@ def main() -> int:
                                                     fused_recon,
                                                     fused_recon_plain,
                                                     fused_tail,
-                                                    fused_tail_plain)
+                                                    fused_tail_plain,
+                                                    idct_exact_batch)
     from jpeg_decoder_tpu_torch.ops.pipeline import _planes, fast_pixels
     from jpeg_decoder_tpu_torch.params import DeviceParams
     from tools.experiments import fused_recon_probe_torch as k4_probe
@@ -1761,7 +1953,7 @@ def main() -> int:
         k4_x_ms=k4_large["x_ms"], floor_ms=k4_large["floor_ms"])
 
     # 11-15. The rest of the one-image decoder.
-    phase_exact(jt, data, profile_layers)
+    exact_launches = phase_exact(jt, data, profile_layers)
     k1_err = max(k1_err, phase_transcoded(jt, data, params, dev))
     k1_err = max(k1_err, phase_three_pairs(jt, data, params, dev))
     phase_prefix(jt, data)
@@ -1770,6 +1962,13 @@ def main() -> int:
 
     # 16. The kernel table: device time by kernel name beside the bound.
     main_launches = main_path_launches(jt, data["large_420.jpg"])
+    exact_main = main_path_launches(jt, data["large_420.jpg"], "exact")
+    e1_tables = [[params.qt_exact(q)] for q in qts2]
+
+    def e1_image():
+        return idct_exact_batch([s[None] for s in stores2], e1_tables,
+                                scales2)
+
     k4_args = k4_probe.case_args(k4_probe.seeded_stores(0),
                                  k4_probe.image_stores(
                                      (FIXTURES / "small_444.jpg")
@@ -1791,8 +1990,11 @@ def main() -> int:
                TF32_FLOPS),
         "L1": (l1_call, "lossless_recur_kernel", 8 * l1_samples, 0.0,
                FP32_FLOPS),
-    }, dict(zip(("K1", "K2", "K3", "K4", "L1"),
-                (main_launches[k] for k in _build.LAUNCHES))), l1_chain,
+        "E1": (e1_image, "idct_exact_kernel", 128 * sum(k2_blocks) + k2_px,
+               E1_OPS_PER_BLOCK * sum(k2_blocks), INT32_OPS),
+    }, {**dict(zip(("K1", "K2", "K3", "K4", "L1"),
+                   (main_launches[k] for k in _build.LAUNCHES))),
+        "E1": exact_main["idct_exact"]}, l1_chain,
         {"K2": ("library", k2_library),
          "K4": ("unfused", lambda: fused_recon_plain(*k4_args,
                                                      k2=dequant_idct))})
@@ -1811,8 +2013,11 @@ def main() -> int:
     multiproc = phase_multiproc(jt, card, mesh["striped_8_ms"])
 
     # 21. The mutation fuzzer on the card; 22. the sweep and the CLI.
-    phase_fuzz(jt, card)
+    fuzz = phase_fuzz(jt, card)
     phase_tools(jt, card)
+
+    # 23. E1 against its plain version, its segment table, its times.
+    e1 = phase_e1(jt, data, params, dev, card)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
                     in ("jax", "jaxlib", "jpeg_decoder_tpu"))
@@ -1846,8 +2051,14 @@ def main() -> int:
          "replaces": "jpeg_decoder_tpu/ops/predictors.py:273",
          "launches": l1_launches, "max_abs_err": l1_err,
          "ms": l1_ms, "plain_ms": l1_plain_ms, "library_ms": None},
+        {"name": "E1 idct_exact", "route": "cuda",
+         "source": "jpeg_decoder_tpu_torch/csrc/idct_exact.cu",
+         "replaces": "jpeg_decoder_tpu/ops/idct.py:210",
+         "launches": exact_launches["idct_exact"],
+         "max_abs_err": e1["max_abs_err"], "ms": e1["ms"],
+         "plain_ms": e1["plain_ms"], "library_ms": None},
     ]
-    for row, key in zip(kernels, ("K1", "K2", "K3", "K4", "L1")):
+    for row, key in zip(kernels, ("K1", "K2", "K3", "K4", "L1", "E1")):
         tab = table[key]
         row.update(kernel_us=tab["kernel_us"], bound_us=tab["bound_us"],
                    bound_ms=tab["bound_us"] / 1e3, bound_by=tab["bound_by"],
@@ -1864,6 +2075,9 @@ def main() -> int:
         unfused_device_us=table["K4"]["unfused_device_us"],
         unfused_launches_per_call=table["K4"]["unfused_launches_per_call"])
     kernels[4]["chain_bound_ms"] = table["L1"]["chain_bound_us"] / 1e3
+    kernels[5].update(stripe_launches=mesh["e1_stripe_launches"],
+                      front_end_launches=front["E1"],
+                      fuzz_launches=fuzz["launches"]["idct_exact"])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -43,6 +43,8 @@ imported. Kernels:
   tools/experiments/fused_recon_probe_torch.py
 - L1 `ops/predictors.py::lossless_recur` (csrc/lossless_recur.cu), the
   lossless predictor recurrence
+- E1 `ops/kernels.py::idct_exact_batch` (csrc/idct_exact.cu), the exact
+  tier's int32 IDCT: every exact decode, and each stripe of the mesh
 They build with nvcc at first launch (`_build.py`); `LAUNCHES` counts the
 launches of each.
 """

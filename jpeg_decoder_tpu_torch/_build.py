@@ -28,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("huffman_decode.cu", "dequant_idct.cu", "fused_tail.cu",
-           "fused_recon.cu", "lossless_recur.cu")
+           "fused_recon.cu", "lossless_recur.cu", "idct_exact.cu")
 HEADERS = ("idct_mma.cuh",)    # included by sources; part of the hash
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Kernel launch counts, by kernel name; see reset_launches().
 LAUNCHES = {"huffman_decode": 0, "dequant_idct": 0, "fused_tail": 0,
-            "fused_recon": 0, "lossless_recur": 0}
+            "fused_recon": 0, "lossless_recur": 0, "idct_exact": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -163,6 +163,12 @@ def load() -> ctypes.CDLL:
             p,              # out
             p]              # stream
         lib.jdt_lossless_recur.restype = i
+        lib.jdt_idct_exact.argtypes = [
+            p, p, p,        # host void*[nseg]: coefs, int32 tables, outs
+            p, p,           # host int32[nseg]: block counts, scales
+            i,              # nseg, the segments (1..64)
+            p]              # stream
+        lib.jdt_idct_exact.restype = i
         lib.jdt_error_string.argtypes = [i]
         lib.jdt_error_string.restype = ctypes.c_char_p
         _lib = lib

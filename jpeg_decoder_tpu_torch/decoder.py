@@ -10,8 +10,8 @@ through the host copy's two method hooks:
   `decoder.py:683-703`): one H2D copy of the components' int16
   coefficient stores (`transfer.put`: pinned and non-blocking on a card),
   then `ops.pipeline.reconstruct` on the device: kernel K2 (dequantize +
-  fp32 IDCT, one launch for all components) at precision "fast", the
-  exact int32 IDCT at "exact"; then upsampling and color, and one copy
+  fp32 IDCT, one launch for all components) at precision "fast", kernel
+  E1 (the exact int32 IDCT, one launch too) at "exact"; then upsampling and color, and one copy
   back. The bytes are the reference's layouts (L8, RGB24, CMYK32).
 - Lossless (SOF3) components (`_reconstruct_lossless_plane`, the
   reference's `_reconstruct_lossless_device`, `decoder.py:573-597`), one

@@ -45,8 +45,8 @@ Device stage (per image or per group, on the caller's thread,
 `device_dispatch`, asynchronous on the current CUDA stream):
 - bits: delta unpack (delta wire), kernel K1 (chunk Huffman decode),
   assembly (DC prefix sums, raster placement), then reconstruction: the
-  exact int32 IDCT or kernel K2 by precision, then upsampling and color,
-  or K2 and kernel K3 on "planar-pallas";
+  exact int32 IDCT (kernel E1) or kernel K2 by precision, then
+  upsampling and color, or K2 and kernel K3 on "planar-pallas";
 - prefix: the zigzag prefix and residuals rebuilt into stores, then the
   same reconstruction;
 - lossless: the predictor closed forms or kernel L1, then the interleave.

@@ -2,21 +2,26 @@
 block -> plane layout.
 
 Mirrors `jpeg_decoder_tpu/ops/idct.py`:
-- `dequantize_and_idct_blocks` is the exact tier, `_idct8x8` / `_idct4x4` /
-  `_idct2x2` / `_idct1x1` as torch int32 ops over all blocks at once, with
-  the fixed-point constants imported from the host copy
-  (`host/ops/idct.py`), not retyped.
+- `dequantize_and_idct_blocks` is the exact tier's plain version,
+  `_idct8x8` / `_idct4x4` / `_idct2x2` / `_idct1x1` as torch int32 ops over
+  all blocks at once, with the fixed-point constants imported from the
+  host copy (`host/ops/idct.py`), not retyped.
   Bit-equal to the numpy and jnp versions: int32 `*`, `+` and `-` wrap
   modulo 2^32 on the CPU and on CUDA as they do there, `>>` is arithmetic,
   and `<< n` is written `* 2**n`, the same value mod 2^32.
+  The decode paths reach it through kernel E1 (`ops/kernels.py::
+  idct_exact_batch`, `csrc/idct_exact.cu`): on the card the exact tier is
+  one E1 launch per image, group or stripe, and this function is E1's
+  plain version, which the CPU runs and the tests hold the kernel to.
 - `dequantize_and_idct_blocks_fast` runs kernel K2 (`ops/kernels.py`)
   where the reference runs `dequantize_and_idct_blocks_fast` or, on a TPU,
   the Pallas kernel; same contract: within the reftest tolerance of the
   exact integer IDCT, not bit-identical to it.
 - `blocks_to_plane` is the same reshape/transpose.
 
-The exact tier is jnp code in the reference, not a Pallas kernel, so plain
-torch is its port.
+The exact tier is jnp code in the reference, not a Pallas kernel, which
+XLA compiles into the reconstruction; eager torch would run ~130 launches
+a component, so the card runs it as the hand-written E1.
 """
 
 from __future__ import annotations
@@ -137,12 +142,12 @@ def dequantize_and_idct_blocks(coefficients, q, scale: int = 8
     """Exact tier, bit-equal to the reference's `dequantize_and_idct_blocks`:
     int16 natural-order blocks, [M, 64] with the int32 [64] natural-order
     quantization table (`params.qt_exact`), or [N, M, 64] for N images with
-    one table each, int32 [N, 64] (`params.qts_exact`) -> uint8 [M, scale,
-    scale] or [N, M, scale, scale]. The ops run once over all N images."""
+    one table each, int32 [N, 64] -> uint8 [M, scale, scale] or [N, M,
+    scale, scale]. The ops run once over all N images."""
     if q.dtype != torch.int32 or q.shape[-1] != 64 \
             or q.dim() not in (1, coefficients.dim() - 1):
         raise TypeError("q must be int32 [64] (params.qt_exact), or [N, 64] "
-                        "for [N, M, 64] blocks (params.qts_exact)")
+                        "for [N, M, 64] blocks")
     lead = coefficients.shape[:-1]
     c = coefficients.to(torch.int32)
     s = c * (q if q.dim() == 1 else q[:, None, :])   # wrapping dequantize

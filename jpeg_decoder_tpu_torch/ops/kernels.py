@@ -21,6 +21,14 @@ product of the coefficients and the basis with q folded in
 places, so they may differ by 1 where a value lands next to a .5 boundary.
 `split_tf32_product` is the kernel's arithmetic in torch, for the CPU tests.
 
+E1 `idct_exact_batch`: the exact tier's dequantize + int32 IDCT (stb
+fixed point, scales 8/4/2/1) over every component of a group of images, in
+one launch on the same kind of segment table as K2's. Counterpart of
+`jpeg_decoder_tpu/ops/idct.py::dequantize_and_idct_blocks`, jnp code that
+XLA compiles into the JAX package's reconstruction (not a Pallas kernel).
+Kernel `csrc/idct_exact.cu`; wrapping int32 math, bit-equal to its plain
+version, `ops/idct.py::dequantize_and_idct_blocks`.
+
 K3 `fused_tail`: chroma upsampling + color conversion into the planar
 layout, counterpart of `jpeg_decoder_tpu/ops/pallas_kernels.py::
 fused_tail_pallas` (the TPU kernel `_fused_tail_kernel`), for one image or
@@ -51,7 +59,7 @@ from .upsample import _v2_near_far, h2v2_combine
 
 
 K2_MAX_COMPONENTS = 4      # one image: a CMYK image
-K2_MAX_SEGMENTS = 64       # one launch's segment table: 16 images x 4
+MAX_SEGMENTS = 64          # one launch's segment table (K2, E1): 16 x 4
 
 
 def _check_tensor(name, t, dtype, dev) -> None:
@@ -61,31 +69,37 @@ def _check_tensor(name, t, dtype, dev) -> None:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
 
 
-def _check_inputs(coef, q, basis, scale: int, dev=None) -> None:
+def _check_coef(coef, scale: int, dev) -> None:
     """coef: int16 [..., N, 64] whose [N, 64] slabs are each contiguous (a
-    leading axis runs over images)."""
-    dev = coef.device if dev is None else dev
+    leading axis runs over images), at an IDCT scale of 8/4/2/1."""
     _check_tensor("coef", coef, torch.int16, dev)
-    for name, t in (("q", q), ("basis", basis)):
-        _check_tensor(name, t, torch.float32, dev)
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     if coef.dim() not in (2, 3) or coef.shape[-1] != 64:
         raise ValueError(f"coef must be [N, 64] or [images, N, 64], got "
                          f"{tuple(coef.shape)}")
-    if coef.shape[-2] > 1 and coef.stride(-2) != 64 or coef.stride(-1) != 1:
+    if coef.numel() and (coef.shape[-2] > 1 and coef.stride(-2) != 64
+                         or coef.stride(-1) != 1):
         raise ValueError("each image's coefficients must be contiguous")
-    if q.shape != (64,) or basis.shape != (64, 64):
-        raise ValueError("q must be [64] and basis [64, 64]")
     if scale not in (1, 2, 4, 8):
         raise ValueError(f"unsupported IDCT scale {scale}")
     if coef.shape[:-1].numel() >= 2 ** 31 // 64:
         raise ValueError("too many blocks for one launch")
 
 
+def _check_inputs(coef, q, basis, scale: int, dev=None) -> None:
+    """K2's inputs: `_check_coef`, and float32 q [64] and basis [64, 64]."""
+    dev = coef.device if dev is None else dev
+    _check_coef(coef, scale, dev)
+    for name, t in (("q", q), ("basis", basis)):
+        _check_tensor(name, t, torch.float32, dev)
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.shape != (64,) or basis.shape != (64, 64):
+        raise ValueError("q must be [64] and basis [64, 64]")
+
+
 def dequant_idct_batch(coefs, qs, bases, scales, folded=None) -> list:
     """K2 over every component of a group of images, one launch (per
-    K2_MAX_SEGMENTS segments). Per component c: coefs[c] int16 [N, n_c, 64]
+    MAX_SEGMENTS segments). Per component c: coefs[c] int16 [N, n_c, 64]
     natural-order blocks of N images (each image's [n_c, 64] slab
     contiguous; the slabs need not be adjacent), qs[c] a list of N float32
     [64] dequant factors (the images' tables may differ), bases[c] the
@@ -93,11 +107,8 @@ def dequant_idct_batch(coefs, qs, bases, scales, folded=None) -> list:
     bases with q folded in (`params.folded`; computed on the device when
     not given) -> per component uint8 [N, n_c, scales[c] ** 2].
 
-    The segment table holds one segment per (component, image), in that
-    order. Before a launch the wrapper merges neighbours that share one
-    folded basis tensor (`params.folded` caches by content) and whose
-    coefficients and outputs lie back to back, so images of one encoder at
-    one quality take one segment per component, as one image does; the
+    The segment table (`_segments`) holds one segment per (component,
+    image), neighbours that share one folded basis tensor merged; the
     kernel reloads a basis only where a tile's segment changes. The plain
     version runs segment by segment, unmerged: a batched call on the CPU
     gives the per-image calls' bits."""
@@ -111,6 +122,9 @@ def dequant_idct_batch(coefs, qs, bases, scales, folded=None) -> list:
                              "one N for every component")
         for q in qc:
             _check_inputs(coef, q, basis, scale, dev)
+    if folded is not None and (len(folded) != len(coefs)
+                               or any(len(fc) != n for fc in folded)):
+        raise ValueError("folded must hold N bases for every component")
     if dev.type == "cpu":
         return [torch.stack([dequant_idct_plain(coef[i], qc[i], basis, scale)
                              for i in range(n)])
@@ -130,34 +144,97 @@ def dequant_idct_batch(coefs, qs, bases, scales, folded=None) -> list:
                          "store must start 16-byte aligned")
     outs = [torch.empty((n, c.shape[1], s * s), dtype=torch.uint8,
                         device=dev) for c, s in zip(coefs, scales)]
-    segs = []       # [coef pointer, folded basis, out pointer, blocks, scale]
-    for coef, fc, out, scale in zip(coefs, folded, outs, scales):
+    _launch_segments("dequant_idct", _segments(coefs, folded, outs, scales),
+                     dev)
+    return outs
+
+
+def _segments(coefs, tables, outs, scales) -> list:
+    """The segment table of a batched launch (K2, E1): one segment per
+    (component, image) with blocks, in that order, as [coefficient
+    pointer, table tensor, output pointer, blocks, scale]. A segment merges
+    into the one before it where both share one table tensor (`params`
+    caches tables by content) and scale, and their coefficients and
+    outputs lie back to back, so images of one encoder at one quality take
+    one segment per component, as one image does."""
+    segs = []
+    for coef, tabs, out, scale in zip(coefs, tables, outs, scales):
         rows = coef.shape[1]
-        for i in range(n):
-            seg = [coef.data_ptr() + coef.stride(0) * 2 * i, fc[i],
+        for i in range(coef.shape[0]):
+            tab = tabs[i]
+            seg = [coef.data_ptr() + coef.stride(0) * 2 * i, tab,
                    out.data_ptr() + out.stride(0) * i, rows, scale]
             last = segs[-1] if segs else None
-            if last is not None and last[1].data_ptr() == fc[i].data_ptr() \
+            if last is not None and last[1].data_ptr() == tab.data_ptr() \
                     and last[4] == scale \
                     and last[0] + last[3] * 128 == seg[0] \
                     and last[2] + last[3] * scale * scale == seg[2]:
                 last[3] += rows
             elif rows:
                 segs.append(seg)
+    return segs
+
+
+def _launch_segments(name: str, segs: list, dev) -> None:
+    """Launch kernel `name` (`jdt_<name>`: coefficient, table and output
+    pointers, block counts, scales, segments, stream) once per MAX_SEGMENTS
+    segments, on `dev`'s current stream."""
     lib = _build.load()
-    for lo in range(0, len(segs), K2_MAX_SEGMENTS):
-        part = segs[lo:lo + K2_MAX_SEGMENTS]
+    fn = getattr(lib, f"jdt_{name}")
+    for lo in range(0, len(segs), MAX_SEGMENTS):
+        part = segs[lo:lo + MAX_SEGMENTS]
         ptrs = ctypes.c_void_p * len(part)
         ints = ctypes.c_int * len(part)
         with torch.cuda.device(dev):
-            err = lib.jdt_dequant_idct(
-                ptrs(*[s[0] for s in part]),
-                ptrs(*[s[1].data_ptr() for s in part]),
-                ptrs(*[s[2] for s in part]),
-                ints(*[s[3] for s in part]), ints(*[s[4] for s in part]),
-                len(part), torch.cuda.current_stream(dev).cuda_stream)
-            _build.LAUNCHES["dequant_idct"] += 1
-        _build.check(lib, err, "dequant_idct")
+            err = fn(ptrs(*[s[0] for s in part]),
+                     ptrs(*[s[1].data_ptr() for s in part]),
+                     ptrs(*[s[2] for s in part]),
+                     ints(*[s[3] for s in part]), ints(*[s[4] for s in part]),
+                     len(part), torch.cuda.current_stream(dev).cuda_stream)
+            _build.LAUNCHES[name] += 1
+        _build.check(lib, err, name)
+
+
+def idct_exact_batch(coefs, qts, scales) -> list:
+    """E1, the exact tier's dequantize + int32 IDCT, over every component
+    of a group of images: one launch (per MAX_SEGMENTS segments). Per
+    component c: coefs[c] int16 [N, n_c, 64] natural-order blocks of N
+    images (each image's [n_c, 64] slab contiguous; the slabs need not be
+    adjacent), qts[c] a list of N int32 [64] natural-order tables
+    (`params.qt_exact`) and scales[c] in 8/4/2/1 -> per component uint8
+    [N, n_c, scales[c] ** 2].
+
+    Segments as K2's (`_segments`): one per (component, image), neighbours
+    that share a table tensor merged. The plain version,
+    `idct.dequantize_and_idct_blocks`, runs segment by segment; the kernel
+    computes every block on its own, so a batched launch gives each image
+    the bits of its own."""
+    if not len(coefs) == len(qts) == len(scales) >= 1:
+        raise ValueError("one table list and scale per component")
+    dev = coefs[0].device
+    n = coefs[0].shape[0]
+    for coef, qc, scale in zip(coefs, qts, scales):
+        _check_coef(coef, scale, dev)
+        if coef.dim() != 3 or coef.shape[0] != n or len(qc) != n:
+            raise ValueError("coefs[c] must be [N, n_c, 64] with N tables, "
+                             "one N for every component")
+        for q in qc:
+            _check_tensor("q", q, torch.int32, dev)
+            if q.shape != (64,) or not q.is_contiguous():
+                raise ValueError("q must be contiguous int32 [64]")
+    if dev.type == "cpu":
+        return [torch.stack([
+                    idct.dequantize_and_idct_blocks(coef[i], qc[i], scale)
+                    .reshape(-1, scale * scale) for i in range(n)])
+                for coef, qc, scale in zip(coefs, qts, scales)]
+    if dev.type != "cuda":
+        raise ValueError(f"no E1 implementation for device {dev}")
+    if any(c.data_ptr() % 16 or n > 1 and c.stride(0) % 8 for c in coefs):
+        raise ValueError("E1 reads coefficients in 16-byte rows: each "
+                         "store must start 16-byte aligned")
+    outs = [torch.empty((n, c.shape[1], s * s), dtype=torch.uint8,
+                        device=dev) for c, s in zip(coefs, scales)]
+    _launch_segments("idct_exact", _segments(coefs, qts, outs, scales), dev)
     return outs
 
 

@@ -17,10 +17,10 @@ tables), and run every op once for the group; one image is a group of
 one.
 
 The IDCT tier follows `geometry.precision` as `_reconstruct` does: "fast"
-runs kernel K2 (one launch for every component of every image), anything
-else the exact int32 IDCT. The planar tail runs K2 at either precision, as
-the reference's `reconstruct_planar_pallas` runs its fp32 Pallas IDCT
-whatever the precision.
+runs kernel K2, anything else kernel E1, the exact int32 IDCT; each takes
+every component of every image in one launch. The planar tail runs K2 at
+either precision, as the reference's `reconstruct_planar_pallas` runs its
+fp32 Pallas IDCT whatever the precision.
 """
 
 from __future__ import annotations
@@ -31,8 +31,8 @@ from ..host.ops.tail import _TAIL_TRANSFORMS, pallas_tail_mode
 
 from ..params import DeviceParams
 from .color import color_convert_image
-from .idct import blocks_to_plane, dequantize_and_idct_blocks
-from .kernels import dequant_idct_batch, fused_tail
+from .idct import blocks_to_plane
+from .kernels import dequant_idct_batch, fused_tail, idct_exact_batch
 from .upsample import upsample_component
 
 
@@ -56,19 +56,27 @@ def fast_pixels(geometry, stores, qts, params: DeviceParams) -> list:
         geometry, [s.reshape(1, -1, 64) for s in stores], [qts], params)]
 
 
+def exact_pixels_batch(geometry, stores, qts_b,
+                       params: DeviceParams) -> list:
+    """Kernel E1, the exact int32 IDCT, over every component of N images
+    in one launch: uint8 [N, n_c, s, s] block pixels per component."""
+    scales = [c.dct_scale for c in geometry.components]
+    pixels = idct_exact_batch(
+        stores, [[params.qt_exact(qts[c]) for qts in qts_b]
+                 for c in range(len(scales))], scales)
+    return [px.reshape(*px.shape[:2], s, s) for px, s in zip(pixels, scales)]
+
+
 def _planes(geometry, stores, qts_b, params: DeviceParams,
             fp32: bool = False) -> list:
     """IDCT + block -> plane per component: block-padded uint8 planes
-    [N, rows, cols]. K2 when `fp32` or at precision "fast", else the exact
-    int32 IDCT."""
+    [N, rows, cols]. K2 when `fp32` or at precision "fast", else E1, the
+    exact int32 IDCT; either in one launch for the group."""
     comps = geometry.components
     if fp32 or geometry.precision == "fast":
         pixels = fast_pixels_batch(geometry, stores, qts_b, params)
     else:
-        pixels = [dequantize_and_idct_blocks(
-                      store, params.qts_exact([qts[c] for qts in qts_b]),
-                      comp.dct_scale)
-                  for c, (comp, store) in enumerate(zip(comps, stores))]
+        pixels = exact_pixels_batch(geometry, stores, qts_b, params)
     return [blocks_to_plane(px, comp.blocks_wide, comp.blocks_high)
             for comp, px in zip(comps, pixels)]
 

@@ -7,7 +7,8 @@ images are stacked on a leading batch axis and split over the data axis
 as `PartitionSpec("data")` splits them, contiguous blocks of B / n_data
 images, and each device reconstructs its block with the port's batched
 reconstruction (`ops/pipeline.py::reconstruct`, every op once for the
-block: kernel K2 at precision "fast", the exact int32 IDCT at "exact").
+block: kernel K2 at precision "fast", kernel E1, the exact int32 IDCT,
+at "exact").
 DP needs no exchange between devices. The geometry buckets images as
 production services do (size class, sampling, scale).
 """

@@ -10,15 +10,16 @@ rows to its neighbours (`mesh.halo_rows`, the reference's `lax.ppermute`),
 after which upsampling and color conversion are local again. Output rows
 come back one block per stripe and are gathered on one device.
 
-Bit-exactness: every stripe runs the exact int32 IDCT
-(`ops/idct.py::dequantize_and_idct_blocks`, as the reference's stripes do
-at any precision) and evaluates the same integer filter taps over
-globally indexed near and far rows; padding stripes (when the MCU rows do
-not divide evenly) make rows that are cropped off.
+Bit-exactness: every stripe runs the exact int32 IDCT (kernel E1,
+`ops/pipeline.py::exact_pixels_batch`, as the reference's stripes run
+`dequantize_and_idct_blocks` at any precision) and evaluates the same
+integer filter taps over globally indexed near and far rows; padding
+stripes (when the MCU rows do not divide evenly) make rows that are
+cropped off.
 
-Each stripe's work is eager PyTorch on its own device, enqueued by one
-caller: the exact IDCT is ~130 ops per component, so a stripe costs
-about as many launches as a whole image does.
+Each stripe's work is enqueued on its own device by one caller: one E1
+launch for all of the stripe's components, then eager PyTorch for the
+halo, upsampling and color.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ import torch
 
 from ..host.ops.upsample import GENERIC, H1V1, H1V2, H2V1, H2V2
 from ..ops.color import color_convert_image
-from ..ops.idct import blocks_to_plane, dequantize_and_idct_blocks
+from ..ops.idct import blocks_to_plane
+from ..ops.pipeline import exact_pixels_batch
 from ..ops.upsample import _h2_horizontal, h2v2_combine
 from ..transfer import put
 from .dist import Shard
@@ -37,8 +39,9 @@ from .mesh import gather_rows, halo_rows, local_positions
 
 def build_stripe_local_recon(geometry, mcu_rows: int, n_stripes: int):
     """The per-stripe reconstruction of `geometry` cut into `n_stripes`
-    stripes of ceil(mcu_rows / n_stripes) MCU rows: dequantize + IDCT, the
-    1-row V2 chroma halo exchange, upsampling and color. Returns
+    stripes of ceil(mcu_rows / n_stripes) MCU rows: dequantize + IDCT (one
+    E1 launch per stripe), the 1-row V2 chroma halo exchange, upsampling
+    and color. Returns
     recon(stores, qts_b, params, owners=None) -> list, one uint8
     [N, R, out_w(, C)] per stripe on its device (R the stripe's output
     rows), where stores[d] holds stripe d's per-component int16 [N, k *
@@ -63,12 +66,9 @@ def build_stripe_local_recon(geometry, mcu_rows: int, n_stripes: int):
         at = (range(n_stripes) if owners is None
               else local_positions(owners))
         planes = [
-            [blocks_to_plane(
-                dequantize_and_idct_blocks(
-                    store, params[j].qts_exact([q[ci] for q in qts_b]),
-                    comp.dct_scale),
-                comp.blocks_wide, k_mcu * v[ci])
-             for ci, (comp, store) in enumerate(zip(comps, stores[j]))]
+            [blocks_to_plane(px, comp.blocks_wide, k_mcu * v[ci])
+             for ci, (comp, px) in enumerate(zip(comps, exact_pixels_batch(
+                 geometry, stores[j], qts_b, params[j])))]
             for j in range(len(at))]
         halos = {ci: halo_rows([p[ci] for p in planes], owners)
                  for ci, comp in enumerate(comps)

@@ -185,7 +185,7 @@ def scan_tables(scan, device) -> ScanTables:
 def quant_table(qt, device, dtype=np.float32) -> torch.Tensor:
     """uint16[64] natural-order quantization table -> [64] of `dtype`:
     float32 as the fast tier multiplies it (K2), int32 as the exact tier
-    does (ops/idct.py dequantize_and_idct_blocks)."""
+    does (kernel E1, ops/kernels.py idct_exact_batch)."""
     q = np.asarray(qt).astype(dtype).reshape(64)
     return torch.from_numpy(q).to(device)
 
@@ -239,16 +239,6 @@ class DeviceParams:
     def qt_exact(self, qt) -> torch.Tensor:
         return self._get(("qt_exact", np.asarray(qt).tobytes()),
                          lambda: quant_table(qt, self.device, np.int32))
-
-    def qts_exact(self, qts) -> torch.Tensor:
-        """int32 [N, 64]: one exact-tier table per image of a group."""
-        def make():
-            q = np.stack([np.asarray(t).astype(np.int32).reshape(64)
-                          for t in qts])
-            return torch.from_numpy(q).to(self.device)
-
-        return self._get(("qts_exact",) + tuple(np.asarray(t).tobytes()
-                                                for t in qts), make)
 
     def basis(self, scale: int) -> torch.Tensor:
         return self._get(("basis", scale),

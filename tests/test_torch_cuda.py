@@ -44,7 +44,12 @@ the stripe's end) of stripe_420.jpg at 8 stripes and large_420 at 4 and
 8; `decode_striped` bit-equal to the host exact decode with one K1 launch
 per stripe; mesh groups bit-equal to the meshless decode with K1 and K2
 once per shard. Malformed streams: the fuzzer's device mode
-(`tools/fuzz_torch.py`) over 36 sources, with no failure.
+(`tools/fuzz_torch.py`) over 36 sources, with no failure. E1 (the exact
+tier's int32 IDCT): bit-equal to its plain version at every scale on
+`adversarial_blocks` and on fixture stores, a 48-segment group with
+per-image tables bit-equal to per-image launches in one launch, a store
+off a 16-byte boundary refused, one launch for one exact large_420 decode
+and one per stripe.
 """
 
 import time
@@ -69,8 +74,8 @@ from jpeg_decoder_tpu_torch.ops.predictors import (lossless_recur,
                                                    lossless_recur_plain)
 
 from torch_inputs import (ODD_TAIL_LAYOUTS, SMALL_FIXTURES, TAIL_CASES,
-                          fixture, odd_tail_case, oracle_stores, tail_planes,
-                          three_table_pairs)
+                          adversarial_blocks, fixture, odd_tail_case,
+                          oracle_stores, tail_planes, three_table_pairs)
 
 
 @pytest.fixture
@@ -413,7 +418,7 @@ def test_k2_segment_table_bit_equal_to_per_image_launches(cuda, n, ncomp,
     theirs, so the wrapper merges them), coefficients >= 2048 in some
     blocks: one launch per 64 segments, each image's pixels those of its
     own launch (SHA-256 equal), within 1 of plain."""
-    from jpeg_decoder_tpu_torch.ops.kernels import (K2_MAX_SEGMENTS,
+    from jpeg_decoder_tpu_torch.ops.kernels import (MAX_SEGMENTS,
                                                     dequant_idct_batch)
 
     params = DeviceParams(cuda)
@@ -436,7 +441,7 @@ def test_k2_segment_table_bit_equal_to_per_image_launches(cuda, n, ncomp,
     got = dequant_idct_batch(coefs, qs, bases, [scale] * ncomp, folded)
     segs = n * ncomp - ncomp             # images 1 and 2 share a segment
     assert jt.LAUNCHES["dequant_idct"] - before \
-        == -(-segs // K2_MAX_SEGMENTS)
+        == -(-segs // MAX_SEGMENTS)
     for i in range(n):
         alone = dequant_idct_multi(
             [c[i] for c in coefs], [q[i] for q in qs], bases,
@@ -655,6 +660,7 @@ def test_decode_striped_on_card_slots(cuda, n):
         img = dec.decode_striped(data)
     torch.cuda.synchronize()
     assert jt.LAUNCHES["huffman_decode"] == n and img.is_cuda
+    assert jt.LAUNCHES["idct_exact"] == n
     gold = HostDecoder(data, backend="numpy", precision="exact")
     assert np.array_equal(img.cpu().numpy(), gold.decode_array())
 
@@ -693,3 +699,85 @@ def test_device_fuzz_on_card(cuda, tmp_path):
     assert res["k1_vs_plain_checked"] == res["k1_scans_checked"] > 0
     assert res["launches"]["huffman_decode"] >= res["k1_scans_checked"]
     assert res["k3_checked"] > 0 and res["l1_checked"] > 0
+
+
+def _e1_plain(coef, q, scale):
+    from jpeg_decoder_tpu_torch.ops.idct import dequantize_and_idct_blocks
+
+    return dequantize_and_idct_blocks(coef, q, scale).reshape(
+        coef.shape[0], scale * scale)
+
+
+@pytest.mark.parametrize("source", ["adversarial", "fixtures"])
+@pytest.mark.parametrize("scale", [8, 4, 2, 1])
+def test_e1_kernel_bit_equal_to_plain(cuda, scale, source):
+    from jpeg_decoder_tpu_torch.host.decoder import Decoder as HostDecoder
+    from jpeg_decoder_tpu_torch.ops.kernels import idct_exact_batch
+
+    params = DeviceParams(cuda)
+    if source == "adversarial":
+        cases = [adversarial_blocks(seed, 5000) for seed in (0, 1)]
+    else:
+        cases = []
+        for name in SMALL_FIXTURES + ("tower_420.jpg",):
+            d = HostDecoder(fixture(name), backend="numpy")
+            d._decode_entropy_only()
+            cases += [(store.reshape(-1, 64), qt)
+                      for store, qt in d._pending_render.values()]
+    before = jt.LAUNCHES["idct_exact"]
+    for coef_np, qt in cases:
+        coef = torch.from_numpy(np.ascontiguousarray(coef_np)).to(cuda)
+        q = params.qt_exact(qt)
+        got = idct_exact_batch([coef[None]], [[q]], [scale])[0][0]
+        assert torch.equal(got, _e1_plain(coef, q, scale))
+        assert torch.equal(got.cpu(), _e1_plain(coef.cpu(), q.cpu(), scale))
+    assert jt.LAUNCHES["idct_exact"] - before == len(cases)
+
+
+def test_e1_segment_table_bit_equal_to_per_image_launches(cuda):
+    """16 images x 3 components with per-image 16-bit tables: 48 segments
+    in one launch, each image's pixels those of its own launch and of the
+    plain version."""
+    from jpeg_decoder_tpu_torch.ops.kernels import idct_exact_batch
+
+    params = DeviceParams(cuda)
+    rng = np.random.default_rng(48)
+    n, scales = 16, [8, 4, 2]
+    coefs = [torch.from_numpy(rng.integers(-32768, 32768, (n, b, 64))
+                              .astype(np.int16)).to(cuda)
+             for b in (301, 77, 77)]
+    qts = [[params.qt_exact(rng.integers(1, 65536, 64).astype(np.uint16))
+            for _ in range(n)] for _ in coefs]
+    before = jt.LAUNCHES["idct_exact"]
+    got = idct_exact_batch(coefs, qts, scales)
+    assert jt.LAUNCHES["idct_exact"] - before == 1
+    for i in range(n):
+        alone = idct_exact_batch([c[i:i + 1] for c in coefs],
+                                 [[q[i]] for q in qts], scales)
+        assert _digest(g[i] for g in got) == _digest(a[0] for a in alone)
+        for g, c, q, s in zip(got, coefs, qts, scales):
+            assert torch.equal(g[i], _e1_plain(c[i], q[i], s))
+
+
+def test_e1_rejects_a_store_not_16_byte_aligned(cuda):
+    from jpeg_decoder_tpu_torch.ops.kernels import idct_exact_batch
+
+    q = DeviceParams(cuda).qt_exact(np.ones(64, np.uint16))
+    odd = torch.zeros(2 * 64 + 4, dtype=torch.int16, device=cuda)[4:]
+    before = jt.LAUNCHES["idct_exact"]
+    with pytest.raises(ValueError, match="16-byte"):
+        idct_exact_batch([odd.view(1, 2, 64)], [[q]], [8])
+    assert jt.LAUNCHES["idct_exact"] == before
+
+
+def test_e1_launches_once_for_an_exact_large_420(cuda):
+    with jt.DeviceStreamDecoder(host_threads=1, precision="exact") as dec:
+        staged = dec.stage(fixture("large_420.jpg"))
+        wires = dec._to_device(staged)
+        torch.cuda.synchronize()
+        jt.reset_launches()
+        img = dec._run_device(staged, wires)
+        torch.cuda.synchronize()
+    assert jt.LAUNCHES["idct_exact"] == 1
+    assert jt.LAUNCHES["dequant_idct"] == 0
+    assert img.is_cuda

@@ -18,27 +18,13 @@ import torch
 from jpeg_decoder_tpu.ops.idct import dequantize_and_idct_blocks as ref_idct
 from jpeg_decoder_tpu_torch.ops.idct import dequantize_and_idct_blocks
 
+from torch_inputs import adversarial_blocks as _adversarial
+
 
 def _port(coef, qt, scale):
     return dequantize_and_idct_blocks(
         torch.from_numpy(coef), torch.from_numpy(qt.astype(np.int32)),
         scale).numpy()
-
-
-def _adversarial(seed: int, n: int = 600):
-    """int16 [n, 64] blocks and a 16-bit table: full-range values, small
-    in-range ones, zeroed AC columns and rows, DC-only blocks."""
-    rng = np.random.default_rng(seed)
-    coef = rng.integers(-32768, 32768, (n, 64)).astype(np.int16)
-    small = rng.integers(-64, 64, (n // 3, 64)).astype(np.int16)
-    coef[: n // 3] = small
-    grid = coef.reshape(n, 8, 8)
-    grid[n // 3: n // 2, 1:, rng.integers(0, 8)] = 0      # one zero AC column
-    grid[n // 2: 2 * n // 3, 1:, :] = 0                   # every column
-    grid[2 * n // 3: 3 * n // 4, :, 1:] = 0               # zero AC rows
-    qt = rng.integers(1, 65536, 64).astype(np.uint16)
-    qt[:8] = rng.integers(1, 100, 8)
-    return coef, qt
 
 
 @pytest.mark.parametrize("scale", [8, 4, 2, 1])

@@ -6,7 +6,8 @@ tests/test_prescan_parity.py (`_make_dri_jpeg`); the committed fixtures
 come from tools/make_torch_fixtures.py. Two byte-level recipes need
 neither PIL nor JAX, so `chip_smoke.py` uses them too:
 `three_table_pairs` (an SOF1 edit that gives Cr its own tables) and
-`quirk_jpeg` (a baseline scan the device prescan defers to the host).
+`quirk_jpeg` (a baseline scan the device prescan defers to the host); so
+does `adversarial_blocks`, the exact IDCT's integer corners.
 """
 
 from __future__ import annotations
@@ -91,6 +92,23 @@ TAIL_CASES = {
     "width1_h2v1": (("h1v1", "h2v1", "h2v1"), "ycbcr", 7, 1, (7, 1)),
     "height1_h2v2": (("h1v1", "h2v2", "h2v2"), "ycbcr", 1, 13, (1, 7)),
 }
+
+
+def adversarial_blocks(seed: int, n: int = 600):
+    """int16 [n, 64] blocks and a 16-bit table for the exact IDCT:
+    full-range values, small in-range ones, zeroed AC columns and rows,
+    DC-only blocks."""
+    rng = np.random.default_rng(seed)
+    coef = rng.integers(-32768, 32768, (n, 64)).astype(np.int16)
+    small = rng.integers(-64, 64, (n // 3, 64)).astype(np.int16)
+    coef[: n // 3] = small
+    grid = coef.reshape(n, 8, 8)
+    grid[n // 3: n // 2, 1:, rng.integers(0, 8)] = 0      # one zero AC column
+    grid[n // 2: 2 * n // 3, 1:, :] = 0                   # every column
+    grid[2 * n // 3: 3 * n // 4, :, 1:] = 0               # zero AC rows
+    qt = rng.integers(1, 65536, 64).astype(np.uint16)
+    qt[:8] = rng.integers(1, 100, 8)
+    return coef, qt
 
 
 def tail_planes(name: str, seed: int = 0) -> list:
