@@ -7,7 +7,8 @@ Drives the port's paths (jpeg_decoder_tpu_torch.DeviceStreamDecoder on
 tools/experiments/fused_recon_probe_torch.py) over the committed fixtures
 in tests/fixtures/torch_port/, after building every hand-written kernel
 from csrc/ and holding each against its plain PyTorch version on the card
-(K1-K4, L1, and E1, the exact tier's int32 IDCT):
+(K1-K4, L1, E1, the exact tier's int32 IDCT, and T1, the interleaved
+tail):
 
 1. card name and power limit (nvidia-smi), native host library status;
 2. kernel build (nvcc), with its time;
@@ -16,7 +17,7 @@ from csrc/ and holding each against its plain PyTorch version on the card
 4. K2 (dequant + IDCT) on the card vs its plain version on the card, on
    fixture stores and seeded random coefficients: |diff| <= 1;
 5. the slice: decode_stream(all fixtures) -> CUDA tensors, launch counts
-   of both kernels > 0, every image within 3 of the host exact decode;
+   of K1, K2 and T1 > 0, every image within 3 of the host exact decode;
    then [small_444, a malformed stream, small_444] with on_error="none":
    None in the malformed slot, CUDA tensors in the others;
 6. CUDA-event times: device-resident ms/image for the 3.4 Mpix and
@@ -180,7 +181,20 @@ from csrc/ and holding each against its plain PyTorch version on the card
    SHA-256-equal to per-image launches; 17 x 4 segments in two launches;
    a store off a 16-byte boundary refused; one E1 launch for one exact
    large_420 decode; E1's CUDA-event ms at large_420's shapes beside its
-   plain version's.
+   plain version's;
+24. T1 (the interleaved tail, csrc/interleaved_tail.cu: block pixels ->
+   the upsampled, color-converted image) against its plain version on the
+   card, tolerance 0: every T1 call of real decodes as the decode makes
+   it (every fixture at fast and exact, interleaved and planar; large_420
+   at 1, 1/2, 1/4 and 1/8; a tower_420 group of 16; the hetero group;
+   the stripes of large_420 at 4 and 8 and of stripe_420.jpg at 8, one
+   call per stripe), seeded pixels at every odd width 1-39 and height 1-5
+   per layout and transform, and `tests/torch_inputs.py::T1_CASES`
+   (scales 8/4/2/1, groups of 3), interleaved and planar; T1's CUDA-event
+   ms at large_420's shapes beside its plain version's. T1's launches are
+   checked in phases 5 (> 0), 11 (1 per image), 16 (1 per large_420 image
+   at fast and exact), 17 (1 per plan), 18 (1 per image), 19 (1 per
+   stripe) and 21 (> 0).
 
 Any failure raises and the script exits nonzero. It needs a CUDA device and
 the repository around it; it imports neither JAX, nor PIL, nor the JAX
@@ -446,10 +460,11 @@ def phase_kernel_table(jt, measured: dict, per_image: dict, l1_chain: dict,
         rows[name][f"{label}_device_us"] = prof["all_device_us"]
         rows[name][f"{label}_launches_per_call"] = prof["all_launches"]
     say("16 kernel table", **rows)
-    if per_image["K2"] != 1 or per_image["E1"] != 1 \
+    if per_image["K2"] != 1 or per_image["E1"] != 1 or per_image["T1"] != 1 \
             or rows["K1"]["wrapper_launches_per_call"] != 1:
-        raise AssertionError("K2 (fast) and E1 (exact) must launch once per "
-                             f"image and K1's wrapper once per call: {rows}")
+        raise AssertionError("K2 (fast), E1 (exact) and T1 must launch once "
+                             "per image and K1's wrapper once per call: "
+                             f"{rows}")
     return rows
 
 
@@ -473,9 +488,10 @@ def phase_exact(jt, data: dict, profile_layers) -> dict:
             if max_diff(img, host_exact(large, size), f"large {size}"):
                 raise AssertionError(f"exact large_420 at {size} differs")
         if launches["huffman_decode"] < 1 or launches["dequant_idct"] \
-                or launches["idct_exact"] != len(images) + len(scaled):
-            raise AssertionError(f"K1 never ran, K2 ran, or E1 not once per "
-                                 f"image: {launches}")
+                or launches["idct_exact"] != len(images) + len(scaled) \
+                or launches["interleaved_tail"] != len(images) + len(scaled):
+            raise AssertionError(f"K1 never ran, K2 ran, or E1 or T1 not "
+                                 f"once per image: {launches}")
         exact = dec.device_resident_rate(large, iters=20)
         prof, _trace = profile_layers(dec, FIXTURES / "large_420.jpg", 10)
     with jt.DeviceStreamDecoder(device="cuda", host_threads=4) as dec:
@@ -762,29 +778,37 @@ def batch_configs(data: dict) -> list:
                           16) for s in range(8)] for p in (1, 6)}
     return [
         ("tower_420 x32 at 16", {}, [tower] * 32, 16,
-         {"huffman_decode": 2, "dequant_idct": 2, "idct_exact": 0}),
+         {"huffman_decode": 2, "dequant_idct": 2, "idct_exact": 0,
+          "interleaved_tail": 2}),
         ("large_420 x4 at 4", {}, [large] * 4, 4,
-         {"huffman_decode": 1, "dequant_idct": 1, "idct_exact": 0}),
+         {"huffman_decode": 1, "dequant_idct": 1, "idct_exact": 0,
+          "interleaved_tail": 1}),
         # One hetero group: one sweep, one reconstruction per plan.
         ("mixed sizes x8 at 8", {}, mixed + mixed[:2], 8,
-         {"huffman_decode": 1, "dequant_idct": len(MIXED)}),
+         {"huffman_decode": 1, "dequant_idct": len(MIXED),
+          "interleaved_tail": len(MIXED)}),
         ("mixed sizes x8 at 8 exact", {"precision": "exact"},
          mixed + mixed[:2], 8,
-         {"huffman_decode": 1, "dequant_idct": 0, "idct_exact": len(MIXED)}),
+         {"huffman_decode": 1, "dequant_idct": 0, "idct_exact": len(MIXED),
+          "interleaved_tail": len(MIXED)}),
         ("tower_420 x8 at 8 exact", {"precision": "exact"}, [tower] * 8, 8,
-         {"huffman_decode": 1, "dequant_idct": 0, "idct_exact": 1}),
+         {"huffman_decode": 1, "dequant_idct": 0, "idct_exact": 1,
+          "interleaved_tail": 1}),
         ("tower_420 x8 at 8 prefix", {"interchange": "prefix"}, [tower] * 8,
-         8, {"huffman_decode": 0, "dequant_idct": 1, "idct_exact": 0}),
+         8, {"huffman_decode": 0, "dequant_idct": 1, "idct_exact": 0,
+             "interleaved_tail": 1}),
         ("tower_420 x8 at 8 prefix exact",
          {"interchange": "prefix", "precision": "exact"}, [tower] * 8, 8,
-         {"huffman_decode": 0, "dequant_idct": 0, "idct_exact": 1}),
+         {"huffman_decode": 0, "dequant_idct": 0, "idct_exact": 1,
+          "interleaved_tail": 1}),
         ("tower_420 x8 at 8 planar-pallas", {"layout": "planar-pallas"},
          [tower] * 8, 8,
-         {"huffman_decode": 1, "dequant_idct": 1, "fused_tail": 1}),
+         {"huffman_decode": 1, "dequant_idct": 1, "fused_tail": 1,
+          "interleaved_tail": 0}),
         ("SOF3 512x512 16-bit x8 at 8 predictor 1", {}, sof3[1], 8,
-         {"lossless_recur": 0}),
+         {"lossless_recur": 0, "interleaved_tail": 0}),
         ("SOF3 512x512 16-bit x8 at 8 predictor 6", {}, sof3[6], 8,
-         {"lossless_recur": 1}),
+         {"lossless_recur": 1, "interleaved_tail": 0}),
     ]
 
 
@@ -796,9 +820,11 @@ def phase_batch(jt, data: dict, params, dev, profile_layers) -> dict:
     from jpeg_decoder_tpu_torch.ops.kernels import (dequant_idct_batch,
                                                     dequant_idct_multi,
                                                     fused_tail,
-                                                    idct_exact_batch)
+                                                    idct_exact_batch,
+                                                    interleaved_tail)
     from jpeg_decoder_tpu_torch.ops.predictors import lossless_recur
     from tools.torch_port_profile import kernel_device_us
+    from torch_inputs import t1_args, t1_geometry
 
     results = {}
     for name, kw, stream, batch_size, want in batch_configs(data):
@@ -898,6 +924,8 @@ def phase_batch(jt, data: dict, params, dev, profile_layers) -> dict:
     shared_e1 = [[params.qt_exact(tabs[0][c])] * 16 for c in range(3)]
     sof3_slices = torch.from_numpy(rng.integers(0, 65536, (8, *SOF3_SLICE))
                                    .astype(np.int32)).to(dev)
+    t1_tower = t1_args(t1_geometry("420", 512, 512, 8, "YCBCR"))
+    t1_pixels = [c.view(16, -1, 8, 8).to(torch.uint8) for c in coefs]
     kernels = {
         "K1 tower_420 x16 merged wire": (
             lambda: decode_chunks(*k1_args), "huffman_decode_kernel",
@@ -912,6 +940,10 @@ def phase_batch(jt, data: dict, params, dev, profile_layers) -> dict:
         "K3 tower_420 planes x16": (
             lambda: fused_tail(planes, *k3_args), "fused_tail_kernel",
             sum(p.numel() for p in planes) + 16 * 3 * 512 * 512),
+        "T1 tower_420 x16": (
+            lambda: interleaved_tail(t1_pixels, *t1_tower),
+            "interleaved_tail_kernel",
+            sum(p.numel() for p in t1_pixels) + 16 * 3 * 512 * 512),
         "L1 8 x 512 x 512 predictor 6": (
             lambda: lossless_recur(sof3_slices, 6, 0, 1 << 15),
             "lossless_recur_kernel", 8 * sof3_slices.numel()),
@@ -1009,6 +1041,8 @@ def phase_front_end(jt, data: dict, dev) -> dict:
         counted[precision] = dict(jt.LAUNCHES)
     if counted["fast"]["dequant_idct"] < len(cases) \
             or counted["exact"]["idct_exact"] != len(cases) \
+            or counted["exact"]["interleaved_tail"] != len(cases) \
+            or counted["fast"]["interleaved_tail"] < len(cases) \
             or counted["exact"]["dequant_idct"] or counted["fast"]["idct_exact"]:
         raise AssertionError(f"18 K2 once per image at fast, E1 at exact: "
                              f"{counted}")
@@ -1054,7 +1088,8 @@ def phase_front_end(jt, data: dict, dev) -> dict:
     jt.reset_launches()
     service = jt.BatchDecodeService().decode_all([blobs[n] for n in names])
     service_launches = dict(jt.LAUNCHES)
-    if service_launches["idct_exact"] != len(names):
+    if service_launches["idct_exact"] != len(names) \
+            or service_launches["interleaved_tail"] != len(names):
         raise AssertionError(f"18 service launches: {service_launches}")
     for name, img in zip(names, service):
         if img.tobytes() != exact_out[name]:
@@ -1149,6 +1184,9 @@ def phase_front_end(jt, data: dict, dev) -> dict:
     return {"K2": counted["fast"]["dequant_idct"],
             "E1": counted["exact"]["idct_exact"]
             + service_launches["idct_exact"],
+            "T1": counted["fast"]["interleaved_tail"]
+            + counted["exact"]["interleaved_tail"]
+            + service_launches["interleaved_tail"],
             "L1": sum(ll_launches.values())}
 
 
@@ -1213,7 +1251,8 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
                              f"{k1_err}, negative first blocks {negative}")
 
     # large_420 striped: bit-equal, one K1 launch per stripe.
-    striped, stripe_launches, e1_stripe_launches = {}, 0, 0
+    striped, stripe_launches, e1_stripe_launches, t1_stripe_launches = \
+        {}, 0, 0, 0
     staged = jt.stage_host_bits(large)
     exact = jt.stage_host_bits(large, precision="exact")
     with jt.DeviceStreamDecoder(host_threads=1, precision="exact") as plain:
@@ -1227,13 +1266,15 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
             img, launches = counted(jt, lambda: dec.decode_striped(large))
             exchanged = dict(mesh_mod.EXCHANGED)
         if launches["huffman_decode"] != n or launches["dequant_idct"] \
-                or launches["idct_exact"] != n:
+                or launches["idct_exact"] != n \
+                or launches["interleaved_tail"] != n:
             raise AssertionError(f"19 {n} stripes launched {launches}")
         if not np.array_equal(img.cpu().numpy(), large_gold):
             raise AssertionError(f"19 large_420 at {n} stripes differs from "
                                  "the host exact decode")
         stripe_launches += launches["huffman_decode"]
         e1_stripe_launches += launches["idct_exact"]
+        t1_stripe_launches += launches["interleaved_tail"]
         prof = kernel_device_us(lambda: decode_bits_striped(staged, mesh),
                                 "huffman_decode_kernel", iters=3)
         ms = cuda_ms(lambda: decode_bits_striped(staged, mesh), 5)
@@ -1243,6 +1284,7 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
             "launches_per_stripe": prof["all_launches"] / n,
             "k1_launches": launches["huffman_decode"],
             "e1_launches": launches["idct_exact"],
+            "t1_launches": launches["interleaved_tail"],
             "device_busy_ms": prof["all_device_us"] / 1e3,
             "halo_bytes": exchanged["halo"], "carry_bytes":
             exchanged["carry"], "gather_bytes": exchanged["gather"]}
@@ -1297,7 +1339,8 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
         [jt.stage_host_bits(tower) for _ in range(4)], pair_mesh))
     # K1 per image and stripe; E1 per (data shard, stripe), 2 images each.
     if out is None or launches["huffman_decode"] != 8 \
-            or launches["idct_exact"] != 4 or not all(
+            or launches["idct_exact"] != 4 \
+            or launches["interleaved_tail"] != 4 or not all(
                 np.array_equal(o.cpu().numpy(), tower_gold) for o in out):
         raise AssertionError(f"19 DP x SP bits batch: {launches}")
 
@@ -1307,9 +1350,10 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
     (served, service_launches) = counted(
         jt, lambda: jt.BatchDecodeService(data_mesh).decode_all(blobs))
     if any(a.tobytes() != b.tobytes() for a, b in zip(served, meshless)) \
-            or service_launches["idct_exact"] != len(blobs):
-        raise AssertionError(f"19 the service on a mesh differs, or E1 not "
-                             f"once per image: {service_launches}")
+            or service_launches["idct_exact"] != len(blobs) \
+            or service_launches["interleaved_tail"] != len(blobs):
+        raise AssertionError(f"19 the service on a mesh differs, or E1 or "
+                             f"T1 not once per image: {service_launches}")
 
     ran = dryrun_multichip(MESH_SLOTS, ["cuda:0"] * MESH_SLOTS)
     say("19 mesh", card=card, groups=groups, result="SHA-256-equal to the "
@@ -1318,7 +1362,8 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
         service={"images": len(blobs), "launches": service_launches},
         dryrun=ran, cards=torch.cuda.device_count())
     return {"stripe_launches": stripe_launches,
-            "e1_stripe_launches": e1_stripe_launches, "k1_err": k1_err,
+            "e1_stripe_launches": e1_stripe_launches,
+            "t1_stripe_launches": t1_stripe_launches, "k1_err": k1_err,
             "striped_8_ms": striped["8 stripes"]["ms_per_image"]}
 
 
@@ -1417,7 +1462,8 @@ def phase_fuzz(jt, card: str) -> dict:
     seconds = time.perf_counter() - t0
     launches = res["launches"]
     missing = [k for k in ("huffman_decode", "dequant_idct", "fused_tail",
-                           "lossless_recur", "idct_exact") if launches[k] < 1]
+                           "lossless_recur", "idct_exact", "interleaved_tail")
+               if launches[k] < 1]
     if res["failures"] or missing \
             or res["k1_vs_plain_checked"] != res["k1_scans_checked"] \
             or not (res["k3_checked_on_mutants"]
@@ -1440,7 +1486,8 @@ def phase_fuzz(jt, card: str) -> dict:
                   "K2": launches["dequant_idct"],
                   "K3": launches["fused_tail"],
                   "L1": launches["lossless_recur"],
-                  "E1": launches["idct_exact"]},
+                  "E1": launches["idct_exact"],
+                  "T1": launches["interleaved_tail"]},
         seconds=seconds)
     sanitizer = shutil.which("compute-sanitizer")
     if sanitizer is None:
@@ -1642,6 +1689,124 @@ def phase_e1(jt, data: dict, params, dev, card: str) -> dict:
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
+# 24: T1's seeded sweep, per layout its transforms (tests/torch_inputs.py
+# T1_LAYOUTS: every upsampler mode, generic at scales 1-4, one and four
+# components) at every odd width 1-39 and height 1-5.
+T1_SWEEP = {"444": ("NONE", "RGB", "YCBCR"), "422": ("NONE", "RGB", "YCBCR"),
+            "440": ("NONE", "RGB", "YCBCR"), "420": ("NONE", "RGB", "YCBCR"),
+            "g31": ("NONE", "RGB", "YCBCR"), "g23": ("NONE", "RGB", "YCBCR"),
+            "g44": ("NONE", "RGB", "YCBCR"), "mixed4": ("NONE", "CMYK", "YCCK"),
+            "generic4": ("NONE", "CMYK", "YCCK"), "gray": (None,)}
+
+
+def phase_t1(jt, data: dict, params, dev, card: str) -> dict:
+    """24. T1 against its plain version on the card, tolerance 0: every T1
+    call of real decodes, captured as the decode makes it (every fixture at
+    fast and exact, interleaved and planar; large_420 at 1, 1/2, 1/4 and
+    1/8; tower_420 x 16 in one group; the hetero group of the mixed
+    sizes; the stripes of large_420 at 4 and 8 and of stripe_420 at 8 on
+    slots of the card, halos included); seeded pixels at every odd width
+    1-39 and height 1-5 per layout and transform (T1_SWEEP), and
+    `T1_CASES` (scales 8/4/2/1, groups of 3), interleaved and planar.
+    T1's CUDA-event ms at large_420's main-path shapes beside its plain
+    version's. Returns T1's numbers."""
+    from jpeg_decoder_tpu_torch.ops import kernels, pipeline
+    from jpeg_decoder_tpu_torch.parallel import make_mesh, stripes
+    from torch_inputs import T1_CASES, t1_args, t1_geometry, t1_pixels
+
+    captured = []
+
+    def spy(pixels, *args, **kw):
+        out = kernels.interleaved_tail(pixels, *args, **kw)
+        captured.append((pixels, args, kw, out))
+        return out
+
+    def check(label: str) -> int:
+        """Each captured call against the plain version on its inputs."""
+        torch.cuda.synchronize()
+        for pixels, args, kw, out in captured:
+            want = kernels.interleaved_tail_plain(pixels, *args, **kw)
+            if out.shape != want.shape or not torch.equal(out, want):
+                raise AssertionError(f"24 T1 {label}: differs from its "
+                                     f"plain version, {args[1:]} {kw}")
+        n = len(captured)
+        captured.clear()
+        return n
+
+    large, tower = data["large_420.jpg"], data["tower_420.jpg"]
+    mixed = [(FIXTURES / n).read_bytes() for n in MIXED]
+    calls = {}
+    saved = pipeline.interleaved_tail, stripes.interleaved_tail
+    pipeline.interleaved_tail = stripes.interleaved_tail = spy
+    try:
+        for precision in ("fast", "exact"):
+            for layout in ("interleaved", "planar"):
+                with jt.DeviceStreamDecoder(host_threads=4, layout=layout,
+                                            precision=precision) as dec:
+                    dec.decode_stream([data[name] for name in ORDER])
+                    calls[f"fixtures {precision} {layout}"] = check(
+                        f"fixtures {precision} {layout}")
+            with jt.DeviceStreamDecoder(host_threads=4,
+                                        precision=precision) as dec:
+                for size in EXACT_SCALES:
+                    dec.decode_stream([large], scale_to=size)
+                calls[f"large_420 scaled {precision}"] = check(
+                    f"large_420 scaled {precision}")
+                dec.decode_stream([tower] * 16, batch_size=16)
+                calls[f"tower_420 x16 {precision}"] = check(
+                    f"tower_420 x16 {precision}")
+                dec.decode_stream(mixed + mixed[:2], batch_size=8)
+                calls[f"hetero group {precision}"] = check(
+                    f"hetero group {precision}")
+        for name, n in (("large_420.jpg", 4), ("large_420.jpg", 8),
+                        ("stripe_420.jpg", 8)):
+            blob = (FIXTURES / name).read_bytes()
+            mesh = make_mesh({"stripe": n}, mesh_devices(n))
+            with jt.DeviceStreamDecoder(mesh=mesh, host_threads=1) as dec:
+                dec.decode_striped(blob)
+            got = check(f"{name} at {n} stripes")
+            if got != n:
+                raise AssertionError(f"24 {name} at {n} stripes: {got} T1 "
+                                     "calls, not one per stripe")
+            calls[f"{name} at {n} stripes"] = got
+    finally:
+        pipeline.interleaved_tail, stripes.interleaved_tail = saved
+
+    seeded = [(layout, t, h, w, 8, 1) for layout, ts in T1_SWEEP.items()
+              for t in ts for w in range(1, 40, 2) for h in range(1, 6)]
+    for k, (layout, t, h, w, scale, images) in enumerate(seeded + T1_CASES):
+        geometry = t1_geometry(layout, h, w, scale, t)
+        pixels = t1_pixels(geometry, images, k, dev)
+        args = t1_args(geometry)
+        for planar in (False, True):
+            got = kernels.interleaved_tail(pixels, *args, planar=planar)
+            want = kernels.interleaved_tail_plain(pixels, *args,
+                                                  planar=planar)
+            if got.shape != want.shape or not torch.equal(got, want):
+                raise AssertionError(f"24 T1 seeded {layout} {t} {h}x{w} "
+                                     f"scale {scale} x{images} planar "
+                                     f"{planar}: differs from plain")
+    calls["seeded"] = 2 * (len(seeded) + len(T1_CASES))
+
+    # Times at large_420's shapes: E1's pixels of its stores, as the exact
+    # main path calls T1.
+    geometry = jt.stage_host_bits(large, precision="exact").geometry
+    renders = host_oracle(large)._pending_render
+    stores = [torch.from_numpy(renders[i][0].reshape(1, -1, 64)).to(dev)
+              for i in range(len(renders))]
+    pixels = pipeline.exact_pixels_batch(
+        geometry, stores, [tuple(renders[i][1] for i in range(len(renders)))],
+        params)
+    args = t1_args(geometry)
+    ms = cuda_ms(lambda: kernels.interleaved_tail(pixels, *args), 50)
+    plain_ms = cuda_ms(lambda: kernels.interleaved_tail_plain(pixels, *args),
+                       20)
+    say("24 T1 vs plain", card=card, calls_checked=calls, max_abs_err=0,
+        tolerance=0, large_420_pixels=[list(p.shape) for p in pixels],
+        t1_ms=ms, plain_ms=plain_ms)
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1665,7 +1830,8 @@ def main() -> int:
                                                     fused_recon_plain,
                                                     fused_tail,
                                                     fused_tail_plain,
-                                                    idct_exact_batch)
+                                                    idct_exact_batch,
+                                                    interleaved_tail)
     from jpeg_decoder_tpu_torch.ops.pipeline import _planes, fast_pixels
     from jpeg_decoder_tpu_torch.params import DeviceParams
     from tools.experiments import fused_recon_probe_torch as k4_probe
@@ -1778,7 +1944,8 @@ def main() -> int:
             if worst[name] > PIXEL_TOL:
                 raise AssertionError(f"{name}: max |diff| {worst[name]} > "
                                      f"{PIXEL_TOL} vs the exact decode")
-        if min(launches["huffman_decode"], launches["dequant_idct"]) < 1:
+        if min(launches["huffman_decode"], launches["dequant_idct"],
+               launches["interleaved_tail"]) < 1:
             raise AssertionError(f"a kernel of the path never ran: {launches}")
         isolated = dec.decode_stream(
             [data["small_444.jpg"], BAD_JPEG, data["small_444.jpg"]],
@@ -1969,6 +2136,12 @@ def main() -> int:
         return idct_exact_batch([s[None] for s in stores2], e1_tables,
                                 scales2)
 
+    from torch_inputs import t1_args
+    t1_pixels2 = [p[None] for p in k2_image()]
+    t1_args2 = t1_args(geometry2)
+    t1_bytes = (sum(p.numel() for p in t1_pixels2)
+                + len(t1_pixels2) * t1_args2[2] * t1_args2[3])
+
     k4_args = k4_probe.case_args(k4_probe.seeded_stores(0),
                                  k4_probe.image_stores(
                                      (FIXTURES / "small_444.jpg")
@@ -1977,6 +2150,8 @@ def main() -> int:
     k4_blocks = 3 * k4_args[0].shape[0] * k4_args[0].shape[1]
     k1_bytes = 4 * sum(a.numel() for a in args1[:4]) + 128 * args1[6]
     k2_px = sum(n * k * k for n, k in zip(k2_blocks, scales2))
+    if exact_main["interleaved_tail"] != 1:
+        raise AssertionError(f"16 T1 at exact: {exact_main}")
     table = phase_kernel_table(jt, {
         "K1": (lambda: decode_chunks(*args1), "huffman_decode_kernel",
                k1_bytes, 0.0, FP32_FLOPS),
@@ -1992,9 +2167,12 @@ def main() -> int:
                FP32_FLOPS),
         "E1": (e1_image, "idct_exact_kernel", 128 * sum(k2_blocks) + k2_px,
                E1_OPS_PER_BLOCK * sum(k2_blocks), INT32_OPS),
+        "T1": (lambda: interleaved_tail(t1_pixels2, *t1_args2),
+               "interleaved_tail_kernel", t1_bytes, 0.0, FP32_FLOPS),
     }, {**dict(zip(("K1", "K2", "K3", "K4", "L1"),
                    (main_launches[k] for k in _build.LAUNCHES))),
-        "E1": exact_main["idct_exact"]}, l1_chain,
+        "E1": exact_main["idct_exact"],
+        "T1": main_launches["interleaved_tail"]}, l1_chain,
         {"K2": ("library", k2_library),
          "K4": ("unfused", lambda: fused_recon_plain(*k4_args,
                                                      k2=dequant_idct))})
@@ -2018,6 +2196,9 @@ def main() -> int:
 
     # 23. E1 against its plain version, its segment table, its times.
     e1 = phase_e1(jt, data, params, dev, card)
+
+    # 24. T1 against its plain version on real and seeded calls, its times.
+    t1 = phase_t1(jt, data, params, dev, card)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
                     in ("jax", "jaxlib", "jpeg_decoder_tpu"))
@@ -2057,8 +2238,14 @@ def main() -> int:
          "launches": exact_launches["idct_exact"],
          "max_abs_err": e1["max_abs_err"], "ms": e1["ms"],
          "plain_ms": e1["plain_ms"], "library_ms": None},
+        {"name": "T1 interleaved_tail", "route": "cuda",
+         "source": "jpeg_decoder_tpu_torch/csrc/interleaved_tail.cu",
+         "replaces": "jpeg_decoder_tpu/ops/pipeline.py:92",
+         "launches": launches["interleaved_tail"],
+         "max_abs_err": t1["max_abs_err"], "ms": t1["ms"],
+         "plain_ms": t1["plain_ms"], "library_ms": None},
     ]
-    for row, key in zip(kernels, ("K1", "K2", "K3", "K4", "L1", "E1")):
+    for row, key in zip(kernels, ("K1", "K2", "K3", "K4", "L1", "E1", "T1")):
         tab = table[key]
         row.update(kernel_us=tab["kernel_us"], bound_us=tab["bound_us"],
                    bound_ms=tab["bound_us"] / 1e3, bound_by=tab["bound_by"],
@@ -2078,6 +2265,10 @@ def main() -> int:
     kernels[5].update(stripe_launches=mesh["e1_stripe_launches"],
                       front_end_launches=front["E1"],
                       fuzz_launches=fuzz["launches"]["idct_exact"])
+    kernels[6].update(stripe_launches=mesh["t1_stripe_launches"],
+                      front_end_launches=front["T1"],
+                      fuzz_launches=fuzz["launches"]["interleaved_tail"],
+                      launches_per_image_exact=exact_main["interleaved_tail"])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("huffman_decode.cu", "dequant_idct.cu", "fused_tail.cu",
-           "fused_recon.cu", "lossless_recur.cu", "idct_exact.cu")
+           "fused_recon.cu", "lossless_recur.cu", "idct_exact.cu",
+           "interleaved_tail.cu")
 HEADERS = ("idct_mma.cuh",)    # included by sources; part of the hash
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Kernel launch counts, by kernel name; see reset_launches().
 LAUNCHES = {"huffman_decode": 0, "dequant_idct": 0, "fused_tail": 0,
-            "fused_recon": 0, "lossless_recur": 0, "idct_exact": 0}
+            "fused_recon": 0, "lossless_recur": 0, "idct_exact": 0,
+            "interleaved_tail": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -169,6 +171,15 @@ def load() -> ctypes.CDLL:
             i,              # nseg, the segments (1..64)
             p]              # stream
         lib.jdt_idct_exact.restype = i
+        lib.jdt_interleaved_tail.argtypes = [
+            p, p,           # host void*[ncomp] pixels, void*[2 ncomp] halos
+            p,              # host int64[ncomp][12]: per component geometry
+            i, i,           # ncomp, transform
+            i, i, i, i,     # out_h, out_w, row0, images
+            p,              # out
+            p,              # host int64[3 ncomp + 1]: the output layout
+            p]              # stream
+        lib.jdt_interleaved_tail.restype = i
         lib.jdt_error_string.argtypes = [i]
         lib.jdt_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -11,8 +11,8 @@ through the host copy's two method hooks:
   coefficient stores (`transfer.put`: pinned and non-blocking on a card),
   then `ops.pipeline.reconstruct` on the device: kernel K2 (dequantize +
   fp32 IDCT, one launch for all components) at precision "fast", kernel
-  E1 (the exact int32 IDCT, one launch too) at "exact"; then upsampling and color, and one copy
-  back. The bytes are the reference's layouts (L8, RGB24, CMYK32).
+  E1 (the exact int32 IDCT, one launch too) at "exact"; then upsampling and color
+  (kernel T1, one launch), and one copy back. The bytes are the reference's layouts (L8, RGB24, CMYK32).
 - Lossless (SOF3) components (`_reconstruct_lossless_plane`, the
   reference's `_reconstruct_lossless_device`, `decoder.py:573-597`), one
   component at a time by the reference's rule: Ra with a point transform

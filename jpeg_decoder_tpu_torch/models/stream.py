@@ -4,9 +4,9 @@ Port of `jpeg_decoder_tpu/models/stream.py`'s `DeviceStreamDecoder` on one
 device, one image at a time or in batches, in both interchanges, both
 precisions and the three layouts. Images come back as tensors on the decoder's device; the host
 never reads pixels back:
-- "interleaved": [H, W, C] (or [H, W] for grayscale);
+- "interleaved": [H, W, C] (or [H, W] for grayscale), from kernel T1;
 - "planar": [C, H, W], the interleaved result permuted (2-D outputs as
-  they are);
+  they are), which T1 writes directly;
 - "planar-pallas": [C, H, W] through kernel K3 (fused upsample + color)
   for the geometries `pallas_tail_mode` covers, else "planar" (one rule,
   `_effective_layout`, as in the reference).
@@ -557,10 +557,8 @@ class DeviceStreamDecoder:
             if layout == "planar-pallas":
                 return reconstruct_planar_pallas(geometry, stores, qts_b,
                                                  params)
-            out = reconstruct(geometry, stores, qts_b, params)
-            if layout == "planar" and out.dim() == 4:
-                return out.permute(0, 3, 1, 2).contiguous()
-            return out
+            return reconstruct(geometry, stores, qts_b, params,
+                               planar=layout == "planar")
 
     def _decode_scan(self, st: StagedScan, wire: tuple, s_max: int,
                      n_blocks: int) -> torch.Tensor:

@@ -35,6 +35,15 @@ fused_tail_pallas` (the TPU kernel `_fused_tail_kernel`), for one image or
 a group of images of one geometry in one launch. Kernel
 `csrc/fused_tail.cu`; integer math, bit-equal to its plain version.
 
+T1 `interleaved_tail`: block pixels of every component -> the decoded
+image (chroma upsampling, color conversion, the block -> plane layout in
+its reads) for one image, a group of images of one geometry or one stripe,
+in one launch. Counterpart of the jnp tail that XLA compiles into the JAX
+package's reconstruction (`jpeg_decoder_tpu/ops/pipeline.py::_reconstruct`
+and the stripe body of `parallel/stripes.py::build_stripe_local_recon`),
+not a Pallas kernel. Kernel `csrc/interleaved_tail.cu`; integer math,
+bit-equal to its plain version, `interleaved_tail_plain`.
+
 K4 `fused_recon`: 4:4:4 YCbCr coefficient stores -> planar RGB in one
 kernel (an fp32 IDCT, block -> raster, color), counterpart of the TPU probe
 `tools/experiments/fused_recon_probe.py::make_kernel`. Kernel
@@ -49,13 +58,17 @@ version (the IDCTs round in different places: 1 in the IDCT, times up to
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
+from ..host.ops.color import validate_transform
+from ..host.ops.upsample import GENERIC, H1V1, H1V2, H2V1, H2V2
 from . import idct
-from .color import ycbcr_to_rgb
-from .upsample import _v2_near_far, h2v2_combine
+from .color import color_convert_image, ycbcr_to_rgb
+from .upsample import (_h2_horizontal, _v2_near_far, h2v2_combine,
+                       upsample_component)
 
 
 K2_MAX_COMPONENTS = 4      # one image: a CMYK image
@@ -432,6 +445,241 @@ def fused_tail_plain(planes, comp_modes, chroma_dims, transform: str,
             chans.append(h2v2_combine(near[..., :wc], far[..., :wc], wc)
                          [..., :out_w].to(torch.int32))
     return torch.stack(_tail_color(transform, chans), dim=-3)
+
+
+# T1: the upsampler modes and the transforms (`ColorTransform.value`, None
+# for the gray crop) in the kernel's codes (csrc/interleaved_tail.cu).
+T1_MODES = (H1V1, H2V1, H1V2, H2V2, GENERIC)
+T1_TRANSFORMS = (None, "None", "RGB", "YCbCr", "CMYK", "YCCK")
+_T1_META = 12       # int64 values per component in the kernel's table
+
+
+class TailStripe(NamedTuple):
+    """Where one stripe's output rows lie in the image
+    (`parallel/stripes.py`): `row0` its first output row in the image, and
+    per component `bases[c]`, its plane's first row in the component, and
+    `halos[c]`, the (top, bottom) rows beside that plane, uint8 [N, 1,
+    cols] each (`mesh.halo_rows`; zeros where the stripe has no neighbour),
+    or None for a component whose mode reads no neighbour row."""
+    row0: int
+    bases: tuple
+    halos: tuple
+
+
+def _check_interleaved_tail(pixels, comps, transform, out_h: int,
+                            out_w: int, stripe) -> None:
+    """Reject what T1 is not defined on, so that neither the kernel nor its
+    plain version reads outside the pixels or halos: every mode reads
+    inside the plane's rows and columns (a stripe's V2 rows through its
+    halos, its generic rows clamped), and the H2 and generic modes cover
+    out_w."""
+    n = len(pixels)
+    if not 1 <= n <= 4 or len(comps) != n:
+        raise ValueError(f"1..4 components with a geometry each, got {n} "
+                         f"and {len(comps)}")
+    if transform is None:
+        if n != 1:
+            raise ValueError("the gray crop takes one component")
+    else:
+        validate_transform(n, transform)
+        if transform.value not in T1_TRANSFORMS:
+            raise ValueError(f"T1 has no transform {transform}")
+    if out_h < 1 or out_w < 1:
+        raise ValueError(f"empty output {out_h}x{out_w}")
+    if stripe is not None and (stripe.row0 < 0 or len(stripe.bases) != n
+                               or len(stripe.halos) != n
+                               or min(stripe.bases) < 0):
+        raise ValueError("a stripe needs row0 >= 0 and a base >= 0 and "
+                         "halos per component")
+    dev = pixels[0].device
+    images = pixels[0].shape[0] if pixels[0].dim() == 4 else 0
+    if not 1 <= images <= 65535:
+        raise ValueError(f"{images} images: T1 takes 1..65535 in a launch")
+    for i, (px, comp) in enumerate(zip(pixels, comps)):
+        _check_tensor("pixels", px, torch.uint8, dev)
+        s = px.shape[-1]
+        if px.dim() != 4 or px.shape[0] != images or px.shape[2] != s \
+                or s not in (1, 2, 4, 8):
+            raise ValueError("pixels must be uint8 [N, n_c, s, s], one N, "
+                             f"s in 8/4/2/1; got {tuple(px.shape)}")
+        if px.stride(3) != 1 or px.stride(2) != s or px.stride(1) != s * s:
+            raise ValueError("each image's block pixels must be contiguous")
+        bw, mode = comp.blocks_wide, comp.upsampler_mode
+        if bw < 1 or px.shape[1] < bw or px.shape[1] % bw:
+            raise ValueError(f"{px.shape[1]} blocks are no grid "
+                             f"{bw} blocks wide")
+        rows, cols = px.shape[1] // bw * s, bw * s
+        if rows * cols >= 2 ** 31:
+            raise ValueError("a plane of 2^31 samples or more")
+        iw, ih, hs, vs = (comp.size_width, comp.size_height, comp.h_scale,
+                          comp.v_scale)
+        if mode not in T1_MODES or min(iw, ih, hs, vs) < 1:
+            raise ValueError(f"unsupported component {comp}")
+        need_rows, need_cols, covers = out_h, out_w, True
+        if mode == H2V1:
+            need_cols, covers = iw, out_w <= 2 * iw
+        elif mode == GENERIC:
+            need_rows = 1 if stripe is not None else -(-out_h // vs)
+            need_cols, covers = iw, out_w <= iw * hs
+        elif mode in (H1V2, H2V2):
+            need_cols = out_w if mode == H1V2 else iw
+            covers = mode == H1V2 or out_w <= 2 * iw
+            if stripe is None:
+                need_rows, covers = ih, covers and out_h <= 2 * ih
+            else:
+                need_rows = 1
+                halo = stripe.halos[i]
+                if halo is None or len(halo) != 2 or any(
+                        h.device != dev or h.dtype != torch.uint8
+                        or tuple(h.shape) != (images, 1, cols)
+                        or h.stride(-1) != 1 for h in halo):
+                    raise ValueError(f"a stripe's {mode} component needs "
+                                     "(top, bottom) uint8 [N, 1, "
+                                     f"{cols}] halos on {dev}")
+        if rows < need_rows or cols < need_cols or not covers:
+            raise ValueError(f"{mode} plane {rows}x{cols} of a {iw}x{ih} "
+                             f"component does not cover {out_h}x{out_w}")
+
+
+def _t1_output(pixels, transform, out_h: int, out_w: int, planar: bool):
+    """T1's output tensor and its per-channel (byte offset, column stride,
+    row pitch), as `interleaved_tail` documents the layouts."""
+    n, images = len(pixels), pixels[0].shape[0]
+    dev = pixels[0].device
+    if transform is None:
+        return (torch.empty((images, out_h, out_w), dtype=torch.uint8,
+                            device=dev), [(0, 1, out_w)])
+    if transform.value == "None":
+        return (torch.empty((images, out_h, out_w * n), dtype=torch.uint8,
+                            device=dev),
+                [(k * out_w, 1, n * out_w) for k in range(n)])
+    if planar:
+        return (torch.empty((images, n, out_h, out_w), dtype=torch.uint8,
+                            device=dev),
+                [(k * out_h * out_w, 1, out_w) for k in range(n)])
+    return (torch.empty((images, out_h, out_w, n), dtype=torch.uint8,
+                        device=dev), [(k, n, n * out_w) for k in range(n)])
+
+
+def interleaved_tail(pixels, comps, transform, out_h: int, out_w: int,
+                     planar: bool = False, stripe: TailStripe = None
+                     ) -> torch.Tensor:
+    """T1: per component c, pixels[c] uint8 [N, n_c, s, s] block pixels of
+    N images (each image's slab contiguous; the slabs need not be
+    adjacent), comps[c] its `ComponentGeometry` (mode, blocks_wide, size,
+    scales), `transform` a `ColorTransform` (None: the gray crop of one
+    component) -> uint8 [N, out_h, out_w, C] ([N, out_h, out_w] gray,
+    [N, out_h, out_w * C] for NONE's planar-within-row layout), or with
+    `planar` [N, C, out_h, out_w] where the interleaved result has a
+    channel axis. With `stripe` the output rows are rows row0.. of the
+    image, read from the stripe's planes and halos. One launch on a CUDA
+    tensor; the plain version on the CPU."""
+    _check_interleaved_tail(pixels, comps, transform, out_h, out_w, stripe)
+    dev = pixels[0].device
+    with torch.profiler.record_function("interleaved_tail"):
+        if dev.type == "cpu":
+            return interleaved_tail_plain(pixels, comps, transform, out_h,
+                                          out_w, planar, stripe)
+        if dev.type != "cuda":
+            raise ValueError(f"no T1 implementation for device {dev}")
+        n, images = len(pixels), pixels[0].shape[0]
+        out, chans = _t1_output(pixels, transform, out_h, out_w, planar)
+        if stripe is None:
+            stripe = TailStripe(0, (0,) * n, (None,) * n)
+        halos = [h for pair in stripe.halos
+                 for h in (pair if pair is not None else (None, None))]
+        meta = []
+        for px, comp, base, top, bot in zip(pixels, comps, stripe.bases,
+                                            halos[::2], halos[1::2]):
+            s, bw = px.shape[-1], comp.blocks_wide
+            meta += [px.stride(0), 0 if top is None else top.stride(0),
+                     0 if bot is None else bot.stride(0), bw, s,
+                     px.shape[1] // bw * s, comp.size_width,
+                     comp.size_height, T1_MODES.index(comp.upsampler_mode),
+                     comp.h_scale, comp.v_scale, base]
+        out_meta = [v for ch in chans for v in ch] + [out.stride(0)]
+        ptrs = ctypes.c_void_p * n
+        lib = _build.load()
+        with torch.cuda.device(dev):
+            err = lib.jdt_interleaved_tail(
+                ptrs(*[px.data_ptr() for px in pixels]),
+                (ctypes.c_void_p * (2 * n))(
+                    *[0 if h is None else h.data_ptr() for h in halos]),
+                (ctypes.c_longlong * (_T1_META * n))(*meta), n,
+                T1_TRANSFORMS.index(None if transform is None
+                                    else transform.value),
+                out_h, out_w, stripe.row0, images,
+                out.data_ptr(),
+                (ctypes.c_longlong * len(out_meta))(*out_meta),
+                torch.cuda.current_stream(dev).cuda_stream)
+            _build.LAUNCHES["interleaved_tail"] += 1
+        _build.check(lib, err, "interleaved_tail")
+        return out
+
+
+def _stripe_channel(plane, comp, rows: int, out_w: int, row0: int,
+                    base: int, halo) -> torch.Tensor:
+    """One component's rows row0 .. row0 + rows - 1 of the image from a
+    stripe's plane [N, lp, cols] (its first row `base` in the component)
+    and its halos: the stripe body of
+    `jpeg_decoder_tpu/parallel/stripes.py::build_stripe_local_recon`. V2
+    rows are indexed globally and read through [top; plane; bottom];
+    generic rows are stripe-local."""
+    mode, iw, ih = comp.upsampler_mode, comp.size_width, comp.size_height
+    r_g = row0 + torch.arange(rows, device=plane.device)
+    if mode == H1V1:
+        return plane[..., :rows, :out_w]
+    if mode == H2V1:
+        return _h2_horizontal(plane[..., :rows, :iw].to(torch.int32),
+                              iw)[..., :out_w].to(torch.uint8)
+    if mode in (H1V2, H2V2):
+        lp = plane.shape[-2]
+        ext = torch.cat([halo[0], plane, halo[1]], dim=-2)
+        near_g = r_g // 2
+        far_g = torch.where(r_g % 2 == 0, near_g - 1,
+                            near_g + 1).clamp(0, ih - 1)
+        near_l = (near_g - base + 1).clamp(0, lp + 1)
+        far_l = (far_g - base + 1).clamp(0, lp + 1)
+        width = out_w if mode == H1V2 else iw
+        near = ext[..., near_l, :width].to(torch.int32)
+        far = ext[..., far_l, :width].to(torch.int32)
+        if mode == H1V2:
+            return ((3 * near + far + 2) >> 2).to(torch.uint8)
+        return h2v2_combine(near, far, iw)[..., :out_w]
+    if mode == GENERIC:     # nearest neighbour: stripe-local
+        src = (r_g // comp.v_scale - base).clamp(0, plane.shape[-2] - 1)
+        return plane[..., src, :iw].repeat_interleave(
+            comp.h_scale, dim=-1)[..., :out_w]
+    raise ValueError(f"unknown upsampler mode {mode}")
+
+
+def interleaved_tail_plain(pixels, comps, transform, out_h: int, out_w: int,
+                           planar: bool = False, stripe: TailStripe = None
+                           ) -> torch.Tensor:
+    """Plain PyTorch version of T1: `idct.blocks_to_plane` per component,
+    then `upsample.upsample_component` (one image or group) or the stripe
+    body (`_stripe_channel`), then `color.color_convert_image` (the gray
+    crop: the one channel), and for `planar` the channel axis moved ahead
+    of the rows."""
+    planes = [idct.blocks_to_plane(px, c.blocks_wide,
+                                   px.shape[1] // c.blocks_wide)
+              for px, c in zip(pixels, comps)]
+    if stripe is None:
+        channels = [upsample_component(
+            plane, c.upsampler_mode, input_width=c.size_width,
+            input_height=c.size_height, out_rows=out_h, out_width=out_w,
+            h_scale=c.h_scale, v_scale=c.v_scale)
+            for c, plane in zip(comps, planes)]
+    else:
+        channels = [_stripe_channel(plane, c, out_h, out_w, stripe.row0,
+                                    base, halo)
+                    for c, plane, base, halo in zip(
+                        comps, planes, stripe.bases, stripe.halos)]
+    out = channels[0] if transform is None \
+        else color_convert_image(channels, transform)
+    if planar and out.dim() == 4:
+        return out.permute(0, 3, 1, 2).contiguous()
+    return out
 
 
 def _check_recon(y, cb, cr, qts, basis, width: int) -> None:

@@ -1,8 +1,9 @@
 """Reconstruction: coefficient stores -> image tensors, on the stores' device.
 
 Port of `jpeg_decoder_tpu/ops/pipeline.py::_reconstruct` (`reconstruct`:
-per component dequant + IDCT and block -> plane, then chroma upsampling
-and color conversion, interleaved out) and of
+per component dequant + IDCT, then kernel T1, which reads the block pixels
+in place and makes the upsampled, color-converted image, interleaved or
+planar out) and of
 `jpeg_decoder_tpu/ops/pallas_kernels.py::reconstruct_planar_pallas`
 (`reconstruct_planar_pallas`: the planes, then kernel K3, planar out).
 Geometry comes from `ImageGeometry` / `geometry_from_frame`, and the
@@ -30,10 +31,9 @@ import torch
 from ..host.ops.tail import _TAIL_TRANSFORMS, pallas_tail_mode
 
 from ..params import DeviceParams
-from .color import color_convert_image
 from .idct import blocks_to_plane
-from .kernels import dequant_idct_batch, fused_tail, idct_exact_batch
-from .upsample import upsample_component
+from .kernels import (dequant_idct_batch, fused_tail, idct_exact_batch,
+                      interleaved_tail)
 
 
 def fast_pixels_batch(geometry, stores, qts_b, params: DeviceParams) -> list:
@@ -67,38 +67,40 @@ def exact_pixels_batch(geometry, stores, qts_b,
     return [px.reshape(*px.shape[:2], s, s) for px, s in zip(pixels, scales)]
 
 
+def _pixels(geometry, stores, qts_b, params: DeviceParams,
+            fp32: bool = False) -> list:
+    """IDCT per component: uint8 [N, n_c, s, s] block pixels. K2 when
+    `fp32` or at precision "fast", else E1, the exact int32 IDCT; either in
+    one launch for the group."""
+    if fp32 or geometry.precision == "fast":
+        return fast_pixels_batch(geometry, stores, qts_b, params)
+    return exact_pixels_batch(geometry, stores, qts_b, params)
+
+
 def _planes(geometry, stores, qts_b, params: DeviceParams,
             fp32: bool = False) -> list:
     """IDCT + block -> plane per component: block-padded uint8 planes
-    [N, rows, cols]. K2 when `fp32` or at precision "fast", else E1, the
-    exact int32 IDCT; either in one launch for the group."""
-    comps = geometry.components
-    if fp32 or geometry.precision == "fast":
-        pixels = fast_pixels_batch(geometry, stores, qts_b, params)
-    else:
-        pixels = exact_pixels_batch(geometry, stores, qts_b, params)
+    [N, rows, cols], for K3."""
     return [blocks_to_plane(px, comp.blocks_wide, comp.blocks_high)
-            for comp, px in zip(comps, pixels)]
+            for comp, px in zip(geometry.components,
+                                _pixels(geometry, stores, qts_b, params,
+                                        fp32))]
 
 
-def reconstruct(geometry, stores, qts_b,
-                params: DeviceParams) -> torch.Tensor:
+def reconstruct(geometry, stores, qts_b, params: DeviceParams,
+                planar: bool = False) -> torch.Tensor:
     """`stores`: int16 [N, blocks_high * blocks_wide, 64] per component;
     `qts_b`: per image, its uint16[64] natural-order numpy tables. Returns
-    uint8 [N, H, W] for one component, else [N, H, W, C]."""
-    planes = _planes(geometry, stores, qts_b, params)
+    uint8 [N, H, W] for one component, [N, H, W * C] for the NONE
+    transform, else [N, H, W, C], or [N, C, H, W] with `planar`: the IDCT
+    (K2 or E1), then one T1 launch."""
+    pixels = _pixels(geometry, stores, qts_b, params)
+    out_h, out_w = geometry.out_height, geometry.out_width
     if geometry.transform is None:
         comp = geometry.components[0]
-        return planes[0][:, :comp.size_height, :comp.size_width]
-    channels = [
-        upsample_component(plane, comp.upsampler_mode,
-                           input_width=comp.size_width,
-                           input_height=comp.size_height,
-                           out_rows=geometry.out_height,
-                           out_width=geometry.out_width,
-                           h_scale=comp.h_scale, v_scale=comp.v_scale)
-        for comp, plane in zip(geometry.components, planes)]
-    return color_convert_image(channels, geometry.transform)
+        out_h, out_w = comp.size_height, comp.size_width
+    return interleaved_tail(pixels, geometry.components, geometry.transform,
+                            out_h, out_w, planar=planar)
 
 
 def reconstruct_planar_pallas(geometry, stores, qts_b,

@@ -18,8 +18,10 @@ stripes (when the MCU rows do not divide evenly) make rows that are
 cropped off.
 
 Each stripe's work is enqueued on its own device by one caller: one E1
-launch for all of the stripe's components, then eager PyTorch for the
-halo, upsampling and color.
+launch for all of the stripe's components, the halo exchange (the first
+and last plane rows of each V2 component, taken from the block pixels by
+one small copy), then one T1 launch (`ops/kernels.py::interleaved_tail`
+with a `TailStripe`) for upsampling and color.
 """
 
 from __future__ import annotations
@@ -27,21 +29,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..host.ops.upsample import GENERIC, H1V1, H1V2, H2V1, H2V2
-from ..ops.color import color_convert_image
-from ..ops.idct import blocks_to_plane
+from ..host.ops.upsample import H1V2, H2V2
+from ..ops.kernels import TailStripe, interleaved_tail
 from ..ops.pipeline import exact_pixels_batch
-from ..ops.upsample import _h2_horizontal, h2v2_combine
 from ..transfer import put
 from .dist import Shard
 from .mesh import gather_rows, halo_rows, local_positions
+
+
+def _edge_rows(px: torch.Tensor, blocks_wide: int) -> torch.Tensor:
+    """The first and last plane rows of block pixels [N, n_c, s, s] (a
+    grid `blocks_wide` blocks wide): uint8 [N, 2, blocks_wide * s]."""
+    n, _, s, _ = px.shape
+    return torch.stack([px[:, :blocks_wide, 0], px[:, -blocks_wide:, -1]],
+                       dim=1).reshape(n, 2, blocks_wide * s)
 
 
 def build_stripe_local_recon(geometry, mcu_rows: int, n_stripes: int):
     """The per-stripe reconstruction of `geometry` cut into `n_stripes`
     stripes of ceil(mcu_rows / n_stripes) MCU rows: dequantize + IDCT (one
     E1 launch per stripe), the 1-row V2 chroma halo exchange, upsampling
-    and color. Returns
+    and color (one T1 launch per stripe). Returns
     recon(stores, qts_b, params, owners=None) -> list, one uint8
     [N, R, out_w(, C)] per stripe on its device (R the stripe's output
     rows), where stores[d] holds stripe d's per-component int16 [N, k *
@@ -60,66 +68,24 @@ def build_stripe_local_recon(geometry, mcu_rows: int, n_stripes: int):
     scale = comps[0].dct_scale
     R = k_mcu * max(v) * scale                   # output rows per stripe
     lp = [k_mcu * vi * scale for vi in v]        # plane rows per component
-    out_w = geometry.out_width
+    v2 = [ci for ci, c in enumerate(comps)
+          if c.upsampler_mode in (H1V2, H2V2)]
 
     def recon(stores, qts_b, params, owners=None) -> list:
         at = (range(n_stripes) if owners is None
               else local_positions(owners))
-        planes = [
-            [blocks_to_plane(px, comp.blocks_wide, k_mcu * v[ci])
-             for ci, (comp, px) in enumerate(zip(comps, exact_pixels_batch(
-                 geometry, stores[j], qts_b, params[j])))]
-            for j in range(len(at))]
-        halos = {ci: halo_rows([p[ci] for p in planes], owners)
-                 for ci, comp in enumerate(comps)
-                 if comp.upsampler_mode in (H1V2, H2V2)}
-        outs = []
-        for j, d in enumerate(at):
-            dev = planes[j][0].device
-            r_g = d * R + torch.arange(R, device=dev)
-            channels = []
-            for ci, comp in enumerate(comps):
-                plane = planes[j][ci]
-                mode, iw, ih = (comp.upsampler_mode, comp.size_width,
-                                comp.size_height)
-                if mode == H1V1:
-                    channels.append(plane[..., :R, :out_w])
-                elif mode == H2V1:
-                    rows = plane[..., :R, :iw].to(torch.int32)
-                    channels.append(_h2_horizontal(rows, iw)[..., :out_w]
-                                    .to(torch.uint8))
-                elif mode in (H1V2, H2V2):
-                    top, bot = halos[ci][j]
-                    ext = torch.cat([top, plane, bot], dim=-2)
-                    near_g = r_g // 2
-                    far_g = torch.where(r_g % 2 == 0, near_g - 1,
-                                        near_g + 1).clamp(0, ih - 1)
-                    base = d * lp[ci]
-                    near_l = (near_g - base + 1).clamp(0, lp[ci] + 1)
-                    far_l = (far_g - base + 1).clamp(0, lp[ci] + 1)
-                    width = out_w if mode == H1V2 else iw
-                    near = ext[..., near_l, :width].to(torch.int32)
-                    far = ext[..., far_l, :width].to(torch.int32)
-                    if mode == H1V2:
-                        channels.append(((3 * near + far + 2) >> 2)
-                                        .to(torch.uint8))
-                    else:
-                        channels.append(
-                            h2v2_combine(near, far, iw)[..., :out_w])
-                elif mode == GENERIC:   # nearest neighbour: stripe-local
-                    src = (r_g // comp.v_scale - d * lp[ci]).clamp(
-                        0, plane.shape[-2] - 1)
-                    out = plane[..., src, :iw].repeat_interleave(
-                        comp.h_scale, dim=-1)
-                    channels.append(out[..., :out_w])
-                else:
-                    raise ValueError(f"unknown upsampler mode {mode}")
-            if geometry.transform is None:
-                outs.append(channels[0])
-            else:
-                outs.append(color_convert_image(channels,
-                                                geometry.transform))
-        return outs
+        pixels = [exact_pixels_batch(geometry, stores[j], qts_b, params[j])
+                  for j in range(len(at))]
+        halos = {ci: halo_rows([_edge_rows(px[ci], comps[ci].blocks_wide)
+                                for px in pixels], owners)
+                 for ci in v2}
+        return [interleaved_tail(
+                    pixels[j], comps, geometry.transform, R,
+                    geometry.out_width,
+                    stripe=TailStripe(d * R, tuple(d * x for x in lp), tuple(
+                        halos[ci][j] if ci in halos else None
+                        for ci in range(len(comps)))))
+                for j, d in enumerate(at)]
 
     return recon
 

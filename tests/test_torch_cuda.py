@@ -49,7 +49,14 @@ tier's int32 IDCT): bit-equal to its plain version at every scale on
 `adversarial_blocks` and on fixture stores, a 48-segment group with
 per-image tables bit-equal to per-image launches in one launch, a store
 off a 16-byte boundary refused, one launch for one exact large_420 decode
-and one per stripe.
+and one per stripe. T1 (the interleaved tail): bit-equal to its plain
+version on the card and on the CPU over `T1_CASES` (every mode and
+transform, scales 8/4/2/1, width-1 and height-1 chroma, groups of 1 and
+3, interleaved and planar), on every fixture's stores through
+`reconstruct`, on a group of 16 whose image slabs are not adjacent (each
+image the bits of its own launch), and on the stripes on slots of the
+card against the CPU stripes; one launch per large_420 decode at fast and
+exact.
 """
 
 import time
@@ -73,9 +80,11 @@ from jpeg_decoder_tpu_torch.params import DeviceParams
 from jpeg_decoder_tpu_torch.ops.predictors import (lossless_recur,
                                                    lossless_recur_plain)
 
-from torch_inputs import (ODD_TAIL_LAYOUTS, SMALL_FIXTURES, TAIL_CASES,
-                          adversarial_blocks, fixture, odd_tail_case,
-                          oracle_stores, tail_planes, three_table_pairs)
+from torch_inputs import (ODD_TAIL_LAYOUTS, SMALL_FIXTURES, T1_CASES,
+                          T1_LAYOUTS, TAIL_CASES, adversarial_blocks,
+                          fixture, odd_tail_case, oracle_stores, t1_args,
+                          t1_geometry, t1_pixels, tail_planes,
+                          three_table_pairs)
 
 
 @pytest.fixture
@@ -781,3 +790,111 @@ def test_e1_launches_once_for_an_exact_large_420(cuda):
     assert jt.LAUNCHES["idct_exact"] == 1
     assert jt.LAUNCHES["dequant_idct"] == 0
     assert img.is_cuda
+
+
+@pytest.mark.parametrize("case", T1_CASES,
+                         ids=["-".join(map(str, c)) for c in T1_CASES])
+def test_t1_kernel_bit_equal_to_plain(cuda, case):
+    from jpeg_decoder_tpu_torch.ops.kernels import (interleaved_tail,
+                                                    interleaved_tail_plain)
+
+    layout, transform, h, w, scale, images = case
+    geometry = t1_geometry(layout, h, w, scale, transform)
+    pixels = t1_pixels(geometry, images, 100 * h + w, cuda)
+    args = t1_args(geometry)
+    for planar in (False, True):
+        before = jt.LAUNCHES["interleaved_tail"]
+        got = interleaved_tail(pixels, *args, planar=planar)
+        assert jt.LAUNCHES["interleaved_tail"] - before == 1
+        assert torch.equal(got, interleaved_tail_plain(pixels, *args,
+                                                       planar=planar))
+        assert torch.equal(got.cpu(), interleaved_tail_plain(
+            [p.cpu() for p in pixels], *args, planar=planar))
+
+
+@pytest.mark.parametrize("precision", ["fast", "exact"])
+@pytest.mark.parametrize("name", SMALL_FIXTURES + ("tower_420.jpg",))
+def test_t1_reconstruct_on_card_equals_cpu(cuda, name, precision):
+    """`reconstruct` on the card (K2 or E1, then T1) against the CPU port
+    on the same stores: bit-equal at exact, within 1 of K2 at fast
+    (the K2 difference through color: within 3)."""
+    import dataclasses
+
+    from jpeg_decoder_tpu_torch.host.decoder import Decoder as HostDecoder
+    from jpeg_decoder_tpu_torch.ops.pipeline import reconstruct
+
+    geometry = dataclasses.replace(jt.stage_host_bits(fixture(name)).geometry,
+                                   precision=precision)
+    d = HostDecoder(fixture(name), backend="numpy")
+    d._decode_entropy_only()
+    renders = [d._pending_render[i] for i in range(len(d._pending_render))]
+    stores = [torch.from_numpy(s.reshape(1, -1, 64)) for s, _q in renders]
+    qts = [tuple(q for _s, q in renders)]
+    before = jt.LAUNCHES["interleaved_tail"]
+    got = reconstruct(geometry, [s.to(cuda) for s in stores], qts,
+                      DeviceParams(cuda))
+    assert jt.LAUNCHES["interleaved_tail"] - before == 1
+    want = reconstruct(geometry, stores, qts,
+                       DeviceParams(torch.device("cpu")))
+    diff = (got.cpu().to(torch.int32) - want.to(torch.int32)).abs().max()
+    assert int(diff) <= (0 if precision == "exact" else 3)
+
+
+def test_t1_group_of_16_bit_equal_to_per_image_launches(cuda):
+    """16 images in one launch, each image's slab inside a wider buffer
+    (the image stride is not n_c * s * s): each image the bits of its own
+    launch and of the plain version."""
+    from jpeg_decoder_tpu_torch.ops.kernels import (interleaved_tail,
+                                                    interleaved_tail_plain)
+
+    geometry = t1_geometry("420", 512, 512, 8, "YCBCR")
+    wide = t1_pixels(geometry, 16, 16, cuda)
+    pixels = [torch.cat([p, p[:, :7]], dim=1)[:, :p.shape[1]] for p in wide]
+    assert pixels[0].stride(0) != pixels[0][0].numel()
+    args = t1_args(geometry)
+    before = jt.LAUNCHES["interleaved_tail"]
+    got = interleaved_tail(pixels, *args)
+    assert jt.LAUNCHES["interleaved_tail"] - before == 1
+    assert torch.equal(got, interleaved_tail_plain(pixels, *args))
+    for i in range(16):
+        alone = interleaved_tail([p[i:i + 1] for p in pixels], *args)
+        assert _digest([got[i]]) == _digest([alone[0]])
+
+
+@pytest.mark.parametrize("case", [("420", "YCBCR", 100, 90, 4),
+                                  ("420", "YCBCR", 100, 90, 8),
+                                  ("440", "YCBCR", 72, 37, 4),
+                                  ("g23", "YCBCR", 100, 41, 4),
+                                  ("mixed4", "YCCK", 50, 27, 4)])
+def test_t1_stripes_on_card_equal_the_cpu_stripes(cuda, case):
+    from jpeg_decoder_tpu_torch.parallel import make_mesh
+    from jpeg_decoder_tpu_torch.parallel.stripes import (
+        _pad_rows, make_stripe_pipeline)
+
+    layout, transform, h, w, n = case
+    geometry = t1_geometry(layout, h, w, 8, transform)
+    mcu_rows = -(-h // (8 * max(f[1] for f in T1_LAYOUTS[layout])))
+    rng = np.random.default_rng(h + w)
+    stores = _pad_rows(geometry, [
+        rng.integers(-60, 60, (c.blocks_wide * c.blocks_high, 64))
+        .astype(np.int16) for c in geometry.components], mcu_rows, n, False)
+    qts = tuple(np.full(64, 2, np.uint16) for _ in stores)
+    before = jt.LAUNCHES["interleaved_tail"]
+    got = make_stripe_pipeline(geometry, mcu_rows, n, make_mesh(
+        {"stripe": n}, ["cuda:0"] * n))(stores, qts)
+    assert jt.LAUNCHES["interleaved_tail"] - before == n
+    want = make_stripe_pipeline(geometry, mcu_rows, n, make_mesh(
+        {"stripe": n}, ["cpu"] * n))(stores, qts)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("precision", ["fast", "exact"])
+def test_t1_launches_once_for_a_large_420(cuda, precision):
+    with jt.DeviceStreamDecoder(host_threads=1, precision=precision) as dec:
+        staged = dec.stage(fixture("large_420.jpg"))
+        wires = dec._to_device(staged)
+        torch.cuda.synchronize()
+        jt.reset_launches()
+        img = dec._run_device(staged, wires)
+        torch.cuda.synchronize()
+    assert jt.LAUNCHES["interleaved_tail"] == 1 and img.is_cuda

@@ -323,3 +323,105 @@ def stripe_case(name: str) -> tuple:
     _name, seed, h, w, mode, n, kw = next(c for c in STRIPE_CASES
                                           if c[0] == name)
     return stripe_jpeg(h, w, mode, seed, **kw), n
+
+
+# T1 (the interleaved tail): sampling factors (h, v) per component. The
+# upsampler modes follow from them (`choose_upsampler`): 444 h1v1, 422
+# h2v1, 440 h1v2, 420 h2v2, the g* layouts generic at h_scale x v_scale
+# 3x1, 1x4, 2x3, 4x4 and 4x2; mixed4 takes h1v1, h2v2, h1v2 and h2v1 in
+# one image, generic4 h1v1, generic 4x4, h2v2 and generic 1x4; gray is one
+# component (the crop, whatever its factors).
+T1_LAYOUTS = {
+    "444": ((1, 1), (1, 1), (1, 1)),
+    "422": ((2, 1), (1, 1), (1, 1)),
+    "440": ((1, 2), (1, 1), (1, 1)),
+    "420": ((2, 2), (1, 1), (1, 1)),
+    "g31": ((3, 1), (1, 1), (1, 1)),
+    "g14": ((1, 4), (1, 1), (1, 1)),
+    "g23": ((2, 3), (1, 1), (1, 1)),
+    "g44": ((4, 4), (1, 1), (1, 1)),
+    "g42": ((4, 2), (1, 1), (1, 1)),
+    "mixed4": ((2, 2), (1, 1), (2, 1), (1, 2)),
+    "generic4": ((4, 4), (1, 1), (2, 2), (4, 1)),
+    "gray": ((1, 1),),
+    "gray22": ((2, 2),),
+}
+_T1_TRANSFORMS = {1: (None,), 3: ("NONE", "RGB", "YCBCR"),
+                  4: ("NONE", "CMYK", "YCCK")}
+_T1_SIZES = ((37, 53), (17, 23), (29, 61), (45, 31), (23, 9), (13, 40))
+
+
+def _t1_cases() -> list:
+    """(layout, transform name or None, height, width, scale, images):
+    every layout with every transform its component count takes, the
+    scale, size and image count cycling; then the edges: width-1 and
+    height-1 chroma, outputs of one row or column, odd sizes, scale 1."""
+    cases = []
+    for layout, factors in T1_LAYOUTS.items():
+        for t in _T1_TRANSFORMS[len(factors)]:
+            k = len(cases)
+            h, w = _T1_SIZES[k % len(_T1_SIZES)]
+            cases.append((layout, t, h, w, (8, 4, 2, 1)[k % 4],
+                          (1, 3)[k % 2]))
+    cases += [
+        ("420", "YCBCR", 2, 2, 8, 3), ("420", "YCBCR", 1, 1, 8, 1),
+        ("420", "YCBCR", 2, 1, 8, 1), ("420", "YCBCR", 1, 2, 8, 3),
+        ("420", "YCBCR", 3, 3, 8, 1), ("420", "YCBCR", 9, 9, 1, 3),
+        ("420", "RGB", 17, 15, 2, 1), ("422", "YCBCR", 1, 2, 8, 1),
+        ("422", "YCBCR", 5, 1, 8, 3), ("440", "YCBCR", 2, 1, 8, 1),
+        ("440", "YCBCR", 2, 5, 8, 3), ("440", "YCBCR", 9, 7, 4, 1),
+        ("mixed4", "YCCK", 3, 3, 8, 1), ("mixed4", "CMYK", 19, 33, 1, 3),
+        ("g44", "YCBCR", 5, 5, 8, 1), ("g14", "RGB", 3, 1, 8, 3),
+        ("generic4", "YCCK", 7, 9, 2, 1), ("gray", None, 1, 1, 8, 1),
+        ("gray22", None, 21, 3, 4, 3),
+    ]
+    return cases
+
+
+T1_CASES = _t1_cases()
+
+
+def t1_geometry(layout: str, height: int, width: int, scale: int = 8,
+                transform=None, precision: str = "exact"):
+    """The `ImageGeometry` a frame of T1_LAYOUTS[layout] at height x width
+    decoded at IDCT scale `scale` gets (the parser's sizes and block grid,
+    then `geometry_from_frame`); `transform` a name of the port's
+    `ColorTransform`, or None for the gray crop."""
+    from types import SimpleNamespace
+
+    from jpeg_decoder_tpu_torch.host.ops.color import ColorTransform
+    from jpeg_decoder_tpu_torch.host.ops.pipeline import geometry_from_frame
+    from jpeg_decoder_tpu_torch.host.parser import (Dimensions,
+                                                    update_component_sizes)
+
+    comps = [SimpleNamespace(horizontal_sampling_factor=h,
+                             vertical_sampling_factor=v, dct_scale=scale)
+             for h, v in T1_LAYOUTS[layout]]
+    update_component_sizes(Dimensions(width, height), comps)
+    frame = SimpleNamespace(components=comps, output_size=Dimensions(
+        -(-width * scale // 8), -(-height * scale // 8)))
+    return geometry_from_frame(
+        frame, None if transform is None else ColorTransform[transform],
+        precision)
+
+
+def t1_args(geometry) -> tuple:
+    """`interleaved_tail`'s (comps, transform, out_h, out_w) for a whole
+    image of `geometry`: the gray crop takes the component's size."""
+    out_h, out_w = geometry.out_height, geometry.out_width
+    if geometry.transform is None:
+        comp = geometry.components[0]
+        out_h, out_w = comp.size_height, comp.size_width
+    return geometry.components, geometry.transform, out_h, out_w
+
+
+def t1_pixels(geometry, images: int, seed: int, device="cpu") -> list:
+    """Seeded uint8 block pixels [images, n_c, s, s] per component of
+    `geometry`, on `device`."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.integers(
+        0, 256, (images, c.blocks_wide * c.blocks_high, c.dct_scale,
+                 c.dct_scale), dtype=np.uint8)).to(device)
+        for c in geometry.components]

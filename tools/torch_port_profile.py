@@ -24,10 +24,11 @@ lines (per image: a group's numbers divided by its images):
 - device busy ms/image (union of kernel intervals) and the idle share;
 - kernel ms/image per layer (a kernel belongs to the innermost of the
   decoder's record_function ranges it starts in: unpack_delta, k1_decode,
-  assemble, prefix_stores, reconstruct, fused_tail inside reconstruct, and
-  lossless) and per kernel name (K1 huffman_decode_kernel, K2
-  dequant_idct_kernel, K3 fused_tail_kernel, L1 lossless_recur_kernel,
-  the rest PyTorch's);
+  assemble, prefix_stores, reconstruct, fused_tail and interleaved_tail
+  inside reconstruct, and lossless) and per kernel name (K1
+  huffman_decode_kernel, K2 dequant_idct_kernel, K3 fused_tail_kernel, L1
+  lossless_recur_kernel, E1 idct_exact_kernel, T1
+  interleaved_tail_kernel, the rest PyTorch's);
 - kernel launches per image.
 With --trace, the Chrome trace of the last fixture is written there.
 Needs a CUDA device; fails without one.
@@ -48,7 +49,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
 LAYERS = ("unpack_delta", "k1_decode", "assemble", "prefix_stores",
-          "reconstruct", "fused_tail", "lossless")
+          "reconstruct", "fused_tail", "interleaved_tail", "lossless")
 
 
 def _busy_us(intervals) -> float:
