@@ -190,8 +190,13 @@ tail):
    the stripes of large_420 at 4 and 8 and of stripe_420.jpg at 8, one
    call per stripe), seeded pixels at every odd width 1-39 and height 1-5
    per layout and transform, and `tests/torch_inputs.py::T1_CASES`
-   (scales 8/4/2/1, groups of 3), interleaved and planar; T1's CUDA-event
-   ms at large_420's shapes beside its plain version's. T1's launches are
+   (scales 8/4/2/1, groups of 3, the edges of the kernel's 16 x 128
+   tiles), interleaved and planar; T1's CUDA-event ms at large_420's
+   shapes beside its plain version's; T1's device time per launch
+   (torch.profiler, 100 calls: median, least, largest) beside its bytes
+   bound for large_420 at fast and exact and planar, the tower_420 group
+   of 16, a large_420 stripe, and seeded 4:4:4, 4:2:2 and gray images of
+   large_420's size. T1's launches are
    checked in phases 5 (> 0), 11 (1 per image), 16 (1 per large_420 image
    at fast and exact), 17 (1 per plan), 18 (1 per image), 19 (1 per
    stripe) and 21 (> 0).
@@ -1692,6 +1697,7 @@ def phase_e1(jt, data: dict, params, dev, card: str) -> dict:
 # 24: T1's seeded sweep, per layout its transforms (tests/torch_inputs.py
 # T1_LAYOUTS: every upsampler mode, generic at scales 1-4, one and four
 # components) at every odd width 1-39 and height 1-5.
+T1_TIMED_CALLS = 100   # 24: profiled calls per timed variant (>= 50 seen)
 T1_SWEEP = {"444": ("NONE", "RGB", "YCBCR"), "422": ("NONE", "RGB", "YCBCR"),
             "440": ("NONE", "RGB", "YCBCR"), "420": ("NONE", "RGB", "YCBCR"),
             "g31": ("NONE", "RGB", "YCBCR"), "g23": ("NONE", "RGB", "YCBCR"),
@@ -1707,23 +1713,32 @@ def phase_t1(jt, data: dict, params, dev, card: str) -> dict:
     sizes; the stripes of large_420 at 4 and 8 and of stripe_420 at 8 on
     slots of the card, halos included); seeded pixels at every odd width
     1-39 and height 1-5 per layout and transform (T1_SWEEP), and
-    `T1_CASES` (scales 8/4/2/1, groups of 3), interleaved and planar.
-    T1's CUDA-event ms at large_420's main-path shapes beside its plain
-    version's. Returns T1's numbers."""
+    `T1_CASES` (scales 8/4/2/1, groups of 3, the edges of the kernel's
+    tiles), interleaved and planar. T1's CUDA-event ms at large_420's
+    main-path shapes beside its plain version's; then T1's own device time
+    per launch by variant (torch.profiler, T1_TIMED_CALLS warm calls:
+    median, least and largest) beside its bytes bound: large_420 at fast
+    and exact, planar, the tower_420 group of 16 and a large_420 stripe
+    as the decodes made them, and seeded 4:4:4, 4:2:2 and gray images at
+    large_420's size. Returns T1's numbers."""
     from jpeg_decoder_tpu_torch.ops import kernels, pipeline
     from jpeg_decoder_tpu_torch.parallel import make_mesh, stripes
+    from tools.torch_port_profile import kernel_device_us
     from torch_inputs import T1_CASES, t1_args, t1_geometry, t1_pixels
 
-    captured = []
+    captured, timed = [], {}
 
     def spy(pixels, *args, **kw):
         out = kernels.interleaved_tail(pixels, *args, **kw)
         captured.append((pixels, args, kw, out))
         return out
 
-    def check(label: str) -> int:
-        """Each captured call against the plain version on its inputs."""
+    def check(label: str, keep: int = None) -> int:
+        """Each captured call against the plain version on its inputs; call
+        `keep` is kept for the times below."""
         torch.cuda.synchronize()
+        if keep is not None:
+            timed[label] = captured[keep][:3]
         for pixels, args, kw, out in captured:
             want = kernels.interleaved_tail_plain(pixels, *args, **kw)
             if out.shape != want.shape or not torch.equal(out, want):
@@ -1754,7 +1769,7 @@ def phase_t1(jt, data: dict, params, dev, card: str) -> dict:
                     f"large_420 scaled {precision}")
                 dec.decode_stream([tower] * 16, batch_size=16)
                 calls[f"tower_420 x16 {precision}"] = check(
-                    f"tower_420 x16 {precision}")
+                    f"tower_420 x16 {precision}", keep=0)
                 dec.decode_stream(mixed + mixed[:2], batch_size=8)
                 calls[f"hetero group {precision}"] = check(
                     f"hetero group {precision}")
@@ -1764,7 +1779,7 @@ def phase_t1(jt, data: dict, params, dev, card: str) -> dict:
             mesh = make_mesh({"stripe": n}, mesh_devices(n))
             with jt.DeviceStreamDecoder(mesh=mesh, host_threads=1) as dec:
                 dec.decode_striped(blob)
-            got = check(f"{name} at {n} stripes")
+            got = check(f"{name} at {n} stripes", keep=1)
             if got != n:
                 raise AssertionError(f"24 {name} at {n} stripes: {got} T1 "
                                      "calls, not one per stripe")
@@ -1804,7 +1819,49 @@ def phase_t1(jt, data: dict, params, dev, card: str) -> dict:
     say("24 T1 vs plain", card=card, calls_checked=calls, max_abs_err=0,
         tolerance=0, large_420_pixels=[list(p.shape) for p in pixels],
         t1_ms=ms, plain_ms=plain_ms)
-    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms}
+
+    fast = pipeline.fast_pixels_batch(
+        geometry, stores, [tuple(renders[i][1] for i in range(len(renders)))],
+        params)
+    variants = {"large_420 fast": (fast, args, {}),
+                "large_420 exact": (pixels, args, {}),
+                "large_420 exact planar": (pixels, args, {"planar": True}),
+                "tower_420 x16 fast": timed["tower_420 x16 fast"],
+                "large_420 stripe 2 of 4": timed["large_420.jpg at 4 stripes"]}
+    for layout, t in (("444", "YCBCR"), ("422", "YCBCR"), ("gray", None)):
+        g = t1_geometry(layout, geometry.out_height, geometry.out_width, 8, t)
+        variants[f"{layout} {g.out_width}x{g.out_height}"] = (
+            t1_pixels(g, 1, 24, dev), t1_args(g), {})
+    times = t1_times(variants, kernel_device_us)
+    say("24 T1 times", card=card, **times)
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "times": times}
+
+
+def t1_times(variants: dict, kernel_device_us) -> dict:
+    """T1's device time per launch for each `variants[label] = (pixels,
+    args, kwargs)` of `interleaved_tail`: median, least and largest over
+    T1_TIMED_CALLS profiled calls, beside the bytes bound of the call (its
+    block pixels and halos read once, its output written once)."""
+    from jpeg_decoder_tpu_torch.ops.kernels import interleaved_tail
+
+    times = {}
+    for label, (px, a, kw) in variants.items():
+        out = interleaved_tail(px, *a, **kw)
+        stripe = kw.get("stripe")
+        halos = [h for pair in (stripe.halos if stripe else ()) if pair
+                 for h in pair]
+        nbytes = (sum(p.numel() for p in px) + out.numel()
+                  + sum(h.numel() for h in halos))
+        prof = kernel_device_us(lambda: interleaved_tail(px, *a, **kw),
+                                "interleaved_tail_kernel",
+                                iters=T1_TIMED_CALLS)
+        each = sorted(prof["each_us"])
+        times[label] = {"median_us": each[len(each) // 2],
+                        "min_us": each[0], "max_us": each[-1],
+                        "calls": len(each), "bytes": nbytes,
+                        "bound_us": bound(nbytes)[0],
+                        "images": px[0].shape[0]}
+    return times
 
 
 def main() -> int:
@@ -2265,7 +2322,8 @@ def main() -> int:
     kernels[5].update(stripe_launches=mesh["e1_stripe_launches"],
                       front_end_launches=front["E1"],
                       fuzz_launches=fuzz["launches"]["idct_exact"])
-    kernels[6].update(stripe_launches=mesh["t1_stripe_launches"],
+    kernels[6].update(phase24_times=t1["times"],
+                      stripe_launches=mesh["t1_stripe_launches"],
                       front_end_launches=front["T1"],
                       fuzz_launches=fuzz["launches"]["interleaved_tail"],
                       launches_per_image_exact=exact_main["interleaved_tail"])

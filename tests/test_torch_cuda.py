@@ -52,11 +52,13 @@ off a 16-byte boundary refused, one launch for one exact large_420 decode
 and one per stripe. T1 (the interleaved tail): bit-equal to its plain
 version on the card and on the CPU over `T1_CASES` (every mode and
 transform, scales 8/4/2/1, width-1 and height-1 chroma, groups of 1 and
-3, interleaved and planar), on every fixture's stores through
-`reconstruct`, on a group of 16 whose image slabs are not adjacent (each
-image the bits of its own launch), and on the stripes on slots of the
-card against the CPU stripes; one launch per large_420 decode at fast and
-exact.
+3, interleaved and planar, and the edges of the kernel's 16 x 128 tiles),
+on every fixture's stores through `reconstruct`, on a group of 16 whose
+image slabs are not adjacent (each image the bits of its own launch), on
+groups whose slabs start at an odd byte offset into an odd output row
+pitch (the byte loads and the narrow stores), and on the stripes on slots
+of the card against the CPU stripes (row0 off the tiles, padding
+stripes); one launch per large_420 decode at fast and exact.
 """
 
 import time
@@ -861,11 +863,47 @@ def test_t1_group_of_16_bit_equal_to_per_image_launches(cuda):
         assert _digest([got[i]]) == _digest([alone[0]])
 
 
+@pytest.mark.parametrize("layout,transform", [
+    ("420", "YCBCR"), ("422", "YCBCR"), ("444", "YCBCR"), ("gray", None),
+    ("mixed4", "YCCK"), ("440", "RGB")])
+@pytest.mark.parametrize("scale", [8, 4, 2, 1])
+def test_t1_odd_slabs_and_pitches_bit_equal_to_plain(cuda, layout, transform,
+                                                     scale):
+    """Three images whose slabs start 3 bytes into a buffer (the kernel's
+    single-byte loads) into an output 145 columns wide at scale 8 (73, 37
+    and 19 at 4, 2 and 1; gray crops 152, 76, 38, 19): no row pitch is a
+    multiple of 16, so the kernel takes its 4-byte and single-byte stores.
+    Interleaved and planar, bit-equal to the plain version, one launch
+    each."""
+    from jpeg_decoder_tpu_torch.ops.kernels import (interleaved_tail,
+                                                    interleaved_tail_plain)
+
+    geometry = t1_geometry(layout, 37, 145, scale, transform)
+    odd = []
+    for p in t1_pixels(geometry, 3, scale, cuda):
+        flat = torch.zeros(p.numel() + 16, dtype=torch.uint8, device=cuda)
+        odd.append(flat[3:3 + p.numel()].view(p.shape))
+        odd[-1].copy_(p)
+    assert all(p.data_ptr() % 2 for p in odd)
+    args = t1_args(geometry)
+    for planar in (False, True):
+        before = jt.LAUNCHES["interleaved_tail"]
+        got = interleaved_tail(odd, *args, planar=planar)
+        assert jt.LAUNCHES["interleaved_tail"] - before == 1
+        assert got.stride(-2 if planar or got.dim() == 3 else -3) % 16
+        assert torch.equal(got, interleaved_tail_plain(odd, *args,
+                                                       planar=planar))
+
+
 @pytest.mark.parametrize("case", [("420", "YCBCR", 100, 90, 4),
                                   ("420", "YCBCR", 100, 90, 8),
                                   ("440", "YCBCR", 72, 37, 4),
                                   ("g23", "YCBCR", 100, 41, 4),
-                                  ("mixed4", "YCCK", 50, 27, 4)])
+                                  ("mixed4", "YCCK", 50, 27, 4),
+                                  ("422", "YCBCR", 72, 50, 3),
+                                  ("444", "YCBCR", 70, 33, 4),
+                                  ("g31", "RGB", 56, 29, 3),
+                                  ("440", "YCBCR", 150, 140, 8)])
 def test_t1_stripes_on_card_equal_the_cpu_stripes(cuda, case):
     from jpeg_decoder_tpu_torch.parallel import make_mesh
     from jpeg_decoder_tpu_torch.parallel.stripes import (

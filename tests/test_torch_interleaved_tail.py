@@ -157,11 +157,17 @@ def _stripe_stores(geometry, seed: int) -> list:
 # (layout, transform, height, width, stripes): h2v2 at 2, 4 and 8 stripes,
 # the last stripes padding (7 MCU rows over 4 and 8 stripes); h1v2; h2v1;
 # generic at v_scale 3 and 4; four components with V2 and H2 in one image.
+# Then stripes of 3 MCU rows of 8 (24 rows: row0 and the bases off the
+# kernel's 16-row tiles) in h2v1, h1v1 (a short third stripe, a padding
+# fourth) and generic at v_scale 1; and h1v2 over 8 stripes of 32 rows, the
+# last three padding, whose far row (ih - 1) lies below their near rows.
 STRIPES = [
     ("420", "YCBCR", 64, 48, 2), ("420", "YCBCR", 100, 90, 4),
     ("420", "YCBCR", 100, 90, 8), ("440", "YCBCR", 72, 37, 4),
     ("422", "RGB", 40, 33, 4), ("g23", "YCBCR", 100, 41, 4),
     ("g14", "NONE", 65, 19, 2), ("mixed4", "YCCK", 50, 27, 4),
+    ("422", "YCBCR", 72, 50, 3), ("444", "YCBCR", 70, 33, 4),
+    ("g31", "RGB", 56, 29, 3), ("440", "YCBCR", 150, 140, 8),
 ]
 
 

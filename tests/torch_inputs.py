@@ -375,6 +375,19 @@ def _t1_cases() -> list:
         ("generic4", "YCCK", 7, 9, 2, 1), ("gray", None, 1, 1, 8, 1),
         ("gray22", None, 21, 3, 4, 3),
     ]
+    # The kernel's tiles (16 rows x 128 columns, 16-pixel runs): widths one
+    # below, at and one above the run and the tile, heights across a tile,
+    # the last tile's one chroma column (258 wide: chroma 129), scales 1
+    # and 2 (image strides not 16-byte aligned), groups of 3.
+    cases += [
+        ("420", "YCBCR", 16, 15, 8, 3), ("420", "YCBCR", 17, 16, 8, 1),
+        ("420", "YCBCR", 15, 17, 8, 3), ("420", "YCBCR", 31, 127, 8, 1),
+        ("420", "YCBCR", 16, 128, 8, 3), ("420", "YCBCR", 33, 129, 8, 1),
+        ("422", "YCBCR", 17, 129, 8, 3), ("444", "YCBCR", 15, 128, 8, 1),
+        ("gray", None, 33, 127, 8, 3), ("420", "YCBCR", 9, 258, 8, 1),
+        ("440", "YCBCR", 31, 257, 8, 3), ("420", "YCBCR", 37, 75, 1, 3),
+        ("444", "RGB", 31, 45, 2, 3), ("mixed4", "YCCK", 33, 130, 4, 1),
+    ]
     return cases
 
 

@@ -20,8 +20,12 @@ fused_recon_probe_torch.py with large_420's tables, beside the device time
 of the unfused K2 path it replaces (`fused_recon_plain(k2=dequant_idct)`,
 every kernel it launches), and L1 (`lossless_recur`) on a seeded
 [1, 2048, 2048] plane at predictor 6 and on [3, 2048, 2048] in one call
-(50, 50, 20, 10 and 5 calls). Beside the times, SHA-256 digests of what
-the checkout computes, to show two versions bit-equal: K2's outputs
+(50, 50, 20, 10 and 5 calls), and T1 (`interleaved_tail`) on seeded
+block pixels of large_420's geometry (interleaved and planar) and of 16
+tower_420 images in one call, 50 calls each, with the median, least and
+largest time of one launch. Beside the times, SHA-256 digests of what
+the checkout computes, to show two versions bit-equal: T1's outputs on
+those pixels, K2's outputs
 (`dequant_idct_multi`, three components in one call) on seeded
 coefficients at scales 8, 4, 2 and 1 and magnitudes up to 300, 1024, 4096
 and 32767, K4's output on the stores above, and the fast interleaved
@@ -136,9 +140,43 @@ def main(argv=None) -> int:
                               "lossless_recur_kernel", iters=iters)
         out[f"l1_{c}x2048x2048_p6_kernel_us"] = l1["kernel_us"]
         out[f"l1_{c}x2048x2048_p6_launches"] = l1["launches"]
+    out.update(t1_times(dev, fixtures, stage_host_bits))
     out.update(digests(dev, params, fixtures))
     print(json.dumps(out))
     return 0
+
+
+def t1_times(dev, fixtures, stage_host_bits) -> dict:
+    """T1's device time per launch (mean, median, least, largest over 50
+    calls) and the SHA-256 of its outputs, on seeded block pixels of
+    large_420's geometry and of 16 tower_420 images."""
+    from tools.torch_port_profile import kernel_device_us
+    from jpeg_decoder_tpu_torch.ops.kernels import interleaved_tail
+
+    out, digest = {}, hashlib.sha256()
+    for name, images, planar in (("large_420", 1, False),
+                                 ("large_420", 1, True),
+                                 ("tower_420", 16, False)):
+        geometry = stage_host_bits(
+            (fixtures / f"{name}.jpg").read_bytes()).geometry
+        rng = np.random.default_rng(images)
+        pixels = [torch.from_numpy(rng.integers(
+            0, 256, (images, c.blocks_wide * c.blocks_high, c.dct_scale,
+                     c.dct_scale), dtype=np.uint8)).to(dev)
+            for c in geometry.components]
+        args = (pixels, geometry.components, geometry.transform,
+                geometry.out_height, geometry.out_width)
+        t1 = kernel_device_us(lambda: interleaved_tail(*args, planar=planar),
+                              "interleaved_tail_kernel", iters=50)
+        each = sorted(t1["each_us"])
+        key = f"t1_{name}_x{images}" + ("_planar" if planar else "")
+        out[key] = {"kernel_us": t1["kernel_us"],
+                    "median_us": each[len(each) // 2], "min_us": each[0],
+                    "max_us": each[-1], "launches": t1["launches"]}
+        digest.update(interleaved_tail(*args, planar=planar).cpu().numpy()
+                      .tobytes())
+    out["t1_sha256"] = digest.hexdigest()
+    return out
 
 
 def digests(dev, params, fixtures) -> dict:

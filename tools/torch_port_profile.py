@@ -64,7 +64,8 @@ def _busy_us(intervals) -> float:
 def kernel_device_us(fn, symbol: str, iters: int = 20) -> dict:
     """Device time of the kernels whose name contains `symbol`, per call of
     `fn`, from torch.profiler over `iters` calls after three warm-up calls
-    (warm L2): {"kernel_us", "launches", "all_device_us", "all_launches"},
+    (warm L2): {"kernel_us", "launches", "each_us", "all_device_us",
+    "all_launches"}: "each_us" every such kernel's own time in the window,
     the last two over every device operation `fn` enqueues."""
     from torch.profiler import ProfilerActivity
 
@@ -91,6 +92,7 @@ def kernel_device_us(fn, symbol: str, iters: int = 20) -> dict:
     return {"kernel_us": sum(e.time_range.elapsed_us() for e in mine)
             / len(mine) * per_call,
             "launches": per_call,
+            "each_us": [e.time_range.elapsed_us() for e in mine],
             "all_device_us": sum(e.time_range.elapsed_us()
                                  for e in on_card) / len(on_card)
             * round(len(on_card) / iters),
