@@ -7,8 +7,8 @@ Drives the port's paths (jpeg_decoder_tpu_torch.DeviceStreamDecoder on
 tools/experiments/fused_recon_probe_torch.py) over the committed fixtures
 in tests/fixtures/torch_port/, after building every hand-written kernel
 from csrc/ and holding each against its plain PyTorch version on the card
-(K1-K4, L1, E1, the exact tier's int32 IDCT, and T1, the interleaved
-tail):
+(K1-K4, L1, E1, the exact tier's int32 IDCT, T1, the interleaved tail, A1,
+the assembly, and U1, the delta-wire unpack):
 
 1. card name and power limit (nvidia-smi), native host library status;
 2. kernel build (nvcc), with its time;
@@ -17,7 +17,7 @@ tail):
 4. K2 (dequant + IDCT) on the card vs its plain version on the card, on
    fixture stores and seeded random coefficients: |diff| <= 1;
 5. the slice: decode_stream(all fixtures) -> CUDA tensors, launch counts
-   of K1, K2 and T1 > 0, every image within 3 of the host exact decode;
+   of K1, K2, T1, A1 and U1 > 0, every image within 3 of the host exact decode;
    then [small_444, a malformed stream, small_444] with on_error="none":
    None in the malformed slot, CUDA tensors in the others;
 6. CUDA-event times: device-resident ms/image for the 3.4 Mpix and
@@ -76,7 +76,8 @@ tail):
    same product), K2's yardstick `torch.addmm` and K4's, the unfused K2
    path, by device time over every kernel they launch, and its launches
    per image on the main path (one large_420 decode: bits, fast,
-   interleaved; for E1 the same decode at exact); E1's bound counts
+   interleaved; for E1 the same decode at exact; K1, A1 and U1 once per
+   call, and K2, E1, T1, A1 and U1 once per image); E1's bound counts
    E1_OPS_PER_BLOCK int32 operations a block at INT32_OPS, a multiply-add
    counted as two operations against a peak of two a lane a clock;
 17. batched dispatch, decode_stream(batch_size=N): tower_420 x 32 at 16,
@@ -117,8 +118,8 @@ tail):
    (a mesh may name one device several times; on a machine with more
    cards the slots go round them): large_420 through
    `DeviceStreamDecoder(mesh=...).decode_striped` at 4 and 8 stripes,
-   bit-equal to the host exact decode with K1 and E1 launched once per
-   stripe;
+   bit-equal to the host exact decode with K1, E1, T1 and A1 launched
+   once per stripe and no U1 (the stripes' wires are anchor wires);
    K1 bit-equal to its plain version on every stripe wire of large_420 at
    4 and 8 stripes and of stripe_420.jpg at 8 (first blocks negative);
    tower_420 x 16 at batch 16 on {"data": 4}, a prefix group of tower_420
@@ -159,8 +160,8 @@ tail):
    per scan; K3 and L1 bit-equal to their plain versions on mutated input,
    each launched at least once. Prints the counts (mutants, accepted,
    fallbacks, lossless, typed errors, failures, fast misses), K1, K2, K3,
-   L1 and E1 launches under the fuzz (E1 in the exact legs, each launched
-   at least once) and the seconds; any failure fails the
+   L1, E1, T1, A1 and U1 launches under the fuzz (E1 in the exact legs,
+   each launched at least once) and the seconds; any failure fails the
    run. Where `compute-sanitizer` is on PATH and its memcheck runs a
    control (one `torch.ones` on the card) clean, 50 more sources run under
    it in a subprocess and any report fails the run; where it is absent, or
@@ -199,7 +200,29 @@ tail):
    large_420's size. T1's launches are
    checked in phases 5 (> 0), 11 (1 per image), 16 (1 per large_420 image
    at fast and exact), 17 (1 per plan), 18 (1 per image), 19 (1 per
-   stripe) and 21 (> 0).
+   stripe) and 21 (> 0);
+25. A1 (the assembly, csrc/assemble.cu: stream-order nat -> the
+   components' stores, the DC prefix sums by decoupled look-back, padding
+   zeroed) and U1 (the delta-wire unpack, csrc/unpack_delta.cu) against
+   their plain versions on the card, tolerance 0: every A1 and U1 call of
+   real decodes, captured by spies on `models/stream.py` and
+   `parallel/stripe_bits.py` (every fixture at fast and exact, small_dri's
+   restart segments among them; a tower_420 group of 16; the hetero
+   group; the progressive fixtures, the quirk stream and the three-pair
+   large_420; the stripes of large_420 at 4 and 8 and of stripe_420.jpg
+   at 8, each A1 call with its carry, one per stripe); `tests/
+   torch_inputs.py::A1_CASES` (padded grids, restart segments across the
+   kernel's tiles, 36-tile sequences, groups, carries with high bits set,
+   general maps) with and without carries, every fixture's plan through
+   the general branch, and U1 on seeded wires of 1 to 100,000 entries;
+   A1's and U1's CUDA-event ms at large_420 beside their plain versions,
+   and their device time per launch (torch.profiler, 100 calls: median,
+   least, largest) beside the bytes bound: A1 at large_420, over a
+   tower_420 group of 16 and on a large_420 stripe; U1 on large_420's
+   wire, the group's merged wire and wires of 65,536 and 1,048,576
+   entries. A1's and U1's launches are checked in phases 5 (> 0), 16 (1
+   per large_420 image at fast and exact), 19 (A1 1 per stripe, U1 none)
+   and 21 (> 0).
 
 Any failure raises and the script exits nonzero. It needs a CUDA device and
 the repository around it; it imports neither JAX, nor PIL, nor the JAX
@@ -378,7 +401,7 @@ def k1_stores(st, params, dev):
 
     words, dm = put(st.words), put(st.dm)
     if st.ab is None:
-        ab, _budget, _slot0, base = unpack_delta(dm)
+        ab, base = unpack_delta(dm)
     else:
         ab, base = put(st.ab), put(st.base)
     plan = st.scan.plan
@@ -465,11 +488,12 @@ def phase_kernel_table(jt, measured: dict, per_image: dict, l1_chain: dict,
         rows[name][f"{label}_device_us"] = prof["all_device_us"]
         rows[name][f"{label}_launches_per_call"] = prof["all_launches"]
     say("16 kernel table", **rows)
-    if per_image["K2"] != 1 or per_image["E1"] != 1 or per_image["T1"] != 1 \
-            or rows["K1"]["wrapper_launches_per_call"] != 1:
-        raise AssertionError("K2 (fast), E1 (exact) and T1 must launch once "
-                             "per image and K1's wrapper once per call: "
-                             f"{rows}")
+    if any(per_image[k] != 1 for k in ("K2", "E1", "T1", "A1", "U1")) \
+            or any(rows[k]["wrapper_launches_per_call"] != 1
+                   for k in ("K1", "A1", "U1")):
+        raise AssertionError("K2 (fast), E1 (exact), T1, A1 and U1 must "
+                             "launch once per image and the K1, A1 and U1 "
+                             f"wrappers once per call: {rows}")
     return rows
 
 
@@ -921,7 +945,7 @@ def phase_batch(jt, data: dict, params, dev, profile_layers) -> dict:
     tower_scan = jt.stage_host_bits(data["tower_420.jpg"]).scans[0]
     (words, dm), s_max, n_blocks = merge_scans([tower_scan] * 16)
     words, dm = torch.from_numpy(words).to(dev), torch.from_numpy(dm).to(dev)
-    ab, _budget, _slot0, base = unpack_delta(dm)
+    ab, base = unpack_delta(dm)
     k1_args = (words, dm, ab, base, params.tables(tower_scan.scan), s_max,
                n_blocks)
     shared_q = [[q[0]] * 16 for q in qs]
@@ -1256,8 +1280,8 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
                              f"{k1_err}, negative first blocks {negative}")
 
     # large_420 striped: bit-equal, one K1 launch per stripe.
-    striped, stripe_launches, e1_stripe_launches, t1_stripe_launches = \
-        {}, 0, 0, 0
+    striped, stripe_launches, e1_stripe_launches, t1_stripe_launches, \
+        a1_stripe_launches = {}, 0, 0, 0, 0
     staged = jt.stage_host_bits(large)
     exact = jt.stage_host_bits(large, precision="exact")
     with jt.DeviceStreamDecoder(host_threads=1, precision="exact") as plain:
@@ -1272,7 +1296,8 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
             exchanged = dict(mesh_mod.EXCHANGED)
         if launches["huffman_decode"] != n or launches["dequant_idct"] \
                 or launches["idct_exact"] != n \
-                or launches["interleaved_tail"] != n:
+                or launches["interleaved_tail"] != n \
+                or launches["assemble"] != n or launches["unpack_delta"]:
             raise AssertionError(f"19 {n} stripes launched {launches}")
         if not np.array_equal(img.cpu().numpy(), large_gold):
             raise AssertionError(f"19 large_420 at {n} stripes differs from "
@@ -1280,6 +1305,7 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
         stripe_launches += launches["huffman_decode"]
         e1_stripe_launches += launches["idct_exact"]
         t1_stripe_launches += launches["interleaved_tail"]
+        a1_stripe_launches += launches["assemble"]
         prof = kernel_device_us(lambda: decode_bits_striped(staged, mesh),
                                 "huffman_decode_kernel", iters=3)
         ms = cuda_ms(lambda: decode_bits_striped(staged, mesh), 5)
@@ -1290,6 +1316,7 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
             "k1_launches": launches["huffman_decode"],
             "e1_launches": launches["idct_exact"],
             "t1_launches": launches["interleaved_tail"],
+            "a1_launches": launches["assemble"],
             "device_busy_ms": prof["all_device_us"] / 1e3,
             "halo_bytes": exchanged["halo"], "carry_bytes":
             exchanged["carry"], "gather_bytes": exchanged["gather"]}
@@ -1368,7 +1395,8 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
         dryrun=ran, cards=torch.cuda.device_count())
     return {"stripe_launches": stripe_launches,
             "e1_stripe_launches": e1_stripe_launches,
-            "t1_stripe_launches": t1_stripe_launches, "k1_err": k1_err,
+            "t1_stripe_launches": t1_stripe_launches,
+            "a1_stripe_launches": a1_stripe_launches, "k1_err": k1_err,
             "striped_8_ms": striped["8 stripes"]["ms_per_image"]}
 
 
@@ -1467,7 +1495,8 @@ def phase_fuzz(jt, card: str) -> dict:
     seconds = time.perf_counter() - t0
     launches = res["launches"]
     missing = [k for k in ("huffman_decode", "dequant_idct", "fused_tail",
-                           "lossless_recur", "idct_exact", "interleaved_tail")
+                           "lossless_recur", "idct_exact", "interleaved_tail",
+                           "assemble", "unpack_delta")
                if launches[k] < 1]
     if res["failures"] or missing \
             or res["k1_vs_plain_checked"] != res["k1_scans_checked"] \
@@ -1492,7 +1521,9 @@ def phase_fuzz(jt, card: str) -> dict:
                   "K3": launches["fused_tail"],
                   "L1": launches["lossless_recur"],
                   "E1": launches["idct_exact"],
-                  "T1": launches["interleaved_tail"]},
+                  "T1": launches["interleaved_tail"],
+                  "A1": launches["assemble"],
+                  "U1": launches["unpack_delta"]},
         seconds=seconds)
     sanitizer = shutil.which("compute-sanitizer")
     if sanitizer is None:
@@ -1697,7 +1728,7 @@ def phase_e1(jt, data: dict, params, dev, card: str) -> dict:
 # 24: T1's seeded sweep, per layout its transforms (tests/torch_inputs.py
 # T1_LAYOUTS: every upsampler mode, generic at scales 1-4, one and four
 # components) at every odd width 1-39 and height 1-5.
-T1_TIMED_CALLS = 100   # 24: profiled calls per timed variant (>= 50 seen)
+TIMED_CALLS = 100   # 24, 25: profiled calls per timed variant (>= 50 seen)
 T1_SWEEP = {"444": ("NONE", "RGB", "YCBCR"), "422": ("NONE", "RGB", "YCBCR"),
             "440": ("NONE", "RGB", "YCBCR"), "420": ("NONE", "RGB", "YCBCR"),
             "g31": ("NONE", "RGB", "YCBCR"), "g23": ("NONE", "RGB", "YCBCR"),
@@ -1716,7 +1747,7 @@ def phase_t1(jt, data: dict, params, dev, card: str) -> dict:
     `T1_CASES` (scales 8/4/2/1, groups of 3, the edges of the kernel's
     tiles), interleaved and planar. T1's CUDA-event ms at large_420's
     main-path shapes beside its plain version's; then T1's own device time
-    per launch by variant (torch.profiler, T1_TIMED_CALLS warm calls:
+    per launch by variant (torch.profiler, TIMED_CALLS warm calls:
     median, least and largest) beside its bytes bound: large_420 at fast
     and exact, planar, the tower_420 group of 16 and a large_420 stripe
     as the decodes made them, and seeded 4:4:4, 4:2:2 and gray images at
@@ -1839,9 +1870,9 @@ def phase_t1(jt, data: dict, params, dev, card: str) -> dict:
 
 def t1_times(variants: dict, kernel_device_us) -> dict:
     """T1's device time per launch for each `variants[label] = (pixels,
-    args, kwargs)` of `interleaved_tail`: median, least and largest over
-    T1_TIMED_CALLS profiled calls, beside the bytes bound of the call (its
-    block pixels and halos read once, its output written once)."""
+    args, kwargs)` of `interleaved_tail` (`launch_times`), beside the bytes
+    bound of the call (its block pixels and halos read once, its output
+    written once)."""
     from jpeg_decoder_tpu_torch.ops.kernels import interleaved_tail
 
     times = {}
@@ -1852,16 +1883,198 @@ def t1_times(variants: dict, kernel_device_us) -> dict:
                  for h in pair]
         nbytes = (sum(p.numel() for p in px) + out.numel()
                   + sum(h.numel() for h in halos))
-        prof = kernel_device_us(lambda: interleaved_tail(px, *a, **kw),
-                                "interleaved_tail_kernel",
-                                iters=T1_TIMED_CALLS)
-        each = sorted(prof["each_us"])
-        times[label] = {"median_us": each[len(each) // 2],
-                        "min_us": each[0], "max_us": each[-1],
-                        "calls": len(each), "bytes": nbytes,
-                        "bound_us": bound(nbytes)[0],
-                        "images": px[0].shape[0]}
+        times[label] = {**launch_times(
+            lambda: interleaved_tail(px, *a, **kw), "interleaved_tail_kernel",
+            nbytes, kernel_device_us), "images": px[0].shape[0]}
     return times
+
+
+def launch_times(fn, symbol: str, nbytes: int, kernel_device_us) -> dict:
+    """The device time per launch of the kernels named `symbol` that `fn`
+    launches: median, least and largest over TIMED_CALLS profiled calls,
+    beside the bytes bound of `nbytes` (each input read once, each output
+    written once)."""
+    each = sorted(kernel_device_us(fn, symbol,
+                                   iters=TIMED_CALLS)["each_us"])
+    return {"median_us": each[len(each) // 2], "min_us": each[0],
+            "max_us": each[-1], "calls": len(each), "bytes": nbytes,
+            "bound_us": bound(nbytes)[0]}
+
+
+def phase_a1_u1(jt, data: dict, params, dev, card: str) -> dict:
+    """25. A1 (the assembly) and U1 (the delta unpack) against their plain
+    versions on the card, tolerance 0: every A1 and U1 call of real
+    decodes, captured as the decode makes it (every fixture at fast and
+    exact, small_dri's restart segments among them; tower_420 x 16 in one
+    group; the hetero group; the progressive fixtures and the quirk stream
+    through the transcode; large_420 with three table pairs on the anchor
+    wire; the stripes of large_420 at 4 and 8 and of stripe_420 at 8, each
+    A1 call with its carry); `A1_CASES` (padded grids, restart segments
+    across the tiles, 36-tile sequences, groups, carries with high bits
+    set, general maps), every fixture's plan forced through the general
+    branch, and U1 on seeded wires of every bit pattern. Times: A1 and U1
+    by CUDA events at large_420's main-path shapes beside their plain
+    versions; each kernel's device time per launch by variant
+    (torch.profiler, TIMED_CALLS warm calls: median, least, largest)
+    beside its bytes bound. Returns their numbers."""
+    import copy
+
+    from jpeg_decoder_tpu_torch.entropy.assemble import (GeneralMaps,
+                                                         assemble_nat,
+                                                         assemble_nat_plain)
+    from jpeg_decoder_tpu_torch.entropy.chunk_decode import (
+        decode_chunks, unpack_delta, unpack_delta_plain)
+    from jpeg_decoder_tpu_torch.models import stream
+    from jpeg_decoder_tpu_torch.parallel import make_mesh, stripe_bits
+    from tools.torch_port_profile import kernel_device_us
+    from torch_inputs import (A1_CASES, a1_case, quirk_jpeg,
+                              three_table_pairs)
+
+    a1_calls, u1_calls = [], []
+
+    def a1_spy(nat, plan, maps=None, carry=None):
+        out = assemble_nat(nat, plan, maps, carry)
+        a1_calls.append((nat, plan, maps, carry, out))
+        return out
+
+    def u1_spy(dm):
+        out = unpack_delta(dm)
+        u1_calls.append((dm, out))
+        return out
+
+    def check(label: str) -> tuple:
+        torch.cuda.synchronize()
+        for nat, plan, maps, carry, out in a1_calls:
+            want = assemble_nat_plain(nat, plan, maps, carry)
+            if len(out) != len(want) or not all(
+                    g.shape == w.shape and torch.equal(g, w)
+                    for g, w in zip(out, want)):
+                raise AssertionError(f"25 A1 {label}: differs from its "
+                                     f"plain version, {tuple(nat.shape)}")
+        for dm, out in u1_calls:
+            if not all(torch.equal(g, w)
+                       for g, w in zip(out, unpack_delta_plain(dm))):
+                raise AssertionError(f"25 U1 {label}: differs from its "
+                                     f"plain version, {dm.numel()} entries")
+        n = (len(a1_calls), len(u1_calls))
+        a1_calls.clear()
+        u1_calls.clear()
+        return n
+
+    large, tower = data["large_420.jpg"], data["tower_420.jpg"]
+    mixed = [(FIXTURES / n).read_bytes() for n in MIXED]
+    odd = [(FIXTURES / n).read_bytes() for n in PROGRESSIVE] + [
+        quirk_jpeg(0), three_table_pairs(large)]
+    calls, timed = {}, {}
+    saved = stream.assemble_nat, stream.unpack_delta, stripe_bits.assemble_nat
+    stream.assemble_nat = stripe_bits.assemble_nat = a1_spy
+    stream.unpack_delta = u1_spy
+    try:
+        for precision in ("fast", "exact"):
+            with jt.DeviceStreamDecoder(host_threads=4,
+                                        precision=precision) as dec:
+                dec.decode_stream([data[name] for name in ORDER])
+                calls[f"fixtures {precision}"] = check(f"fixtures "
+                                                       f"{precision}")
+                dec.decode_stream([tower] * 16, batch_size=16)
+                if precision == "fast":
+                    timed["A1 tower_420 x16"] = a1_calls[0][:4]
+                    timed["U1 tower_420 x16"] = u1_calls[0][0]
+                calls[f"tower_420 x16 {precision}"] = check(
+                    f"tower_420 x16 {precision}")
+                dec.decode_stream(mixed + mixed[:2], batch_size=8)
+                calls[f"hetero group {precision}"] = check(
+                    f"hetero group {precision}")
+                dec.decode_stream(odd)
+                calls[f"progressive, quirk, three pairs {precision}"] = \
+                    check(f"progressive, quirk, three pairs {precision}")
+        for name, n in (("large_420.jpg", 4), ("large_420.jpg", 8),
+                        ("stripe_420.jpg", 8)):
+            mesh = make_mesh({"stripe": n}, mesh_devices(n))
+            with jt.DeviceStreamDecoder(mesh=mesh, host_threads=1) as dec:
+                dec.decode_striped((FIXTURES / name).read_bytes())
+            if name == "large_420.jpg" and n == 4:
+                timed["A1 large_420 stripe 2 of 4"] = a1_calls[1][:4]
+            if any(c[3] is None for c in a1_calls):
+                raise AssertionError(f"25 {name} at {n} stripes: an A1 "
+                                     "call without its carry")
+            got = check(f"{name} at {n} stripes")
+            if got != (n, 0):
+                raise AssertionError(f"25 {name} at {n} stripes: {got} A1 "
+                                     "and U1 calls, not one A1 per stripe")
+            calls[f"{name} at {n} stripes"] = got
+    finally:
+        stream.assemble_nat, stream.unpack_delta, \
+            stripe_bits.assemble_nat = saved
+
+    seeded = 0
+    for case in A1_CASES:
+        plan, nat_np, carry_np = a1_case(case)
+        maps = None if plan.structured is not None else GeneralMaps(plan,
+                                                                    dev)
+        nat = torch.from_numpy(nat_np).to(dev)
+        for carry in ((None,) if carry_np is None else (
+                None, torch.from_numpy(carry_np).to(dev),
+                torch.from_numpy(carry_np[:, 0].copy()).to(dev))):
+            a1_calls.append((nat, plan, maps, carry,
+                             assemble_nat(nat, plan, maps, carry)))
+            seeded += 1
+    for name in ORDER:
+        for st in jt.stage_host_bits(data[name]).scans:
+            plan = copy.copy(st.scan.plan)
+            plan.structured = None
+            dm = torch.from_numpy(st.dm).to(dev)
+            ab, base = unpack_delta(dm)
+            u1_calls.append((dm, (ab, base)))
+            nat = decode_chunks(torch.from_numpy(st.words).to(dev), dm, ab,
+                                base, params.tables(st.scan), st.s_max,
+                                plan.n_blocks)
+            maps = GeneralMaps(plan, dev)
+            a1_calls.append((nat, plan, maps, None,
+                             assemble_nat(nat, plan, maps)))
+            seeded += 1
+    rng = np.random.default_rng(25)
+    for n in (1, 31, 8191, 8192, 8193, 100_000):
+        dm = torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
+                              .astype(np.uint32).view(np.int32)).to(dev)
+        u1_calls.append((dm, unpack_delta(dm)))
+    calls["seeded"] = check("seeded")
+
+    # Times at large_420's main-path shapes: K1's nat, the delta wire.
+    (st,) = jt.stage_host_bits(large).scans
+    dm = torch.from_numpy(st.dm).to(dev)
+    ab, base = unpack_delta(dm)
+    plan = st.scan.plan
+    nat = decode_chunks(torch.from_numpy(st.words).to(dev), dm, ab, base,
+                        params.tables(st.scan), st.s_max, plan.n_blocks)
+    a1_ms = cuda_ms(lambda: assemble_nat(nat, plan), 50)
+    a1_plain_ms = cuda_ms(lambda: assemble_nat_plain(nat, plan), 20)
+    u1_ms = cuda_ms(lambda: unpack_delta(dm), 50)
+    u1_plain_ms = cuda_ms(lambda: unpack_delta_plain(dm), 20)
+    say("25 A1 and U1 vs plain", card=card, calls_checked=calls,
+        max_abs_err=0, tolerance=0, a1_ms=a1_ms, a1_plain_ms=a1_plain_ms,
+        u1_ms=u1_ms, u1_plain_ms=u1_plain_ms)
+
+    times = {}
+    variants = {"A1 large_420": (nat, plan, None, None),
+                **{k: v for k, v in timed.items() if k.startswith("A1")}}
+    for label, (v_nat, v_plan, v_maps, v_carry) in variants.items():
+        stores = assemble_nat(v_nat, v_plan, v_maps, v_carry)
+        nbytes = v_nat.numel() * 2 + sum(t.numel() * 2 for t in stores)
+        times[label] = launch_times(
+            lambda: assemble_nat(v_nat, v_plan, v_maps, v_carry),
+            "assemble_kernel", nbytes, kernel_device_us)
+    for label, v_dm in (("U1 large_420", dm),
+                        ("U1 tower_420 x16", timed["U1 tower_420 x16"]),
+                        ("U1 65,536 entries", dm.repeat(11)[:65536]),
+                        ("U1 1,048,576 entries", dm.repeat(171)[:1 << 20])):
+        times[label] = launch_times(lambda: unpack_delta(v_dm),
+                                  "unpack_delta_kernel", 12 * v_dm.numel(),
+                                  kernel_device_us)
+    say("25 A1 and U1 times", card=card, **times)
+    return {"max_abs_err": 0, "a1_ms": a1_ms, "a1_plain_ms": a1_plain_ms,
+            "u1_ms": u1_ms, "u1_plain_ms": u1_plain_ms, "times": times,
+            "calls": calls}
 
 
 def main() -> int:
@@ -1929,7 +2142,7 @@ def main() -> int:
         for st in staged[name].scans:
             words = torch.from_numpy(st.words).to(dev)
             dm = torch.from_numpy(st.dm).to(dev)
-            ab, _budget, _slot0, base = unpack_delta(dm)
+            ab, base = unpack_delta(dm)
             args = (words, dm, ab, base, params.tables(st.scan), st.s_max,
                     st.scan.plan.n_blocks)
             k1_inputs.setdefault(name, args)
@@ -2002,7 +2215,8 @@ def main() -> int:
                 raise AssertionError(f"{name}: max |diff| {worst[name]} > "
                                      f"{PIXEL_TOL} vs the exact decode")
         if min(launches["huffman_decode"], launches["dequant_idct"],
-               launches["interleaved_tail"]) < 1:
+               launches["interleaved_tail"], launches["assemble"],
+               launches["unpack_delta"]) < 1:
             raise AssertionError(f"a kernel of the path never ran: {launches}")
         isolated = dec.decode_stream(
             [data["small_444.jpg"], BAD_JPEG, data["small_444.jpg"]],
@@ -2207,8 +2421,12 @@ def main() -> int:
     k4_blocks = 3 * k4_args[0].shape[0] * k4_args[0].shape[1]
     k1_bytes = 4 * sum(a.numel() for a in args1[:4]) + 128 * args1[6]
     k2_px = sum(n * k * k for n, k in zip(k2_blocks, scales2))
-    if exact_main["interleaved_tail"] != 1:
-        raise AssertionError(f"16 T1 at exact: {exact_main}")
+    if exact_main["interleaved_tail"] != 1 or exact_main["assemble"] != 1 \
+            or exact_main["unpack_delta"] != 1:
+        raise AssertionError(f"16 T1, A1 and U1 at exact: {exact_main}")
+    a1_plan = staged["large_420.jpg"].scans[0].scan.plan
+    a1_nat = decode_chunks(*args1)
+    a1_stores = assemble_nat(a1_nat, a1_plan)
     table = phase_kernel_table(jt, {
         "K1": (lambda: decode_chunks(*args1), "huffman_decode_kernel",
                k1_bytes, 0.0, FP32_FLOPS),
@@ -2226,10 +2444,17 @@ def main() -> int:
                E1_OPS_PER_BLOCK * sum(k2_blocks), INT32_OPS),
         "T1": (lambda: interleaved_tail(t1_pixels2, *t1_args2),
                "interleaved_tail_kernel", t1_bytes, 0.0, FP32_FLOPS),
+        "A1": (lambda: assemble_nat(a1_nat, a1_plan), "assemble_kernel",
+               2 * a1_nat.numel() + 2 * sum(t.numel() for t in a1_stores),
+               0.0, FP32_FLOPS),
+        "U1": (lambda: unpack_delta(args1[1]), "unpack_delta_kernel",
+               12 * args1[1].numel(), 0.0, FP32_FLOPS),
     }, {**dict(zip(("K1", "K2", "K3", "K4", "L1"),
                    (main_launches[k] for k in _build.LAUNCHES))),
         "E1": exact_main["idct_exact"],
-        "T1": main_launches["interleaved_tail"]}, l1_chain,
+        "T1": main_launches["interleaved_tail"],
+        "A1": main_launches["assemble"],
+        "U1": main_launches["unpack_delta"]}, l1_chain,
         {"K2": ("library", k2_library),
          "K4": ("unfused", lambda: fused_recon_plain(*k4_args,
                                                      k2=dequant_idct))})
@@ -2256,6 +2481,9 @@ def main() -> int:
 
     # 24. T1 against its plain version on real and seeded calls, its times.
     t1 = phase_t1(jt, data, params, dev, card)
+
+    # 25. A1 and U1 against their plain versions, their times.
+    a1u1 = phase_a1_u1(jt, data, params, dev, card)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
                     in ("jax", "jaxlib", "jpeg_decoder_tpu"))
@@ -2301,8 +2529,21 @@ def main() -> int:
          "launches": launches["interleaved_tail"],
          "max_abs_err": t1["max_abs_err"], "ms": t1["ms"],
          "plain_ms": t1["plain_ms"], "library_ms": None},
+        {"name": "A1 assemble", "route": "cuda",
+         "source": "jpeg_decoder_tpu_torch/csrc/assemble.cu",
+         "replaces": "jpeg_decoder_tpu/entropy/device_scan.py:914",
+         "launches": launches["assemble"],
+         "max_abs_err": a1u1["max_abs_err"], "ms": a1u1["a1_ms"],
+         "plain_ms": a1u1["a1_plain_ms"], "library_ms": None},
+        {"name": "U1 unpack_delta", "route": "cuda",
+         "source": "jpeg_decoder_tpu_torch/csrc/unpack_delta.cu",
+         "replaces": "jpeg_decoder_tpu/entropy/pallas_decode.py:658",
+         "launches": launches["unpack_delta"],
+         "max_abs_err": a1u1["max_abs_err"], "ms": a1u1["u1_ms"],
+         "plain_ms": a1u1["u1_plain_ms"], "library_ms": None},
     ]
-    for row, key in zip(kernels, ("K1", "K2", "K3", "K4", "L1", "E1", "T1")):
+    for row, key in zip(kernels, ("K1", "K2", "K3", "K4", "L1", "E1", "T1",
+                                  "A1", "U1")):
         tab = table[key]
         row.update(kernel_us=tab["kernel_us"], bound_us=tab["bound_us"],
                    bound_ms=tab["bound_us"] / 1e3, bound_by=tab["bound_by"],
@@ -2327,6 +2568,16 @@ def main() -> int:
                       front_end_launches=front["T1"],
                       fuzz_launches=fuzz["launches"]["interleaved_tail"],
                       launches_per_image_exact=exact_main["interleaved_tail"])
+    kernels[7].update(phase25_times={k: v for k, v in a1u1["times"].items()
+                                     if k.startswith("A1")},
+                      phase25_calls=a1u1["calls"],
+                      stripe_launches=mesh["a1_stripe_launches"],
+                      fuzz_launches=fuzz["launches"]["assemble"],
+                      launches_per_image_exact=exact_main["assemble"])
+    kernels[8].update(phase25_times={k: v for k, v in a1u1["times"].items()
+                                     if k.startswith("U1")},
+                      fuzz_launches=fuzz["launches"]["unpack_delta"],
+                      launches_per_image_exact=exact_main["unpack_delta"])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("huffman_decode.cu", "dequant_idct.cu", "fused_tail.cu",
            "fused_recon.cu", "lossless_recur.cu", "idct_exact.cu",
-           "interleaved_tail.cu")
+           "interleaved_tail.cu", "assemble.cu", "unpack_delta.cu")
 HEADERS = ("idct_mma.cuh",)    # included by sources; part of the hash
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Kernel launch counts, by kernel name; see reset_launches().
 LAUNCHES = {"huffman_decode": 0, "dequant_idct": 0, "fused_tail": 0,
             "fused_recon": 0, "lossless_recur": 0, "idct_exact": 0,
-            "interleaved_tail": 0}
+            "interleaved_tail": 0, "assemble": 0, "unpack_delta": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -180,6 +180,22 @@ def load() -> ctypes.CDLL:
             p,              # host int64[3 ncomp + 1]: the output layout
             p]              # stream
         lib.jdt_interleaved_tail.restype = i
+        q = ctypes.c_longlong
+        lib.jdt_assemble.argtypes = [
+            p, q, i, i,     # nat, n_blocks, images, ncomp
+            p,              # host int64[14 ncomp]: per component geometry
+            i, p,           # general, host void*[4 ncomp]: its index maps
+            p, q, q,        # carry (int64, or 0), its strides (c, n)
+            p,              # out: every component's stores, one allocation
+            p, q,           # status buffer (counter + words), its words
+            ctypes.c_uint,  # epoch
+            p]              # stream
+        lib.jdt_assemble.restype = i
+        lib.jdt_unpack_delta.argtypes = [
+            p, q,           # dm, n
+            p, p,           # ab, base
+            p]              # stream
+        lib.jdt_unpack_delta.restype = i
         lib.jdt_error_string.argtypes = [i]
         lib.jdt_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -26,12 +26,26 @@ non-segmented prefix sums before the wrap; the carry itself is the sum of
 every earlier stripe's `dc_totals`. Restart-segmented components take no
 carry (`device_scan.py:918-922`): the stripe splitter only accepts restart
 segments that lie inside a stripe, so their DC resets are stripe-local.
+
+`assemble_nat` dispatches on the device of `nat`: CPU tensors run
+`assemble_nat_plain` (the two branches above), CUDA tensors launch kernel
+A1 (`csrc/assemble.cu`: both branches, every component and image in one
+launch, the stores one allocation with a contiguous view per component),
+anything else raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+import threading
+from functools import lru_cache
+
 import numpy as np
 import torch
+
+from .. import _build
+
+A1_ROWS = 256           # blocks of a tile: kRows of csrc/assemble.cu
 
 
 def _segmented_dc(diffs: torch.Tensor, seg_blocks: int,
@@ -105,16 +119,34 @@ def assemble_structured(nat: torch.Tensor, plan, carry=None) -> list:
 
 class GeneralMaps:
     """The plan's index arrays (stream_idx, seg_first, raster_src) on one
-    device, built once per plan."""
+    device, built once per plan, and A1's: int32 stream_idx, raster_of (the
+    raster block of each stream block j, or -1 where raster_src gives it
+    none), seg_first and pad_rows (the raster blocks raster_src leaves
+    zero), with its per-component geometry."""
 
     def __init__(self, plan, device):
-        def put(a):
-            return torch.from_numpy(np.asarray(a, np.int64)).to(device)
+        def put(a, dtype=np.int64):
+            return torch.from_numpy(np.asarray(a, dtype)).to(device)
 
         self.stream_idx = [put(a) for a in plan.stream_idx]
         self.seg_first = [put(a) for a in plan.seg_first]
         self.raster_src = [put(a) for a in plan.raster_src]
         self.restart_interval = plan.restart_interval
+        meta, self._a1_maps, ptrs = [], [], []
+        for s_idx, first, src in zip(plan.stream_idx, plan.seg_first,
+                                     plan.raster_src):
+            n_c, src = len(s_idx), np.asarray(src, np.int64)
+            live = src < n_c
+            raster_of = np.full(n_c, -1, np.int32)
+            raster_of[src[live]] = np.flatnonzero(live)
+            pad = np.flatnonzero(~live)
+            arrays = [put(a, np.int32) for a in (s_idx, raster_of, first,
+                                                 pad)]
+            self._a1_maps += arrays
+            ptrs += [a.data_ptr() for a in arrays]
+            meta.append((n_c, len(src), int(plan.restart_interval == 0), 0,
+                         0, 0, 0, 0, 0, 0, 0, 0, 0, len(pad)))
+        self.a1 = _A1Layout(meta, ptrs)
 
 
 def assemble_general(nat: torch.Tensor, maps: GeneralMaps,
@@ -145,9 +177,141 @@ def assemble_nat(nat: torch.Tensor, plan, maps: GeneralMaps = None,
     """Structured when the plan has the closed form, else general (`maps`
     is then required). nat: int16 [n_blocks, 64] of one image, or
     [N, n_blocks, 64] of N images of one plan; `carry` the DC seam carry
-    (module docstring)."""
+    (module docstring). CPU tensors run `assemble_nat_plain`, CUDA tensors
+    kernel A1 (one launch), anything else raises."""
+    if plan.structured is None and maps is None:
+        raise ValueError("plan has no structured form; pass GeneralMaps")
+    if nat.device.type == "cpu":
+        return assemble_nat_plain(nat, plan, maps, carry)
+    if nat.device.type != "cuda":
+        raise ValueError(f"no A1 implementation for device {nat.device}")
+    return _assemble_a1(nat, plan, maps, carry)
+
+
+def assemble_nat_plain(nat: torch.Tensor, plan, maps: GeneralMaps = None,
+                       carry=None) -> list:
+    """Plain PyTorch version of A1: `assemble_structured` when the plan has
+    the closed form, else `assemble_general`. Runs on any device; the CPU
+    path and `chip_smoke.py`'s on-card comparison use it."""
     if plan.structured is not None:
         return assemble_structured(nat, plan, carry)
     if maps is None:
         raise ValueError("plan has no structured form; pass GeneralMaps")
     return assemble_general(nat, maps, carry)
+
+
+class _A1Layout:
+    """A1's per-component geometry of one plan (kCompMeta int64 each, as
+    `jdt_assemble` takes it) and, on the general branch, the device
+    pointers of its maps; kept alive with the plan or the maps."""
+
+    def __init__(self, meta, ptrs=None):
+        flat = [v for m in meta for v in m]
+        self.meta = (ctypes.c_longlong * len(flat))(*flat)
+        self.ptrs = None if ptrs is None else (ctypes.c_void_p * len(ptrs))(
+            *ptrs)
+        self.rows = tuple(m[1] for m in meta)
+        self.data_tiles = sum(-(-m[0] // A1_ROWS) for m in meta)
+        self.tiles = self.data_tiles + sum(-(-m[13] // A1_ROWS) for m in meta)
+
+
+@lru_cache(maxsize=256)
+def _structured_layout(plan) -> _A1Layout:
+    (n_mcus, rows_d, cols_d, plen), specs = plan.structured
+    return _A1Layout([
+        (n_mcus * bpm, hc * wc, int(seg_blocks == 0), seg_blocks, plen, slot0,
+         bpm, vs, hs, wc, cols_d, rows_d * vs, cols_d * hs,
+         hc * wc - n_mcus * bpm)
+        for slot0, bpm, vs, hs, hc, wc, seg_blocks in specs])
+
+
+# Per (device, stream): A1's status buffer (int64: the ticket counter, then
+# a status word per tile) and the last epoch used on it. A new epoch for
+# every launch keeps the words of earlier launches from reading as valid,
+# so the buffer is zeroed only when it is made (or outgrown).
+_status: dict = {}
+_status_lock = threading.Lock()
+
+
+def _status_buffer(dev: torch.device, stream: int, tiles: int) -> tuple:
+    with _status_lock:
+        entry = _status.get((dev, stream))
+        if entry is None or entry[0].numel() - 1 < tiles \
+                or entry[1] >= 0xFFFFFFFF:
+            words = max(4096, 1 << (max(tiles, 1) - 1).bit_length())
+            entry = _status[dev, stream] = [
+                torch.zeros(words + 1, dtype=torch.int64, device=dev), 0]
+        entry[1] += 1
+        return entry[0], entry[1]
+
+
+def _carry_args(carry, ncomp: int, n: int, dev) -> tuple:
+    """The carry as A1 reads it, carry[c * sc + n * sn]: (the int64 tensor
+    on `dev`, its pointer, sc, sn); (None, None, 0, 0) for none."""
+    if carry is None:
+        return None, None, 0, 0
+    c = torch.as_tensor(carry).to(device=dev, dtype=torch.int64)
+    if c.dim() == 1:
+        c = c[:, None]
+    if c.dim() != 2 or c.shape[0] != ncomp or c.shape[1] not in (1, n):
+        raise ValueError(f"carry {tuple(c.shape)} must be [{ncomp}] or "
+                         f"[{ncomp}, 1 or {n}]")
+    return c, c.data_ptr(), c.stride(0), c.stride(1) if c.shape[1] > 1 else 0
+
+
+def _a1_prepare(nat: torch.Tensor, plan, maps, carry) -> tuple:
+    """The checks and allocations of an A1 call on nat [N, n_blocks, 64]:
+    (layout, the output allocation, its per-component views, the carry as
+    `_carry_args` gives it)."""
+    if nat.dtype != torch.int16 or nat.dim() != 3 \
+            or nat.shape[1:] != (plan.n_blocks, 64) \
+            or not nat.is_contiguous() or nat.data_ptr() % 16:
+        raise ValueError(f"nat must be contiguous int16 [N, {plan.n_blocks}, "
+                         f"64] on a 16-byte boundary, got {nat.dtype} "
+                         f"{tuple(nat.shape)}")
+    if plan.structured is not None:
+        layout = _structured_layout(plan)
+    else:
+        layout = maps.a1
+        if maps.stream_idx and maps.stream_idx[0].device != nat.device:
+            raise ValueError(f"GeneralMaps on {maps.stream_idx[0].device}, "
+                             f"nat on {nat.device}")
+    n = nat.shape[0]
+    out = torch.empty(n * sum(layout.rows) * 64, dtype=torch.int16,
+                      device=nat.device)
+    stores, off = [], 0
+    for rows in layout.rows:
+        stores.append(out[off:off + n * rows * 64].view(n, rows, 64))
+        off += n * rows * 64
+    return layout, out, stores, _carry_args(carry, len(layout.rows), n,
+                                            nat.device)
+
+
+def _a1_launch(lib, nat, plan, layout, out, carry_args, status, epoch,
+               stream) -> int:
+    """One `jdt_assemble` call (the kernel's launch), its error code."""
+    _carry, carry_ptr, carry_sc, carry_sn = carry_args
+    return lib.jdt_assemble(
+        nat.data_ptr(), plan.n_blocks, nat.shape[0], len(layout.rows),
+        layout.meta, int(layout.ptrs is not None), layout.ptrs, carry_ptr,
+        carry_sc, carry_sn, out.data_ptr(), status.data_ptr(),
+        status.numel() - 1, epoch, stream)
+
+
+def _assemble_a1(nat: torch.Tensor, plan, maps, carry) -> list:
+    if nat.dim() == 2:
+        return [s[0] for s in _assemble_a1(nat[None], plan, maps, carry)]
+    layout, out, stores, carry_args = _a1_prepare(nat, plan, maps, carry)
+    if nat.shape[0] == 0 or layout.tiles == 0:
+        return stores
+    dev = nat.device
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status, epoch = _status_buffer(
+            dev, stream, nat.shape[0] * layout.data_tiles)
+        err = _a1_launch(lib, nat, plan, layout, out, carry_args, status,
+                         epoch, stream)
+        _build.LAUNCHES["assemble"] += 1
+    _build.check(lib, err, "assemble")
+    return stores

@@ -4,7 +4,8 @@ Huffman decode (kernel K1).
 Mirrors `jpeg_decoder_tpu/entropy/pallas_decode.py`:
 - `unpack_delta` is the vector part of `unpack_delta_classes`: entry bits
   by a cumsum of the 23-bit deltas, block bases by an exclusive cumsum of
-  the budgets.
+  the budgets (kernel U1, `csrc/unpack_delta.cu`, on a CUDA tensor; its
+  plain version `unpack_delta_plain` on a CPU tensor).
 - `decode_chunks` replaces `build_pallas_sweep` and its kernel
   `_build_decode_kernel`, and returns the same `nat` tensor: int16
   [n_blocks, 64] natural-order coefficients in stream block order, DC
@@ -49,19 +50,41 @@ S_MAX_LIMIT = 31 * 64
 
 
 def unpack_delta(dm: torch.Tensor):
-    """4 B/chunk delta wire (pallas_decode.pack_delta) -> per entry
-    (ab, budget, slot0, base), each int32: ab = cumsum(dm >>> 9) is the entry
-    bit, base = cumsum(budget) - budget the first stream block. The shifts
-    are logical: the wire word is widened to int64 and masked to 32 bits.
-    pack_delta refuses streams of 2^26 words or more, so ab fits int32."""
+    """4 B/chunk delta wire (pallas_decode.pack_delta), int32 [n] -> per
+    entry (ab, base), each int32 [n]: ab = cumsum(dm >>> 9) is the entry
+    bit, base = cumsum(budget) - budget the first stream block, budget =
+    (dm >>> 4) & 31. CPU tensors run `unpack_delta_plain`, CUDA tensors
+    kernel U1 (one launch; none for an empty wire), anything else
+    raises."""
+    if dm.device.type == "cpu":
+        return unpack_delta_plain(dm)
+    if dm.device.type != "cuda":
+        raise ValueError(f"no U1 implementation for device {dm.device}")
+    if dm.dtype != torch.int32 or dm.dim() != 1 or not dm.is_contiguous():
+        raise ValueError(f"dm must be contiguous int32 [n], got {dm.dtype} "
+                         f"{tuple(dm.shape)}")
+    out = torch.empty((2, dm.numel()), dtype=torch.int32, device=dm.device)
+    if dm.numel():
+        lib = _build.load()
+        with torch.cuda.device(dm.device):
+            err = lib.jdt_unpack_delta(
+                dm.data_ptr(), dm.numel(), out[0].data_ptr(),
+                out[1].data_ptr(),
+                torch.cuda.current_stream(dm.device).cuda_stream)
+            _build.LAUNCHES["unpack_delta"] += 1
+        _build.check(lib, err, "unpack_delta")
+    return out[0], out[1]
+
+
+def unpack_delta_plain(dm: torch.Tensor):
+    """Plain PyTorch version of U1. The shifts are logical: the wire word
+    is widened to int64 and masked to 32 bits. pack_delta refuses streams
+    of 2^26 words or more, so ab fits int32."""
     u = dm.to(torch.int64) & 0xFFFFFFFF
-    d = u >> 9
     budget = (u >> 4) & 31
-    slot0 = u & 15
-    ab = torch.cumsum(d, 0)
+    ab = torch.cumsum(u >> 9, 0)
     base = torch.cumsum(budget, 0) - budget
-    return (ab.to(torch.int32), budget.to(torch.int32), slot0.to(torch.int32),
-            base.to(torch.int32))
+    return ab.to(torch.int32), base.to(torch.int32)
 
 
 def _check_inputs(words, dm, ab, base, tables: ScanTables, s_max: int,

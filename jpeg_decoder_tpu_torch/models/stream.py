@@ -568,7 +568,7 @@ class DeviceStreamDecoder:
         if st.wire == "delta":
             words, dm = wire
             with span("unpack_delta"):
-                ab, _budget, _slot0, base = unpack_delta(dm)
+                ab, base = unpack_delta(dm)
         else:
             words, dm, ab, base = wire
         with span("k1_decode"):

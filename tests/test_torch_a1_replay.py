@@ -1,0 +1,346 @@
+"""Kernels A1 (`csrc/assemble.cu`) and U1 (`csrc/unpack_delta.cu`) replayed
+on the CPU from their own sources: each .cu is compiled by the host's g++
+(C++20) with a small shim for the CUDA it uses (`threadIdx`, `__shared__`,
+`uint4`, the warp shuffles and `__ballot_sync`, `atomicAdd` and
+`atomicExch`, the acquire loads and release stores of A1's status words,
+`__nanosleep`), and each launch is run with every thread of a CTA on a
+host thread of its own: `__syncthreads()` a `std::barrier` of the CTA's
+threads, a shuffle an exchange through memory between two barriers of the
+warp's 32 threads.
+
+A1's CTAs run in waves: a wave of 1 runs them one after another, in the
+order the kernel's tile counter hands out the tiles; a wave of 3 runs
+three at a time, so a CTA looks back at predecessors that have published
+only their aggregate, or nothing yet, and waits. The status buffer is
+poisoned with words of other epochs (aggregates and prefixes with
+seeded values), shared memory with a poison byte at each CTA's start and
+the output with a poison value, so a stale word read as valid, a row left
+unwritten or a shared value read before it is written changes the result.
+After each launch the tile counter is 0 again and every data tile's
+status is this epoch's inclusive prefix.
+
+Tolerance 0 against the plain versions (`assemble_nat_plain`,
+`unpack_delta_plain`) over `torch_inputs.A1_CASES` (padded grids, restart
+segments across tiles, sequences of 36 tiles, groups, carries with high
+bits set, general maps), every fixture plan through both branches, and
+U1 over wires of 0 to 9,000 entries (more than two of its rounds) with
+every bit pattern and the fixtures' real wires. This checks the kernels'
+tile arithmetic and look-back, not the card: the card runs the same
+sources in `tests/test_torch_cuda.py` and `chip_smoke.py` phase 25.
+"""
+
+import copy
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jpeg_decoder_tpu_torch as jt
+from jpeg_decoder_tpu_torch.entropy import assemble
+from jpeg_decoder_tpu_torch.entropy.assemble import (GeneralMaps,
+                                                     assemble_nat_plain)
+from jpeg_decoder_tpu_torch.entropy.chunk_decode import unpack_delta_plain
+
+from torch_inputs import A1_CASES, SMALL_FIXTURES, a1_case, fixture
+
+CSRC = Path(assemble.__file__).resolve().parent.parent / "csrc"
+
+SHIM = r"""
+#pragma once
+#include <algorithm>
+#include <atomic>
+#include <barrier>
+#include <cstdint>
+#include <cstring>
+#include <memory>
+#include <thread>
+#include <vector>
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct uint4 { uint32_t x, y, z, w; };
+inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return {a, b, c, d};
+}
+typedef void* cudaStream_t;
+enum { cudaErrorInvalidValue = 1, cudaErrorMisalignedAddress = 716 };
+inline int cudaGetLastError() { return 0; }
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __grid_constant__
+struct Cta {
+  explicit Cta(int threads) : bar(threads), xch(threads) {
+    for (int w = 0; w < threads / 32; ++w)
+      warps.push_back(std::make_unique<std::barrier<>>(32));
+  }
+  std::barrier<> bar;
+  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::vector<uint64_t> xch;
+  alignas(16) unsigned char smem[48 * 1024];   // static shared memory
+};
+inline thread_local Cta* g_cta = nullptr;
+inline thread_local dim3 threadIdx, blockIdx;
+inline unsigned g_wave = 1;      // shared by the two kernels' sources
+inline int g_poison = 0;
+#define __syncthreads() g_cta->bar.arrive_and_wait()
+template <class T> T& shared_of() {
+  static_assert(sizeof(T) <= sizeof(Cta::smem));
+  return *reinterpret_cast<T*>(g_cta->smem);
+}
+// A warp's lanes trade values through memory between two barriers of its
+// 32 threads; every lane of the warp reaches each shuffle, as on the card.
+template <class T> T warp_exchange(T v, int src) {
+  const int t = threadIdx.x, w = t >> 5;
+  uint64_t bits = 0;
+  std::memcpy(&bits, &v, sizeof(T));
+  g_cta->xch[t] = bits;
+  g_cta->warps[w]->arrive_and_wait();
+  const uint64_t got = g_cta->xch[(w << 5) + src];
+  g_cta->warps[w]->arrive_and_wait();
+  T r;
+  std::memcpy(&r, &got, sizeof(T));
+  return r;
+}
+template <class T> T __shfl_up_sync(unsigned, T v, int d) {
+  const int lane = threadIdx.x & 31;
+  return warp_exchange(v, lane >= d ? lane - d : lane);
+}
+template <class T> T __shfl_xor_sync(unsigned, T v, int o) {
+  return warp_exchange(v, static_cast<int>(threadIdx.x & 31) ^ o);
+}
+inline unsigned __ballot_sync(unsigned, bool p) {
+  unsigned m = 0;
+  for (int i = 0; i < 32; ++i)
+    m |= (warp_exchange<unsigned>(p, i) ? 1u : 0u) << i;
+  return m;
+}
+inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
+inline void __nanosleep(unsigned) { std::this_thread::yield(); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_add(v);
+}
+inline unsigned atomicExch(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).exchange(v);
+}
+// CTAs in waves of g_wave, each of its threads on a host thread: a wave of
+// 1 runs them one after another, in ticket order.
+template <class K, class... A>
+void replay(K kernel, unsigned grid, int threads, A... args) {
+  if (grid == 0) return;
+  const unsigned wave = std::min(g_wave, grid);
+  std::vector<std::unique_ptr<Cta>> ctas;
+  for (unsigned i = 0; i < wave; ++i)
+    ctas.push_back(std::make_unique<Cta>(threads));
+  std::barrier<> all(static_cast<std::ptrdiff_t>(wave) * threads);
+  std::vector<std::thread> pool;
+  for (unsigned i = 0; i < wave; ++i)
+    for (int t = 0; t < threads; ++t)
+      pool.emplace_back([&, i, t] {
+        g_cta = ctas[i].get();
+        threadIdx = dim3(t);
+        for (unsigned b0 = 0; b0 < grid; b0 += wave) {
+          if (t == 0) std::memset(g_cta->smem, g_poison, sizeof(g_cta->smem));
+          all.arrive_and_wait();
+          if (b0 + i < grid) {
+            blockIdx = dim3(b0 + i);
+            kernel(args...);
+          }
+          all.arrive_and_wait();
+        }
+      });
+  for (auto& th : pool) th.join();
+}
+"""
+
+CONFIG = r"""
+#include "shim.h"
+extern "C" void replay_config(unsigned wave, int poison) {
+  g_wave = wave;
+  g_poison = poison;
+}
+"""
+
+
+def _host_source(src: str) -> str:
+    """A .cu with the shim in place of CUDA's runtime header, its shared
+    memory per CTA, its acquire/release accesses atomic_ref ones and its
+    launch replayed."""
+    def sub(pattern, repl):
+        nonlocal src
+        src, n = re.subn(pattern, repl, src, flags=re.S)
+        assert n == 1, pattern
+
+    sub(r"#include <cuda_runtime.h>", '#include "shim.h"')
+    sub(r"__shared__ Smem sm;", "Smem& sm = shared_of<Smem>();")
+    sub(r"(\w+)<<<(.*?), kThreads, 0,\s*static_cast<cudaStream_t>\(stream\)"
+        r">>>\(", r"replay(\1, \2, kThreads, ")
+    if "load_acquire" in src:
+        sub(r"__device__ __forceinline__ unsigned long long load_acquire\("
+            r".*?\n\}\n",
+            "inline unsigned long long load_acquire(const unsigned long long*"
+            " p) { return std::atomic_ref<unsigned long long>(*const_cast<"
+            "unsigned long long*>(p)).load(std::memory_order_acquire); }\n")
+        sub(r"__device__ __forceinline__ void store_release\(.*?\n\}\n",
+            "inline void store_release(unsigned long long* p, unsigned long "
+            "long v) { std::atomic_ref<unsigned long long>(*p).store(v, "
+            "std::memory_order_release); }\n")
+    assert "asm" not in src
+    return src
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to compile the kernel sources on the host")
+    d = tmp_path_factory.mktemp("a1_replay")
+    (d / "shim.h").write_text(SHIM)
+    objs = []
+    for name in ("assemble.cu", "unpack_delta.cu"):
+        src = d / (name[:-3] + ".cc")
+        src.write_text(_host_source((CSRC / name).read_text()))
+        objs.append(str(src))
+    (d / "config.cc").write_text(CONFIG)
+    objs.append(str(d / "config.cc"))
+    res = subprocess.run([gxx, "-O1", "-std=c++20", "-shared", "-fPIC",
+                          "-pthread", "-Wno-unknown-pragmas", "-I", str(d),
+                          "-o", str(d / "liba1.so"), *objs],
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    lib = ctypes.CDLL(str(d / "liba1.so"))
+    p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.jdt_assemble.argtypes = [p, q, i, i, p, i, p, p, q, q, p, p, q,
+                                 ctypes.c_uint, p]
+    lib.jdt_assemble.restype = i
+    lib.jdt_unpack_delta.argtypes = [p, q, p, p, p]
+    lib.jdt_unpack_delta.restype = i
+    lib.replay_config.argtypes = [ctypes.c_uint, i]
+    return lib
+
+
+EPOCH = 7
+
+
+def replayed_a1(lib, nat, plan, maps, carry, wave: int, seed: int):
+    """`assemble_nat` through the replayed kernel, with the wrapper's own
+    argument marshalling (`_a1_prepare`, `_a1_launch`), the status buffer
+    poisoned with other epochs' words; checks the counter and the statuses
+    the launch leaves."""
+    layout, out, stores, carry_args = assemble._a1_prepare(nat, plan, maps,
+                                                           carry)
+    out.fill_(-23131)                                      # 0xA5A5
+    tiles = nat.shape[0] * layout.data_tiles
+    rng = np.random.default_rng(seed)
+    stale = (rng.choice([EPOCH - 1, EPOCH + 1, EPOCH << 8], tiles + 1)
+             << 32 | rng.integers(1, 3, tiles + 1) << 16
+             | rng.integers(0, 1 << 16, tiles + 1))
+    status = torch.from_numpy(stale.astype(np.int64))
+    status[0] = 0                                          # the counter
+    lib.replay_config(wave, 0x5A + wave)
+    err = assemble._a1_launch(lib, nat, plan, layout, out, carry_args,
+                              status, EPOCH, None)
+    assert err == 0
+    assert int(status[0]) == 0, "the counter must be 0 after the launch"
+    words = status[1:tiles + 1]
+    assert torch.equal(words >> 32, torch.full_like(words, EPOCH))
+    assert torch.equal(words >> 16 & 3, torch.full_like(words, 2))
+    return stores
+
+
+def _check(lib, nat, plan, maps, carry, waves=(1, 3)):
+    want = assemble_nat_plain(nat, plan, maps, carry)
+    for wave in waves:
+        got = replayed_a1(lib, nat, plan, maps, carry, wave, seed=wave)
+        assert len(got) == len(want)
+        for c, (g, w) in enumerate(zip(got, want)):
+            assert g.shape == w.shape and torch.equal(g, w), (wave, c)
+
+
+@pytest.mark.parametrize("case", A1_CASES, ids=[c[0] for c in A1_CASES])
+def test_replayed_a1_bit_equal_to_plain(lib, case):
+    plan, nat, carry = a1_case(case)
+    maps = None if plan.structured is not None else GeneralMaps(plan, "cpu")
+    nat = torch.from_numpy(nat)
+    carry = None if carry is None else torch.from_numpy(carry)
+    _check(lib, nat, plan, maps, carry)
+    if carry is not None:       # one value per component, every image
+        _check(lib, nat, plan, maps, carry[:, 0].clone(), waves=(1,))
+
+
+@pytest.mark.parametrize("branch", ["structured", "general"])
+@pytest.mark.parametrize("name", SMALL_FIXTURES + ("tower_420.jpg",))
+def test_replayed_a1_fixture_plans_both_branches(lib, name, branch):
+    """Every fixture's plan (small_dri restart-segmented), both branches
+    (general: a copy of the plan without its closed form), seeded nat of
+    two images, with a carry."""
+    (st,) = jt.stage_host_bits(fixture(name)).scans
+    plan = st.scan.plan
+    maps = None
+    if branch == "general":
+        plan = copy.copy(plan)
+        plan.structured = None
+        maps = GeneralMaps(plan, "cpu")
+    rng = np.random.default_rng(len(name))
+    nat = torch.from_numpy(rng.integers(-32768, 32768, (2, plan.n_blocks, 64),
+                                        dtype=np.int16))
+    carry = torch.from_numpy(rng.integers(-2 ** 40, 2 ** 40, (plan.ncomp, 2)))
+    _check(lib, nat, plan, maps, carry, waves=(1,))
+
+
+def test_replayed_a1_of_a_stripe_carry_view(lib):
+    """The carry as the stripes pass it: `carry.T` of [images, ncomp], a
+    view with strides (1, ncomp)."""
+    plan, nat, _carry = a1_case(A1_CASES[2])
+    carry = torch.from_numpy(np.random.default_rng(3).integers(
+        -2 ** 62, 2 ** 62, (nat.shape[0], plan.ncomp))).T
+    _check(lib, torch.from_numpy(nat), plan, None, carry, waves=(1,))
+
+
+def replayed_u1(lib, dm: torch.Tensor):
+    n = dm.numel()
+    out = torch.full((2, n), -1515870811, dtype=torch.int32)  # 0xA5A5A5A5
+    lib.replay_config(1, 0x5A)
+    assert lib.jdt_unpack_delta(dm.data_ptr(), n, out[0].data_ptr(),
+                                out[1].data_ptr(), None) == 0
+    return out[0], out[1]
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 4095, 4096, 4097, 9000])
+def test_replayed_u1_bit_equal_to_plain(lib, n):
+    """Every bit pattern of the wire word (the shifts must be logical; the
+    sums wrap mod 2^32 as the plain version's narrowing does), across U1's
+    rounds of 4,096 entries."""
+    rng = np.random.default_rng(n)
+    dm = torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
+                          .astype(np.uint32).view(np.int32))
+    got = replayed_u1(lib, dm)
+    want = unpack_delta_plain(dm)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_replayed_u1_on_real_and_merged_wires(lib):
+    """The fixtures' delta wires, and a group's merged wire (tower_420 x 3
+    and the hetero sizes), as the stream ships them."""
+    from jpeg_decoder_tpu_torch.models.stream import merge_scans
+
+    names = SMALL_FIXTURES + ("tower_420.jpg", "large_420.jpg")
+    wires = []
+    for name in names:
+        for st in jt.stage_host_bits(fixture(name)).scans:
+            wires.append(st.dm)
+    group = [jt.stage_host_bits(fixture("tower_420.jpg")).scans[0]] * 3
+    (words, dm), _s_max, _n_blocks = merge_scans(group)
+    wires.append(dm)
+    for dm in wires:
+        dm = torch.from_numpy(np.ascontiguousarray(dm))
+        got = replayed_u1(lib, dm)
+        want = unpack_delta_plain(dm)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))

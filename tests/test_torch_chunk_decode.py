@@ -33,7 +33,7 @@ from torch_inputs import ENTROPY_CASES, entropy_case, oracle_stores
 def _port_nat(st, device="cpu"):
     words = torch.from_numpy(st.words).to(device)
     dm = torch.from_numpy(st.dm).to(device)
-    ab, _budget, _slot0, base = unpack_delta(dm)
+    ab, base = unpack_delta(dm)
     return decode_chunks(words, dm, ab, base, scan_tables(st.scan, device),
                          st.s_max, st.scan.plan.n_blocks)
 
@@ -82,7 +82,8 @@ def test_nat_and_stores_bit_equal_to_xla_engine_and_oracle(case):
 def test_delta_unpack_matches_unpack_delta_classes(case, collapse,
                                                    monkeypatch):
     """(ab & 7, slot0, budget, base) of every live chunk equal the
-    reference's device unpack. With class collapse off the reference
+    reference's device unpack (slot0 and budget read off the wire word,
+    ab and base from `unpack_delta`). With class collapse off the reference
     partitions chunks into span classes; the port keeps stream order, so
     the live entries are compared as sets keyed by their block base, and
     the multi-class wire must still decode to the oracle's stores."""
@@ -104,8 +105,9 @@ def test_delta_unpack_matches_unpack_delta_classes(case, collapse,
     ref_base = np.concatenate([np.asarray(b)[:c] for (_s, _m, b), c
                                in zip(ref, cnts)])
 
-    ab, budget, slot0, base = (t.numpy() for t in
-                               unpack_delta(torch.from_numpy(dm)))
+    ab, base = (t.numpy() for t in unpack_delta(torch.from_numpy(dm)))
+    budget = (dm.view(np.uint32) >> 4 & 31).astype(np.int32)
+    slot0 = (dm.view(np.uint32) & 15).astype(np.int32)
     n = int(cnts.sum())
     assert (budget[:n] > 0).all() and (budget[n:] == 0).all()
     port_meta = (ab & 7) | (slot0 << 3) | (budget << 7)
@@ -150,7 +152,7 @@ def test_decode_chunks_dispatch_and_checks():
     st = stage_host_bits(entropy_case("gray")).scans[0]
     words = torch.from_numpy(st.words)
     dm = torch.from_numpy(st.dm)
-    ab, _b, _s, base = unpack_delta(dm)
+    ab, base = unpack_delta(dm)
     tables = scan_tables(st.scan, "cpu")
     n_blocks = st.scan.plan.n_blocks
     with pytest.raises(TypeError):

@@ -58,7 +58,17 @@ image slabs are not adjacent (each image the bits of its own launch), on
 groups whose slabs start at an odd byte offset into an odd output row
 pitch (the byte loads and the narrow stores), and on the stripes on slots
 of the card against the CPU stripes (row0 off the tiles, padding
-stripes); one launch per large_420 decode at fast and exact.
+stripes); one launch per large_420 decode at fast and exact. A1 (the
+assembly) bit-equal to its plain version on the card and on the CPU over
+`A1_CASES` (padded grids, restart segments across its tiles, 36-tile
+sequences, groups, carries with high bits set, general maps) and K1's nat
+of every fixture through both branches, alone and as a group of 3 with a
+carry; misaligned input, maps on another device and a carry of the wrong
+shape refused without a launch. U1 (the delta unpack) bit-equal to its
+plain version on seeded wires of up to 100,000 entries with every bit
+pattern and on the fixtures' and a group's merged wire. One A1 and one U1
+per large_420 decode and per group of 4, one A1 per stripe and no U1 on
+the anchor wires of stripes.
 """
 
 import time
@@ -82,7 +92,8 @@ from jpeg_decoder_tpu_torch.params import DeviceParams
 from jpeg_decoder_tpu_torch.ops.predictors import (lossless_recur,
                                                    lossless_recur_plain)
 
-from torch_inputs import (ODD_TAIL_LAYOUTS, SMALL_FIXTURES, T1_CASES,
+from torch_inputs import (A1_CASES, ODD_TAIL_LAYOUTS, SMALL_FIXTURES,
+                          T1_CASES, a1_case,
                           T1_LAYOUTS, TAIL_CASES, adversarial_blocks,
                           fixture, odd_tail_case, oracle_stores, t1_args,
                           t1_geometry, t1_pixels, tail_planes,
@@ -104,7 +115,7 @@ def test_k1_kernel_bit_equal_to_plain(cuda, name):
     for st in jt.stage_host_bits(fixture(name)).scans:
         words = torch.from_numpy(st.words).to(cuda)
         dm = torch.from_numpy(st.dm).to(cuda)
-        ab, _b, _s, base = unpack_delta(dm)
+        ab, base = unpack_delta(dm)
         args = (words, dm, ab, base, params.tables(st.scan), st.s_max,
                 st.scan.plan.n_blocks)
         torch.testing.assert_close(decode_chunks(*args),
@@ -149,7 +160,7 @@ def test_stores_on_card_bit_equal_to_oracle(cuda):
     oracle = oracle_stores(data)
     for st in jt.stage_host_bits(data).scans:
         dm = torch.from_numpy(st.dm).to(cuda)
-        ab, _b, _s, base = unpack_delta(dm)
+        ab, base = unpack_delta(dm)
         nat = decode_chunks(torch.from_numpy(st.words).to(cuda), dm, ab, base,
                             params.tables(st.scan), st.s_max,
                             st.scan.plan.n_blocks)
@@ -343,7 +354,7 @@ def _k1_args(cuda, name: str):
     params = DeviceParams(cuda)
     (st,) = jt.stage_host_bits(fixture(name)).scans
     dm = torch.from_numpy(st.dm).to(cuda)
-    ab, _b, _s, base = unpack_delta(dm)
+    ab, base = unpack_delta(dm)
     return (torch.from_numpy(st.words).to(cuda), dm, ab, base,
             params.tables(st.scan), st.s_max, st.scan.plan.n_blocks)
 
@@ -936,3 +947,168 @@ def test_t1_launches_once_for_a_large_420(cuda, precision):
         img = dec._run_device(staged, wires)
         torch.cuda.synchronize()
     assert jt.LAUNCHES["interleaved_tail"] == 1 and img.is_cuda
+
+
+def _a1_pair(nat, plan, maps_cpu, maps_card, carry):
+    """A1 on the card (one launch) and its plain version on the card and
+    on the CPU, for one call."""
+    from jpeg_decoder_tpu_torch.entropy.assemble import (assemble_nat,
+                                                         assemble_nat_plain)
+
+    before = jt.LAUNCHES["assemble"]
+    got = assemble_nat(nat, plan, maps_card, carry)
+    assert jt.LAUNCHES["assemble"] - before == 1
+    on_card = assemble_nat_plain(nat, plan, maps_card, carry)
+    carry_cpu = None if carry is None else carry.cpu()
+    on_cpu = assemble_nat_plain(nat.cpu(), plan, maps_cpu, carry_cpu)
+    torch.cuda.synchronize()
+    assert len(got) == len(on_card) == len(on_cpu)
+    for g, w, c in zip(got, on_card, on_cpu):
+        assert g.is_cuda and g.is_contiguous()
+        assert torch.equal(g, w) and torch.equal(g.cpu(), c)
+
+
+@pytest.mark.parametrize("case", A1_CASES, ids=[c[0] for c in A1_CASES])
+def test_a1_bit_equal_to_plain_on_seeded_plans(cuda, case):
+    """Padded grids, restart segments across the kernel's tiles, sequences
+    of 36 tiles, groups, carries with high bits set, general maps."""
+    from jpeg_decoder_tpu_torch.entropy.assemble import GeneralMaps
+
+    plan, nat, carry = a1_case(case)
+    general = plan.structured is None
+    nat = torch.from_numpy(nat).to(cuda)
+    carry = None if carry is None else torch.from_numpy(carry).to(cuda)
+    _a1_pair(nat, plan, GeneralMaps(plan, "cpu") if general else None,
+             GeneralMaps(plan, cuda) if general else None, carry)
+    if carry is not None:
+        _a1_pair(nat, plan, GeneralMaps(plan, "cpu") if general else None,
+                 GeneralMaps(plan, cuda) if general else None, carry.T
+                 .contiguous().T)
+
+
+@pytest.mark.parametrize("branch", ["structured", "general"])
+@pytest.mark.parametrize("name", SMALL_FIXTURES + ("tower_420.jpg",
+                                                   "large_420.jpg"))
+def test_a1_bit_equal_to_plain_on_fixture_nat(cuda, name, branch):
+    """K1's nat of every fixture scan through A1, both branches (general: a
+    copy of the plan without its closed form), alone and as a group of 3
+    with a carry."""
+    import copy
+
+    from jpeg_decoder_tpu_torch.entropy.assemble import GeneralMaps
+
+    params = DeviceParams(cuda)
+    for st in jt.stage_host_bits(fixture(name)).scans:
+        dm = torch.from_numpy(st.dm).to(cuda)
+        ab, base = unpack_delta(dm)
+        nat = decode_chunks(torch.from_numpy(st.words).to(cuda), dm, ab, base,
+                            params.tables(st.scan), st.s_max,
+                            st.scan.plan.n_blocks)
+        plan, cpu_maps, card_maps = st.scan.plan, None, None
+        if branch == "general":
+            plan = copy.copy(plan)
+            plan.structured = None
+            cpu_maps, card_maps = GeneralMaps(plan, "cpu"), GeneralMaps(plan,
+                                                                        cuda)
+        _a1_pair(nat, plan, cpu_maps, card_maps, None)
+        group = torch.stack([nat, nat.flip(0), nat])
+        carry = torch.arange(3 * plan.ncomp, device=cuda).view(
+            plan.ncomp, 3) * 40503 - 2 ** 40
+        _a1_pair(group, plan, cpu_maps, card_maps, carry)
+
+
+def test_a1_refuses_what_it_does_not_take(cuda):
+    from jpeg_decoder_tpu_torch.entropy.assemble import (GeneralMaps,
+                                                         assemble_nat)
+
+    plan, nat, _carry = a1_case(A1_CASES[1])        # general maps
+    nat = torch.from_numpy(nat).to(cuda)
+    before = jt.LAUNCHES["assemble"]
+    with pytest.raises(ValueError):                 # maps on another device
+        assemble_nat(nat, plan, GeneralMaps(plan, "cpu"))
+    flat = torch.zeros(nat.numel() + 4, dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError):                 # 8 bytes off 16
+        assemble_nat(flat[4:].view(nat.shape), plan, GeneralMaps(plan, cuda))
+    with pytest.raises(ValueError):                 # carry of the wrong shape
+        assemble_nat(nat, plan, GeneralMaps(plan, cuda),
+                     torch.zeros(5, dtype=torch.int64, device=cuda))
+    assert jt.LAUNCHES["assemble"] == before
+
+
+@pytest.mark.parametrize("n", [1, 31, 4095, 4096, 4097, 100_000])
+def test_u1_bit_equal_to_plain(cuda, n):
+    from jpeg_decoder_tpu_torch.entropy.chunk_decode import unpack_delta_plain
+
+    rng = np.random.default_rng(n)
+    dm = torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
+                          .astype(np.uint32).view(np.int32)).to(cuda)
+    before = jt.LAUNCHES["unpack_delta"]
+    got = unpack_delta(dm)
+    assert jt.LAUNCHES["unpack_delta"] - before == 1
+    for g, w in zip(got, unpack_delta_plain(dm.cpu())):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+def test_u1_bit_equal_to_plain_on_real_wires(cuda):
+    from jpeg_decoder_tpu_torch.entropy.chunk_decode import unpack_delta_plain
+    from jpeg_decoder_tpu_torch.models.stream import merge_scans
+
+    wires = [st.dm for name in SMALL_FIXTURES + ("tower_420.jpg",
+                                                 "large_420.jpg")
+             for st in jt.stage_host_bits(fixture(name)).scans]
+    group = [jt.stage_host_bits(fixture("tower_420.jpg")).scans[0]] * 16
+    (_words, dm), _s_max, _n_blocks = merge_scans(group)
+    for w in wires + [dm]:
+        w = torch.from_numpy(np.ascontiguousarray(w))
+        got = unpack_delta(w.to(cuda))
+        assert all(torch.equal(g.cpu(), p)
+                   for g, p in zip(got, unpack_delta_plain(w)))
+
+
+@pytest.mark.parametrize("precision", ["fast", "exact"])
+def test_a1_and_u1_launch_once_per_image_group_and_stripe(cuda, precision):
+    """One U1 per delta-wire scan and one A1 per assembly: a large_420
+    decode, a group of 4 tower_420 (one merged wire, one plan), and
+    large_420 striped over 4 slots (anchor wires: no U1; one A1 per
+    stripe); every A1 call of them bit-equal to its plain version."""
+    from jpeg_decoder_tpu_torch.entropy.assemble import assemble_nat_plain
+    from jpeg_decoder_tpu_torch.models import stream
+    from jpeg_decoder_tpu_torch.parallel import make_mesh, stripe_bits
+
+    calls = []
+
+    def spy(nat, plan, maps=None, carry=None):
+        out = real(nat, plan, maps, carry)
+        calls.append((nat, plan, maps, carry, out))
+        return out
+
+    real = stream.assemble_nat
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(stream, "assemble_nat", spy)
+        mp.setattr(stripe_bits, "assemble_nat", spy)
+        with jt.DeviceStreamDecoder(host_threads=1,
+                                    precision=precision) as dec:
+            staged = dec.stage(fixture("large_420.jpg"))
+            wires = dec._to_device(staged)
+            torch.cuda.synchronize()
+            jt.reset_launches()
+            dec._run_device(staged, wires)
+            torch.cuda.synchronize()
+            assert jt.LAUNCHES["assemble"] == 1
+            assert jt.LAUNCHES["unpack_delta"] == 1
+            jt.reset_launches()
+            dec.decode_stream([fixture("tower_420.jpg")] * 4, batch_size=4)
+            torch.cuda.synchronize()
+            assert jt.LAUNCHES["assemble"] == 1
+            assert jt.LAUNCHES["unpack_delta"] == 1
+        mesh = make_mesh({"stripe": 4}, ["cuda:0"] * 4)
+        with jt.DeviceStreamDecoder(mesh=mesh, host_threads=1) as dec:
+            jt.reset_launches()
+            dec.decode_striped(fixture("large_420.jpg"))
+            torch.cuda.synchronize()
+            assert jt.LAUNCHES["assemble"] == 4
+            assert jt.LAUNCHES["unpack_delta"] == 0
+    assert len(calls) == 6
+    for nat, plan, maps, carry, out in calls:
+        want = assemble_nat_plain(nat, plan, maps, carry)
+        assert all(torch.equal(g, w) for g, w in zip(out, want))

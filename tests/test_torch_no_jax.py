@@ -149,6 +149,8 @@ PORT_SOURCES = (
        REPO / "tools" / "experiments" / "l1_step_probe.py",
        REPO / "tools" / "experiments" / "h2d_probe.py",
        REPO / "tools" / "experiments" / "stream_ab.py",
+       REPO / "tools" / "experiments" / "path_ab.py",
+       REPO / "tools" / "experiments" / "a1_breakdown.py",
        REPO / "tools" / "multiproc_mesh_torch.py",
        REPO / "tools" / "fuzz_torch.py",
        REPO / "tools" / "scaling_bench_torch.py",

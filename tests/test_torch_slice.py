@@ -118,7 +118,7 @@ def test_slice_stores_bit_equal_to_oracle(name):
     oracle = oracle_stores(data)
     for st in staged.scans:
         dm = torch.from_numpy(st.dm)
-        ab, _b, _s, base = unpack_delta(dm)
+        ab, base = unpack_delta(dm)
         nat = decode_chunks(torch.from_numpy(st.words), dm, ab, base,
                             scan_tables(st.scan, "cpu"), st.s_max,
                             st.scan.plan.n_blocks)

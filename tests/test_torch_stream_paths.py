@@ -44,7 +44,7 @@ def _stores(st) -> list:
     """Plain K1 + assembly of one StagedScan, on the CPU."""
     words, dm = torch.from_numpy(st.words), torch.from_numpy(st.dm)
     if st.ab is None:
-        ab, _b, _s, base = unpack_delta(dm)
+        ab, base = unpack_delta(dm)
     else:
         ab, base = torch.from_numpy(st.ab), torch.from_numpy(st.base)
     nat = decode_chunks(words, dm, ab, base, scan_tables(st.scan, "cpu"),

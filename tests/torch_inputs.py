@@ -438,3 +438,116 @@ def t1_pixels(geometry, images: int, seed: int, device="cpu") -> list:
         0, 256, (images, c.blocks_wide * c.blocks_high, c.dct_scale,
                  c.dct_scale), dtype=np.uint8)).to(device)
         for c in geometry.components]
+
+
+# A1 (the assembly): plans of the fields the assembly reads, for what the
+# fixtures never give it: block grids padded past the decoded MCUs,
+# restart segments that cross the kernel's 256-block tiles, sequences of
+# more than 32 tiles (more than one look-back window), tile-edge counts,
+# four components, and general maps that no closed form describes.
+class A1Plan:
+    """A ScanPlan's assembly fields (`n_blocks`, `ncomp`,
+    `restart_interval`, `stream_idx`, `raster_src`, `seg_first`,
+    `structured`) for components `comps` [(vs, hs, extra rows, extra
+    columns)] of an interleaved scan over a rows_d x cols_d MCU grid, each
+    store padded by its extra block rows and columns, built as
+    `ScanPlan._derive_structured` reads them. `general` drops the closed
+    form; `scramble` (a seed) instead makes general maps no closed form
+    has: each component's stream blocks in a seeded order, restart
+    segments of seeded lengths, a seeded raster placement with padding, and
+    one raster block that two stream blocks claim (raster_src keeps the
+    later one)."""
+
+    def __init__(self, comps, rows_d: int, cols_d: int,
+                 restart_interval: int = 0, general: bool = False,
+                 scramble=None):
+        plen = sum(vs * hs for vs, hs, _r, _c in comps)
+        n_mcus = rows_d * cols_d
+        self.n_blocks = n_mcus * plen
+        self.ncomp = len(comps)
+        self.restart_interval = restart_interval
+        self.stream_idx, self.raster_src, self.seg_first = [], [], []
+        specs, slot0 = [], 0
+        rng = np.random.default_rng(scramble)
+        for vs, hs, extra_r, extra_c in comps:
+            bpm = vs * hs
+            n_c = n_mcus * bpm
+            hc, wc = rows_d * vs + extra_r, cols_d * hs + extra_c
+            s_idx = (np.arange(n_mcus)[:, None] * plen + slot0
+                     + np.arange(bpm)[None, :]).reshape(-1)
+            pos = np.arange(n_c).reshape(rows_d, cols_d, vs, hs).transpose(
+                0, 2, 1, 3)
+            grid = np.full((hc, wc), n_c, np.int64)
+            grid[:rows_d * vs, :cols_d * hs] = pos.reshape(rows_d * vs,
+                                                           cols_d * hs)
+            seg_blocks = restart_interval * bpm
+            first = (np.arange(n_c) // seg_blocks * seg_blocks
+                     if seg_blocks else np.zeros(n_c, np.int64))
+            if scramble is not None:
+                s_idx = rng.permutation(s_idx)
+                cuts = np.flatnonzero(rng.random(n_c) < 0.004) \
+                    if restart_interval else np.zeros(0, np.int64)
+                starts = np.union1d([0], cuts)
+                first = starts[np.searchsorted(starts, np.arange(n_c),
+                                               side="right") - 1]
+                raster = rng.permutation(hc * wc)[:n_c]
+                raster[-1] = raster[0]          # two claim one block
+                grid = np.full(hc * wc, n_c, np.int64)
+                grid[raster] = np.arange(n_c)
+            self.stream_idx.append(s_idx.astype(np.int32))
+            self.raster_src.append(grid.reshape(-1))
+            self.seg_first.append(first.astype(np.int64))
+            specs.append((slot0, bpm, vs, hs, hc, wc, seg_blocks))
+            slot0 += bpm
+        self.structured = None if general or scramble is not None else (
+            (n_mcus, rows_d, cols_d, plen), tuple(specs))
+        self._key = (tuple(comps), rows_d, cols_d, restart_interval,
+                     general, scramble)
+
+    def __hash__(self):
+        return hash(self._key)
+
+    def __eq__(self, other):
+        return isinstance(other, A1Plan) and self._key == other._key
+
+
+# (label, comps, rows_d, cols_d, restart interval, images, carry?,
+# branch: "structured", "general" (the same maps without the closed form)
+# or a scramble seed).
+A1_CASES = [
+    ("420-padded", ((2, 2, 2, 3), (1, 1, 1, 2), (1, 1, 1, 2)), 5, 7, 0, 2,
+     True, "structured"),
+    ("420-padded-general", ((2, 2, 2, 3), (1, 1, 1, 2), (1, 1, 1, 2)), 5, 7,
+     0, 2, True, "general"),
+    ("422-dri5-padded", ((1, 2, 1, 1), (1, 1, 0, 1), (1, 1, 0, 1)), 9, 11, 5,
+     3, True, "structured"),
+    ("cmyk4-padded", ((2, 2, 1, 0), (1, 1, 0, 1), (1, 1, 1, 1),
+                      (2, 2, 0, 2)), 6, 5, 0, 1, True, "structured"),
+    ("gray-dri7-36-tiles", ((1, 1, 0, 0),), 100, 90, 7, 1, True,
+     "structured"),
+    ("gray-carry-36-tiles", ((1, 1, 3, 2),), 100, 90, 0, 3, True,
+     "structured"),
+    ("gray-256", ((1, 1, 0, 0),), 16, 16, 0, 2, True, "structured"),
+    ("gray-257", ((1, 1, 0, 0),), 1, 257, 0, 1, True, "structured"),
+    ("gray-255-dri255", ((1, 1, 1, 0),), 15, 17, 255, 2, True, "general"),
+    ("420-dri3-general", ((2, 2, 1, 1), (1, 1, 0, 0), (1, 1, 0, 0)), 8, 9, 3,
+     2, True, "general"),
+    ("scrambled", ((2, 1, 1, 2), (1, 1, 2, 1), (1, 1, 0, 3)), 12, 13, 0, 2,
+     True, 5),
+    ("scrambled-dri", ((1, 1, 2, 2), (1, 1, 0, 0)), 40, 30, 4, 2, False, 6),
+]
+
+
+def a1_case(case) -> tuple:
+    """(plan, nat int16 [images, n_blocks, 64] with full-range values,
+    carry int64 [ncomp, images] with high bits set, or None) of one
+    A1_CASES entry, from numpy's seeded generator."""
+    label, comps, rows_d, cols_d, ri, images, with_carry, branch = case
+    plan = A1Plan(comps, rows_d, cols_d, ri, general=branch == "general",
+                  scramble=branch if isinstance(branch, int) else None)
+    rng = np.random.default_rng(len(label) * 131 + images)
+    nat = rng.integers(-32768, 32768, (images, plan.n_blocks, 64),
+                       dtype=np.int16)
+    carry = rng.integers(-2 ** 62, 2 ** 62, (len(comps), images),
+                         dtype=np.int64) if with_carry else None
+    return plan, nat, carry

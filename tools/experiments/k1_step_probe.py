@@ -98,7 +98,7 @@ def probe(lib, name: str) -> dict:
     (st,) = stage_host_bits((FIXTURES / name).read_bytes()).scans
     words = torch.from_numpy(st.words).to(dev)
     dm = torch.from_numpy(st.dm).to(dev)
-    ab, _budget, _slot, base = unpack_delta(dm)
+    ab, base = unpack_delta(dm)
     tb = DeviceParams(dev).tables(st.scan)
     n_blocks = st.scan.plan.n_blocks
     nat = torch.empty((n_blocks, 64), dtype=torch.int16, device=dev)

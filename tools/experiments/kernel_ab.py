@@ -73,7 +73,8 @@ def main(argv=None) -> int:
         staged = stage_host_bits(blob)
         (st,) = staged.scans
         dm = torch.from_numpy(st.dm).to(dev)
-        ab, _budget, _slot, base = unpack_delta(dm)
+        unpacked = unpack_delta(dm)     # (ab, ..., base) in every version
+        ab, base = unpacked[0], unpacked[-1]
         args = (torch.from_numpy(st.words).to(dev), dm, ab, base,
                 params.tables(st.scan), st.s_max, st.scan.plan.n_blocks)
         k1 = kernel_device_us(lambda: decode_chunks(*args),

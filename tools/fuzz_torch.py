@@ -524,7 +524,7 @@ class DeviceFuzz:
                     for a in ((st.words, st.dm) if st.ab is None
                               else (st.words, st.dm, st.ab, st.base))]
             if st.ab is None:
-                ab, _budget, _slot0, base = unpack_delta(wire[1])
+                ab, base = unpack_delta(wire[1])
             else:
                 ab, base = wire[2], wire[3]
             plan = st.scan.plan

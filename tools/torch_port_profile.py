@@ -28,7 +28,8 @@ lines (per image: a group's numbers divided by its images):
   inside reconstruct, and lossless) and per kernel name (K1
   huffman_decode_kernel, K2 dequant_idct_kernel, K3 fused_tail_kernel, L1
   lossless_recur_kernel, E1 idct_exact_kernel, T1
-  interleaved_tail_kernel, the rest PyTorch's);
+  interleaved_tail_kernel, A1 assemble_kernel, U1 unpack_delta_kernel,
+  the rest PyTorch's);
 - kernel launches per image.
 With --trace, the Chrome trace of the last fixture is written there.
 Needs a CUDA device; fails without one.
