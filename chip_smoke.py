@@ -214,15 +214,20 @@ the assembly, and U1, the delta-wire unpack):
    torch_inputs.py::A1_CASES` (padded grids, restart segments across the
    kernel's tiles, 36-tile sequences, groups, carries with high bits set,
    general maps) with and without carries, every fixture's plan through
-   the general branch, and U1 on seeded wires of 1 to 100,000 entries;
-   A1's and U1's CUDA-event ms at large_420 beside their plain versions,
-   and their device time per launch (torch.profiler, 100 calls: median,
-   least, largest) beside the bytes bound: A1 at large_420, over a
-   tower_420 group of 16 and on a large_420 stripe; U1 on large_420's
-   wire, the group's merged wire and wires of 65,536 and 1,048,576
-   entries. A1's and U1's launches are checked in phases 5 (> 0), 16 (1
-   per large_420 image at fast and exact), 19 (A1 1 per stripe, U1 none)
-   and 21 (> 0).
+   the general branch, and U1 on seeded wires of 1 to 2^20 + 1 entries
+   (one tile to 129 of its tiles), and on the merged wires of large_420
+   x4 and x16 (`decode_stream(batch_size=4 and 16)`: one U1 launch over
+   more than one tile each); A1's and U1's CUDA-event ms at large_420
+   beside their plain versions (U1 also beside `torch.cumsum` over its
+   two columns, int32 [2, n]), and their device time per launch
+   (torch.profiler, 100 calls: median, least, largest) beside the bytes
+   bound: A1 at large_420, over a tower_420 group of 16 and on a large_420
+   stripe; U1 on large_420's wire, tower_420 x16's and large_420 x16's
+   merged wires and wires of 65,536 and 1,048,576 entries, each beside
+   `torch.cumsum`'s device time and the launch floor (U1's kernel built
+   with its body taken out, launched the same way). A1's and U1's
+   launches are checked in phases 5 (> 0), 16 (1 per large_420 image at
+   fast and exact), 19 (A1 1 per stripe, U1 none) and 21 (> 0).
 
 Any failure raises and the script exits nonzero. It needs a CUDA device and
 the repository around it; it imports neither JAX, nor PIL, nor the JAX
@@ -234,6 +239,7 @@ name and power limit, and before that a JSON line with one entry per kernel.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import json
 import shutil
@@ -1912,18 +1918,21 @@ def phase_a1_u1(jt, data: dict, params, dev, card: str) -> dict:
     A1 call with its carry); `A1_CASES` (padded grids, restart segments
     across the tiles, 36-tile sequences, groups, carries with high bits
     set, general maps), every fixture's plan forced through the general
-    branch, and U1 on seeded wires of every bit pattern. Times: A1 and U1
-    by CUDA events at large_420's main-path shapes beside their plain
-    versions; each kernel's device time per launch by variant
-    (torch.profiler, TIMED_CALLS warm calls: median, least, largest)
-    beside its bytes bound. Returns their numbers."""
+    branch, and U1 on seeded wires of every bit pattern and on the merged
+    wires of large_420 x4 and x16 (one launch each, over several tiles).
+    Times: A1 and U1 by CUDA events at large_420's main-path shapes beside
+    their plain versions (U1 also beside `torch.cumsum`); each kernel's
+    device time per launch by variant (torch.profiler, TIMED_CALLS warm
+    calls: median, least, largest) beside its bytes bound (U1 also beside
+    `torch.cumsum`'s and its launch floor, `u1_times`). Returns their
+    numbers."""
     import copy
 
     from jpeg_decoder_tpu_torch.entropy.assemble import (GeneralMaps,
                                                          assemble_nat,
                                                          assemble_nat_plain)
     from jpeg_decoder_tpu_torch.entropy.chunk_decode import (
-        decode_chunks, unpack_delta, unpack_delta_plain)
+        U1_TILE, decode_chunks, unpack_delta, unpack_delta_plain)
     from jpeg_decoder_tpu_torch.models import stream
     from jpeg_decoder_tpu_torch.parallel import make_mesh, stripe_bits
     from tools.torch_port_profile import kernel_device_us
@@ -1982,6 +1991,22 @@ def phase_a1_u1(jt, data: dict, params, dev, card: str) -> dict:
                     timed["U1 tower_420 x16"] = u1_calls[0][0]
                 calls[f"tower_420 x16 {precision}"] = check(
                     f"tower_420 x16 {precision}")
+                if precision == "fast":
+                    # Merged wires of many U1 tiles, one launch each.
+                    for count in (4, 16):
+                        jt.reset_launches()
+                        dec.decode_stream([large] * count, batch_size=count)
+                        if len(u1_calls) != 1 \
+                                or jt.LAUNCHES["unpack_delta"] != 1 \
+                                or u1_calls[0][0].numel() <= U1_TILE:
+                            raise AssertionError(
+                                f"25 large_420 x{count}: "
+                                f"{jt.LAUNCHES['unpack_delta']} U1 launches "
+                                f"over {len(u1_calls)} wires, not one of "
+                                f"more than {U1_TILE} entries")
+                        timed[f"U1 large_420 x{count}"] = u1_calls[0][0]
+                        calls[f"large_420 x{count} fast"] = check(
+                            f"large_420 x{count} fast")
                 dec.decode_stream(mixed + mixed[:2], batch_size=8)
                 calls[f"hetero group {precision}"] = check(
                     f"hetero group {precision}")
@@ -2034,7 +2059,8 @@ def phase_a1_u1(jt, data: dict, params, dev, card: str) -> dict:
                              assemble_nat(nat, plan, maps)))
             seeded += 1
     rng = np.random.default_rng(25)
-    for n in (1, 31, 8191, 8192, 8193, 100_000):
+    for n in (1, 31, U1_TILE - 1, U1_TILE, U1_TILE + 1, 4 * U1_TILE + 3,
+              100_000, 1 << 20, (1 << 20) + 1):
         dm = torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
                               .astype(np.uint32).view(np.int32)).to(dev)
         u1_calls.append((dm, unpack_delta(dm)))
@@ -2051,9 +2077,12 @@ def phase_a1_u1(jt, data: dict, params, dev, card: str) -> dict:
     a1_plain_ms = cuda_ms(lambda: assemble_nat_plain(nat, plan), 20)
     u1_ms = cuda_ms(lambda: unpack_delta(dm), 50)
     u1_plain_ms = cuda_ms(lambda: unpack_delta_plain(dm), 20)
+    sums = u1_sums(dm)
+    u1_library_ms = cuda_ms(lambda: torch.cumsum(sums, 1, dtype=torch.int32),
+                            50)
     say("25 A1 and U1 vs plain", card=card, calls_checked=calls,
         max_abs_err=0, tolerance=0, a1_ms=a1_ms, a1_plain_ms=a1_plain_ms,
-        u1_ms=u1_ms, u1_plain_ms=u1_plain_ms)
+        u1_ms=u1_ms, u1_plain_ms=u1_plain_ms, u1_library_ms=u1_library_ms)
 
     times = {}
     variants = {"A1 large_420": (nat, plan, None, None),
@@ -2064,17 +2093,68 @@ def phase_a1_u1(jt, data: dict, params, dev, card: str) -> dict:
         times[label] = launch_times(
             lambda: assemble_nat(v_nat, v_plan, v_maps, v_carry),
             "assemble_kernel", nbytes, kernel_device_us)
-    for label, v_dm in (("U1 large_420", dm),
-                        ("U1 tower_420 x16", timed["U1 tower_420 x16"]),
-                        ("U1 65,536 entries", dm.repeat(11)[:65536]),
-                        ("U1 1,048,576 entries", dm.repeat(171)[:1 << 20])):
-        times[label] = launch_times(lambda: unpack_delta(v_dm),
-                                  "unpack_delta_kernel", 12 * v_dm.numel(),
-                                  kernel_device_us)
+    times.update(u1_times({
+        "U1 large_420": dm,
+        "U1 tower_420 x16": timed["U1 tower_420 x16"],
+        "U1 65,536 entries": dm.repeat(11)[:65536],
+        "U1 large_420 x16": timed["U1 large_420 x16"],
+        "U1 1,048,576 entries": dm.repeat(171)[:1 << 20]},
+        kernel_device_us))
     say("25 A1 and U1 times", card=card, **times)
     return {"max_abs_err": 0, "a1_ms": a1_ms, "a1_plain_ms": a1_plain_ms,
-            "u1_ms": u1_ms, "u1_plain_ms": u1_plain_ms, "times": times,
-            "calls": calls}
+            "u1_ms": u1_ms, "u1_plain_ms": u1_plain_ms,
+            "u1_library_ms": u1_library_ms, "times": times, "calls": calls}
+
+
+def u1_sums(dm: torch.Tensor) -> torch.Tensor:
+    """The two columns U1 sums, int32 [2, n]: the deltas (dm >>> 9) and the
+    budgets ((dm >>> 4) & 31), the input of the library call beside it."""
+    u = dm.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([u >> 9, (u >> 4) & 31]).to(torch.int32)
+
+
+def u1_times(wires: dict, kernel_device_us) -> dict:
+    """U1's device time per launch on each of `wires` (`launch_times`), and
+    beside it the device time of `torch.cumsum(x, 1, dtype=torch.int32)`
+    over the wire's two columns (`u1_sums`: both of U1's sums, the
+    exclusive one aside, in one library call) and the launch floor: the
+    device time of U1's kernel with its body taken out (built from the
+    checkout's source by `tools/experiments/a1_breakdown.py::build`),
+    launched as U1 launches it, on the same wire. `floor_bound_us` is the
+    larger of the bytes bound and that floor."""
+    from jpeg_decoder_tpu_torch import _build
+    from jpeg_decoder_tpu_torch.entropy.chunk_decode import unpack_delta
+    from tools.experiments.a1_breakdown import U1_EMPTY, build
+
+    lib = _build.load()
+    out = ROOT / "build" / "a1_breakdown" / "u1_empty.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    build(U1_EMPTY, (_build.CSRC / "unpack_delta.cu").read_text(), out)
+    empty = ctypes.CDLL(str(out)).jdt_unpack_delta
+    real = lib.jdt_unpack_delta
+    empty.argtypes, empty.restype = real.argtypes, real.restype
+    times = {}
+    for label, wire in wires.items():
+        row = launch_times(lambda: unpack_delta(wire), "unpack_delta_kernel",
+                           12 * wire.numel(), kernel_device_us)
+        sums = u1_sums(wire)
+        lib_call = kernel_device_us(
+            lambda: torch.cumsum(sums, 1, dtype=torch.int32), "",
+            iters=TIMED_CALLS)
+        lib.jdt_unpack_delta = empty
+        try:
+            each = sorted(kernel_device_us(
+                lambda: unpack_delta(wire), "unpack_delta_kernel",
+                iters=TIMED_CALLS)["each_us"])
+        finally:
+            lib.jdt_unpack_delta = real
+        floor = each[len(each) // 2]
+        times[label] = {**row, "entries": wire.numel(),
+                        "cumsum_device_us": lib_call["all_device_us"],
+                        "cumsum_launches": lib_call["all_launches"],
+                        "floor_us": floor, "floor_min_us": each[0],
+                        "floor_bound_us": max(row["bound_us"], floor)}
+    return times
 
 
 def main() -> int:
@@ -2540,7 +2620,8 @@ def main() -> int:
          "replaces": "jpeg_decoder_tpu/entropy/pallas_decode.py:658",
          "launches": launches["unpack_delta"],
          "max_abs_err": a1u1["max_abs_err"], "ms": a1u1["u1_ms"],
-         "plain_ms": a1u1["u1_plain_ms"], "library_ms": None},
+         "plain_ms": a1u1["u1_plain_ms"],
+         "library_ms": a1u1["u1_library_ms"]},
     ]
     for row, key in zip(kernels, ("K1", "K2", "K3", "K4", "L1", "E1", "T1",
                                   "A1", "U1")):

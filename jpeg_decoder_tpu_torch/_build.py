@@ -194,12 +194,42 @@ def load() -> ctypes.CDLL:
         lib.jdt_unpack_delta.argtypes = [
             p, q,           # dm, n
             p, p,           # ab, base
+            p, q,           # status buffer (counter + words), its words
+            ctypes.c_uint,  # epoch
             p]              # stream
         lib.jdt_unpack_delta.restype = i
         lib.jdt_error_string.argtypes = [i]
         lib.jdt_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
+
+
+# Per (kernel, device, stream): a status buffer of a decoupled look-back
+# (int64: the ticket counter, then the tiles' status words) and the last
+# epoch used on it. A new epoch for every launch keeps the words of earlier
+# launches from reading as valid, so a buffer is zeroed only when it is
+# made (or outgrown, or its epochs run out). Each kernel has its own, so
+# two kernels on one stream never spend each other's epochs.
+_status: dict = {}
+_status_lock = threading.Lock()
+
+
+def status_buffer(kernel: str, dev, stream: int, words: int,
+                  epoch_bits: int) -> tuple:
+    """(buffer, epoch) for one launch of `kernel` on (`dev`, `stream`) that
+    needs `words` status words: the buffer int64 [1 + at least `words`],
+    the epoch new on it, 1 .. 2^epoch_bits - 1."""
+    import torch
+
+    with _status_lock:
+        entry = _status.get((kernel, dev, stream))
+        if entry is None or entry[0].numel() - 1 < words \
+                or entry[1] >= (1 << epoch_bits) - 1:
+            size = max(4096, 1 << (max(words, 1) - 1).bit_length())
+            entry = _status[kernel, dev, stream] = [
+                torch.zeros(size + 1, dtype=torch.int64, device=dev), 0]
+        entry[1] += 1
+        return entry[0], entry[1]
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -37,7 +37,6 @@ anything else raises.
 from __future__ import annotations
 
 import ctypes
-import threading
 from functools import lru_cache
 
 import numpy as np
@@ -225,26 +224,6 @@ def _structured_layout(plan) -> _A1Layout:
         for slot0, bpm, vs, hs, hc, wc, seg_blocks in specs])
 
 
-# Per (device, stream): A1's status buffer (int64: the ticket counter, then
-# a status word per tile) and the last epoch used on it. A new epoch for
-# every launch keeps the words of earlier launches from reading as valid,
-# so the buffer is zeroed only when it is made (or outgrown).
-_status: dict = {}
-_status_lock = threading.Lock()
-
-
-def _status_buffer(dev: torch.device, stream: int, tiles: int) -> tuple:
-    with _status_lock:
-        entry = _status.get((dev, stream))
-        if entry is None or entry[0].numel() - 1 < tiles \
-                or entry[1] >= 0xFFFFFFFF:
-            words = max(4096, 1 << (max(tiles, 1) - 1).bit_length())
-            entry = _status[dev, stream] = [
-                torch.zeros(words + 1, dtype=torch.int64, device=dev), 0]
-        entry[1] += 1
-        return entry[0], entry[1]
-
-
 def _carry_args(carry, ncomp: int, n: int, dev) -> tuple:
     """The carry as A1 reads it, carry[c * sc + n * sn]: (the int64 tensor
     on `dev`, its pointer, sc, sn); (None, None, 0, 0) for none."""
@@ -308,8 +287,8 @@ def _assemble_a1(nat: torch.Tensor, plan, maps, carry) -> list:
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status, epoch = _status_buffer(
-            dev, stream, nat.shape[0] * layout.data_tiles)
+        status, epoch = _build.status_buffer(
+            "assemble", dev, stream, nat.shape[0] * layout.data_tiles, 32)
         err = _a1_launch(lib, nat, plan, layout, out, carry_args, status,
                          epoch, stream)
         _build.LAUNCHES["assemble"] += 1

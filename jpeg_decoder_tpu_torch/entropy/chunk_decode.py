@@ -4,8 +4,10 @@ Huffman decode (kernel K1).
 Mirrors `jpeg_decoder_tpu/entropy/pallas_decode.py`:
 - `unpack_delta` is the vector part of `unpack_delta_classes`: entry bits
   by a cumsum of the 23-bit deltas, block bases by an exclusive cumsum of
-  the budgets (kernel U1, `csrc/unpack_delta.cu`, on a CUDA tensor; its
-  plain version `unpack_delta_plain` on a CPU tensor).
+  the budgets (kernel U1, `csrc/unpack_delta.cu`, on a CUDA tensor: one
+  launch, a CTA per tile of `U1_TILE` entries, the tiles' prefixes by
+  decoupled look-back over a status buffer of its own; its plain version
+  `unpack_delta_plain` on a CPU tensor).
 - `decode_chunks` replaces `build_pallas_sweep` and its kernel
   `_build_decode_kernel`, and returns the same `nat` tensor: int16
   [n_blocks, 64] natural-order coefficients in stream block order, DC
@@ -42,6 +44,8 @@ import torch
 from .. import _build
 from ..params import LUT_SIZE, MAX_PATTERN, ScanTables
 
+U1_TILE = 8192      # entries a CTA of U1 takes: kThreads * kPer of
+                    # csrc/unpack_delta.cu
 MAX_TABS = 8        # table rows: 4 (DC, AC) pairs, the most SOF1 selects
 # A chunk holds at most 31 blocks (the meta word's 5-bit budget) of at most
 # 64 symbols each, so no chunk needs more steps. On the GPU s_max is only a
@@ -63,17 +67,38 @@ def unpack_delta(dm: torch.Tensor):
     if dm.dtype != torch.int32 or dm.dim() != 1 or not dm.is_contiguous():
         raise ValueError(f"dm must be contiguous int32 [n], got {dm.dtype} "
                          f"{tuple(dm.shape)}")
-    out = torch.empty((2, dm.numel()), dtype=torch.int32, device=dm.device)
+    ab, base = _u1_outputs(dm)
     if dm.numel():
         lib = _build.load()
         with torch.cuda.device(dm.device):
-            err = lib.jdt_unpack_delta(
-                dm.data_ptr(), dm.numel(), out[0].data_ptr(),
-                out[1].data_ptr(),
-                torch.cuda.current_stream(dm.device).cuda_stream)
+            stream = torch.cuda.current_stream(dm.device).cuda_stream
+            status, epoch = None, 0
+            tiles = -(-dm.numel() // U1_TILE)
+            if tiles > 1:
+                status, epoch = _build.status_buffer(
+                    "unpack_delta", dm.device, stream, 2 * tiles, 30)
+            err = _u1_launch(lib, dm, ab, base, status, epoch, stream)
             _build.LAUNCHES["unpack_delta"] += 1
         _build.check(lib, err, "unpack_delta")
-    return out[0], out[1]
+    return ab, base
+
+
+def _u1_outputs(dm: torch.Tensor) -> tuple:
+    """U1's (ab, base): the rows of one [2, n rounded up to 4] allocation,
+    so both start on a 16-byte boundary."""
+    n = dm.numel()
+    out = torch.empty((2, -(-n // 4) * 4), dtype=torch.int32,
+                      device=dm.device)
+    return out[0, :n], out[1, :n]
+
+
+def _u1_launch(lib, dm, ab, base, status, epoch: int, stream) -> int:
+    """One `jdt_unpack_delta` call (the kernel's launch), its error code;
+    `status` None for a wire of one tile."""
+    return lib.jdt_unpack_delta(
+        dm.data_ptr(), dm.numel(), ab.data_ptr(), base.data_ptr(),
+        None if status is None else status.data_ptr(),
+        0 if status is None else status.numel() - 1, epoch, stream)
 
 
 def unpack_delta_plain(dm: torch.Tensor):

@@ -2,31 +2,36 @@
 on the CPU from their own sources: each .cu is compiled by the host's g++
 (C++20) with a small shim for the CUDA it uses (`threadIdx`, `__shared__`,
 `uint4`, the warp shuffles and `__ballot_sync`, `atomicAdd` and
-`atomicExch`, the acquire loads and release stores of A1's status words,
-`__nanosleep`), and each launch is run with every thread of a CTA on a
+`atomicExch`, the loads and stores of the status words (A1's acquire and
+release, U1's relaxed), `__nanosleep`), and each launch is run with every thread of a CTA on a
 host thread of its own: `__syncthreads()` a `std::barrier` of the CTA's
 threads, a shuffle an exchange through memory between two barriers of the
-warp's 32 threads.
+warp's 32 threads. Both run the constants the card runs.
 
-A1's CTAs run in waves: a wave of 1 runs them one after another, in the
-order the kernel's tile counter hands out the tiles; a wave of 3 runs
-three at a time, so a CTA looks back at predecessors that have published
-only their aggregate, or nothing yet, and waits. The status buffer is
-poisoned with words of other epochs (aggregates and prefixes with
-seeded values), shared memory with a poison byte at each CTA's start and
-the output with a poison value, so a stale word read as valid, a row left
-unwritten or a shared value read before it is written changes the result.
-After each launch the tile counter is 0 again and every data tile's
-status is this epoch's inclusive prefix.
+The CTAs of a launch run in waves: a wave of 1 runs them one after
+another, in the order the kernel's tile counter hands out the tiles; a
+wave of 3 runs three at a time, so a CTA looks back at predecessors that
+have published only their aggregate, or nothing yet, and waits. The
+status buffer is poisoned with words of other epochs (aggregates and
+prefixes with seeded values), shared memory with a poison byte at each
+CTA's start and the output with a poison value, so a stale word read as
+valid, an entry or row left unwritten or a shared value read before it is
+written changes the result. After each launch the tile counter is 0 again
+and every tile's status (U1: both of its words) is this epoch's inclusive
+prefix; a U1 wire of one tile leaves the buffer as it was. U1 also runs
+with one word of every tile's pair stored 2 ms after the other, so a CTA
+meets a predecessor with one word of this launch and one of another.
 
 Tolerance 0 against the plain versions (`assemble_nat_plain`,
 `unpack_delta_plain`) over `torch_inputs.A1_CASES` (padded grids, restart
 segments across tiles, sequences of 36 tiles, groups, carries with high
 bits set, general maps), every fixture plan through both branches, and
-U1 over wires of 0 to 9,000 entries (more than two of its rounds) with
-every bit pattern and the fixtures' real wires. This checks the kernels'
-tile arithmetic and look-back, not the card: the card runs the same
-sources in `tests/test_torch_cuda.py` and `chip_smoke.py` phase 25.
+U1 over wires of 0 to 5 of its tiles of `U1_TILE` entries (each tile edge,
+a ragged and a full last tile, a wire off 16 bytes) with every bit
+pattern, the fixtures' real wires and merged group wires of 3 tower_420
+and of at least 4 tiles of large_420. This checks the kernels' tile
+arithmetic and look-back, not the card: the card runs the same sources in
+`tests/test_torch_cuda.py` and `chip_smoke.py` phase 25.
 """
 
 import copy
@@ -44,7 +49,9 @@ import jpeg_decoder_tpu_torch as jt
 from jpeg_decoder_tpu_torch.entropy import assemble
 from jpeg_decoder_tpu_torch.entropy.assemble import (GeneralMaps,
                                                      assemble_nat_plain)
-from jpeg_decoder_tpu_torch.entropy.chunk_decode import unpack_delta_plain
+from jpeg_decoder_tpu_torch.entropy import chunk_decode
+from jpeg_decoder_tpu_torch.entropy.chunk_decode import (U1_TILE,
+                                                         unpack_delta_plain)
 
 from torch_inputs import A1_CASES, SMALL_FIXTURES, a1_case, fixture
 
@@ -55,6 +62,7 @@ SHIM = r"""
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cstdint>
 #include <cstring>
 #include <memory>
@@ -90,6 +98,13 @@ inline thread_local Cta* g_cta = nullptr;
 inline thread_local dim3 threadIdx, blockIdx;
 inline unsigned g_wave = 1;      // shared by the two kernels' sources
 inline int g_poison = 0;
+// A release store to a status word of index parity g_lag - 1 (1: even, 2:
+// odd; 0: none) first sleeps, so a word lags the other of its tile's pair.
+inline int g_lag = 0;
+inline void lag_store(const void* p) {
+  if (g_lag && ((reinterpret_cast<uintptr_t>(p) >> 3) & 1) == g_lag - 1u)
+    std::this_thread::sleep_for(std::chrono::milliseconds(2));
+}
 #define __syncthreads() g_cta->bar.arrive_and_wait()
 template <class T> T& shared_of() {
   static_assert(sizeof(T) <= sizeof(Cta::smem));
@@ -112,6 +127,9 @@ template <class T> T warp_exchange(T v, int src) {
 template <class T> T __shfl_up_sync(unsigned, T v, int d) {
   const int lane = threadIdx.x & 31;
   return warp_exchange(v, lane >= d ? lane - d : lane);
+}
+template <class T> T __shfl_sync(unsigned, T v, int src) {
+  return warp_exchange(v, src & 31);
 }
 template <class T> T __shfl_xor_sync(unsigned, T v, int o) {
   return warp_exchange(v, static_cast<int>(threadIdx.x & 31) ^ o);
@@ -162,17 +180,19 @@ void replay(K kernel, unsigned grid, int threads, A... args) {
 
 CONFIG = r"""
 #include "shim.h"
-extern "C" void replay_config(unsigned wave, int poison) {
+extern "C" void replay_config(unsigned wave, int poison, int lag) {
   g_wave = wave;
   g_poison = poison;
+  g_lag = lag;
 }
 """
 
 
 def _host_source(src: str) -> str:
     """A .cu with the shim in place of CUDA's runtime header, its shared
-    memory per CTA, its acquire/release accesses atomic_ref ones and its
-    launch replayed."""
+    memory per CTA, its status words' accesses (A1's acquire loads and
+    release stores, U1's relaxed ones) atomic_ref ones of the same order,
+    and its launch replayed."""
     def sub(pattern, repl):
         nonlocal src
         src, n = re.subn(pattern, repl, src, flags=re.S)
@@ -182,16 +202,21 @@ def _host_source(src: str) -> str:
     sub(r"__shared__ Smem sm;", "Smem& sm = shared_of<Smem>();")
     sub(r"(\w+)<<<(.*?), kThreads, 0,\s*static_cast<cudaStream_t>\(stream\)"
         r">>>\(", r"replay(\1, \2, kThreads, ")
-    if "load_acquire" in src:
-        sub(r"__device__ __forceinline__ unsigned long long load_acquire\("
+    for load, store, load_order, store_order in (
+            ("load_acquire", "store_release", "acquire", "release"),
+            ("load_relaxed", "store_relaxed", "relaxed", "relaxed")):
+        if load not in src:
+            continue
+        sub(rf"__device__ __forceinline__ unsigned long long {load}\("
             r".*?\n\}\n",
-            "inline unsigned long long load_acquire(const unsigned long long*"
-            " p) { return std::atomic_ref<unsigned long long>(*const_cast<"
-            "unsigned long long*>(p)).load(std::memory_order_acquire); }\n")
-        sub(r"__device__ __forceinline__ void store_release\(.*?\n\}\n",
-            "inline void store_release(unsigned long long* p, unsigned long "
-            "long v) { std::atomic_ref<unsigned long long>(*p).store(v, "
-            "std::memory_order_release); }\n")
+            f"inline unsigned long long {load}(const unsigned long long* p) "
+            "{ return std::atomic_ref<unsigned long long>(*const_cast<"
+            "unsigned long long*>(p)).load(std::memory_order_"
+            f"{load_order}); }}\n")
+        sub(rf"__device__ __forceinline__ void {store}\(" r".*?\n\}\n",
+            f"inline void {store}(unsigned long long* p, unsigned long long "
+            "v) { lag_store(p); std::atomic_ref<unsigned long long>(*p)"
+            f".store(v, std::memory_order_{store_order}); }}\n")
     assert "asm" not in src
     return src
 
@@ -220,9 +245,9 @@ def lib(tmp_path_factory):
     lib.jdt_assemble.argtypes = [p, q, i, i, p, i, p, p, q, q, p, p, q,
                                  ctypes.c_uint, p]
     lib.jdt_assemble.restype = i
-    lib.jdt_unpack_delta.argtypes = [p, q, p, p, p]
+    lib.jdt_unpack_delta.argtypes = [p, q, p, p, p, q, ctypes.c_uint, p]
     lib.jdt_unpack_delta.restype = i
-    lib.replay_config.argtypes = [ctypes.c_uint, i]
+    lib.replay_config.argtypes = [ctypes.c_uint, i, i]
     return lib
 
 
@@ -244,7 +269,7 @@ def replayed_a1(lib, nat, plan, maps, carry, wave: int, seed: int):
              | rng.integers(0, 1 << 16, tiles + 1))
     status = torch.from_numpy(stale.astype(np.int64))
     status[0] = 0                                          # the counter
-    lib.replay_config(wave, 0x5A + wave)
+    lib.replay_config(wave, 0x5A + wave, 0)
     err = assemble._a1_launch(lib, nat, plan, layout, out, carry_args,
                               status, EPOCH, None)
     assert err == 0
@@ -304,31 +329,103 @@ def test_replayed_a1_of_a_stripe_carry_view(lib):
     _check(lib, torch.from_numpy(nat), plan, None, carry, waves=(1,))
 
 
-def replayed_u1(lib, dm: torch.Tensor):
+def _stale_words(rng, count: int) -> np.ndarray:
+    """U1 status words of other launches: epochs near this one's, one
+    that differs only in bit 29 and one far off, flag A or P, any value."""
+    epochs = rng.choice(np.array([EPOCH - 1, EPOCH + 1, EPOCH | 1 << 29,
+                                  EPOCH << 8], np.uint64), count)
+    return (epochs << np.uint64(34)
+            | rng.integers(1, 3, count, dtype=np.uint64) << np.uint64(32)
+            | rng.integers(0, 1 << 32, count, dtype=np.uint64)).view(np.int64)
+
+
+def replayed_u1(lib, dm: torch.Tensor, wave: int = 1, lag: int = 0):
+    """`unpack_delta` through the replayed kernel, with the wrapper's own
+    allocation and launch (`_u1_outputs`, `_u1_launch`) and a status
+    buffer of other launches' words, the counter 0 (more than one tile)
+    or not (one tile: the kernel must not touch the buffer); checks the
+    counter and the statuses the launch leaves: each tile's two words this
+    epoch's inclusive prefixes of its sums."""
     n = dm.numel()
-    out = torch.full((2, n), -1515870811, dtype=torch.int32)  # 0xA5A5A5A5
-    lib.replay_config(1, 0x5A)
-    assert lib.jdt_unpack_delta(dm.data_ptr(), n, out[0].data_ptr(),
-                                out[1].data_ptr(), None) == 0
-    return out[0], out[1]
+    tiles = -(-n // U1_TILE)
+    ab, base = chunk_decode._u1_outputs(dm)
+    ab.fill_(-1515870811)                                     # 0xA5A5A5A5
+    base.fill_(-1515870811)
+    status = torch.from_numpy(_stale_words(np.random.default_rng(n + wave),
+                                           2 * tiles + 3))
+    status[0] = 0 if tiles > 1 else 12345                     # the counter
+    before = status.clone()
+    lib.replay_config(wave, 0x5A + wave, lag)
+    assert chunk_decode._u1_launch(lib, dm, ab, base, status, EPOCH,
+                                   None) == 0
+    if tiles <= 1:
+        assert torch.equal(status, before), "one tile touched the status"
+        return ab, base
+    assert int(status[0]) == 0, "the counter must be 0 after the launch"
+    words = status[1:2 * tiles + 1].view(tiles, 2)
+    assert torch.equal(words >> 34, torch.full_like(words, EPOCH))
+    assert torch.equal(words >> 32 & 3, torch.full_like(words, 2))
+    last = torch.arange(tiles) * U1_TILE + U1_TILE - 1
+    last[-1] = n - 1
+    budget = (dm[last].to(torch.int64) >> 4) & 31
+    want = torch.stack([ab[last].to(torch.int64) & 0xFFFFFFFF,
+                        (base[last].to(torch.int64) + budget) & 0xFFFFFFFF],
+                       1)
+    assert torch.equal(words & 0xFFFFFFFF, want), "a tile's prefix"
+    assert torch.equal(status[2 * tiles + 1:], before[2 * tiles + 1:])
+    return ab, base
 
 
-@pytest.mark.parametrize("n", [0, 1, 31, 4095, 4096, 4097, 9000])
+def _u1_sizes() -> list:
+    """Wires of 0 to 5 tiles, around each tile edge (and the sizes PR 15's
+    one-CTA kernel was checked at)."""
+    t = U1_TILE
+    return sorted({0, 1, 31, 4095, 4096, 4097, 9000, t - 1, t, t + 1,
+                   2 * t - 3, 2 * t, 2 * t + 1, 4 * t + 3, 5 * t})
+
+
+def _seeded_wire(n: int) -> torch.Tensor:
+    rng = np.random.default_rng(n)
+    return torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32))
+
+
+def _check_u1(lib, dm, waves=(1, 3), lag=0):
+    want = unpack_delta_plain(dm)
+    for wave in waves:
+        got = replayed_u1(lib, dm, wave, lag)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), wave
+
+
+@pytest.mark.parametrize("n", _u1_sizes())
 def test_replayed_u1_bit_equal_to_plain(lib, n):
     """Every bit pattern of the wire word (the shifts must be logical; the
-    sums wrap mod 2^32 as the plain version's narrowing does), across U1's
-    rounds of 4,096 entries."""
-    rng = np.random.default_rng(n)
-    dm = torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
-                          .astype(np.uint32).view(np.int32))
-    got = replayed_u1(lib, dm)
-    want = unpack_delta_plain(dm)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    sums wrap mod 2^32 as the plain version's narrowing does), on wires of
+    one tile and of 2 to 5 tiles of U1_TILE entries, the last one ragged
+    or full, their CTAs in ticket order and three at a time."""
+    _check_u1(lib, _seeded_wire(n))
+
+
+@pytest.mark.parametrize("lag", [1, 2])
+def test_replayed_u1_when_one_word_of_a_pair_lags(lib, lag):
+    """Three CTAs at a time while one status word of every tile (the ab
+    word, then the base word) is stored 2 ms after its pair: a CTA meets
+    predecessors with one word of this launch and one of another."""
+    _check_u1(lib, _seeded_wire(4 * U1_TILE + 3), waves=(3,), lag=lag)
+
+
+def test_replayed_u1_off_16_bytes(lib):
+    """A wire that starts 4 bytes past a 16-byte boundary takes word loads
+    and stores."""
+    dm = _seeded_wire(2 * U1_TILE + 9)[1:]
+    assert dm.data_ptr() % 16
+    _check_u1(lib, dm)
 
 
 def test_replayed_u1_on_real_and_merged_wires(lib):
-    """The fixtures' delta wires, and a group's merged wire (tower_420 x 3
-    and the hetero sizes), as the stream ships them."""
+    """The fixtures' delta wires, and groups' merged wires (tower_420 x 3,
+    and large_420 merged over at least 4 tiles), as the stream ships
+    them."""
     from jpeg_decoder_tpu_torch.models.stream import merge_scans
 
     names = SMALL_FIXTURES + ("tower_420.jpg", "large_420.jpg")
@@ -336,11 +433,14 @@ def test_replayed_u1_on_real_and_merged_wires(lib):
     for name in names:
         for st in jt.stage_host_bits(fixture(name)).scans:
             wires.append(st.dm)
-    group = [jt.stage_host_bits(fixture("tower_420.jpg")).scans[0]] * 3
-    (words, dm), _s_max, _n_blocks = merge_scans(group)
-    wires.append(dm)
+    tower = jt.stage_host_bits(fixture("tower_420.jpg")).scans[0]
+    large = jt.stage_host_bits(fixture("large_420.jpg")).scans[0]
+    groups = [[tower] * 3,
+              [large] * -(-4 * U1_TILE // large.dm.size)]
+    for group in groups:
+        (_words, dm), _s_max, _n_blocks = merge_scans(group)
+        wires.append(dm)
+    assert wires[-1].size >= 4 * U1_TILE
     for dm in wires:
-        dm = torch.from_numpy(np.ascontiguousarray(dm))
-        got = replayed_u1(lib, dm)
-        want = unpack_delta_plain(dm)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        _check_u1(lib, torch.from_numpy(np.ascontiguousarray(dm)),
+                  waves=(1, 3) if dm.size > U1_TILE else (1,))

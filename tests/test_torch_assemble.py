@@ -35,7 +35,8 @@ from jpeg_decoder_tpu_torch.entropy.assemble import (A1_ROWS, GeneralMaps,
                                                      assemble_nat,
                                                      assemble_nat_plain,
                                                      dc_totals)
-from jpeg_decoder_tpu_torch.entropy.chunk_decode import (unpack_delta,
+from jpeg_decoder_tpu_torch.entropy.chunk_decode import (U1_TILE,
+                                                         unpack_delta,
                                                          unpack_delta_plain)
 from jpeg_decoder_tpu_torch.models.stream import merge_scans
 
@@ -234,3 +235,40 @@ def test_a1_constants_match_the_kernel_source():
     assert len(maps.a1.ptrs) == 4 * plan.ncomp
     assert layout.rows == maps.a1.rows
     assert layout.data_tiles == maps.a1.data_tiles
+
+
+def test_u1_constants_match_the_kernel_source():
+    """The wrapper counts U1's tiles (and so whether a launch needs the
+    status buffer, and how many words) by the kernel's tile."""
+    src = (CSRC / "unpack_delta.cu").read_text()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src)[1])
+    per = int(re.search(r"constexpr int kPer = (\d+);", src)[1])
+    assert threads * per == U1_TILE
+
+
+def test_status_buffers_per_kernel_and_their_epochs(monkeypatch):
+    """`_build.status_buffer`: a buffer per (kernel, device, stream), zeroed
+    only when made; a new epoch every call, never 0; remade when it is
+    outgrown or its epochs run out (U1's 30 bits, A1's 32)."""
+    from jpeg_decoder_tpu_torch import _build
+
+    monkeypatch.setattr(_build, "_status", {})
+    dev = torch.device("cpu")
+    u1, e1 = _build.status_buffer("unpack_delta", dev, 7, 10, 30)
+    assert u1.numel() >= 11 and not u1.any() and e1 == 1
+    u1[1:] = -1
+    again, e2 = _build.status_buffer("unpack_delta", dev, 7, 10, 30)
+    assert again is u1 and e2 == 2 and bool((u1[1:] == -1).all())
+    a1, e3 = _build.status_buffer("assemble", dev, 7, 10, 32)
+    other, e4 = _build.status_buffer("unpack_delta", dev, 8, 10, 30)
+    assert a1 is not u1 and other is not u1 and e3 == e4 == 1
+    big, e5 = _build.status_buffer("unpack_delta", dev, 7, 2 * u1.numel(),
+                                   30)
+    assert big is not u1 and big.numel() > 2 * u1.numel() and e5 == 1
+    _build._status["unpack_delta", dev, 7][1] = (1 << 30) - 2
+    last, e6 = _build.status_buffer("unpack_delta", dev, 7, 10, 30)
+    assert last is big and e6 == (1 << 30) - 1
+    fresh, e7 = _build.status_buffer("unpack_delta", dev, 7, 10, 30)
+    assert fresh is not big and e7 == 1 and not fresh.any()
+    _build._status["assemble", dev, 7][1] = (1 << 30) - 1
+    assert _build.status_buffer("assemble", dev, 7, 10, 32) == (a1, 1 << 30)

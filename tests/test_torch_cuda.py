@@ -65,10 +65,15 @@ sequences, groups, carries with high bits set, general maps) and K1's nat
 of every fixture through both branches, alone and as a group of 3 with a
 carry; misaligned input, maps on another device and a carry of the wrong
 shape refused without a launch. U1 (the delta unpack) bit-equal to its
-plain version on seeded wires of up to 100,000 entries with every bit
-pattern and on the fixtures' and a group's merged wire. One A1 and one U1
-per large_420 decode and per group of 4, one A1 per stripe and no U1 on
-the anchor wires of stripes.
+plain version on seeded wires of one tile to 2^20 + 1 entries with every
+bit pattern and on the fixtures' and groups' merged wires (tower_420
+x16, large_420 x4 and x16); 1,000 launches in a row and across the end
+of its epochs, two streams at once and U1 interleaved with A1 on one
+stream, each on its own status buffer; one kernel a call and nothing
+else (no fill); `decode_stream(batch_size=16)` of large_420 with one U1
+over many tiles, every image bit-equal to its batch-1 decode. One A1 and
+one U1 per large_420 decode and per group of 4, one A1 per stripe and no
+U1 on the anchor wires of stripes.
 """
 
 import time
@@ -1035,18 +1040,126 @@ def test_a1_refuses_what_it_does_not_take(cuda):
     assert jt.LAUNCHES["assemble"] == before
 
 
-@pytest.mark.parametrize("n", [1, 31, 4095, 4096, 4097, 100_000])
+def _u1_sizes() -> list:
+    from jpeg_decoder_tpu_torch.entropy.chunk_decode import U1_TILE as t
+
+    return sorted({1, 31, 4095, 4096, 4097, t - 1, t, t + 1, 2 * t + 1,
+                   4 * t + 3, 6_144, 8_192, 65_536, 98_304, 100_000, 1 << 20,
+                   (1 << 20) + 1})
+
+
+def _seeded_wire(n: int, dev) -> torch.Tensor:
+    rng = np.random.default_rng(n)
+    return torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("n", _u1_sizes())
 def test_u1_bit_equal_to_plain(cuda, n):
+    """Every bit pattern of the wire word, on wires of one tile and of 2
+    to 513 tiles (the tile edges, 2^20 and 2^20 + 1 entries)."""
     from jpeg_decoder_tpu_torch.entropy.chunk_decode import unpack_delta_plain
 
-    rng = np.random.default_rng(n)
-    dm = torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
-                          .astype(np.uint32).view(np.int32)).to(cuda)
+    dm = _seeded_wire(n, cuda)
     before = jt.LAUNCHES["unpack_delta"]
     got = unpack_delta(dm)
     assert jt.LAUNCHES["unpack_delta"] - before == 1
     for g, w in zip(got, unpack_delta_plain(dm.cpu())):
-        assert g.is_cuda and torch.equal(g.cpu(), w)
+        assert g.is_cuda and g.is_contiguous() and torch.equal(g.cpu(), w)
+
+
+def test_u1_a_thousand_launches_in_a_row(cuda):
+    """1,000 launches back to back on one stream, each with a new epoch on
+    the same status buffer, over wires of 1 to 5 tiles, then across the
+    epochs' end (the buffer remade before 2^30)."""
+    from jpeg_decoder_tpu_torch import _build
+    from jpeg_decoder_tpu_torch.entropy.chunk_decode import (U1_TILE,
+                                                             unpack_delta_plain)
+
+    wires = [_seeded_wire(n, cuda) for n in (3 * U1_TILE + 5, 5 * U1_TILE,
+                                             2 * U1_TILE + 1, 77)]
+    want = [unpack_delta_plain(w.cpu()) for w in wires]
+    outs = [unpack_delta(wires[k % 4]) for k in range(1000)]
+    for k, got in enumerate(outs):
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want[k % 4]))
+    key = ("unpack_delta", wires[0].device,
+           torch.cuda.current_stream().cuda_stream)
+    buf = _build._status[key][0]
+    _build._status[key][1] = (1 << 30) - 3
+    for k in range(4):
+        got = unpack_delta(wires[k % 3])
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want[k % 3]))
+    assert _build._status[key][0] is not buf and _build._status[key][1] == 2
+
+
+def test_u1_on_two_streams_at_once(cuda):
+    """Two streams each run U1 over their own wires at the same time: each
+    stream has its own status buffer and epochs."""
+    from jpeg_decoder_tpu_torch.entropy.chunk_decode import (U1_TILE,
+                                                             unpack_delta_plain)
+
+    wires = [_seeded_wire(n, cuda) for n in (40 * U1_TILE + 1,
+                                             33 * U1_TILE - 7)]
+    want = [unpack_delta_plain(w.cpu()) for w in wires]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(50):
+        for k, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[k].append(unpack_delta(wires[k]))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for got in outs[k]:
+            assert all(torch.equal(g.cpu(), w)
+                       for g, w in zip(got, want[k]))
+
+
+def test_u1_interleaved_with_a1_on_one_stream(cuda):
+    """U1 and A1 back to back on one stream, each on its own status
+    buffer: neither spends the other's epochs."""
+    from jpeg_decoder_tpu_torch import _build
+    from jpeg_decoder_tpu_torch.entropy.assemble import (assemble_nat,
+                                                         assemble_nat_plain)
+    from jpeg_decoder_tpu_torch.entropy.chunk_decode import (U1_TILE,
+                                                             unpack_delta_plain)
+
+    plan, nat, carry = a1_case(A1_CASES[0])
+    nat = torch.from_numpy(nat).to(cuda)
+    carry = None if carry is None else torch.from_numpy(carry).to(cuda)
+    want_a1 = assemble_nat_plain(nat, plan, None, carry)
+    dm = _seeded_wire(7 * U1_TILE + 3, cuda)
+    want_u1 = unpack_delta_plain(dm.cpu())
+    for _ in range(20):
+        got_u1 = unpack_delta(dm)
+        got_a1 = assemble_nat(nat, plan, None, carry)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got_u1, want_u1))
+        assert all(torch.equal(g, w) for g, w in zip(got_a1, want_a1))
+    stream = torch.cuda.current_stream().cuda_stream
+    assert _build._status[("unpack_delta", dm.device, stream)][0] is not \
+        _build._status[("assemble", nat.device, stream)][0]
+
+
+@pytest.mark.parametrize("n", [6_144, 65_536])
+def test_u1_is_one_kernel_a_call(cuda, n):
+    """A call enqueues exactly U1's kernel: no fill of the status buffer,
+    no other kernel (the buffer is made by the first call, not timed)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dm = _seeded_wire(n, cuda)
+    unpack_delta(dm)
+    torch.cuda.synchronize()
+    for _attempt in range(3):   # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                unpack_delta(dm)
+            torch.cuda.synchronize()
+        on_card = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if on_card:
+            break
+    assert len(on_card) == 3 and all("unpack_delta_kernel" in k
+                                     for k in on_card), on_card
 
 
 def test_u1_bit_equal_to_plain_on_real_wires(cuda):
@@ -1056,9 +1169,12 @@ def test_u1_bit_equal_to_plain_on_real_wires(cuda):
     wires = [st.dm for name in SMALL_FIXTURES + ("tower_420.jpg",
                                                  "large_420.jpg")
              for st in jt.stage_host_bits(fixture(name)).scans]
-    group = [jt.stage_host_bits(fixture("tower_420.jpg")).scans[0]] * 16
-    (_words, dm), _s_max, _n_blocks = merge_scans(group)
-    for w in wires + [dm]:
+    for name, count in (("tower_420.jpg", 16), ("large_420.jpg", 4),
+                        ("large_420.jpg", 16)):
+        group = [jt.stage_host_bits(fixture(name)).scans[0]] * count
+        (_words, dm), _s_max, _n_blocks = merge_scans(group)
+        wires.append(dm)
+    for w in wires:
         w = torch.from_numpy(np.ascontiguousarray(w))
         got = unpack_delta(w.to(cuda))
         assert all(torch.equal(g.cpu(), p)
@@ -1112,3 +1228,37 @@ def test_a1_and_u1_launch_once_per_image_group_and_stripe(cuda, precision):
     for nat, plan, maps, carry, out in calls:
         want = assemble_nat_plain(nat, plan, maps, carry)
         assert all(torch.equal(g, w) for g, w in zip(out, want))
+
+
+def test_u1_once_for_a_group_of_16_large_420(cuda):
+    """`decode_stream(batch_size=16)` over large_420: one merged wire of
+    many tiles, one U1 launch, equal to its plain version, and every image
+    bit-equal to its batch-1 decode."""
+    from jpeg_decoder_tpu_torch.entropy.chunk_decode import (U1_TILE,
+                                                             unpack_delta_plain)
+    from jpeg_decoder_tpu_torch.models import stream
+
+    calls = []
+
+    def spy(dm):
+        out = real(dm)
+        calls.append((dm, out))
+        return out
+
+    real = stream.unpack_delta
+    blob = fixture("large_420.jpg")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(stream, "unpack_delta", spy)
+        with jt.DeviceStreamDecoder(host_threads=2) as dec:
+            (one,) = dec.decode_stream([blob])
+            torch.cuda.synchronize()
+            calls.clear()
+            jt.reset_launches()
+            group = dec.decode_stream([blob] * 16, batch_size=16)
+            torch.cuda.synchronize()
+            assert jt.LAUNCHES["unpack_delta"] == 1
+    assert len(calls) == 1 and calls[0][0].numel() > 4 * U1_TILE
+    dm, out = calls[0]
+    assert all(torch.equal(g, w.to(cuda))
+               for g, w in zip(out, unpack_delta_plain(dm.cpu())))
+    assert len(group) == 16 and all(torch.equal(img, one) for img in group)

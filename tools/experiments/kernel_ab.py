@@ -23,9 +23,13 @@ every kernel it launches), and L1 (`lossless_recur`) on a seeded
 (50, 50, 20, 10 and 5 calls), and T1 (`interleaved_tail`) on seeded
 block pixels of large_420's geometry (interleaved and planar) and of 16
 tower_420 images in one call, 50 calls each, with the median, least and
-largest time of one launch. Beside the times, SHA-256 digests of what
-the checkout computes, to show two versions bit-equal: T1's outputs on
-those pixels, K2's outputs
+largest time of one launch, and U1 (`unpack_delta`) on large_420's wire
+(6,144 entries), the merged wires of 16 tower_420 and 16 large_420
+images and wires of 65,536 and 1,048,576 entries, 100 calls each, with
+the same statistics and the device time of all a call enqueues. Beside
+the times, SHA-256 digests of what the checkout computes, to show two
+versions bit-equal: T1's outputs on those pixels, U1's on those wires,
+K2's outputs
 (`dequant_idct_multi`, three components in one call) on seeded
 coefficients at scales 8, 4, 2 and 1 and magnitudes up to 300, 1024, 4096
 and 32767, K4's output on the stores above, and the fast interleaved
@@ -142,6 +146,7 @@ def main(argv=None) -> int:
         out[f"l1_{c}x2048x2048_p6_kernel_us"] = l1["kernel_us"]
         out[f"l1_{c}x2048x2048_p6_launches"] = l1["launches"]
     out.update(t1_times(dev, fixtures, stage_host_bits))
+    out.update(u1_times(dev, fixtures, stage_host_bits))
     out.update(digests(dev, params, fixtures))
     print(json.dumps(out))
     return 0
@@ -177,6 +182,44 @@ def t1_times(dev, fixtures, stage_host_bits) -> dict:
         digest.update(interleaved_tail(*args, planar=planar).cpu().numpy()
                       .tobytes())
     out["t1_sha256"] = digest.hexdigest()
+    return out
+
+
+def u1_times(dev, fixtures, stage_host_bits) -> dict:
+    """U1's device time per launch (median, least, largest over 100 calls)
+    and the SHA-256 of its outputs on large_420's wire (6,144 entries), the
+    merged wires of 16 tower_420 and 16 large_420 images (`merge_scans`,
+    as `decode_stream(batch_size=16)` ships them) and wires of 65,536 and
+    1,048,576 entries repeating large_420's."""
+    from tools.torch_port_profile import kernel_device_us
+    from jpeg_decoder_tpu_torch.entropy.chunk_decode import unpack_delta
+    from jpeg_decoder_tpu_torch.models.stream import merge_scans
+
+    scans = {name: stage_host_bits((fixtures / f"{name}.jpg").read_bytes())
+             .scans[0] for name in ("large_420", "tower_420")}
+    large = torch.from_numpy(scans["large_420"].dm)
+    wires = {"large_420": large, "65536": large.repeat(11)[:65536],
+             "1048576": large.repeat(171)[:1 << 20]}
+    for name in ("tower_420", "large_420"):
+        (_words, dm), _s_max, _n = merge_scans([scans[name]] * 16)
+        wires[f"{name}_x16"] = torch.from_numpy(dm)
+    out, digest = {}, hashlib.sha256()
+    for label, wire in wires.items():
+        wire = wire.to(dev)
+        u1 = kernel_device_us(lambda: unpack_delta(wire),
+                              "unpack_delta_kernel", iters=100)
+        each = sorted(u1["each_us"])
+        out[f"u1_{label}"] = {"entries": wire.numel(),
+                              "kernel_us": u1["kernel_us"],
+                              "median_us": each[len(each) // 2],
+                              "min_us": each[0], "max_us": each[-1],
+                              "launches": u1["launches"],
+                              "call_device_us": u1["all_device_us"],
+                              "call_launches": u1["all_launches"]}
+        got = unpack_delta(wire)
+        for t in (got[0], got[-1]):     # ab, base in every version
+            digest.update(t.cpu().numpy().tobytes())
+    out["u1_sha256"] = digest.hexdigest()
     return out
 
 
