@@ -8,7 +8,8 @@ tools/experiments/fused_recon_probe_torch.py) over the committed fixtures
 in tests/fixtures/torch_port/, after building every hand-written kernel
 from csrc/ and holding each against its plain PyTorch version on the card
 (K1-K4, L1, E1, the exact tier's int32 IDCT, T1, the interleaved tail, A1,
-the assembly, and U1, the delta-wire unpack):
+the assembly, U1, the delta-wire unpack, P1, the prefix rebuild, and D1, a
+stripe's DC totals):
 
 1. card name and power limit (nvidia-smi), native host library status;
 2. kernel build (nvcc), with its time;
@@ -56,8 +57,12 @@ the assembly, and U1, the delta-wire unpack):
 13. large_420 with three (DC, AC) table pairs (the SOF1 recipe, 6 table
    rows) on the anchor wire: K1 bit-equal to plain and the oracle, the
    image equal to the unedited file's;
-14. the prefix interchange: every fixture, both precisions, interleaved
-   and planar-pallas, bit-equal to the bits path;
+14. the prefix interchange: every fixture, both precisions, interleaved,
+   planar and planar-pallas, bit-equal to the bits path; one large_420
+   prefix image at fast, interleaved launching P1 twice, K2 and T1 once
+   and nothing else (at most 4 kernels by the profiler, the parent's 16
+   beside them), its device half run under
+   `torch.cuda.set_sync_debug_mode("error")`;
 15. lossless: kernel L1 bit-equal to its plain version and to the host
    oracle for predictors 1-7 x pt {0, 2} on seeded planes of shapes at the
    band edges (L1_SHAPES), and to its plain version on [3, 2048, 2048] at
@@ -88,7 +93,7 @@ the assembly, and U1, the delta-wire unpack):
    predictors 1 and 6: every image bit-equal to its batch_size=1 decode,
    the launches per group counted (K1 1 per group, K2 1 per plan at fast,
    E1 1 per plan at exact, K3 1 per plan on planar-pallas, L1 1 at
-   predictor 6); the
+   predictor 6, P1 2 per prefix group); the
    on_error stream inside a batch; batched K2 (48 segments with per-image
    tables, and 3 merged) and K3 (16 images) SHA-256-equal to per-image
    launches; device-resident ms/image and launches/image of tower_420 at
@@ -118,7 +123,7 @@ the assembly, and U1, the delta-wire unpack):
    (a mesh may name one device several times; on a machine with more
    cards the slots go round them): large_420 through
    `DeviceStreamDecoder(mesh=...).decode_striped` at 4 and 8 stripes,
-   bit-equal to the host exact decode with K1, E1, T1 and A1 launched
+   bit-equal to the host exact decode with K1, E1, T1, A1 and D1 launched
    once per stripe and no U1 (the stripes' wires are anchor wires);
    K1 bit-equal to its plain version on every stripe wire of large_420 at
    4 and 8 stripes and of stripe_420.jpg at 8 (first blocks negative);
@@ -132,7 +137,8 @@ the assembly, and U1, the delta-wire unpack):
    `parallel.dryrun.dryrun_multichip(4, ["cuda:0"] * 4)`. Times (each
    beside the card's name and power limit): CUDA-event ms per image and
    per stripe of the striped decode's device half at 4 and 8 stripes
-   beside the meshless exact decode's, launches per image and per stripe,
+   beside the meshless exact decode's, launches per image and per stripe
+   (beside the parent's, 26.75 and 30.875 before D1),
    the halo, carry and gather bytes,
    and each DP shard's device ms;
 20. the mesh across two processes: `tools/multiproc_mesh_torch.py --device
@@ -227,7 +233,26 @@ the assembly, and U1, the delta-wire unpack):
    `torch.cumsum`'s device time and the launch floor (U1's kernel built
    with its body taken out, launched the same way). A1's and U1's
    launches are checked in phases 5 (> 0), 16 (1 per large_420 image at
-   fast and exact), 19 (A1 1 per stripe, U1 none) and 21 (> 0).
+   fast and exact), 19 (A1 1 per stripe, U1 none) and 21 (> 0);
+26. P1 (the prefix rebuild, csrc/prefix_rebuild.cu: the prefix wire ->
+   the stores, a base pass and a residual pass) and D1 (a stripe's DC
+   totals, csrc/dc_totals.cu) against their plain versions on the card,
+   tolerance 0: every P1 and D1 call of the real decodes of phases 14, 17,
+   19, 21 and 22, captured by spies on `models/stream.py` and
+   `parallel/stripe_bits.py` and checked after each phase, and here the
+   in-process counterparts of phase 20's (a prefix group of tower_420 and
+   tower_420_q92 on {"data": 8} slots at exact, stripe_420.jpg striped
+   over 8) and the q100 fixture through the prefix route; seeded P1 wires
+   (duplicate, out-of-range and negative indices, an empty residual list,
+   both halves of a 32-bit word, block counts around its tiles, an AC
+   array off 16 bytes) and prefix groups of 1 to 16 tower_420; seeded D1
+   nat of every fixture's plan and large_420's stripe plan. Times: P1's
+   and D1's CUDA-event ms beside their plain versions' (D1 also beside
+   `dc.sum(1)` over its DC view), their device µs by name (P1's two
+   passes apart) at large_420, over a tower_420 group of 16 and on a
+   large_420 stripe, beside the bytes bound. Their launches are checked
+   in phases 14 (P1 2 per image), 17 (2 per prefix group), 19 (D1 1 per
+   stripe, P1 2 per prefix shard) and 20 (per rank).
 
 Any failure raises and the script exits nonzero. It needs a CUDA device and
 the repository around it; it imports neither JAX, nor PIL, nor the JAX
@@ -643,13 +668,19 @@ def phase_three_pairs(jt, data: dict, params, dev) -> int:
     return k1_err
 
 
-def phase_prefix(jt, data: dict) -> None:
-    """14. The prefix interchange against the bits path."""
+def phase_prefix(jt, data: dict) -> dict:
+    """14. The prefix interchange against the bits path, in every layout at
+    both precisions; the launches of one large_420 prefix image by kernel
+    (P1, K2, T1) and in all (profiler), and its device half run under
+    `torch.cuda.set_sync_debug_mode("error")`. Returns the launches of the
+    prefix runs."""
+    from tools.torch_port_profile import kernel_device_us
+
     names = ORDER + PROGRESSIVE
     blobs = [data.get(n) or (FIXTURES / n).read_bytes() for n in names]
     launches = {}
     for precision in ("fast", "exact"):
-        for layout in ("interleaved", "planar-pallas"):
+        for layout in ("interleaved", "planar", "planar-pallas"):
             out = {}
             for interchange in ("bits", "prefix"):
                 torch.cuda.synchronize()
@@ -665,8 +696,32 @@ def phase_prefix(jt, data: dict) -> None:
                 if a.shape != b.shape or not torch.equal(a, b):
                     raise AssertionError(f"prefix {precision} {layout} "
                                          f"{name} differs from bits")
-    if launches["prefix fast interleaved"]["dequant_idct"] < 1:
-        raise AssertionError(f"K2 never ran on prefix: {launches}")
+    if launches["prefix fast interleaved"]["dequant_idct"] < 1 \
+            or launches["prefix fast interleaved"]["prefix_rebuild"] < 1:
+        raise AssertionError(f"K2 or P1 never ran on prefix: {launches}")
+
+    # One large_420 prefix image: P1's two launches, K2 and T1, nothing
+    # else; no operation of its device half waits for the card.
+    with jt.DeviceStreamDecoder(host_threads=1,
+                                interchange="prefix") as dec:
+        staged = dec.stage(data["large_420.jpg"])
+        wires = dec._to_device(staged)
+        dec._run_device(staged, wires)
+        _img, one = counted(jt, lambda: dec._run_device(staged, wires))
+        every = kernel_device_us(lambda: dec._run_device(staged, wires),
+                                 "prefix_base_kernel")["all_launches"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dec._run_device(staged, wires)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    ours = {k: v for k, v in one.items() if v}
+    if ours != {"prefix_rebuild": 2, "dequant_idct": 1,
+                "interleaved_tail": 1} or every > 4:
+        raise AssertionError(f"14 a large_420 prefix image launched {ours}, "
+                             f"{every} kernels in all")
     rates = {}
     for precision in ("fast", "exact"):
         with jt.DeviceStreamDecoder(device="cuda", host_threads=4,
@@ -675,7 +730,12 @@ def phase_prefix(jt, data: dict) -> None:
             rates[f"large_420 {precision}"] = dec.device_resident_rate(
                 data["large_420.jpg"], iters=20)["ms_per_image"]
     say("14 prefix", images=len(names), result="bit-equal to bits",
-        launches=launches, prefix_ms=rates)
+        launches=launches, prefix_ms=rates,
+        large_420_prefix_image={"launches_by_kernel": ours,
+                                "launches_in_all": every,
+                                "parent_launches_in_all_path_ab": 16,
+                                "sync_debug_error": "nothing raised"})
+    return launches["prefix fast interleaved"]
 
 
 def l1_chain_bound(h: int, w: int) -> dict:
@@ -814,7 +874,7 @@ def batch_configs(data: dict) -> list:
     return [
         ("tower_420 x32 at 16", {}, [tower] * 32, 16,
          {"huffman_decode": 2, "dequant_idct": 2, "idct_exact": 0,
-          "interleaved_tail": 2}),
+          "interleaved_tail": 2, "prefix_rebuild": 0}),
         ("large_420 x4 at 4", {}, [large] * 4, 4,
          {"huffman_decode": 1, "dequant_idct": 1, "idct_exact": 0,
           "interleaved_tail": 1}),
@@ -831,11 +891,11 @@ def batch_configs(data: dict) -> list:
           "interleaved_tail": 1}),
         ("tower_420 x8 at 8 prefix", {"interchange": "prefix"}, [tower] * 8,
          8, {"huffman_decode": 0, "dequant_idct": 1, "idct_exact": 0,
-             "interleaved_tail": 1}),
+             "interleaved_tail": 1, "prefix_rebuild": 2}),
         ("tower_420 x8 at 8 prefix exact",
          {"interchange": "prefix", "precision": "exact"}, [tower] * 8, 8,
          {"huffman_decode": 0, "dequant_idct": 0, "idct_exact": 1,
-          "interleaved_tail": 1}),
+          "interleaved_tail": 1, "prefix_rebuild": 2}),
         ("tower_420 x8 at 8 planar-pallas", {"layout": "planar-pallas"},
          [tower] * 8, 8,
          {"huffman_decode": 1, "dequant_idct": 1, "fused_tail": 1,
@@ -1227,6 +1287,9 @@ def phase_front_end(jt, data: dict, dev) -> dict:
 
 MESH_SLOTS = 4          # 19: a mesh of this many slots
 STRIPES = (4, 8)        # 19: large_420's stripe counts
+# 19: the parent's launches per stripe of large_420 by stripe count, before
+# D1 (PR 15's chip_smoke run, c15 in PERF.md), printed beside this run's.
+PARENT_STRIPE_LAUNCHES = {4: 26.75, 8: 30.875}
 
 
 def mesh_devices(n: int) -> list:
@@ -1287,7 +1350,7 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
 
     # large_420 striped: bit-equal, one K1 launch per stripe.
     striped, stripe_launches, e1_stripe_launches, t1_stripe_launches, \
-        a1_stripe_launches = {}, 0, 0, 0, 0
+        a1_stripe_launches, d1_stripe_launches = {}, 0, 0, 0, 0, 0
     staged = jt.stage_host_bits(large)
     exact = jt.stage_host_bits(large, precision="exact")
     with jt.DeviceStreamDecoder(host_threads=1, precision="exact") as plain:
@@ -1303,7 +1366,8 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
         if launches["huffman_decode"] != n or launches["dequant_idct"] \
                 or launches["idct_exact"] != n \
                 or launches["interleaved_tail"] != n \
-                or launches["assemble"] != n or launches["unpack_delta"]:
+                or launches["assemble"] != n or launches["unpack_delta"] \
+                or launches["dc_totals"] != n:
             raise AssertionError(f"19 {n} stripes launched {launches}")
         if not np.array_equal(img.cpu().numpy(), large_gold):
             raise AssertionError(f"19 large_420 at {n} stripes differs from "
@@ -1312,6 +1376,7 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
         e1_stripe_launches += launches["idct_exact"]
         t1_stripe_launches += launches["interleaved_tail"]
         a1_stripe_launches += launches["assemble"]
+        d1_stripe_launches += launches["dc_totals"]
         prof = kernel_device_us(lambda: decode_bits_striped(staged, mesh),
                                 "huffman_decode_kernel", iters=3)
         ms = cuda_ms(lambda: decode_bits_striped(staged, mesh), 5)
@@ -1319,10 +1384,12 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
             "ms_per_image": ms, "ms_per_stripe": ms / n,
             "launches_per_image": prof["all_launches"],
             "launches_per_stripe": prof["all_launches"] / n,
+            "parent_launches_per_stripe_c15": PARENT_STRIPE_LAUNCHES[n],
             "k1_launches": launches["huffman_decode"],
             "e1_launches": launches["idct_exact"],
             "t1_launches": launches["interleaved_tail"],
             "a1_launches": launches["assemble"],
+            "d1_launches": launches["dc_totals"],
             "device_busy_ms": prof["all_device_us"] / 1e3,
             "halo_bytes": exchanged["halo"], "carry_bytes":
             exchanged["carry"], "gather_bytes": exchanged["gather"]}
@@ -1344,7 +1411,8 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
             ("tower_420 x16 at 16", {}, [tower] * 16, 16,
              {"huffman_decode": 4, "dequant_idct": 4}),
             ("prefix tower_420 x8 at 8", {"interchange": "prefix"},
-             [tower] * 8, 8, {"huffman_decode": 0, "dequant_idct": 4}),
+             [tower] * 8, 8, {"huffman_decode": 0, "dequant_idct": 4,
+                              "prefix_rebuild": 8}),
             ("SOF3 512x512 16-bit x8 at 8 predictor 6", {}, sof3, 8,
              {"lossless_recur": 4})):
         with jt.DeviceStreamDecoder(host_threads=4, **kw) as plain:
@@ -1402,7 +1470,10 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
     return {"stripe_launches": stripe_launches,
             "e1_stripe_launches": e1_stripe_launches,
             "t1_stripe_launches": t1_stripe_launches,
-            "a1_stripe_launches": a1_stripe_launches, "k1_err": k1_err,
+            "a1_stripe_launches": a1_stripe_launches,
+            "d1_stripe_launches": d1_stripe_launches, "k1_err": k1_err,
+            "launches_per_stripe": {n: striped[f"{n} stripes"][
+                "launches_per_stripe"] for n in STRIPES},
             "striped_8_ms": striped["8 stripes"]["ms_per_image"]}
 
 
@@ -1437,8 +1508,12 @@ def phase_multiproc(jt, card: str, one_process_ms: float) -> dict:
                        "dequant_idct":
                        sum(phases["3 bits"]["plans_per_shard"])},
             "4 lossless": {"lossless_recur": 4},
-            "5 large_420": {"huffman_decode": 4, "dequant_idct": 0},
-            "5 stripe_420": {"huffman_decode": 4, "dequant_idct": 0}}
+            "3 prefix": {"prefix_rebuild":
+                         2 * phases["3 prefix"]["local_shards"]},
+            "5 large_420": {"huffman_decode": 4, "dequant_idct": 0,
+                            "dc_totals": 4},
+            "5 stripe_420": {"huffman_decode": 4, "dequant_idct": 0,
+                             "dc_totals": 4}}
         wrong = {name: {k: (phases[name]["launches"][k], v)
                         for k, v in counts.items()
                         if phases[name]["launches"][k] != v}
@@ -2157,6 +2232,233 @@ def u1_times(wires: dict, kernel_device_us) -> dict:
     return times
 
 
+class P1D1Calls:
+    """Spies on P1 (`models/stream.py`'s `prefix_stores`) and D1
+    (`parallel/stripe_bits.py`'s `dc_totals`) while installed: every call
+    of the real decodes, each held against its plain version on the same
+    inputs (tolerance 0) by `check(label)`, which counts the calls under
+    that label."""
+
+    def __init__(self):
+        self.p1, self.d1, self.counts = [], [], {}
+        self.saved = None
+
+    def install(self) -> None:
+        from jpeg_decoder_tpu_torch.models import stream
+        from jpeg_decoder_tpu_torch.parallel import stripe_bits
+
+        self.saved = real_p1, real_d1 = (stream.prefix_stores,
+                                         stripe_bits.dc_totals)
+
+        def p1(geometry, *wire):
+            out = real_p1(geometry, *wire)
+            self.p1.append((geometry, wire, out))
+            return out
+
+        def d1(nat, plan):
+            out = real_d1(nat, plan)
+            self.d1.append((nat, plan, out))
+            return out
+
+        stream.prefix_stores, stripe_bits.dc_totals = p1, d1
+
+    def remove(self) -> None:
+        from jpeg_decoder_tpu_torch.models import stream
+        from jpeg_decoder_tpu_torch.parallel import stripe_bits
+
+        stream.prefix_stores, stripe_bits.dc_totals = self.saved
+
+    def check(self, label: str) -> dict:
+        from jpeg_decoder_tpu_torch.entropy.assemble import dc_totals_plain
+        from jpeg_decoder_tpu_torch.entropy.prefix import prefix_stores_plain
+
+        torch.cuda.synchronize()
+        for geometry, wire, out in self.p1:
+            want = prefix_stores_plain(geometry, *wire)
+            if len(out) != len(want) or any(g.shape != w.shape
+                                            for g, w in zip(out, want)):
+                raise AssertionError(f"26 P1 {label}: shapes differ")
+            err = max(int((g.int() - w.int()).abs().max()) if g.numel()
+                      else 0 for g, w in zip(out, want))
+            if err:
+                raise AssertionError(f"26 P1 {label}: differs from its plain "
+                                     f"version by {err}, dc "
+                                     f"{tuple(wire[0].shape)}")
+        for nat, plan, out in self.d1:
+            err = int((out - dc_totals_plain(nat, plan)).abs().max())
+            if err:
+                raise AssertionError(f"26 D1 {label}: differs from its plain "
+                                     f"version by {err}, {tuple(nat.shape)}")
+        got = self.counts[label] = {"P1": len(self.p1), "D1": len(self.d1)}
+        self.p1.clear()
+        self.d1.clear()
+        return got
+
+
+def phase_p1_d1(jt, data: dict, params, dev, card: str,
+                calls: P1D1Calls) -> dict:
+    """26. P1 (the prefix rebuild) and D1 (a stripe's DC totals) against
+    their plain versions on the card, tolerance 0: every call of the real
+    decodes of phases 14, 17, 19, 21 and 22 (`calls`, checked after each)
+    and here the in-process counterparts of phase 20's (tower_420 and
+    tower_420_q92 alternating in a prefix group of 16 on {"data": 8} slots
+    at exact, stripe_420.jpg striped over 8) and the q100 fixture through
+    the prefix route; seeded P1 wires (`P1_SHAPES`: duplicate,
+    out-of-range and negative indices, an empty residual list, block
+    counts around the 256-block tile; a residual on each half of a 32-bit
+    word; an AC array off its 16-byte boundary), prefix groups of 1 to 16
+    tower_420, seeded D1 nat of 1 and 3 images of every fixture's plan and
+    of large_420's stripe plan at 4. Times at large_420's shapes: CUDA
+    events for the wrapper and its plain version, device µs by kernel name
+    (torch.profiler, 20 warm calls; P1's two passes apart) beside the bound;
+    P1 also on the tower_420 x16 group, D1 on a large_420 stripe at 4,
+    beside `dc.sum(1)` over its [b, n_mcus, plen] DC view."""
+    from jpeg_decoder_tpu_torch.entropy.assemble import (dc_totals,
+                                                         dc_totals_plain)
+    from jpeg_decoder_tpu_torch.entropy.chunk_decode import decode_chunks
+    from jpeg_decoder_tpu_torch.entropy.prefix import (prefix_stores,
+                                                       prefix_stores_plain)
+    from jpeg_decoder_tpu_torch.host.staging import stage_host
+    from jpeg_decoder_tpu_torch.parallel import make_mesh
+    from jpeg_decoder_tpu_torch.parallel.stripe_bits import (
+        split_anchored_stripes, stripe_wire)
+    from tools.torch_port_profile import kernel_device_us
+    from torch_inputs import P1_SHAPES, p1_case, whole_geometry
+
+    def card_of(arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrays]
+
+    tower = data["tower_420.jpg"]
+    q92 = (FIXTURES / "tower_420_q92.jpg").read_bytes()
+    q100 = (FIXTURES / "q100" / "q100_420.jpg").read_bytes()
+    calls.install()
+    try:
+        mesh = make_mesh({"data": 8}, mesh_devices(8))
+        with jt.DeviceStreamDecoder(mesh=mesh, host_threads=2,
+                                    interchange="prefix",
+                                    precision="exact") as dec:
+            dec.decode_stream([tower, q92] * 8, batch_size=16)
+        calls.check("20 prefix group on {'data': 8}")
+        mesh = make_mesh({"stripe": 8}, mesh_devices(8))
+        with jt.DeviceStreamDecoder(mesh=mesh, host_threads=1) as dec:
+            img = dec.decode_striped((FIXTURES / "stripe_420.jpg")
+                                     .read_bytes())
+        if calls.check("20 stripe_420 at 8")["D1"] != 8 or not np.array_equal(
+                img.cpu().numpy(), host_exact((FIXTURES / "stripe_420.jpg")
+                                              .read_bytes())):
+            raise AssertionError("26 stripe_420 at 8: not one D1 a stripe, "
+                                 "or differs from the host exact decode")
+        with jt.DeviceStreamDecoder(host_threads=1, interchange="prefix",
+                                    precision="exact") as dec:
+            (img,) = dec.decode_stream([q100])
+        if not np.array_equal(img.cpu().numpy(), host_exact(q100)):
+            raise AssertionError("26 q100 prefix differs from the host exact "
+                                 "decode")
+        calls.check("q100 prefix exact")
+    finally:
+        calls.remove()
+
+    # Seeded P1 wires and prefix groups of 1 to 16, through the spy's check.
+    for images, blocks, entries in P1_SHAPES:
+        wire = card_of(p1_case(images, blocks, entries,
+                               seed=images * 1000 + blocks))
+        geometry = whole_geometry(blocks)
+        calls.p1.append((geometry, wire, prefix_stores(geometry, *wire)))
+    dc, ac, _i, _v = card_of(p1_case(1, 3, 0, seed=5))
+    for idx in ([64], [65], [64, 65], [65, 64, 65, 64], [127, 126, 127]):
+        wire = (dc, ac, torch.tensor(idx, dtype=torch.int32, device=dev),
+                torch.full((len(idx),), 32767, dtype=torch.int16,
+                           device=dev))
+        calls.p1.append((whole_geometry(3), wire,
+                         prefix_stores(whole_geometry(3), *wire)))
+    dc, ac, idx, vals = card_of(p1_case(1, 600, 500, seed=9))
+    raw = torch.zeros(ac.numel() + 16, dtype=torch.int8, device=dev)
+    off = (1 - raw.data_ptr()) % 16
+    shifted = raw[off:off + ac.numel()].view(1, 600, 15)
+    shifted.copy_(ac)
+    calls.p1.append((whole_geometry(600), (dc, shifted, idx, vals),
+                     prefix_stores(whole_geometry(600), dc, shifted, idx,
+                                   vals)))
+    with jt.DeviceStreamDecoder(host_threads=1, interchange="prefix") as dec:
+        one = dec.stage(tower)
+        for n in range(1, 17):
+            wire = dec._group_wires("prefix", [one] * n)
+            calls.p1.append((one.geometry, wire,
+                             prefix_stores(one.geometry, *wire)))
+    seeded_p1 = calls.check("seeded P1")["P1"]
+
+    rng = np.random.default_rng(26)
+    plans = {name: jt.stage_host_bits(data[name]).scans[0].scan.plan
+             for name in ORDER}
+    large_scan = jt.stage_host_bits(data["large_420.jpg"]).scans[0].scan
+    split = split_anchored_stripes(large_scan, 4)
+    plans["large_420 stripe at 4"] = split.plan
+    for label, plan in plans.items():
+        for images in (1, 3):
+            nat = torch.from_numpy(rng.integers(
+                -32768, 32768, (images, plan.n_blocks, 64),
+                dtype=np.int16)).to(dev)
+            calls.d1.append((nat, plan, dc_totals(nat, plan)))
+    seeded_d1 = calls.check("seeded D1")["D1"]
+
+    # Times at large_420's shapes.
+    st = stage_host(data["large_420.jpg"])
+    wire = card_of((st.dc, st.ac, st.resid_idx, st.resid_vals))
+    with jt.DeviceStreamDecoder(host_threads=1, interchange="prefix") as dec:
+        tower_wire = dec._group_wires("prefix", [dec.stage(tower)] * 16)
+    blocks = st.dc.size
+    p1_bytes = blocks * (2 + 15 + 128) + 6 * st.resid_idx.size
+    tower_blocks = tower_wire[0].numel()
+    tower_bytes = tower_blocks * (2 + 15 + 128) + 6 * tower_wire[2].numel()
+    p1_ms = cuda_ms(lambda: prefix_stores(st.geometry, *wire), 50)
+    p1_plain_ms = cuda_ms(lambda: prefix_stores_plain(st.geometry, *wire), 20)
+    times = {}
+    for label, fn, nbytes in (
+            ("P1 large_420", lambda: prefix_stores(st.geometry, *wire),
+             p1_bytes),
+            ("P1 tower_420 x16", lambda: prefix_stores(one.geometry,
+                                                       *tower_wire),
+             tower_bytes)):
+        base = kernel_device_us(fn, "prefix_base_kernel")
+        resid = kernel_device_us(fn, "prefix_resid_kernel")
+        times[label] = {"kernel_us": base["kernel_us"] + resid["kernel_us"],
+                        "base_us": base["kernel_us"],
+                        "residuals_us": resid["kernel_us"],
+                        "launches_per_call":
+                        counted(jt, fn)[1]["prefix_rebuild"],
+                        "bytes": nbytes, "bound_us": bound(nbytes)[0]}
+    words, dm, ab, base_ = card_of(stripe_wire(split, 1)[0])
+    nat = decode_chunks(words, dm, ab, base_, params.tables(large_scan),
+                        stripe_wire(split, 1)[1], split.n_blocks_local)[None]
+    (n_mcus, _r, _c, plen), _specs = split.plan.structured
+    d1_bytes = 32 * nat.shape[0] * nat.shape[1]
+    d1_ms = cuda_ms(lambda: dc_totals(nat, split.plan), 50)
+    d1_plain_ms = cuda_ms(lambda: dc_totals_plain(nat, split.plan), 20)
+    dc_view = nat.view(nat.shape[0], n_mcus, plen, 64)[..., 0]
+    d1_library_ms = cuda_ms(lambda: dc_view.sum(1), 50)
+    prof = kernel_device_us(lambda: dc_totals(nat, split.plan),
+                            "dc_totals_kernel")
+    lib_prof = kernel_device_us(lambda: dc_view.sum(1), "")
+    times["D1 large_420 stripe 2 of 4"] = {
+        "kernel_us": prof["kernel_us"],
+        "launches_per_call": counted(
+            jt, lambda: dc_totals(nat, split.plan))[1]["dc_totals"],
+        "blocks": nat.shape[1],
+        "bytes": d1_bytes, "bound_us": bound(d1_bytes)[0],
+        "library_device_us": lib_prof["all_device_us"],
+        "library_launches": lib_prof["all_launches"]}
+    say("26 P1 and D1 vs plain", card=card, calls_checked=calls.counts,
+        seeded={"P1": seeded_p1, "D1": seeded_d1}, max_abs_err=0,
+        tolerance=0, p1_ms=p1_ms, p1_plain_ms=p1_plain_ms, d1_ms=d1_ms,
+        d1_plain_ms=d1_plain_ms, d1_library_ms=d1_library_ms,
+        times=times)
+    return {"max_abs_err": 0, "p1_ms": p1_ms, "p1_plain_ms": p1_plain_ms,
+            "d1_ms": d1_ms, "d1_plain_ms": d1_plain_ms,
+            "d1_library_ms": d1_library_ms, "times": times,
+            "calls": dict(calls.counts)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2470,11 +2772,15 @@ def main() -> int:
         k4_ms=k4_large["k4_ms"], k4_plain_ms=k4_large["plain_ms"],
         k4_x_ms=k4_large["x_ms"], floor_ms=k4_large["floor_ms"])
 
-    # 11-15. The rest of the one-image decoder.
+    # 11-15. The rest of the one-image decoder; from 14 on, every P1 and D1
+    # call is checked against its plain version (phase 26).
     exact_launches = phase_exact(jt, data, profile_layers)
     k1_err = max(k1_err, phase_transcoded(jt, data, params, dev))
     k1_err = max(k1_err, phase_three_pairs(jt, data, params, dev))
-    phase_prefix(jt, data)
+    p1d1 = P1D1Calls()
+    p1d1.install()
+    prefix_launches = phase_prefix(jt, data)
+    p1d1.check("14 prefix")
     l1_launches, l1_err, l1_ms, l1_plain_ms, l1_call, l1_samples, l1_chain = \
         phase_lossless(jt, dev)
 
@@ -2541,6 +2847,7 @@ def main() -> int:
 
     # 17. Batched dispatch.
     phase_batch(jt, data, params, dev, profile_layers)
+    p1d1.check("17 batches")
 
     # 18. The front end and the service.
     front = phase_front_end(jt, data, dev)
@@ -2548,13 +2855,17 @@ def main() -> int:
     # 19. The mesh.
     mesh = phase_mesh(jt, data, params, dev, card)
     k1_err = max(k1_err, mesh["k1_err"])
+    p1d1.check("19 mesh")
 
     # 20. The mesh across two processes.
     multiproc = phase_multiproc(jt, card, mesh["striped_8_ms"])
 
     # 21. The mutation fuzzer on the card; 22. the sweep and the CLI.
     fuzz = phase_fuzz(jt, card)
+    p1d1.check("21 fuzz")
     phase_tools(jt, card)
+    p1d1.check("22 tools")
+    p1d1.remove()
 
     # 23. E1 against its plain version, its segment table, its times.
     e1 = phase_e1(jt, data, params, dev, card)
@@ -2564,6 +2875,9 @@ def main() -> int:
 
     # 25. A1 and U1 against their plain versions, their times.
     a1u1 = phase_a1_u1(jt, data, params, dev, card)
+
+    # 26. P1 and D1 against their plain versions, their times.
+    p1d1_res = phase_p1_d1(jt, data, params, dev, card, p1d1)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
                     in ("jax", "jaxlib", "jpeg_decoder_tpu"))
@@ -2622,6 +2936,19 @@ def main() -> int:
          "max_abs_err": a1u1["max_abs_err"], "ms": a1u1["u1_ms"],
          "plain_ms": a1u1["u1_plain_ms"],
          "library_ms": a1u1["u1_library_ms"]},
+        {"name": "P1 prefix_rebuild", "route": "cuda",
+         "source": "jpeg_decoder_tpu_torch/csrc/prefix_rebuild.cu",
+         "replaces": "jpeg_decoder_tpu/models/stream.py:92",
+         "launches": prefix_launches["prefix_rebuild"],
+         "max_abs_err": p1d1_res["max_abs_err"], "ms": p1d1_res["p1_ms"],
+         "plain_ms": p1d1_res["p1_plain_ms"], "library_ms": None},
+        {"name": "D1 dc_totals", "route": "cuda",
+         "source": "jpeg_decoder_tpu_torch/csrc/dc_totals.cu",
+         "replaces": "jpeg_decoder_tpu/entropy/device_scan.py:779",
+         "launches": mesh["d1_stripe_launches"],
+         "max_abs_err": p1d1_res["max_abs_err"], "ms": p1d1_res["d1_ms"],
+         "plain_ms": p1d1_res["d1_plain_ms"],
+         "library_ms": p1d1_res["d1_library_ms"]},
     ]
     for row, key in zip(kernels, ("K1", "K2", "K3", "K4", "L1", "E1", "T1",
                                   "A1", "U1")):
@@ -2659,6 +2986,20 @@ def main() -> int:
                                      if k.startswith("U1")},
                       fuzz_launches=fuzz["launches"]["unpack_delta"],
                       launches_per_image_exact=exact_main["unpack_delta"])
+    for row, key in ((kernels[9], "P1 large_420"),
+                     (kernels[10], "D1 large_420 stripe 2 of 4")):
+        tab = p1d1_res["times"][key]
+        row.update(kernel_us=tab["kernel_us"], bound_us=tab["bound_us"],
+                   bound_ms=tab["bound_us"] / 1e3, bound_by="bytes",
+                   phase26_times=p1d1_res["times"],
+                   phase26_calls=p1d1_res["calls"],
+                   fuzz_launches=fuzz["launches"][
+                       "prefix_rebuild" if key.startswith("P1")
+                       else "dc_totals"])
+    kernels[9].update(launches_per_image=2,
+                      phase14_prefix_fast_interleaved=prefix_launches)
+    kernels[10].update(launches_per_stripe=1,
+                       mesh_launches_per_stripe=mesh["launches_per_stripe"])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("huffman_decode.cu", "dequant_idct.cu", "fused_tail.cu",
            "fused_recon.cu", "lossless_recur.cu", "idct_exact.cu",
-           "interleaved_tail.cu", "assemble.cu", "unpack_delta.cu")
+           "interleaved_tail.cu", "assemble.cu", "unpack_delta.cu",
+           "prefix_rebuild.cu", "dc_totals.cu")
 HEADERS = ("idct_mma.cuh",)    # included by sources; part of the hash
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Kernel launch counts, by kernel name; see reset_launches().
 LAUNCHES = {"huffman_decode": 0, "dequant_idct": 0, "fused_tail": 0,
             "fused_recon": 0, "lossless_recur": 0, "idct_exact": 0,
-            "interleaved_tail": 0, "assemble": 0, "unpack_delta": 0}
+            "interleaved_tail": 0, "assemble": 0, "unpack_delta": 0,
+            "prefix_rebuild": 0, "dc_totals": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -198,6 +200,24 @@ def load() -> ctypes.CDLL:
             ctypes.c_uint,  # epoch
             p]              # stream
         lib.jdt_unpack_delta.restype = i
+        lib.jdt_prefix_base.argtypes = [
+            p, p, q,        # dc, ac, blocks
+            p,              # out
+            p]              # stream
+        lib.jdt_prefix_base.restype = i
+        lib.jdt_prefix_resid.argtypes = [
+            p, p, q,        # resid_idx, resid_vals, entries
+            p, q,           # out, its elements
+            p]              # stream
+        lib.jdt_prefix_resid.restype = i
+        lib.jdt_dc_totals.argtypes = [
+            p, q, i,        # nat, n_mcus, plen
+            i, i,           # images, ncomp
+            p,              # host int64[2 ncomp]: s0, bpm per component
+            p,              # out, int64 [images, ncomp]
+            p, q,           # status buffer (counter + partials), its words
+            p]              # stream
+        lib.jdt_dc_totals.restype = i
         lib.jdt_error_string.argtypes = [i]
         lib.jdt_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -209,7 +229,9 @@ def load() -> ctypes.CDLL:
 # epoch used on it. A new epoch for every launch keeps the words of earlier
 # launches from reading as valid, so a buffer is zeroed only when it is
 # made (or outgrown, or its epochs run out). Each kernel has its own, so
-# two kernels on one stream never spend each other's epochs.
+# two kernels on one stream never spend each other's epochs. D1
+# (`dc_totals`) takes its ticket counter and its partial sums from one too,
+# and needs no epoch: its last CTA reads only what this launch wrote.
 _status: dict = {}
 _status_lock = threading.Lock()
 

@@ -45,6 +45,7 @@ import torch
 from .. import _build
 
 A1_ROWS = 256           # blocks of a tile: kRows of csrc/assemble.cu
+D1_MCUS = 256           # MCUs of a CTA: kThreads of csrc/dc_totals.cu
 
 
 def _segmented_dc(diffs: torch.Tensor, seg_blocks: int,
@@ -79,13 +80,73 @@ def dc_totals(nat: torch.Tensor, plan) -> torch.Tensor:
     64] in stream order, or [N, n_blocks, 64]) of a plan with the
     structured form (every stripe's: the splitter declines the others):
     int64 [ncomp] (or [N, ncomp]). For a stripe, the carry of the next:
-    the reference's `_dc_carry` all-gathers `cum[-1]`, this sum."""
+    the reference's `_dc_carry` all-gathers `cum[-1]`, this sum. CPU
+    tensors run `dc_totals_plain`, CUDA tensors kernel D1
+    (`csrc/dc_totals.cu`, one launch), anything else raises; a plan
+    without the structured form raises."""
+    if plan.structured is None:
+        raise ValueError("dc_totals needs a plan with the structured form")
+    if nat.device.type == "cpu":
+        return dc_totals_plain(nat, plan)
+    if nat.device.type != "cuda":
+        raise ValueError(f"no D1 implementation for device {nat.device}")
+    return _dc_totals_d1(nat, plan)
+
+
+def dc_totals_plain(nat: torch.Tensor, plan) -> torch.Tensor:
+    """Plain PyTorch version of D1, arguments and result as `dc_totals`'.
+    Runs on any device; the CPU path and `chip_smoke.py`'s on-card
+    comparison use it."""
     if nat.dim() == 2:
-        return dc_totals(nat[None], plan)[0]
+        return dc_totals_plain(nat[None], plan)[0]
     (n_mcus, _rows_d, _cols_d, plen), specs = plan.structured
     dc = nat.reshape(nat.shape[0], n_mcus, plen, 64)[..., 0]
     return torch.stack([dc[:, :, s0:s0 + bpm].sum((1, 2), dtype=torch.int64)
                         for (s0, bpm, *_rest) in specs], 1)
+
+
+def _d1_prepare(nat: torch.Tensor, plan) -> tuple:
+    """The checks and allocations of a D1 call on nat [N, n_blocks, 64]:
+    (the output int64 [N, ncomp], the components' (s0, bpm) as
+    `jdt_dc_totals` takes them, the CTAs of the launch)."""
+    (n_mcus, _rows_d, _cols_d, plen), specs = plan.structured
+    if nat.dtype != torch.int16 or nat.dim() != 3 \
+            or nat.shape[1:] != (n_mcus * plen, 64) \
+            or not nat.is_contiguous():
+        raise ValueError(f"nat must be contiguous int16 [N, {n_mcus * plen}, "
+                         f"64], got {nat.dtype} {tuple(nat.shape)}")
+    ncomp = len(specs)
+    out = torch.empty((nat.shape[0], ncomp), dtype=torch.int64,
+                      device=nat.device)
+    meta = (ctypes.c_longlong * (2 * ncomp))(
+        *[v for (s0, bpm, *_rest) in specs for v in (s0, bpm)])
+    return out, meta, nat.shape[0] * max(1, -(-n_mcus // D1_MCUS))
+
+
+def _d1_launch(lib, nat, plan, out, meta, status, stream) -> int:
+    """One `jdt_dc_totals` call (the kernel's launch), its error code."""
+    (n_mcus, _rows_d, _cols_d, plen), specs = plan.structured
+    return lib.jdt_dc_totals(nat.data_ptr(), n_mcus, plen, nat.shape[0],
+                             len(specs), meta, out.data_ptr(),
+                             status.data_ptr(), status.numel() - 1, stream)
+
+
+def _dc_totals_d1(nat: torch.Tensor, plan) -> torch.Tensor:
+    if nat.dim() == 2:
+        return _dc_totals_d1(nat[None], plan)[0]
+    out, meta, ctas = _d1_prepare(nat, plan)
+    if nat.shape[0] == 0:
+        return out
+    dev = nat.device
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status, _epoch = _build.status_buffer("dc_totals", dev, stream,
+                                              ctas * out.shape[1], 32)
+        err = _d1_launch(lib, nat, plan, out, meta, status, stream)
+        _build.LAUNCHES["dc_totals"] += 1
+    _build.check(lib, err, "dc_totals")
+    return out
 
 
 def assemble_structured(nat: torch.Tensor, plan, carry=None) -> list:

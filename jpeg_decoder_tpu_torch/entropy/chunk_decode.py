@@ -151,7 +151,7 @@ def _check_inputs(words, dm, ab, base, tables: ScanTables, s_max: int,
 
 
 def decode_chunks(words, dm, ab, base, tables: ScanTables, s_max: int,
-                  n_blocks: int) -> torch.Tensor:
+                  n_blocks: int, out: torch.Tensor = None) -> torch.Tensor:
     """Decode every chunk of one scan into nat, int16 [n_blocks, 64].
 
     words: int32 [n_words] big-endian stream words (uint32 bit patterns),
@@ -165,14 +165,26 @@ def decode_chunks(words, dm, ab, base, tables: ScanTables, s_max: int,
     first chunk may begin before the stripe (`parallel/stripe_bits.py`,
     base < 0). The kernel writes every row of `nat` itself (no zero fill
     first), which needs the chunks' first blocks `base` to be
-    nondecreasing, as both wires and the stripe wire make them."""
+    nondecreasing, as both wires and the stripe wire make them.
+
+    `out`: where to write nat instead of a new tensor, contiguous int16
+    [n_blocks, 64] on the words' device (a view of a larger tensor, such as
+    one image's rows of a stripe's [b, n_blocks, 64]); it is returned."""
     _check_inputs(words, dm, ab, base, tables, s_max, n_blocks)
+    if out is not None and (
+            out.dtype != torch.int16 or out.shape != (n_blocks, 64)
+            or not out.is_contiguous() or out.device != words.device
+            or out.data_ptr() % 16):
+        raise ValueError(f"out must be contiguous int16 [{n_blocks}, 64] on "
+                         f"{words.device} on a 16-byte boundary, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
     if words.device.type == "cpu":
         return decode_chunks_plain(words, dm, ab, base, tables, s_max,
-                                   n_blocks)
+                                   n_blocks, out)
     if words.device.type != "cuda":
         raise ValueError(f"no K1 implementation for device {words.device}")
-    nat = torch.empty((n_blocks, 64), dtype=torch.int16, device=words.device)
+    nat = out if out is not None else torch.empty(
+        (n_blocks, 64), dtype=torch.int16, device=words.device)
     lib = _build.load()
     with torch.cuda.device(words.device):
         err = lib.jdt_huffman_decode(
@@ -190,12 +202,13 @@ def decode_chunks(words, dm, ab, base, tables: ScanTables, s_max: int,
 
 
 def decode_chunks_plain(words, dm, ab, base, tables: ScanTables, s_max: int,
-                        n_blocks: int) -> torch.Tensor:
+                        n_blocks: int, out: torch.Tensor = None
+                        ) -> torch.Tensor:
     """Plain PyTorch version of K1: the same state machine, vectorized over
     chunks, one step of every chunk at a time. All bit arithmetic runs in
     int64 on 32-bit patterns, so shifts are logical as in the kernel. Runs
     on any device; the CPU tests and `chip_smoke.py`'s on-card comparison
-    use it."""
+    use it. `out` as `decode_chunks` takes it (the result copied there)."""
     dev = words.device
     i64 = torch.int64
     w = words.to(i64) & 0xFFFFFFFF
@@ -276,4 +289,5 @@ def decode_chunks_plain(words, dm, ab, base, tables: ScanTables, s_max: int,
         blk = blk + done.to(i64)
         slot_next = slot + done.to(i64)
         slot = torch.where(slot_next >= plen, 0, slot_next)
-    return flat[:sink].view(n_blocks, 64)
+    nat = flat[:sink].view(n_blocks, 64)
+    return nat if out is None else out.copy_(nat)

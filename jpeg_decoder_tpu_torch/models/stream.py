@@ -47,8 +47,8 @@ Device stage (per image or per group, on the caller's thread,
   assembly (DC prefix sums, raster placement), then reconstruction: the
   exact int32 IDCT (kernel E1) or kernel K2 by precision, then
   upsampling and color, or K2 and kernel K3 on "planar-pallas";
-- prefix: the zigzag prefix and residuals rebuilt into stores, then the
-  same reconstruction;
+- prefix: the zigzag prefix and residuals rebuilt into stores (kernel P1,
+  `entropy/prefix.py`), then the same reconstruction;
 - lossless: the predictor closed forms or kernel L1, then the interleave.
 
 Batches (`decode_stream(batch_size=N)`, the reference's grouping loop,
@@ -104,6 +104,7 @@ import torch
 
 from ..entropy.assemble import GeneralMaps, assemble_nat
 from ..entropy.chunk_decode import decode_chunks, unpack_delta
+from ..entropy.prefix import prefix_stores
 from ..host.decoder import Decoder
 from ..host.entropy.prescan import AnchoredScan, PrescanFallback
 from ..host.entropy.transcode import transcode_decoded
@@ -113,9 +114,9 @@ from ..host.errors import FormatError, JpegError
 from ..host.ops.pipeline import ImageGeometry, geometry_from_frame
 from ..host.ops.tail import is_420_ycbcr
 from ..host.parser import CodingProcess, Predictor
-from ..host.staging import (_ZIGZAG_OF_NATURAL, PREFIX_K, BitstreamCapture,
-                            StagedImage, StagedLossless, _LosslessCapture,
-                            _staged_lossless_from_capture, stage_host)
+from ..host.staging import (BitstreamCapture, StagedImage, StagedLossless,
+                            _LosslessCapture, _staged_lossless_from_capture,
+                            stage_host)
 from ..ops.pipeline import reconstruct, reconstruct_planar_pallas
 from ..ops.predictors import reconstruct_planes
 from ..parallel.dist import Remote, Shard
@@ -366,33 +367,6 @@ def _batch_bucket(n: int) -> int:
     while size < n:
         size *= 2
     return size
-
-
-def prefix_stores(geometry, dc, ac, resid_idx, resid_vals) -> list:
-    """The reference's `_compiled_prefix_pipeline` up to the stores, for one
-    image or a group of N of one geometry: int16 dc [N, n] (or [n]) and int8
-    ac [N, n, 15] (zigzag slots 1..15) -> zigzag [N, n, 64] int16,
-    permuted to natural order, plus the residuals scatter-added (wrapping in
-    int16). `resid_idx` indexes the group's stores flattened image after
-    image (image i's indices offset by i times an image's coefficients);
-    indices outside them (the padding) are dropped, as `mode="drop"` does,
-    by sending them to a sink element past the end. Returns one int16
-    [N, blocks, 64] store per component (views: each image's slab of a
-    component is contiguous)."""
-    dc = dc.reshape(-1, dc.shape[-1])
-    n, nb = dc.shape
-    padded = torch.cat([dc[..., None], ac.reshape(n, nb, -1).to(torch.int16),
-                        dc.new_zeros((n, nb, 64 - PREFIX_K))], dim=-1)
-    perm = torch.as_tensor(_ZIGZAG_OF_NATURAL, dtype=torch.int64,
-                           device=dc.device)
-    total = n * nb * 64
-    dense = torch.cat([padded[..., perm].reshape(-1), dc.new_zeros(1)])
-    idx = resid_idx.reshape(-1).to(torch.int64)
-    idx = torch.where((idx >= 0) & (idx < total), idx, total)
-    dense.index_add_(0, idx, resid_vals.reshape(-1))
-    sizes = [c.blocks_high * c.blocks_wide * 64 for c in geometry.components]
-    return [s.view(n, -1, 64)
-            for s in dense[:total].view(n, nb * 64).split(sizes, dim=1)]
 
 
 def lossless_images(st: StagedLossless, diffs: torch.Tensor) -> torch.Tensor:
@@ -675,6 +649,7 @@ class DeviceStreamDecoder:
         rv = np.zeros((n, width), np.int16)
         for i, st in enumerate(group):
             idx = st.resid_idx.astype(np.int64)
+            idx = np.where(idx < 0, idx + total, idx)   # as mode="drop"
             ri[i, :len(idx)] = np.where((idx >= 0) & (idx < total),
                                         idx + i * total, n * total)
             rv[i, :len(idx)] = st.resid_vals

@@ -291,11 +291,10 @@ def exclusive_carry(totals: list, owners=None) -> list:
         CROSSED["carry"] += got[i].numel() * got[i].element_size()
     out = []
     for d, t in at.items():
-        acc = torch.zeros_like(t)
-        for e in range(d):
-            src = at[e] if e in at else got[slot[e]]
-            acc = acc + _copy_to(src, t.device, "carry")
-        out.append(acc)
+        parts = [_copy_to(at[e] if e in at else got[slot[e]], t.device,
+                          "carry") for e in range(d)]
+        out.append(torch.stack(parts).sum(0, dtype=t.dtype) if parts
+                   else torch.zeros_like(t))
     return out
 
 

@@ -37,9 +37,10 @@ Device half: per stripe, on its device, the 12 B/chunk anchor wire
 (`stripe_wire`: the stripe's words, `budget << 4 | slot` with the last
 real chunk's budget stopping at the stripe's real block extent, entry bits
 rebased to the words, first blocks rebased, the straddler's negative),
-K1 over the stripe's blocks, assembly with the carry of every earlier
-stripe, then the halo'd exact reconstruction. Each stripe runs its real
-chunk count: eager launches need no bucket-padded items.
+K1 over the stripe's blocks of each image into its rows of one nat a
+stripe, the DC totals (kernel D1), assembly with the carry of every
+earlier stripe, then the halo'd exact reconstruction. Each stripe runs its
+real chunk count: eager launches need no bucket-padded items.
 """
 
 from __future__ import annotations
@@ -243,16 +244,15 @@ def _decode_stripes(staged_list: list, splits: list, devs, mesh,
     nats, totals = [], []
     for d in at:
         params = mesh.params(devs[d])
-        per_image = []
-        for st, sp in zip(staged_list, splits):
+        nat = torch.empty((len(staged_list), s0.n_blocks_local, 64),
+                          dtype=torch.int16, device=devs[d])
+        for st, sp, rows in zip(staged_list, splits, nat):
             scan = st.scans[0].scan
             arrays, s_max = stripe_wire(sp, d)
             words, dm, ab, base = put(arrays, devs[d])
             with torch.profiler.record_function("k1_decode"):
-                per_image.append(decode_chunks(
-                    words, dm, ab, base, params.tables(scan), s_max,
-                    sp.n_blocks_local))
-        nat = torch.stack(per_image)
+                decode_chunks(words, dm, ab, base, params.tables(scan),
+                              s_max, sp.n_blocks_local, out=rows)
         nats.append(nat)
         totals.append(dc_totals(nat, s0.plan))         # [b, ncomp] int64
     carries = exclusive_carry(totals, owners)

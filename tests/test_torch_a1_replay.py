@@ -1,12 +1,13 @@
 """Kernels A1 (`csrc/assemble.cu`) and U1 (`csrc/unpack_delta.cu`) replayed
 on the CPU from their own sources: each .cu is compiled by the host's g++
 (C++20) with a small shim for the CUDA it uses (`threadIdx`, `__shared__`,
-`uint4`, the warp shuffles and `__ballot_sync`, `atomicAdd` and
-`atomicExch`, the loads and stores of the status words (A1's acquire and
-release, U1's relaxed), `__nanosleep`), and each launch is run with every thread of a CTA on a
-host thread of its own: `__syncthreads()` a `std::barrier` of the CTA's
-threads, a shuffle an exchange through memory between two barriers of the
-warp's 32 threads. Both run the constants the card runs.
+`uint4`, the warp shuffles and `__ballot_sync`, `atomicAdd`, `atomicExch`
+and `atomicCAS`, `__constant__`, `__threadfence`, `__ldcg` and `__stcg`,
+the loads and stores of the status words (A1's acquire and release, U1's
+relaxed), `__nanosleep`), and each launch is run with every thread of a
+CTA on a host thread of its own: `__syncthreads()` a `std::barrier` of the
+CTA's threads, a shuffle an exchange through memory between two barriers
+of the warp's 32 threads. Both run the constants the card runs.
 
 The CTAs of a launch run in waves: a wave of 1 runs them one after
 another, in the order the kernel's tile counter hands out the tiles; a
@@ -84,6 +85,7 @@ inline int cudaGetLastError() { return 0; }
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __grid_constant__
+#define __constant__
 struct Cta {
   explicit Cta(int threads) : bar(threads), xch(threads) {
     for (int w = 0; w < threads / 32; ++w)
@@ -148,6 +150,21 @@ inline unsigned atomicAdd(unsigned* p, unsigned v) {
 inline unsigned atomicExch(unsigned* p, unsigned v) {
   return std::atomic_ref<unsigned>(*p).exchange(v);
 }
+// The old value, as on the card: `cmp` keeps it where the exchange fails.
+inline unsigned atomicCAS(unsigned* p, unsigned cmp, unsigned v) {
+  std::atomic_ref<unsigned>(*p).compare_exchange_strong(cmp, v);
+  return cmp;
+}
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+template <class T> void __stcg(T* p, T v) {
+  std::atomic_ref<T>(*p).store(v, std::memory_order_relaxed);
+}
+template <class T> T __ldcg(const T* p) {
+  return std::atomic_ref<T>(*const_cast<T*>(p)).load(
+      std::memory_order_relaxed);
+}
 // CTAs in waves of g_wave, each of its threads on a host thread: a wave of
 // 1 runs them one after another, in ticket order.
 template <class K, class... A>
@@ -192,16 +209,16 @@ def _host_source(src: str) -> str:
     """A .cu with the shim in place of CUDA's runtime header, its shared
     memory per CTA, its status words' accesses (A1's acquire loads and
     release stores, U1's relaxed ones) atomic_ref ones of the same order,
-    and its launch replayed."""
-    def sub(pattern, repl):
+    and its launches replayed."""
+    def sub(pattern, repl, many=False):
         nonlocal src
         src, n = re.subn(pattern, repl, src, flags=re.S)
-        assert n == 1, pattern
+        assert n == 1 or (many and n > 1), pattern
 
     sub(r"#include <cuda_runtime.h>", '#include "shim.h"')
     sub(r"__shared__ Smem sm;", "Smem& sm = shared_of<Smem>();")
     sub(r"(\w+)<<<(.*?), kThreads, 0,\s*static_cast<cudaStream_t>\(stream\)"
-        r">>>\(", r"replay(\1, \2, kThreads, ")
+        r">>>\(", r"replay(\1, \2, kThreads, ", many=True)
     for load, store, load_order, store_order in (
             ("load_acquire", "store_release", "acquire", "release"),
             ("load_relaxed", "store_relaxed", "relaxed", "relaxed")):

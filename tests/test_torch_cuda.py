@@ -73,7 +73,18 @@ stream, each on its own status buffer; one kernel a call and nothing
 else (no fill); `decode_stream(batch_size=16)` of large_420 with one U1
 over many tiles, every image bit-equal to its batch-1 decode. One A1 and
 one U1 per large_420 decode and per group of 4, one A1 per stripe and no
-U1 on the anchor wires of stripes.
+U1 on the anchor wires of stripes. P1 (the prefix rebuild) bit-equal to
+its plain version on seeded wires (duplicate, out-of-range and negative
+indices, an empty list, block counts around its tiles), on every
+fixture's prefix wire and the q100 fixture, and on a merged group of 16;
+two launches a call (one without residuals); a large_420 prefix image is
+P1, K2 and T1 and no other kernel; wrong dtypes, shapes and devices
+refused without a launch. D1 (a stripe's DC totals) bit-equal to its
+plain version on every fixture's plan for 1 and 3 images, 1,000 launches
+in a row, once per stripe of large_420 at 4 and 8; K1 writing into the
+rows of a larger tensor (`decode_chunks(out=)`). The bits, prefix and
+lossless device halves (`_run_device`, `_run_group`) under
+`torch.cuda.set_sync_debug_mode("error")`: nothing synchronises.
 """
 
 import time
@@ -97,8 +108,9 @@ from jpeg_decoder_tpu_torch.params import DeviceParams
 from jpeg_decoder_tpu_torch.ops.predictors import (lossless_recur,
                                                    lossless_recur_plain)
 
-from torch_inputs import (A1_CASES, ODD_TAIL_LAYOUTS, SMALL_FIXTURES,
-                          T1_CASES, a1_case,
+from torch_inputs import (A1_CASES, ODD_TAIL_LAYOUTS, P1_SHAPES,
+                          SMALL_FIXTURES, T1_CASES, a1_case, p1_case,
+                          whole_geometry,
                           T1_LAYOUTS, TAIL_CASES, adversarial_blocks,
                           fixture, odd_tail_case, oracle_stores, t1_args,
                           t1_geometry, t1_pixels, tail_planes,
@@ -1262,3 +1274,240 @@ def test_u1_once_for_a_group_of_16_large_420(cuda):
     assert all(torch.equal(g, w.to(cuda))
                for g, w in zip(out, unpack_delta_plain(dm.cpu())))
     assert len(group) == 16 and all(torch.equal(img, one) for img in group)
+
+
+def _host_tensors(arrays) -> list:
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("images,blocks,entries", P1_SHAPES)
+def test_p1_bit_equal_to_plain_on_seeded_wires(cuda, images, blocks,
+                                               entries):
+    """Duplicate, out-of-range and negative residual indices, an empty
+    list, block counts around P1's 256-block tiles; two launches where
+    there are residuals, one where there are none."""
+    from jpeg_decoder_tpu_torch.entropy.prefix import (prefix_stores,
+                                                       prefix_stores_plain)
+
+    arrays = _host_tensors(p1_case(images, blocks, entries,
+                                   seed=images * 1000 + blocks))
+    geometry = whole_geometry(blocks)
+    before = jt.LAUNCHES["prefix_rebuild"]
+    (got,) = prefix_stores(geometry, *(a.to(cuda) for a in arrays))
+    torch.cuda.synchronize()
+    assert jt.LAUNCHES["prefix_rebuild"] - before == 1 + (entries > 0)
+    (want,) = prefix_stores_plain(geometry, *arrays)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    (plain,) = prefix_stores_plain(geometry, *(a.to(cuda) for a in arrays))
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("name", SMALL_FIXTURES + (
+    "tower_420.jpg", "large_420.jpg", "q100/q100_420.jpg"))
+def test_p1_bit_equal_to_plain_on_fixture_wires(cuda, name):
+    from jpeg_decoder_tpu_torch.entropy.prefix import (prefix_stores,
+                                                       prefix_stores_plain)
+    from jpeg_decoder_tpu_torch.host.staging import stage_host
+
+    st = stage_host(fixture(name))
+    arrays = _host_tensors((st.dc, st.ac, st.resid_idx, st.resid_vals))
+    got = prefix_stores(st.geometry, *(a.to(cuda) for a in arrays))
+    want = prefix_stores_plain(st.geometry, *arrays)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g.cpu(), w)
+
+
+def test_p1_group_of_16_on_card(cuda):
+    """A prefix group of 16 tower_420: one P1 rebuild (two launches) for
+    the group, equal to its plain version on the merged wire, and every
+    image bit-equal to its batch-1 decode."""
+    from jpeg_decoder_tpu_torch.entropy.prefix import (prefix_stores,
+                                                       prefix_stores_plain)
+
+    blob = fixture("tower_420.jpg")
+    with jt.DeviceStreamDecoder(host_threads=2, interchange="prefix") as dec:
+        (one,) = dec.decode_stream([blob])
+        group = [dec.stage(blob) for _ in range(16)]
+        wires = dec._group_wires("prefix", group)
+        torch.cuda.synchronize()
+        jt.reset_launches()
+        out = dec._run_group("prefix", group, wires)
+        torch.cuda.synchronize()
+        assert jt.LAUNCHES["prefix_rebuild"] == 2
+        got = prefix_stores(group[0].geometry, *wires)
+        want = prefix_stores_plain(group[0].geometry, *wires)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(img, one) for img in out)
+
+
+def test_prefix_route_launches_p1_k2_and_t1_only(cuda):
+    """A large_420 prefix image at fast, interleaved: P1's two launches,
+    K2 and T1, and no other kernel on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with jt.DeviceStreamDecoder(host_threads=1,
+                                interchange="prefix") as dec:
+        staged = dec.stage(fixture("large_420.jpg"))
+        wires = dec._to_device(staged)
+        dec._run_device(staged, wires)
+        torch.cuda.synchronize()
+        jt.reset_launches()
+        for _attempt in range(3):   # a trace now and then comes back empty
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                dec._run_device(staged, wires)
+                torch.cuda.synchronize()
+            on_card = [e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            if on_card:
+                break
+    assert jt.LAUNCHES["prefix_rebuild"] % 2 == 0
+    assert jt.LAUNCHES["prefix_rebuild"] // 2 == jt.LAUNCHES[
+        "dequant_idct"] == jt.LAUNCHES["interleaved_tail"] >= 1
+    kernels = ("dequant_idct_kernel", "interleaved_tail_kernel",
+               "prefix_base_kernel", "prefix_resid_kernel")
+    assert len(on_card) == 4, on_card
+    assert sorted(k for e in on_card for k in kernels if k in e) == \
+        list(kernels), on_card
+
+
+@pytest.mark.parametrize("route", ["bits", "prefix", "lossless"])
+def test_device_routes_never_synchronise(cuda, route):
+    """`_run_device` and `_run_group` on the bits, prefix and lossless
+    routes under `torch.cuda.set_sync_debug_mode("error")`: no operation
+    on them waits for the card (after one warm-up decode, which copies
+    the per-table constants to the card once)."""
+    from tools.make_torch_fixtures import sof3_jpeg, sof3_samples
+
+    if route == "lossless":
+        blob = sof3_jpeg(sof3_samples(64, 48, 3, 16, 0, seed=4), 6, 0, 16)
+    else:
+        blob = fixture("large_420.jpg")
+    interchange = "prefix" if route == "prefix" else "bits"
+    with jt.DeviceStreamDecoder(host_threads=1,
+                                interchange=interchange) as dec:
+        staged = dec.stage(blob)
+        group = [dec.stage(blob) for _ in range(4)]
+        wires = dec._to_device(staged)
+        group_wires = dec._group_wires(route, group)
+        dec._run_device(staged, wires)
+        dec._run_group(route, group, group_wires)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            one = dec._run_device(staged, wires)
+            many = dec._run_group(route, group, group_wires)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    assert all(torch.equal(img, one) for img in many)
+
+
+def test_p1_refuses_what_it_does_not_take(cuda):
+    from jpeg_decoder_tpu_torch.entropy.prefix import prefix_stores
+
+    dc, ac, idx, vals = (a.to(cuda) for a in _host_tensors(
+        p1_case(1, 40, 30, seed=1)))
+    geometry = whole_geometry(40)
+    before = jt.LAUNCHES["prefix_rebuild"]
+    for args in ((dc, ac, idx.long(), vals), (dc.int(), ac, idx, vals),
+                 (dc, ac[:, :20], idx, vals), (dc, ac, idx, vals[:-1]),
+                 (dc, ac, idx.cpu(), vals)):
+        with pytest.raises(ValueError):
+            prefix_stores(geometry, *args)
+    assert jt.LAUNCHES["prefix_rebuild"] == before
+
+
+@pytest.mark.parametrize("name", SMALL_FIXTURES + ("tower_420.jpg",
+                                                  "large_420.jpg"))
+def test_d1_bit_equal_to_plain_on_fixture_plans(cuda, name):
+    """Seeded full-range nat of 1 and 3 images of every fixture's plan
+    (large_420: 53 of D1's CTAs an image), one launch a call."""
+    from jpeg_decoder_tpu_torch.entropy.assemble import (dc_totals,
+                                                         dc_totals_plain)
+
+    (st,) = jt.stage_host_bits(fixture(name)).scans
+    plan = st.scan.plan
+    rng = np.random.default_rng(len(name))
+    for images in (1, 3):
+        nat = torch.from_numpy(rng.integers(-32768, 32768,
+                                            (images, plan.n_blocks, 64),
+                                            dtype=np.int16))
+        before = jt.LAUNCHES["dc_totals"]
+        got = dc_totals(nat.to(cuda), plan)
+        torch.cuda.synchronize()
+        assert jt.LAUNCHES["dc_totals"] == before + 1
+        assert got.dtype == torch.int64 and torch.equal(
+            got.cpu(), dc_totals_plain(nat, plan))
+    assert torch.equal(dc_totals(nat[0].to(cuda), plan).cpu(),
+                       dc_totals_plain(nat[0], plan))
+
+
+def test_d1_a_thousand_launches_in_a_row(cuda):
+    """The ticket counter goes back to 0 after every launch: 1,000 calls
+    of two sizes in turn, each equal to its plain version."""
+    from jpeg_decoder_tpu_torch.entropy.assemble import (dc_totals,
+                                                         dc_totals_plain)
+
+    plans, nats = [], []
+    for name in ("tower_420.jpg", "large_420.jpg"):
+        (st,) = jt.stage_host_bits(fixture(name)).scans
+        plans.append(st.scan.plan)
+        nats.append(torch.from_numpy(np.random.default_rng(7).integers(
+            -32768, 32768, (1, st.scan.plan.n_blocks, 64),
+            dtype=np.int16)).to(cuda))
+    want = [dc_totals_plain(n, p) for n, p in zip(nats, plans)]
+    outs = [dc_totals(nats[i % 2], plans[i % 2]) for i in range(1000)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want[i % 2]) for i, o in enumerate(outs))
+
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_d1_once_per_stripe(cuda, n):
+    """large_420 striped over n slots: one D1 launch a stripe, each call
+    equal to its plain version, K1 writing each stripe's one nat, the
+    image bit-equal to the host exact decode."""
+    from jpeg_decoder_tpu_torch.entropy.assemble import dc_totals_plain
+    from jpeg_decoder_tpu_torch.host.decoder import Decoder as HostDecoder
+    from jpeg_decoder_tpu_torch.parallel import make_mesh, stripe_bits
+
+    calls = []
+    real = stripe_bits.dc_totals
+
+    def spy(nat, plan):
+        out = real(nat, plan)
+        calls.append((nat, plan, out))
+        return out
+
+    data = fixture("large_420.jpg")
+    mesh = make_mesh({"stripe": n}, ["cuda:0"] * n)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(stripe_bits, "dc_totals", spy)
+        with jt.DeviceStreamDecoder(mesh=mesh, host_threads=1) as dec:
+            jt.reset_launches()
+            img = dec.decode_striped(data)
+            torch.cuda.synchronize()
+    assert jt.LAUNCHES["dc_totals"] == n == len(calls)
+    assert jt.LAUNCHES["huffman_decode"] == n
+    for nat, plan, out in calls:
+        assert nat.shape[0] == 1 and torch.equal(out,
+                                                 dc_totals_plain(nat, plan))
+    gold = HostDecoder(data, backend="numpy", precision="exact")
+    assert np.array_equal(img.cpu().numpy(), gold.decode_array())
+
+
+def test_k1_into_rows_of_a_larger_tensor_on_card(cuda):
+    """`decode_chunks(out=)` on the card: K1 writes the rows it is given,
+    equal to the allocating call, the rows around them untouched."""
+    params = DeviceParams(cuda)
+    (st,) = jt.stage_host_bits(fixture("tower_420.jpg")).scans
+    dm = torch.from_numpy(st.dm).to(cuda)
+    ab, base = unpack_delta(dm)
+    args = (torch.from_numpy(st.words).to(cuda), dm, ab, base,
+            params.tables(st.scan), st.s_max, st.scan.plan.n_blocks)
+    nat = torch.full((3, st.scan.plan.n_blocks, 64), -7, dtype=torch.int16,
+                     device=cuda)
+    got = decode_chunks(*args, out=nat[1])
+    assert got.data_ptr() == nat[1].data_ptr()
+    assert torch.equal(nat[1], decode_chunks(*args))
+    assert (nat[0] == -7).all() and (nat[2] == -7).all()

@@ -11,7 +11,10 @@ stripe_bits`) against the JAX package's, on CPU meshes: the port's on
 - The host split (`split_anchored_stripes`): every array and the plan key
   equal to the reference's, and None where the reference declines.
 - The stripe wire: every budget and slot inside the anchor wire's fields.
-- The DC seam carry in both assemblers, and none for restart segments.
+- The DC seam carry in both assemblers, and none for restart segments;
+  `dc_totals` (D1's wrapper) equal to `dc_totals_plain`, refusing plans
+  without the closed form and devices without D1; K1 into the rows of a
+  stripe's nat (`decode_chunks(out=)`) equal to the allocating call.
 - `decode_bits_striped`: bit-equal to the reference's and to the host
   copy's `Decoder(backend="numpy")` over the reference's stripe cases
   (`tests/test_stripe_bits.py:55-69`) and one with empty stripes; DP x SP
@@ -32,7 +35,8 @@ from jpeg_decoder_tpu.parallel.stripe_bits import (
 from jpeg_decoder_tpu_torch.entropy.assemble import (GeneralMaps,
                                                      assemble_general,
                                                      assemble_structured,
-                                                     dc_totals)
+                                                     dc_totals,
+                                                     dc_totals_plain)
 from jpeg_decoder_tpu_torch.entropy.chunk_decode import (decode_chunks,
                                                          decode_chunks_plain)
 from jpeg_decoder_tpu_torch.host.decoder import Decoder as HostDecoder
@@ -118,6 +122,44 @@ def test_plain_k1_with_no_chunk_is_zero():
     assert nat.shape == (40, 64) and not nat.any()
 
 
+def test_k1_into_rows_of_a_larger_tensor():
+    """`decode_chunks(out=)`: K1 writes one image's rows of a stripe's
+    [b, n_blocks, 64] nat, equal to the allocating call, the other rows
+    untouched; an `out` of the wrong shape, type or layout raises."""
+    data, n = stripe_case("420")
+    full = jt.stage_host_bits(data).scans[0].scan
+    split = split_anchored_stripes(full, n)
+    arrays, s_max = stripe_wire(split, 2)
+    args = [torch.from_numpy(a) for a in arrays] + [
+        scan_tables(full, "cpu"), s_max, split.n_blocks_local]
+    want = decode_chunks(*args)
+    nat = torch.full((3, split.n_blocks_local, 64), -7, dtype=torch.int16)
+    got = decode_chunks(*args, out=nat[1])
+    assert got.data_ptr() == nat[1].data_ptr() and torch.equal(nat[1], want)
+    assert (nat[0] == -7).all() and (nat[2] == -7).all()
+    rows = torch.full_like(want, -7)
+    assert torch.equal(decode_chunks_plain(*args, out=rows), want)
+    assert torch.equal(rows, want)
+    for bad in (nat[1, 1:], nat[1].to(torch.int32), nat[:, 0],
+                torch.zeros((split.n_blocks_local, 128),
+                            dtype=torch.int16)[:, ::2]):
+        with pytest.raises(ValueError, match="out must be"):
+            decode_chunks(*args, out=bad)
+
+
+def test_dc_totals_takes_only_structured_plans_and_known_devices():
+    (st,) = jt.stage_host_bits(fixture("small_444.jpg")).scans
+    plan = st.scan.plan
+    nat = torch.zeros((1, plan.n_blocks, 64), dtype=torch.int16)
+    with pytest.raises(ValueError, match="no D1 implementation"):
+        dc_totals(nat.to("meta"), plan)
+    import copy
+    general = copy.copy(plan)
+    general.structured = None
+    with pytest.raises(ValueError, match="structured form"):
+        dc_totals(nat, general)
+
+
 @pytest.mark.parametrize("name,restart", [("small_444.jpg", False),
                                           ("small_cmyk_420.jpg", False),
                                           ("small_dri.jpg", True)])
@@ -138,6 +180,8 @@ def test_dc_carry_in_assembly(name, restart):
     got = assemble_structured(nat, plan, carry)
     got_general = assemble_general(nat, maps, carry)
     totals = dc_totals(nat, plan)
+    assert torch.equal(dc_totals_plain(nat, plan), totals)
+    assert torch.equal(dc_totals_plain(nat[1], plan), totals[1])
     for c in range(plan.ncomp):
         assert torch.equal(got[c], got_general[c])
         assert torch.equal(totals[:, c], nat[:, plan.stream_idx[c], 0].sum(

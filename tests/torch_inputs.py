@@ -551,3 +551,35 @@ def a1_case(case) -> tuple:
     carry = rng.integers(-2 ** 62, 2 ** 62, (len(comps), images),
                          dtype=np.int64) if with_carry else None
     return plan, nat, carry
+
+
+# P1 (the prefix rebuild) on seeded wires: (images, blocks an image,
+# residual entries), around its 256-block tiles.
+P1_SHAPES = [(1, 1, 0), (1, 1, 40), (1, 255, 300), (1, 256, 300),
+             (1, 257, 1000), (2, 300, 5000), (3, 513, 2048)]
+
+
+def p1_case(images: int, blocks: int, entries: int, seed: int) -> tuple:
+    """Seeded inputs of the prefix rebuild (P1), numpy (dc, ac, resid_idx,
+    resid_vals): every DC and AC value, residual indices over
+    [-total - 70, total + 70) (negative ones inside and below the range,
+    the staging's sink `total`, indices past it), every fifth entry on one
+    index (duplicates whose sum wraps), both halves of one word."""
+    rng = np.random.default_rng(seed)
+    total = images * blocks * 64
+    dc = rng.integers(-32768, 32768, (images, blocks), dtype=np.int16)
+    ac = rng.integers(-128, 128, (images, blocks, 15), dtype=np.int8)
+    idx = rng.integers(-total - 70, total + 70, entries).astype(np.int32)
+    vals = rng.integers(-32768, 32768, entries, dtype=np.int16)
+    if entries >= 10:
+        idx[::5] = idx[1]
+        idx[2], idx[3], idx[4] = total, total - 1, total - 2
+        idx[6], idx[7] = -1, -total
+    return dc, ac, idx, vals
+
+
+def whole_geometry(blocks: int):
+    """A geometry of one component of `blocks` blocks: the prefix rebuild's
+    stores of seeded wires as one [images, blocks, 64] tensor."""
+    comp = type("Component", (), {"blocks_high": 1, "blocks_wide": blocks})
+    return type("Geometry", (), {"components": (comp,)})

@@ -17,11 +17,14 @@ k1_decode, assemble, reconstruct, interleaved_tail, ...) and the
 device-resident ms per image by CUDA events (`device_resident_rate`, 50
 decodes). Cases: large_420 (2048 x 1680 4:2:0) at fast and at exact, both
 interleaved on the bits interchange; tower_420 (512 x 512 4:2:0) as a group
-of 16 at fast; and large_420 striped over 4 slots of the card
-(`decode_bits_striped`, exact: launches, device busy and CUDA-event ms per
-stripe, by `kernel_device_us` over 5 calls). Run parent, change, change,
-parent in one call to compare two versions on one card. Needs a CUDA
-device.
+of 16 at fast; the same two at fast on the prefix interchange, with the
+synchronising operations per image of the prefix route's device half
+(`_run_device` under `torch.cuda.set_sync_debug_mode("warn")`, counted as
+the warnings PyTorch raises); and large_420 striped over 4 and 8 slots of
+the card (`decode_bits_striped`, exact: launches, device busy and
+CUDA-event ms per stripe, by `kernel_device_us` over 5 calls). Run
+parent, change, change, parent in one call to compare two versions on one
+card. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -29,12 +32,33 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import torch
 
 HERE = Path(__file__).resolve().parents[2]
 FIXTURES = HERE / "tests" / "fixtures" / "torch_port"
+
+
+def syncs_per_image(dec, path: Path, iters: int = 5) -> float:
+    """The synchronising operations of `iters` device halves of one image
+    (its wire already on the card, one warm-up first), per image."""
+    staged = dec.stage(path.read_bytes())
+    wires = dec._to_device(staged)
+    dec._run_device(staged, wires)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(iters):
+                dec._run_device(staged, wires)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("called a synchronizing" in str(w.message)
+               for w in caught) / iters
 
 
 def main(argv=None) -> int:
@@ -71,21 +95,31 @@ def main(argv=None) -> int:
                                                 batch=16)
                 say("tower_420 x16 fast", {**res, "device_resident_ms":
                                            rate["ms_per_image"]})
+    with jt.DeviceStreamDecoder(host_threads=1,
+                                interchange="prefix") as dec:
+        res, _prof = profile(dec, large, 20)
+        rate = dec.device_resident_rate(large.read_bytes(), iters=50)
+        say("large_420 prefix fast", {
+            **res, "device_resident_ms": rate["ms_per_image"],
+            "syncs_per_image": syncs_per_image(dec, large)})
+        res, _prof = profile(dec, tower, 20, batch=16)
+        say("tower_420 x16 prefix fast", res)
     staged = jt.stage_host_bits(large.read_bytes())
-    mesh = make_mesh({"stripe": 4}, ["cuda:0"] * 4)
-    prof = kernel_device_us(lambda: decode_bits_striped(staged, mesh), "",
-                            iters=5)
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(5):
-        decode_bits_striped(staged, mesh)
-    stop.record()
-    stop.synchronize()
-    say("large_420 at 4 stripes", {
-        "launches_per_stripe": prof["all_launches"] / 4,
-        "device_busy_ms_per_stripe": prof["all_device_us"] / 4 / 1e3,
-        "ms_per_stripe": start.elapsed_time(stop) / 5 / 4})
+    for n in (4, 8):
+        mesh = make_mesh({"stripe": n}, ["cuda:0"] * n)
+        prof = kernel_device_us(lambda: decode_bits_striped(staged, mesh),
+                                "", iters=5)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            decode_bits_striped(staged, mesh)
+        stop.record()
+        stop.synchronize()
+        say(f"large_420 at {n} stripes", {
+            "launches_per_stripe": prof["all_launches"] / n,
+            "device_busy_ms_per_stripe": prof["all_device_us"] / n / 1e3,
+            "ms_per_stripe": start.elapsed_time(stop) / 5 / n})
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())

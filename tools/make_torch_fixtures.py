@@ -17,7 +17,9 @@ mixed sizes of an ImageNet-class data set (at most 0.25 Mpix each). One
 more, `stripe_420.jpg`, is pure noise by the recipe of the JAX package's
 stripe tests (`tests/test_stripe_bits.py:38-69`, case "420": random pixels
 in [0, 255), seed 101, q80): its 8-stripe split starts stripes inside
-chunks, which the card tests of the stripe wire need.
+chunks, which the card tests of the stripe wire need. And `q100/
+q100_420.jpg`, a 4:2:0 image at quality 100, whose residuals fill the
+prefix wire's zigzag slots 16-63.
 
 Lossless (SOF3) streams are not committed: `sof3_jpeg` writes them at run
 time from seeded samples (`sof3_samples`), with numpy alone (no PIL, no
@@ -73,6 +75,12 @@ QUALITY = 85
 NOISE_FIXTURES = {
     "stripe_420.jpg": (648, 488, {"subsampling": 2}, 101),
 }
+# The textured recipe at quality 100, in a directory of its own (the tools
+# that take every fixture of the directory above as a seed leave it out):
+# every quantizer is 1, so residuals fill zigzag slots 16-63, the part of
+# the prefix interchange's wire that the prefix rebuild (P1) scatters.
+FIXTURES["q100/q100_420.jpg"] = (256, 192, "RGB",
+                                 {"subsampling": 2, "quality": 100}, 4.0, 9)
 
 
 def textured(h: int, w: int, channels: int, noise: float,
@@ -246,6 +254,7 @@ def main(argv=None) -> int:
             bad += not same
             print(f"{name}: {'ok' if same else 'DIFFERS'}")
         else:
+            path.parent.mkdir(exist_ok=True)
             path.write_bytes(data)
             print(f"{name}: {len(data)} bytes")
     return 1 if bad else 0

@@ -29,6 +29,7 @@ lines (per image: a group's numbers divided by its images):
   huffman_decode_kernel, K2 dequant_idct_kernel, K3 fused_tail_kernel, L1
   lossless_recur_kernel, E1 idct_exact_kernel, T1
   interleaved_tail_kernel, A1 assemble_kernel, U1 unpack_delta_kernel,
+  P1 prefix_base_kernel and prefix_resid_kernel, D1 dc_totals_kernel,
   the rest PyTorch's);
 - kernel launches per image.
 With --trace, the Chrome trace of the last fixture is written there.
