@@ -60,8 +60,8 @@ stripe's DC totals):
 14. the prefix interchange: every fixture, both precisions, interleaved,
    planar and planar-pallas, bit-equal to the bits path; one large_420
    prefix image at fast, interleaved launching P1 twice, K2 and T1 once
-   and nothing else (at most 4 kernels by the profiler, the parent's 16
-   beside them), its device half run under
+   and nothing else (at most 4 kernels by the profiler, 16 before P1),
+   its device half run under
    `torch.cuda.set_sync_debug_mode("error")`;
 15. lossless: kernel L1 bit-equal to its plain version and to the host
    oracle for predictors 1-7 x pt {0, 2} on seeded planes of shapes at the
@@ -235,24 +235,26 @@ stripe's DC totals):
    launches are checked in phases 5 (> 0), 16 (1 per large_420 image at
    fast and exact), 19 (A1 1 per stripe, U1 none) and 21 (> 0);
 26. P1 (the prefix rebuild, csrc/prefix_rebuild.cu: the prefix wire ->
-   the stores, a base pass and a residual pass) and D1 (a stripe's DC
-   totals, csrc/dc_totals.cu) against their plain versions on the card,
-   tolerance 0: every P1 and D1 call of the real decodes of phases 14, 17,
-   19, 21 and 22, captured by spies on `models/stream.py` and
-   `parallel/stripe_bits.py` and checked after each phase, and here the
-   in-process counterparts of phase 20's (a prefix group of tower_420 and
-   tower_420_q92 on {"data": 8} slots at exact, stripe_420.jpg striped
-   over 8) and the q100 fixture through the prefix route; seeded P1 wires
-   (duplicate, out-of-range and negative indices, an empty residual list,
-   both halves of a 32-bit word, block counts around its tiles, an AC
-   array off 16 bytes) and prefix groups of 1 to 16 tower_420; seeded D1
-   nat of every fixture's plan and large_420's stripe plan. Times: P1's
-   and D1's CUDA-event ms beside their plain versions' (D1 also beside
-   `dc.sum(1)` over its DC view), their device µs by name (P1's two
-   passes apart) at large_420, over a tower_420 group of 16 and on a
-   large_420 stripe, beside the bytes bound. Their launches are checked
-   in phases 14 (P1 2 per image), 17 (2 per prefix group), 19 (D1 1 per
-   stripe, P1 2 per prefix shard) and 20 (per rank).
+   the stores, a base pass of a tile a CTA, then a residual pass) and D1
+   (a stripe's DC totals, csrc/dc_totals.cu: a thread a block's DC, int64
+   accumulators that count their arrivals) against their plain versions
+   on the card, tolerance 0: every P1 and D1 call of the real decodes of
+   phases 14, 17, 19, 21 and 22, captured by spies on `models/stream.py`
+   and `parallel/stripe_bits.py` and checked after each phase, and here
+   the in-process counterparts of phase 20's (a prefix group of tower_420
+   and tower_420_q92 on {"data": 8} slots at exact, stripe_420.jpg
+   striped over 8) and the q100 fixture through the prefix route; seeded
+   P1 wires (duplicate, out-of-range and negative indices, an empty
+   residual list, both halves of a 32-bit word, block counts around its
+   tiles, an AC array off 16 bytes) and prefix groups of 1 to 16
+   tower_420; seeded D1 nat of every fixture's plan and large_420's
+   stripe plans at 4 and 8. Times: P1's and D1's CUDA-event ms beside their
+   plain versions' (D1 also beside `dc.sum(1)` over its DC view), their
+   device µs by name (P1's two passes apart; median, least and largest
+   of the launches) at large_420, over a tower_420 group of 16 and on
+   large_420 stripes at 4 and 8, beside the bytes bound. Their launches
+   are checked in phases 14 (P1 2 per image), 17 (2 per prefix group), 19
+   (D1 1 per stripe, P1 2 per prefix shard) and 20 (per rank).
 
 Any failure raises and the script exits nonzero. It needs a CUDA device and
 the repository around it; it imports neither JAX, nor PIL, nor the JAX
@@ -733,7 +735,7 @@ def phase_prefix(jt, data: dict) -> dict:
         launches=launches, prefix_ms=rates,
         large_420_prefix_image={"launches_by_kernel": ours,
                                 "launches_in_all": every,
-                                "parent_launches_in_all_path_ab": 16,
+                                "launches_in_all_before_p1": 16,
                                 "sync_debug_error": "nothing raised"})
     return launches["prefix fast interleaved"]
 
@@ -2305,14 +2307,15 @@ def phase_p1_d1(jt, data: dict, params, dev, card: str,
     at exact, stripe_420.jpg striped over 8) and the q100 fixture through
     the prefix route; seeded P1 wires (`P1_SHAPES`: duplicate,
     out-of-range and negative indices, an empty residual list, block
-    counts around the 256-block tile; a residual on each half of a 32-bit
+    counts around P1's tiles; a residual on each half of a 32-bit
     word; an AC array off its 16-byte boundary), prefix groups of 1 to 16
-    tower_420, seeded D1 nat of 1 and 3 images of every fixture's plan and
-    of large_420's stripe plan at 4. Times at large_420's shapes: CUDA
+    tower_420; seeded D1 nat of 1 and 3 images of every fixture's plan and
+    of large_420's stripe plans at 4 and 8. Times at large_420's shapes: CUDA
     events for the wrapper and its plain version, device µs by kernel name
-    (torch.profiler, 20 warm calls; P1's two passes apart) beside the bound;
-    P1 also on the tower_420 x16 group, D1 on a large_420 stripe at 4,
-    beside `dc.sum(1)` over its [b, n_mcus, plen] DC view."""
+    (torch.profiler, 50 warm calls: the mean, median, least and largest
+    launch) beside the bound; P1 also on the tower_420 x16 group, D1 on
+    large_420 stripes at 4 and 8, beside `dc.sum(1)` over its
+    [b, n_mcus, plen] DC view."""
     from jpeg_decoder_tpu_torch.entropy.assemble import (dc_totals,
                                                          dc_totals_plain)
     from jpeg_decoder_tpu_torch.entropy.chunk_decode import decode_chunks
@@ -2386,14 +2389,17 @@ def phase_p1_d1(jt, data: dict, params, dev, card: str,
             wire = dec._group_wires("prefix", [one] * n)
             calls.p1.append((one.geometry, wire,
                              prefix_stores(one.geometry, *wire)))
+    st = stage_host(data["large_420.jpg"])
+    wire = card_of((st.dc, st.ac, st.resid_idx, st.resid_vals))
     seeded_p1 = calls.check("seeded P1")["P1"]
 
     rng = np.random.default_rng(26)
     plans = {name: jt.stage_host_bits(data[name]).scans[0].scan.plan
              for name in ORDER}
     large_scan = jt.stage_host_bits(data["large_420.jpg"]).scans[0].scan
-    split = split_anchored_stripes(large_scan, 4)
-    plans["large_420 stripe at 4"] = split.plan
+    splits = {n: split_anchored_stripes(large_scan, n) for n in (4, 8)}
+    for n, split in splits.items():
+        plans[f"large_420 stripe at {n}"] = split.plan
     for label, plan in plans.items():
         for images in (1, 3):
             nat = torch.from_numpy(rng.integers(
@@ -2403,8 +2409,6 @@ def phase_p1_d1(jt, data: dict, params, dev, card: str,
     seeded_d1 = calls.check("seeded D1")["D1"]
 
     # Times at large_420's shapes.
-    st = stage_host(data["large_420.jpg"])
-    wire = card_of((st.dc, st.ac, st.resid_idx, st.resid_vals))
     with jt.DeviceStreamDecoder(host_threads=1, interchange="prefix") as dec:
         tower_wire = dec._group_wires("prefix", [dec.stage(tower)] * 16)
     blocks = st.dc.size
@@ -2414,40 +2418,50 @@ def phase_p1_d1(jt, data: dict, params, dev, card: str,
     p1_ms = cuda_ms(lambda: prefix_stores(st.geometry, *wire), 50)
     p1_plain_ms = cuda_ms(lambda: prefix_stores_plain(st.geometry, *wire), 20)
     times = {}
+
+    def spread(fn, symbol: str) -> dict:
+        prof = kernel_device_us(fn, symbol, iters=50)
+        each = sorted(prof["each_us"])
+        return {"kernel_us": prof["kernel_us"],
+                "median_us": each[len(each) // 2], "min_us": each[0],
+                "max_us": each[-1], "call_device_us": prof["all_device_us"],
+                "call_launches": prof["all_launches"]}
+
     for label, fn, nbytes in (
             ("P1 large_420", lambda: prefix_stores(st.geometry, *wire),
              p1_bytes),
             ("P1 tower_420 x16", lambda: prefix_stores(one.geometry,
                                                        *tower_wire),
              tower_bytes)):
-        base = kernel_device_us(fn, "prefix_base_kernel")
-        resid = kernel_device_us(fn, "prefix_resid_kernel")
+        base, resid = (spread(fn, "prefix_base_kernel"),
+                       spread(fn, "prefix_resid_kernel"))
         times[label] = {"kernel_us": base["kernel_us"] + resid["kernel_us"],
-                        "base_us": base["kernel_us"],
-                        "residuals_us": resid["kernel_us"],
+                        "base_pass": base, "residual_pass": resid,
                         "launches_per_call":
                         counted(jt, fn)[1]["prefix_rebuild"],
                         "bytes": nbytes, "bound_us": bound(nbytes)[0]}
-    words, dm, ab, base_ = card_of(stripe_wire(split, 1)[0])
-    nat = decode_chunks(words, dm, ab, base_, params.tables(large_scan),
-                        stripe_wire(split, 1)[1], split.n_blocks_local)[None]
-    (n_mcus, _r, _c, plen), _specs = split.plan.structured
-    d1_bytes = 32 * nat.shape[0] * nat.shape[1]
-    d1_ms = cuda_ms(lambda: dc_totals(nat, split.plan), 50)
-    d1_plain_ms = cuda_ms(lambda: dc_totals_plain(nat, split.plan), 20)
-    dc_view = nat.view(nat.shape[0], n_mcus, plen, 64)[..., 0]
-    d1_library_ms = cuda_ms(lambda: dc_view.sum(1), 50)
-    prof = kernel_device_us(lambda: dc_totals(nat, split.plan),
-                            "dc_totals_kernel")
-    lib_prof = kernel_device_us(lambda: dc_view.sum(1), "")
-    times["D1 large_420 stripe 2 of 4"] = {
-        "kernel_us": prof["kernel_us"],
-        "launches_per_call": counted(
-            jt, lambda: dc_totals(nat, split.plan))[1]["dc_totals"],
-        "blocks": nat.shape[1],
-        "bytes": d1_bytes, "bound_us": bound(d1_bytes)[0],
-        "library_device_us": lib_prof["all_device_us"],
-        "library_launches": lib_prof["all_launches"]}
+    for n, split in splits.items():
+        words, dm, ab, base_ = card_of(stripe_wire(split, 1)[0])
+        nat = decode_chunks(words, dm, ab, base_, params.tables(large_scan),
+                            stripe_wire(split, 1)[1],
+                            split.n_blocks_local)[None]
+        (n_mcus, _r, _c, plen), _specs = split.plan.structured
+        d1_bytes = 32 * nat.shape[0] * nat.shape[1]
+        dc_view = nat.view(nat.shape[0], n_mcus, plen, 64)[..., 0]
+        lib_prof = kernel_device_us(lambda: dc_view.sum(1), "")
+        times[f"D1 large_420 stripe 2 of {n}"] = {
+            **spread(lambda: dc_totals(nat, split.plan), "dc_totals_kernel"),
+            "launches_per_call": counted(
+                jt, lambda: dc_totals(nat, split.plan))[1]["dc_totals"],
+            "blocks": nat.shape[1],
+            "bytes": d1_bytes, "bound_us": bound(d1_bytes)[0],
+            "library_device_us": lib_prof["all_device_us"],
+            "library_launches": lib_prof["all_launches"]}
+        if n == 4:
+            d1_ms = cuda_ms(lambda: dc_totals(nat, split.plan), 50)
+            d1_plain_ms = cuda_ms(lambda: dc_totals_plain(nat, split.plan),
+                                  20)
+            d1_library_ms = cuda_ms(lambda: dc_view.sum(1), 50)
     say("26 P1 and D1 vs plain", card=card, calls_checked=calls.counts,
         seeded={"P1": seeded_p1, "D1": seeded_d1}, max_abs_err=0,
         tolerance=0, p1_ms=p1_ms, p1_plain_ms=p1_plain_ms, d1_ms=d1_ms,

@@ -200,24 +200,23 @@ def load() -> ctypes.CDLL:
             ctypes.c_uint,  # epoch
             p]              # stream
         lib.jdt_unpack_delta.restype = i
-        lib.jdt_prefix_base.argtypes = [
+        lib.jdt_prefix_rebuild.argtypes = [
             p, p, q,        # dc, ac, blocks
+            p, p, q,        # resid_idx, resid_vals, entries
             p,              # out
             p]              # stream
-        lib.jdt_prefix_base.restype = i
-        lib.jdt_prefix_resid.argtypes = [
-            p, p, q,        # resid_idx, resid_vals, entries
-            p, q,           # out, its elements
-            p]              # stream
-        lib.jdt_prefix_resid.restype = i
+        lib.jdt_prefix_rebuild.restype = i
         lib.jdt_dc_totals.argtypes = [
             p, q, i,        # nat, n_mcus, plen
             i, i,           # images, ncomp
             p,              # host int64[2 ncomp]: s0, bpm per component
             p,              # out, int64 [images, ncomp]
-            p, q,           # status buffer (counter + partials), its words
+            p, q,           # status buffer (word 0, accumulators), its
+                            # words past word 0
             p]              # stream
         lib.jdt_dc_totals.restype = i
+        lib.jdt_dc_totals_status_words.argtypes = [i, i]  # images, ncomp
+        lib.jdt_dc_totals_status_words.restype = q
         lib.jdt_error_string.argtypes = [i]
         lib.jdt_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -230,8 +229,12 @@ def load() -> ctypes.CDLL:
 # launches from reading as valid, so a buffer is zeroed only when it is
 # made (or outgrown, or its epochs run out). Each kernel has its own, so
 # two kernels on one stream never spend each other's epochs. D1
-# (`dc_totals`) takes its ticket counter and its partial sums from one too,
-# and needs no epoch: its last CTA reads only what this launch wrote.
+# (`dc_totals`) takes its accumulators from one too, and needs no epoch:
+# the CTA that completes an accumulator sets it back to 0. It has no
+# ticket, but keeps the layout (its words past word 0, which it leaves
+# alone) so that every kernel sizes and passes its buffer alike and a
+# ticketed variant of D1 (tools/experiments/p1d1_breakdown.py) takes the
+# same buffer.
 _status: dict = {}
 _status_lock = threading.Lock()
 

@@ -20,15 +20,24 @@
 // card reads of a 128-byte row), 0.66 MB or 0.2 us at 3.35 TB/s, below the
 // ~0.85 us a launch costs.
 //
-// What the design does about it: one launch, no zero fill before it. A CTA
-// of kThreads = 256 threads takes kThreads MCUs of one image, a thread one
-// MCU (its plen DC values are independent loads, all in flight at once),
-// sums them per component in registers, then over the warp by shuffles and
-// over the CTA's 8 warps in shared memory, and stores its partial sums.
-// Then it takes a ticket from a counter; the CTA that takes the last one
-// adds the partials of every image (a warp per (image, component), loads
-// that bypass L1) and sets the counter back to 0 for the next launch on
-// the stream.
+// What the design does about it: the loads spread over the SMs, each in
+// flight before any add, and one round of atomics after them. One launch,
+// no zero fill before it, no ticket. A thread takes one block's DC value
+// (a CTA kThreads = 256 blocks of one image: 81 CTAs a large_420 stripe at
+// 4) with the one load it makes, and finds the block's component from its
+// slot in the MCU against the components' (s0, bpm) held in the launch's
+// arguments. The CTA sums by component over each warp (__reduce_add_sync,
+// int32: 256 int16 values cannot overflow it) and over its 8 warps in
+// shared memory. Then a thread per component adds (1 << kCountShift) +
+// the CTA's sum into an int64 accumulator of (image, component) by one
+// 64-bit atomicAdd that returns the old value: the accumulator holds
+// arrivals << 42 plus the sum so far (|sum| < 2^40 for any image the
+// wrapper takes, so the two never mix: a negative sum borrows from the
+// arrivals and rounding to the nearest multiple of 2^42 gives them back).
+// The add that brings the arrivals to the image's CTA count is the last
+// for that (image, component): its thread writes the total to `out` and
+// sets the accumulator back to 0 for the next launch on the stream (no
+// other CTA touches it again in this launch).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -38,24 +47,21 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxComp = 4;                 // components of one scan
+constexpr int kCountShift = 42;             // accumulator: arrivals, sum
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
-  const int16_t* nat;      // [images, n_blocks, 64]
-  long long n_blocks;      // n_mcus * plen
-  long long n_mcus;
+  const int16_t* nat;        // [images, n_blocks, 64]
+  long long n_blocks;        // n_mcus * plen
   long long ctas_per_image;
-  long long ctas;
-  long long* out;          // [images, ncomp]
-  long long* partial;      // [ctas, ncomp]
-  unsigned* counter;       // 0 between launches
-  int plen, ncomp, images;
+  long long* out;            // [images, ncomp]
+  unsigned long long* acc;   // [images, ncomp], 0 between launches
+  int plen, ncomp;
   int s0[kMaxComp], bpm[kMaxComp];
 };
 
 struct Smem {
-  long long warp[kWarps][kMaxComp];
-  int last;
+  int warp[kWarps][kMaxComp];
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -64,59 +70,54 @@ dc_totals_kernel(const __grid_constant__ Args a) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const long long cta = blockIdx.x;
-  const long long img = cta / a.ctas_per_image;
-  const long long m = (cta - img * a.ctas_per_image) * kThreads + tid;
+  const long long img = blockIdx.x / a.ctas_per_image;
+  const long long j = (blockIdx.x - img * a.ctas_per_image) * kThreads + tid;
 
-  long long s[kMaxComp] = {0, 0, 0, 0};
-  if (m < a.n_mcus) {
-    const int16_t* mcu = a.nat + (img * a.n_blocks + m * a.plen) * 64;
+  int v = 0, comp = -1;
+  if (j < a.n_blocks) {
+    v = a.nat[(img * a.n_blocks + j) * 64];
+    const int slot = static_cast<int>(j) % a.plen;
 #pragma unroll
-    for (int c = 0; c < kMaxComp; ++c) {
-      if (c >= a.ncomp) break;
-      for (int k = 0; k < a.bpm[c]; ++k) s[c] += mcu[(a.s0[c] + k) * 64];
-    }
+    for (int c = 0; c < kMaxComp; ++c)
+      if (c < a.ncomp
+          && static_cast<unsigned>(slot - a.s0[c])
+             < static_cast<unsigned>(a.bpm[c]))
+        comp = c;
   }
 #pragma unroll
   for (int c = 0; c < kMaxComp; ++c) {
     if (c >= a.ncomp) break;
-    for (int o = 16; o > 0; o >>= 1) s[c] += __shfl_xor_sync(kFull, s[c], o);
-    if (lane == 0) sm.warp[warp][c] = s[c];
+    const int s = __reduce_add_sync(kFull, comp == c ? v : 0);
+    if (lane == 0) sm.warp[warp][c] = s;
   }
   __syncthreads();
-  if (tid == 0) {
-    for (int c = 0; c < a.ncomp; ++c) {
-      long long t = 0;
-      for (int w = 0; w < kWarps; ++w) t += sm.warp[w][c];
-      __stcg(a.partial + cta * a.ncomp + c, t);
-    }
-    __threadfence();
-    sm.last = atomicAdd(a.counter, 1u) == a.ctas - 1;
+  if (tid >= a.ncomp) return;
+  long long sum = 0;
+  for (int w = 0; w < kWarps; ++w) sum += sm.warp[w][tid];
+  const unsigned long long add =
+      (1ull << kCountShift) + static_cast<unsigned long long>(sum);
+  unsigned long long* acc = a.acc + img * a.ncomp + tid;
+  const long long now = static_cast<long long>(atomicAdd(acc, add) + add);
+  const long long arrived = (now + (1ll << (kCountShift - 1))) >> kCountShift;
+  if (arrived == a.ctas_per_image) {
+    a.out[img * a.ncomp + tid] = now - (arrived << kCountShift);
+    *acc = 0;
   }
-  __syncthreads();
-  if (!sm.last) return;
-  __threadfence();
-
-  // The last CTA: each (image, component) total, a warp each.
-  for (long long p = warp; p < static_cast<long long>(a.images) * a.ncomp;
-       p += kWarps) {
-    const long long i = p / a.ncomp;
-    const int c = static_cast<int>(p - i * a.ncomp);
-    long long t = 0;
-    for (long long k = lane; k < a.ctas_per_image; k += 32)
-      t += __ldcg(a.partial + (i * a.ctas_per_image + k) * a.ncomp + c);
-    for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(kFull, t, o);
-    if (lane == 0) a.out[p] = t;
-  }
-  if (tid == 0) atomicExch(a.counter, 0u);
 }
 
 }  // namespace
 
+// The status words a launch for `images` images of `ncomp` components
+// uses past word 0 (which D1 leaves alone): an int64 accumulator per
+// (image, component).
+extern "C" long long jdt_dc_totals_status_words(int images, int ncomp) {
+  return static_cast<long long>(images) * ncomp;
+}
+
 // comp_meta: 2 int64 per component: s0, bpm (the plan's structured specs).
-// out: int64 [images, ncomp]. status: int64 [1 + status_words], word 0 the
-// ticket counter (0 between launches), the rest room for the partial sums,
-// ncomp a CTA.
+// out: int64 [images, ncomp]. status: int64 [1 + status_words], the
+// accumulators (`jdt_dc_totals_status_words`) past word 0, all 0 between
+// launches.
 extern "C" int jdt_dc_totals(const void* nat, long long n_mcus, int plen,
                              int images, int ncomp,
                              const long long* comp_meta, void* out,
@@ -133,11 +134,9 @@ extern "C" int jdt_dc_totals(const void* nat, long long n_mcus, int plen,
     return static_cast<int>(cudaErrorMisalignedAddress);
   Args a = {};
   a.nat = static_cast<const int16_t*>(nat);
-  a.n_mcus = n_mcus;
   a.plen = plen;
   a.n_blocks = n_mcus * plen;
   a.ncomp = ncomp;
-  a.images = images;
   for (int c = 0; c < ncomp; ++c) {
     const long long s0 = comp_meta[2 * c], bpm = comp_meta[2 * c + 1];
     if (s0 < 0 || bpm < 1 || s0 + bpm > plen)
@@ -145,14 +144,15 @@ extern "C" int jdt_dc_totals(const void* nat, long long n_mcus, int plen,
     a.s0[c] = static_cast<int>(s0);
     a.bpm[c] = static_cast<int>(bpm);
   }
-  a.ctas_per_image = n_mcus > 0 ? (n_mcus + kThreads - 1) / kThreads : 1;
-  a.ctas = images * a.ctas_per_image;
-  if (a.ctas >= (1LL << 31) || a.ctas * ncomp > status_words)
+  a.ctas_per_image = a.n_blocks > 0 ? (a.n_blocks + kThreads - 1) / kThreads
+                                    : 1;
+  const long long ctas = images * a.ctas_per_image;
+  if (ctas >= (1LL << 31)
+      || jdt_dc_totals_status_words(images, ncomp) > status_words)
     return static_cast<int>(cudaErrorInvalidValue);
   a.out = static_cast<long long*>(out);
-  a.counter = static_cast<unsigned*>(status);
-  a.partial = static_cast<long long*>(status) + 1;
-  dc_totals_kernel<<<static_cast<unsigned>(a.ctas), kThreads, 0,
+  a.acc = static_cast<unsigned long long*>(status) + 1;
+  dc_totals_kernel<<<static_cast<unsigned>(ctas), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,7 +45,6 @@ import torch
 from .. import _build
 
 A1_ROWS = 256           # blocks of a tile: kRows of csrc/assemble.cu
-D1_MCUS = 256           # MCUs of a CTA: kThreads of csrc/dc_totals.cu
 
 
 def _segmented_dc(diffs: torch.Tensor, seg_blocks: int,
@@ -105,10 +104,12 @@ def dc_totals_plain(nat: torch.Tensor, plan) -> torch.Tensor:
                         for (s0, bpm, *_rest) in specs], 1)
 
 
-def _d1_prepare(nat: torch.Tensor, plan) -> tuple:
+def _d1_prepare(lib, nat: torch.Tensor, plan) -> tuple:
     """The checks and allocations of a D1 call on nat [N, n_blocks, 64]:
     (the output int64 [N, ncomp], the components' (s0, bpm) as
-    `jdt_dc_totals` takes them, the CTAs of the launch)."""
+    `jdt_dc_totals` takes them, the status words the launch needs past
+    word 0, as the kernel's own `jdt_dc_totals_status_words` counts
+    them)."""
     (n_mcus, _rows_d, _cols_d, plen), specs = plan.structured
     if nat.dtype != torch.int16 or nat.dim() != 3 \
             or nat.shape[1:] != (n_mcus * plen, 64) \
@@ -120,7 +121,8 @@ def _d1_prepare(nat: torch.Tensor, plan) -> tuple:
                       device=nat.device)
     meta = (ctypes.c_longlong * (2 * ncomp))(
         *[v for (s0, bpm, *_rest) in specs for v in (s0, bpm)])
-    return out, meta, nat.shape[0] * max(1, -(-n_mcus // D1_MCUS))
+    words = lib.jdt_dc_totals_status_words(nat.shape[0], ncomp)
+    return out, meta, words
 
 
 def _d1_launch(lib, nat, plan, out, meta, status, stream) -> int:
@@ -134,15 +136,15 @@ def _d1_launch(lib, nat, plan, out, meta, status, stream) -> int:
 def _dc_totals_d1(nat: torch.Tensor, plan) -> torch.Tensor:
     if nat.dim() == 2:
         return _dc_totals_d1(nat[None], plan)[0]
-    out, meta, ctas = _d1_prepare(nat, plan)
+    lib = _build.load()
+    out, meta, words = _d1_prepare(lib, nat, plan)
     if nat.shape[0] == 0:
         return out
     dev = nat.device
-    lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status, _epoch = _build.status_buffer("dc_totals", dev, stream,
-                                              ctas * out.shape[1], 32)
+        status, _epoch = _build.status_buffer("dc_totals", dev, stream, words,
+                                              32)
         err = _d1_launch(lib, nat, plan, out, meta, status, stream)
         _build.LAUNCHES["dc_totals"] += 1
     _build.check(lib, err, "dc_totals")

@@ -12,8 +12,8 @@ dropped.
 
 `prefix_stores` dispatches on the device of `dc`: CPU tensors run
 `prefix_stores_plain`, CUDA tensors launch kernel P1
-(`csrc/prefix_rebuild.cu`: a base pass, then a residual pass, two launches
-in stream order), anything else raises.
+(`csrc/prefix_rebuild.cu`: a base pass, then a residual pass, two
+launches in stream order), anything else raises.
 """
 
 from __future__ import annotations
@@ -99,18 +99,13 @@ def _check_p1(dc, ac, resid_idx, resid_vals) -> None:
         raise ValueError(f"{n} x {nb} blocks: the stores' indices pass int32")
 
 
-def _p1_launches(lib, dc, ac, resid_idx, resid_vals, out, stream) -> list:
-    """The launches of one P1 rebuild of dc's blocks into `out`: the base
-    pass, then the residual pass where there are residuals; [(the pass,
-    its error code)]."""
-    errs = [("base", lib.jdt_prefix_base(dc.data_ptr(), ac.data_ptr(),
-                                         dc.numel(), out.data_ptr(),
-                                         stream))]
-    if resid_idx.numel():
-        errs.append(("residuals", lib.jdt_prefix_resid(
-            resid_idx.data_ptr(), resid_vals.data_ptr(), resid_idx.numel(),
-            out.data_ptr(), out.numel(), stream)))
-    return errs
+def _p1_launch(lib, dc, ac, resid_idx, resid_vals, out, stream) -> int:
+    """The launches of a P1 rebuild of dc's blocks into `out` (the base
+    pass, then the residual pass where there are residuals), their error
+    code."""
+    return lib.jdt_prefix_rebuild(dc.data_ptr(), ac.data_ptr(), dc.numel(),
+                                  resid_idx.data_ptr(), resid_vals.data_ptr(),
+                                  resid_idx.numel(), out.data_ptr(), stream)
 
 
 def _prefix_p1(geometry, dc, ac, resid_idx, resid_vals) -> list:
@@ -122,8 +117,7 @@ def _prefix_p1(geometry, dc, ac, resid_idx, resid_vals) -> list:
         lib = _build.load()
         with torch.cuda.device(dc.device):
             stream = torch.cuda.current_stream(dc.device).cuda_stream
-            for what, err in _p1_launches(lib, dc, ac, resid_idx, resid_vals,
-                                          out, stream):
-                _build.LAUNCHES["prefix_rebuild"] += 1
-                _build.check(lib, err, f"prefix_rebuild ({what})")
+            err = _p1_launch(lib, dc, ac, resid_idx, resid_vals, out, stream)
+            _build.LAUNCHES["prefix_rebuild"] += 1 + bool(resid_idx.numel())
+        _build.check(lib, err, "prefix_rebuild")
     return _split(geometry, out, n, nb)

@@ -1284,8 +1284,8 @@ def _host_tensors(arrays) -> list:
 def test_p1_bit_equal_to_plain_on_seeded_wires(cuda, images, blocks,
                                                entries):
     """Duplicate, out-of-range and negative residual indices, an empty
-    list, block counts around P1's 256-block tiles; two launches where
-    there are residuals, one where there are none."""
+    list, block counts around P1's tiles; two launches where there are
+    residuals, one where there are none."""
     from jpeg_decoder_tpu_torch.entropy.prefix import (prefix_stores,
                                                        prefix_stores_plain)
 
@@ -1403,6 +1403,34 @@ def test_device_routes_never_synchronise(cuda, route):
     assert all(torch.equal(img, one) for img in many)
 
 
+def test_p1_on_two_streams_at_once(cuda):
+    """P1 beside another stream's P1: two streams, each launching it on
+    its own wire 50 times without waiting on the other, as slots of one
+    card do (phases 19 and 20); every call bit-equal to plain."""
+    from jpeg_decoder_tpu_torch.entropy.prefix import (prefix_stores,
+                                                       prefix_stores_plain)
+    from jpeg_decoder_tpu_torch.host.staging import stage_host
+
+    wires, wants = [], []
+    for name in ("large_420.jpg", "tower_420.jpg"):
+        st = stage_host(fixture(name))
+        wire = [a.to(cuda) for a in _host_tensors(
+            (st.dc, st.ac, st.resid_idx, st.resid_vals))]
+        wires.append((st.geometry, wire))
+        wants.append(prefix_stores_plain(st.geometry, *wire))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = [[], []]
+    for _ in range(50):
+        for k, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                outs[k].append(prefix_stores(wires[k][0], *wires[k][1]))
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert all(torch.equal(g, w) for out in outs[k]
+                   for g, w in zip(out, wants[k])), k
+
+
 def test_p1_refuses_what_it_does_not_take(cuda):
     from jpeg_decoder_tpu_torch.entropy.prefix import prefix_stores
 
@@ -1422,7 +1450,7 @@ def test_p1_refuses_what_it_does_not_take(cuda):
                                                   "large_420.jpg"))
 def test_d1_bit_equal_to_plain_on_fixture_plans(cuda, name):
     """Seeded full-range nat of 1 and 3 images of every fixture's plan
-    (large_420: 53 of D1's CTAs an image), one launch a call."""
+    (large_420: 315 of D1's 256-block CTAs an image), one launch a call."""
     from jpeg_decoder_tpu_torch.entropy.assemble import (dc_totals,
                                                          dc_totals_plain)
 
@@ -1444,8 +1472,9 @@ def test_d1_bit_equal_to_plain_on_fixture_plans(cuda, name):
 
 
 def test_d1_a_thousand_launches_in_a_row(cuda):
-    """The ticket counter goes back to 0 after every launch: 1,000 calls
-    of two sizes in turn, each equal to its plain version."""
+    """The accumulators go back to 0 after every launch: 1,000 calls of
+    two sizes in turn, each equal to its plain version, and the status
+    words all 0 after them."""
     from jpeg_decoder_tpu_torch.entropy.assemble import (dc_totals,
                                                          dc_totals_plain)
 
@@ -1460,6 +1489,11 @@ def test_d1_a_thousand_launches_in_a_row(cuda):
     outs = [dc_totals(nats[i % 2], plans[i % 2]) for i in range(1000)]
     torch.cuda.synchronize()
     assert all(torch.equal(o, want[i % 2]) for i, o in enumerate(outs))
+    from jpeg_decoder_tpu_torch import _build
+
+    dev = nats[0].device
+    key = ("dc_totals", dev, torch.cuda.current_stream(dev).cuda_stream)
+    assert int(_build._status[key][0].count_nonzero()) == 0
 
 
 @pytest.mark.parametrize("n", [4, 8])

@@ -3,32 +3,38 @@ replayed on the CPU from their own sources, through the shim of
 `tests/test_torch_a1_replay.py`: each .cu compiled by the host's g++
 (C++20), every thread of a CTA on a host thread, `__syncthreads()` a
 barrier, a shuffle an exchange through memory, `__constant__` a plain
-table, `atomicCAS` a compare-exchange that returns the old word, and
-`__threadfence`, `__ldcg` and `__stcg` a fence and relaxed atomic
-accesses. Both run the constants the card runs.
+table, 32- and 64-bit `atomicAdd` atomic_ref adds that return the old
+value. Both run the constants the card runs.
 
 The CTAs of a launch run in waves: one after another, or three at a time.
-P1's output is poisoned before its base pass, so a row or a piece left
-unwritten shows; its residual pass runs after the base pass, as the two
-launches do on one stream, with duplicate indices in one wave, so a CAS
-that loses an update or touches the other half of its word changes the
-result. D1's partial sums are poisoned and its ticket counter must be 0
-again after the launch.
+P1's base pass takes a 128-block tile a CTA; its residual pass follows in
+a second launch, so duplicate indices fall in one wave and residuals land
+in tiles that other CTAs wrote. A cp.async copy lands only when its thread
+waits for it (the latest the card may land it), so a tile read before the
+wait changes the result. Shared memory and P1's output are poisoned
+first, so a staged row or a piece left unwritten shows; a residual add
+that loses a carry's correction, or corrects the wrong half of its word,
+changes the result.
+
+D1's status buffer holds the accumulators past word 0, 0 before the
+launch, and words past them poisoned: after the launch word 0 and the
+accumulators must be 0 again and the words past them untouched.
 
 Tolerance 0 against the plain versions (`prefix_stores_plain`,
 `dc_totals_plain`): P1 on every fixture's prefix wire (stage_host), the
-q100 fixture, whose residuals fill zigzag slots 16-63, a group of 3 tower_420
-merged as the stream merges it, and seeded wires with duplicate,
+q100 fixture, whose residuals fill zigzag slots 16-63, a group of 3
+tower_420 merged as the stream merges it, and seeded wires with duplicate,
 out-of-range and negative indices, an empty residual list, a residual on
-each half of a 32-bit word, block counts around the 256-block tile and an
-AC array off its 16-byte boundary; D1 on every fixture's structured plan
-and the stripes of large_420 at 4 and stripe_420 at 8, with 1 to 3 images
-and 1 to 53 of its 256-MCU CTAs an image. This checks the kernels' tile
-arithmetic and ordering, not the card: the card runs the same sources in
-`tests/test_torch_cuda.py` and `chip_smoke.py` phase 26.
+each half of a 32-bit word, block counts around P1's tiles and an AC
+array off its 16-byte boundary; D1 on every fixture's structured plan
+and the stripes of large_420 at 4 and stripe_420 at 8, with 1 to 3 images,
+block counts that leave the last of its 256-block CTAs ragged. This checks
+the kernels' tile arithmetic and ordering, not the card: the card runs the
+same sources in `tests/test_torch_cuda.py` and `chip_smoke.py` phase 26.
 """
 
 import ctypes
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -41,7 +47,8 @@ import jpeg_decoder_tpu_torch as jt
 from jpeg_decoder_tpu_torch.entropy import assemble, prefix
 from jpeg_decoder_tpu_torch.entropy.assemble import dc_totals_plain
 from jpeg_decoder_tpu_torch.entropy.prefix import prefix_stores_plain
-from jpeg_decoder_tpu_torch.host.staging import _ZIGZAG_OF_NATURAL, stage_host
+from jpeg_decoder_tpu_torch.host.staging import (_ZIGZAG_OF_NATURAL, PREFIX_K,
+                                                 stage_host)
 from jpeg_decoder_tpu_torch.models.stream import DeviceStreamDecoder
 from jpeg_decoder_tpu_torch.parallel.stripe_bits import split_anchored_stripes
 
@@ -52,6 +59,63 @@ from torch_inputs import (P1_SHAPES, SMALL_FIXTURES, fixture, p1_case,
 CSRC = Path(prefix.__file__).resolve().parent.parent / "csrc"
 POISON = -23131                                             # 0xA5A5
 
+# What P1 and D1 use beyond the A1 replay's shim: `cudaError_t`, cp.async
+# copies that land when their thread waits for them, `__stwb`, a warp's
+# `__reduce_add_sync`, 64-bit atomics.
+P1_SHIM = r"""
+#pragma once
+#include "shim.h"
+typedef int cudaError_t;
+enum { cudaSuccess = 0 };
+struct PendingCopy { void* dst; const void* src; };
+inline thread_local std::vector<PendingCopy> g_open;
+inline void cp_async16(void* dst, const void* src) {
+  g_open.push_back({dst, src});
+}
+inline void cp_async_wait_all() {
+  for (const PendingCopy& c : g_open) std::memcpy(c.dst, c.src, 16);
+  g_open.clear();
+}
+// A warp's sum: each lane's value through memory between two barriers of
+// the warp's 32 threads, added by every lane.
+inline int __reduce_add_sync(unsigned, int v) {
+  const int t = threadIdx.x, w = t >> 5;
+  g_cta->xch[t] = static_cast<uint32_t>(v);
+  g_cta->warps[w]->arrive_and_wait();
+  uint32_t sum = 0;
+  for (int i = 0; i < 32; ++i)
+    sum += static_cast<uint32_t>(g_cta->xch[(w << 5) + i]);
+  g_cta->warps[w]->arrive_and_wait();
+  return static_cast<int>(sum);
+}
+template <class T> void __stwb(T* p, T v) { *p = v; }
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
+inline unsigned long long atomicExch(unsigned long long* p,
+                                     unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).exchange(v);
+}
+"""
+
+
+def _p1_host_source(src: str) -> str:
+    """A .cu as `_host_source` makes it, with P1_SHIM included and P1's
+    cp.async helpers the shim's."""
+    def sub(pattern, repl):
+        nonlocal src
+        src, n = re.subn(pattern, repl, src, flags=re.S)
+        assert n == 1, pattern
+
+    sub(r"#include <cuda_runtime.h>\n",
+        '#include <cuda_runtime.h>\n#include "p1_shim.h"\n')
+    if "cp_async16" in src:
+        sub(r"__device__ __forceinline__ void cp_async16\(.*?\n\}\n\n", "")
+        sub(r"__device__ __forceinline__ void cp_async_wait_all\(\) \{.*?"
+            r"\n\}\n\n", "")
+    return _host_source(src)
+
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
@@ -60,10 +124,11 @@ def lib(tmp_path_factory):
         pytest.skip("no g++ to compile the kernel sources on the host")
     d = tmp_path_factory.mktemp("p1_replay")
     (d / "shim.h").write_text(SHIM)
+    (d / "p1_shim.h").write_text(P1_SHIM)
     objs = []
     for name in ("prefix_rebuild.cu", "dc_totals.cu"):
         src = d / (name[:-3] + ".cc")
-        src.write_text(_host_source((CSRC / name).read_text()))
+        src.write_text(_p1_host_source((CSRC / name).read_text()))
         objs.append(str(src))
     (d / "config.cc").write_text(CONFIG)
     objs.append(str(d / "config.cc"))
@@ -74,33 +139,32 @@ def lib(tmp_path_factory):
     assert res.returncode == 0, res.stderr[-3000:]
     lib = ctypes.CDLL(str(d / "libp1.so"))
     p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.jdt_prefix_base.argtypes = [p, p, q, p, p]
-    lib.jdt_prefix_base.restype = i
-    lib.jdt_prefix_resid.argtypes = [p, p, q, p, q, p]
-    lib.jdt_prefix_resid.restype = i
+    lib.jdt_prefix_rebuild.argtypes = [p, p, q, p, p, q, p, p]
+    lib.jdt_prefix_rebuild.restype = i
     lib.jdt_dc_totals.argtypes = [p, q, i, i, i, p, p, p, q, p]
     lib.jdt_dc_totals.restype = i
+    lib.jdt_dc_totals_status_words.argtypes = [i, i]
+    lib.jdt_dc_totals_status_words.restype = q
     lib.replay_config.argtypes = [ctypes.c_uint, i, i]
     return lib
 
 
 def replayed_p1(lib, dc, ac, resid_idx, resid_vals, wave: int):
     """P1 through the replayed kernels with the wrapper's own checks and
-    launches (`_check_p1`, `_p1_launches`), its output poisoned first:
-    the flat int16 stores."""
+    launches (`_check_p1`, `_p1_launch`), its output poisoned first: the
+    flat int16 stores."""
     dc = dc.reshape(-1, dc.shape[-1])
     prefix._check_p1(dc, ac, resid_idx, resid_vals)
     out = torch.full((dc.numel() * 64,), POISON, dtype=torch.int16)
     lib.replay_config(wave, 0x5A + wave, 0)
-    errs = prefix._p1_launches(lib, dc, ac, resid_idx, resid_vals, out,
-                               None)
-    assert [e for _what, e in errs] == [0] * (1 + bool(resid_idx.numel()))
+    assert prefix._p1_launch(lib, dc, ac, resid_idx, resid_vals, out,
+                             None) == 0
     return out
 
 
 def _check_p1(lib, dc, ac, resid_idx, resid_vals, waves=(1, 3)):
-    (want,) = prefix_stores_plain(whole_geometry(dc.shape[-1]), dc, ac, resid_idx,
-                                  resid_vals)
+    (want,) = prefix_stores_plain(whole_geometry(dc.shape[-1]), dc, ac,
+                                  resid_idx, resid_vals)
     for wave in waves:
         got = replayed_p1(lib, dc, ac, resid_idx, resid_vals, wave)
         assert torch.equal(got, want.reshape(-1)), wave
@@ -138,6 +202,44 @@ def test_replayed_p1_ac_off_16_bytes(lib):
     _check_p1(lib, dc, shifted.view(1, 600, 15), idx, vals)
 
 
+@pytest.mark.parametrize("wave", [1, 2, 3, 4])
+def test_replayed_p1_residuals_cross_tiles_of_other_ctas(lib, wave):
+    """Eleven 256-block stretches (21 tiles, the last ragged), the CTAs
+    of each launch in waves of 1 to 4; the residuals, in their own launch,
+    land in any CTA's tile, with duplicates on both halves of words whose
+    base values are nonzero, and a DC array off its 16-byte boundary for
+    the element loads."""
+    blocks = 10 * 256 + 77
+    dc, ac, _idx, _vals = _tensors(p1_case(1, blocks, 0, seed=11))
+    rng = np.random.default_rng(wave)
+    rows = rng.integers(0, blocks, 3000)
+    pos = rng.choice(np.flatnonzero((np.asarray(_ZIGZAG_OF_NATURAL)
+                                     < PREFIX_K)), 3000)
+    pos[::3] = rng.integers(0, 64, 1000)
+    idx = torch.from_numpy((rows * 64 + pos).astype(np.int32))
+    idx = torch.cat([idx, idx[:500], idx[:500] - blocks * 64])
+    vals = torch.from_numpy(rng.integers(-32768, 32768, idx.numel(),
+                                         dtype=np.int16))
+    _check_p1(lib, dc, ac, idx, vals, waves=(wave,))
+    raw = torch.zeros(blocks + 8, dtype=torch.int16)
+    off = (1 - raw.data_ptr() // 2) % 8
+    shifted = raw[off:off + blocks]
+    shifted.copy_(dc.reshape(-1))
+    assert shifted.data_ptr() % 16
+    _check_p1(lib, shifted.view(1, blocks), ac, idx, vals, waves=(wave,))
+
+
+def test_p1_prefix_tables_match_the_staging_zigzag_table():
+    """`kNaturalOfZigzag` (where each of the 16 prefix slots lands) read
+    from the .cu against the staging's zigzag table."""
+    src = (CSRC / "prefix_rebuild.cu").read_text()
+    table = re.search(r"kNaturalOfZigzag\[kPrefix\] = \{(.*?)\};", src,
+                      re.S)[1]
+    natural = [int(v) for v in table.replace("\n", " ").split(",")]
+    assert [int(_ZIGZAG_OF_NATURAL[n]) for n in natural] == \
+        list(range(PREFIX_K))
+
+
 def _prefix_wire(staged) -> tuple:
     return _tensors((staged.dc, staged.ac, staged.resid_idx,
                      staged.resid_vals))
@@ -169,16 +271,20 @@ def test_replayed_p1_on_a_merged_group(lib):
 
 def replayed_d1(lib, nat, plan, wave: int):
     """`dc_totals` through the replayed kernel with the wrapper's own
-    checks and launch (`_d1_prepare`, `_d1_launch`), the partial sums
-    poisoned and the output too; checks that the counter is 0 again."""
-    out, meta, ctas = assemble._d1_prepare(nat, plan)
+    checks, status count and launch (`_d1_prepare`, `_d1_launch`), the
+    output poisoned and the status words past the launch's too; checks
+    that the counter and the accumulators are 0 again and the words past
+    them untouched."""
+    out, meta, words = assemble._d1_prepare(lib, nat, plan)
     out.fill_(-0x5A5A5A5A5A5A5A5A)
-    status = torch.from_numpy(np.random.default_rng(ctas).integers(
-        -2 ** 62, 2 ** 62, 1 + ctas * out.shape[1] + 3))
-    status[0] = 0
+    status = torch.from_numpy(np.random.default_rng(words).integers(
+        -2 ** 62, 2 ** 62, 1 + words + 3))
+    status[:1 + words] = 0
+    before = status.clone()
     lib.replay_config(wave, 0x5A + wave, 0)
     assert assemble._d1_launch(lib, nat, plan, out, meta, status, None) == 0
-    assert int(status[0]) == 0, "the counter must be 0 after the launch"
+    assert torch.equal(status, before), \
+        "the accumulators must be 0 after the launch, the rest untouched"
     return out
 
 
@@ -199,9 +305,9 @@ def _seeded_nat(plan, images: int, seed: int) -> torch.Tensor:
                                                   "large_420.jpg"))
 def test_replayed_d1_bit_equal_to_plain_on_fixture_plans(lib, name):
     """Every fixture's structured plan (small_dri restart-segmented: D1
-    sums every block alike; large_420's 13,440 MCUs: 53 CTAs an image, so
-    the last CTA's warps add more than 32 partials each), 1 and 3 images
-    of full-range DC values."""
+    sums every block alike; large_420's 80,640 blocks: 315 CTAs an
+    image), 1 and 3 images of full-range DC values, CTAs in waves of 1
+    and 3."""
     (st,) = jt.stage_host_bits(fixture(name)).scans
     plan = st.scan.plan
     assert plan.structured is not None
@@ -212,13 +318,42 @@ def test_replayed_d1_bit_equal_to_plain_on_fixture_plans(lib, name):
 @pytest.mark.parametrize("name,stripes", [("large_420.jpg", 4),
                                           ("stripe_420.jpg", 8)])
 def test_replayed_d1_on_stripe_plans(lib, name, stripes):
-    """The stripe plans of large_420 at 4 (3,456 MCUs: 14 CTAs an image)
-    and stripe_420 at 8, two images of a DP shard; the int64 sums keep
-    their high bits against the plain version's."""
+    """The stripe plans of large_420 at 4 (20,736 blocks: 81 CTAs an
+    image) and stripe_420 at 8, two images of a DP shard; the int64 sums
+    keep their high bits against the plain version's."""
     scan = jt.stage_host_bits(fixture(name)).scans[0].scan
     plan = split_anchored_stripes(scan, stripes).plan
-    assert plan.structured[0][0] > 256 or name != "large_420.jpg"
+    assert plan.n_blocks == 20736 or name != "large_420.jpg"
     _check_d1(lib, _seeded_nat(plan, 2, stripes), plan)
+
+
+@pytest.mark.parametrize("images", [1, 2, 3])
+def test_replayed_d1_ragged_last_cta(lib, images):
+    """small_422's plan (a block count that leaves its last 256-block CTA
+    ragged) over 1 to 3 images: the CTAs of one image never add another
+    image's blocks."""
+    (st,) = jt.stage_host_bits(fixture("small_422.jpg")).scans
+    plan = st.scan.plan
+    assert plan.n_blocks % 256 and plan.n_blocks > 256
+    _check_d1(lib, _seeded_nat(plan, images, 40 + images), plan)
+
+
+def test_replayed_d1_status_words(lib):
+    """The status words D1 needs come from the kernel's own count
+    (`jdt_dc_totals_status_words`, through `_d1_prepare`): one
+    accumulator per (image, component); a buffer one word short is
+    refused."""
+    (st,) = jt.stage_host_bits(fixture("tower_420.jpg")).scans
+    plan = st.scan.plan
+    _n_mcus, specs = plan.structured
+    for images in (1, 3, 700):
+        assert lib.jdt_dc_totals_status_words(images, len(specs)) \
+            == images * len(specs)
+    nat = _seeded_nat(plan, 3, 0)
+    out, meta, words = assemble._d1_prepare(lib, nat, plan)
+    assert words == 3 * len(specs)
+    status = torch.zeros(words, dtype=torch.int64)    # word 0, words - 1
+    assert assemble._d1_launch(lib, nat, plan, out, meta, status, None) == 1
 
 
 def test_replayed_d1_single_image_view(lib):

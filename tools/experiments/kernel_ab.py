@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Kernel device times of one checkout of the port, for A/B runs on a card.
 
-    python tools/experiments/kernel_ab.py TREE
+    python tools/experiments/kernel_ab.py TREE [--only p1d1]
 
 TREE is the root of a checkout of this repository (this one: `.`; another
 commit: unpack it with `git archive COMMIT | tar -x -C DIR` into a directory
@@ -33,14 +33,25 @@ K2's outputs
 (`dequant_idct_multi`, three components in one call) on seeded
 coefficients at scales 8, 4, 2 and 1 and magnitudes up to 300, 1024, 4096
 and 32767, K4's output on the stores above, and the fast interleaved
-decode of every fixture. Run parent, change, change, parent in one call to
-compare two versions on one card. Needs a CUDA device.
+decode of every fixture. Then P1 (`prefix_stores`) on large_420's prefix
+wire (`stage_host`, one image: 80,640 blocks, 44,032 residual entries) and
+on the merged wire of a prefix group of 16 tower_420 (`_group_wires`:
+98,304 blocks), and D1 (`dc_totals`) on seeded int16 nat of one image of
+large_420's stripe plans at 4 and 8 stripes (20,736 and 10,752 blocks),
+100 warm calls each: per kernel name (each of P1's passes apart where a
+version has two) the mean, median, least and largest device µs of a
+launch and the launches a call, the device time of everything the wrapper
+enqueues a call, the span of a call on the card (CUDA events, the gaps
+between launches included), and SHA-256 digests of P1's stores and D1's totals.
+`--only p1d1` measures P1 and D1 alone. Run parent, change, change, parent
+in one call to compare two versions on one card. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -52,8 +63,11 @@ HERE = Path(__file__).resolve().parents[2]
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 1 or not torch.cuda.is_available():
-        print("usage: kernel_ab.py TREE (needs a CUDA device)", file=sys.stderr)
+    only = argv[1:] == ["--only", "p1d1"]
+    if len(argv) not in (1, 3) or (len(argv) == 3 and not only) \
+            or not torch.cuda.is_available():
+        print("usage: kernel_ab.py TREE [--only p1d1] (needs a CUDA device)",
+              file=sys.stderr)
         return 1
     tree = Path(argv[0]).resolve()
     sys.path.insert(0, str(HERE))
@@ -72,6 +86,10 @@ def main(argv=None) -> int:
     params = DeviceParams(dev)
     out = {"tree": str(tree), "device": torch.cuda.get_device_name(0)}
     fixtures = HERE / "tests" / "fixtures" / "torch_port"
+    if only:
+        out.update(p1_d1_times(dev, fixtures, stage_host_bits))
+        print(json.dumps(out))
+        return 0
     for name in ("large_420.jpg", "tower_420.jpg"):
         blob = (fixtures / name).read_bytes()
         staged = stage_host_bits(blob)
@@ -147,6 +165,7 @@ def main(argv=None) -> int:
         out[f"l1_{c}x2048x2048_p6_launches"] = l1["launches"]
     out.update(t1_times(dev, fixtures, stage_host_bits))
     out.update(u1_times(dev, fixtures, stage_host_bits))
+    out.update(p1_d1_times(dev, fixtures, stage_host_bits))
     out.update(digests(dev, params, fixtures))
     print(json.dumps(out))
     return 0
@@ -220,6 +239,97 @@ def u1_times(dev, fixtures, stage_host_bits) -> dict:
         for t in (got[0], got[-1]):     # ab, base in every version
             digest.update(t.cpu().numpy().tobytes())
     out["u1_sha256"] = digest.hexdigest()
+    return out
+
+
+def by_kernel(fn, prefix: str, iters: int = 100) -> dict:
+    """Device µs of each kernel whose name starts with `prefix` (mean,
+    median, least, largest launch; launches a call) and of everything a
+    call of `fn` enqueues, from torch.profiler over `iters` calls after
+    three warm-up calls; then the span of a call on the card (the gaps
+    between its launches included: `card_span_us`), median, least and
+    largest."""
+    from torch.profiler import ProfilerActivity
+
+    from tools.torch_port_profile import card_span_us
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _attempt in range(3):   # a trace now and then comes back empty
+        with torch.profiler.profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = {}
+        for e in on_card:
+            # The kernel's own name, past "(anonymous namespace)::".
+            found = re.search(r"(\w+)(?:<[^>]*>)?\(", e.name)
+            name = found[1] if found else e.name
+            if name.startswith(prefix):
+                names.setdefault(name, []).append(e.time_range.elapsed_us())
+        if names:
+            break
+    else:
+        raise RuntimeError(f"the profiler saw no {prefix!r} kernel")
+    out = {}
+    for name, each in sorted(names.items()):
+        each.sort()
+        out[name] = {"mean_us": sum(each) / len(each),
+                     "median_us": each[len(each) // 2], "min_us": each[0],
+                     "max_us": each[-1],
+                     "launches_per_call": round(len(each) / iters)}
+    out["call_device_us"] = sum(e.time_range.elapsed_us()
+                                for e in on_card) / iters
+    out["call_launches"] = round(len(on_card) / iters)
+    out.update(card_span_us(fn, iters))
+    return out
+
+
+def p1_d1_times(dev, fixtures, stage_host_bits) -> dict:
+    """P1 on large_420's prefix wire and a prefix group of 16 tower_420;
+    D1 on seeded nat of large_420's stripe plans at 4 and 8 (module
+    docstring); with SHA-256 digests of their outputs."""
+    import jpeg_decoder_tpu_torch as jt
+    from jpeg_decoder_tpu_torch.entropy.assemble import dc_totals
+    from jpeg_decoder_tpu_torch.entropy.prefix import prefix_stores
+    from jpeg_decoder_tpu_torch.host.staging import stage_host
+    from jpeg_decoder_tpu_torch.parallel.stripe_bits import (
+        split_anchored_stripes)
+
+    large = (fixtures / "large_420.jpg").read_bytes()
+    st = stage_host(large)
+    wires = {"large_420": (st.geometry, [
+        torch.from_numpy(a).to(dev)
+        for a in (st.dc, st.ac, st.resid_idx, st.resid_vals)])}
+    with jt.DeviceStreamDecoder(device=dev, host_threads=1,
+                                interchange="prefix") as dec:
+        one = dec.stage((fixtures / "tower_420.jpg").read_bytes())
+        wires["tower_420_x16"] = (one.geometry,
+                                  dec._group_wires("prefix", [one] * 16))
+    out, p1_digest, d1_digest = {}, hashlib.sha256(), hashlib.sha256()
+    for label, (geometry, wire) in wires.items():
+        out[f"p1_{label}"] = {"blocks": wire[0].numel(),
+                              "entries": wire[2].numel(),
+                              **by_kernel(lambda: prefix_stores(geometry,
+                                                                *wire),
+                                          "prefix_")}
+        for store in prefix_stores(geometry, *wire):
+            p1_digest.update(store.cpu().numpy().tobytes())
+    scan = stage_host_bits(large).scans[0].scan
+    for n in (4, 8):
+        plan = split_anchored_stripes(scan, n).plan
+        nat = torch.from_numpy(np.random.default_rng(n).integers(
+            -32768, 32768, (1, plan.n_blocks, 64), dtype=np.int16)).to(dev)
+        out[f"d1_large_420_stripe_at_{n}"] = {
+            "blocks": plan.n_blocks,
+            **by_kernel(lambda: dc_totals(nat, plan), "dc_totals")}
+        d1_digest.update(dc_totals(nat, plan).cpu().numpy().tobytes())
+    out["p1_sha256"] = p1_digest.hexdigest()
+    out["d1_sha256"] = d1_digest.hexdigest()
     return out
 
 

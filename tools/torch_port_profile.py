@@ -101,6 +101,28 @@ def kernel_device_us(fn, symbol: str, iters: int = 20) -> dict:
             "all_launches": round(len(on_card) / iters)}
 
 
+def card_span_us(fn, iters: int = 100) -> dict:
+    """The card's time from the start of a call's first kernel to the end
+    of its last, the gaps between its launches included: CUDA events
+    around each of `iters` calls, each enqueued behind a
+    `torch.cuda._sleep` long enough that the card never waits for the
+    host. {"span_median_us", "span_min_us", "span_max_us"}; the events' own
+    cost (~4-5 µs on an H100) is in every span."""
+    fn()
+    torch.cuda.synchronize()
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in marks:
+        torch.cuda._sleep(200_000)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    each = sorted(start.elapsed_time(end) * 1e3 for start, end in marks)
+    return {"span_median_us": each[len(each) // 2], "span_min_us": each[0],
+            "span_max_us": each[-1]}
+
+
 def _kernels(prof) -> list:
     """The card's kernels of a profile; record_function ranges also appear
     on the device timeline, as spans around kernels, not kernels."""
