@@ -11,7 +11,8 @@ from csrc/ and holding each against its plain PyTorch version on the card
 the assembly, U1, the delta-wire unpack, P1, the prefix rebuild, and D1, a
 stripe's DC totals):
 
-1. card name and power limit (nvidia-smi), native host library status;
+1. card name and power limit (nvidia-smi); the native host library must be
+   engaged;
 2. kernel build (nvcc), with its time;
 3. K1 (Huffman decode) on the card vs its plain version on the card and vs
    the host oracle's coefficient stores, every fixture: bit-equal;
@@ -254,14 +255,30 @@ stripe's DC totals):
    of the launches) at large_420, over a tower_420 group of 16 and on
    large_420 stripes at 4 and 8, beside the bytes bound. Their launches
    are checked in phases 14 (P1 2 per image), 17 (2 per prefix group), 19
-   (D1 1 per stripe, P1 2 per prefix shard) and 20 (per rank).
+   (D1 1 per stripe, P1 2 per prefix shard) and 20 (per rank);
+27. the matrix: the main path along the host switches of
+   `tools/ci_matrix_torch.sh` (MATRIX_LEGS: the pure-Python entropy
+   engine, the speculative prescan split forced at 4 KiB, class collapse
+   off). large_420 (bits, interleaved) at fast and at exact, tower_420 x 16
+   at batch 16, the mixed sizes at batch 8, stripe_420.jpg on
+   {"stripe": 4} slots of the card and q100_420.jpg on the prefix
+   interchange, decoded here with the default switches and then once per
+   leg by `python3 chip_smoke.py --matrix-leg` in a subprocess started with
+   the leg's switch: every output SHA-256-equal to the default decode,
+   every K1, U1, A1, P1 and D1 call of each leg bit-equal to its plain
+   version, K1, U1, A1, K2, T1, E1, P1 and D1 launched in each leg, and the
+   native host library engaged in every leg but the engine's; each leg's
+   seconds, launches and whether K1 and P1 read the default's wire (class
+   collapse off changes the delta wire). Phase 1 requires the native host
+   library.
 
 Any failure raises and the script exits nonzero. It needs a CUDA device and
 the repository around it; it imports neither JAX, nor PIL, nor the JAX
 package: the host oracle is the port's own copy (`jpeg_decoder_tpu_torch.
 host`). The last line is
 {"ok": true, "device": {...}}; the line before it is nvidia-smi's card
-name and power limit, and before that a JSON line with one entry per kernel.
+name and power limit, before that a JSON line with one entry per kernel,
+and before that phase 27's {"matrix": {...}} line.
 """
 
 from __future__ import annotations
@@ -269,6 +286,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -2473,6 +2491,198 @@ def phase_p1_d1(jt, data: dict, params, dev, card: str,
             "calls": dict(calls.counts)}
 
 
+# 27: each leg's host switch, set in the environment its subprocess starts
+# with (`tools/ci_matrix_torch.sh`'s axes; never set in a running process).
+MATRIX_LEGS = {"engine-off": {"JPEG_TPU_DISABLE_NATIVE": "1"},
+               "spec-4096": {"JPEG_TPU_SPEC_PRESCAN": "4096"},
+               "collapse-off": {"JPEG_TPU_CLASS_COLLAPSE": "0"}}
+# 27: the kernels the matrix decodes must launch in every leg.
+MATRIX_KERNELS = ("huffman_decode", "unpack_delta", "assemble",
+                  "dequant_idct", "interleaved_tail", "idct_exact",
+                  "prefix_rebuild", "dc_totals")
+
+
+def _same(got, want) -> bool:
+    if isinstance(got, torch.Tensor):
+        return got.shape == want.shape and torch.equal(got, want)
+    return len(got) == len(want) and all(map(_same, got, want))
+
+
+def matrix_decodes(jt) -> dict:
+    """27's decodes on the card, under the host switches this process
+    started with: large_420 (bits, interleaved) at fast and at exact,
+    tower_420 x16 at batch 16, the mixed sizes at batch 8, stripe_420.jpg
+    on {"stripe": 4} slots of the card and q100_420.jpg on the prefix
+    interchange. Per decode: the SHA-256 of its outputs, the launches by
+    kernel (counts set to 0 just before it), the SHA-256 of the wires K1
+    and P1 read; every K1, U1 and A1 call (spies on `models/stream.py` and
+    `parallel/stripe_bits.py`) and every P1 and D1 call (`P1D1Calls`) held
+    against its plain version on the same inputs, tolerance 0: a
+    difference raises."""
+    from jpeg_decoder_tpu_torch.entropy.assemble import (assemble_nat,
+                                                         assemble_nat_plain)
+    from jpeg_decoder_tpu_torch.entropy.chunk_decode import (
+        decode_chunks, decode_chunks_plain, unpack_delta, unpack_delta_plain)
+    from jpeg_decoder_tpu_torch.models import stream
+    from jpeg_decoder_tpu_torch.parallel import make_mesh, stripe_bits
+
+    plain = {"K1": decode_chunks_plain, "U1": unpack_delta_plain,
+             "A1": assemble_nat_plain}
+    calls = {key: [] for key in plain}
+
+    def spy(key, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            calls[key].append((args, out))
+            return out
+        return call
+
+    def check(label: str) -> dict:
+        torch.cuda.synchronize()
+        wire = hashlib.sha256()
+        for t in [t for args, _out in calls["K1"] for t in args[:4]] + [
+                t for _geometry, args, _out in p1d1.p1 for t in args]:
+            wire.update(t.cpu().numpy().tobytes())
+        for key, made in calls.items():
+            for args, out in made:
+                if not _same(out, plain[key](*args)):
+                    raise AssertionError(f"27 {key} {label}: differs from its "
+                                         "plain version")
+        n = {key: len(made) for key, made in calls.items()}
+        for made in calls.values():
+            made.clear()
+        return {**n, **p1d1.check(f"27 {label}"),
+                "wire_sha256": wire.hexdigest()}
+
+    large = (FIXTURES / "large_420.jpg").read_bytes()
+    tower = (FIXTURES / "tower_420.jpg").read_bytes()
+    mixed = [(FIXTURES / n).read_bytes() for n in MIXED]
+    runs = {"large_420 fast": ({"precision": "fast"}, [large], 1),
+            "large_420 exact": ({"precision": "exact"}, [large], 1),
+            "tower_420 x16": ({}, [tower] * 16, 16),
+            "mixed x8": ({}, mixed + mixed[:2], 8),
+            "q100 prefix": ({"interchange": "prefix"},
+                            [(FIXTURES / "q100" / "q100_420.jpg")
+                             .read_bytes()], 1)}
+    saved = (stream.decode_chunks, stream.unpack_delta, stream.assemble_nat,
+             stripe_bits.decode_chunks, stripe_bits.assemble_nat)
+    stream.decode_chunks = stripe_bits.decode_chunks = spy("K1",
+                                                           decode_chunks)
+    stream.unpack_delta = spy("U1", unpack_delta)
+    stream.assemble_nat = stripe_bits.assemble_nat = spy("A1", assemble_nat)
+    p1d1 = P1D1Calls()
+    p1d1.install()
+    out = {}
+    try:
+        for label, (opts, sources, batch) in runs.items():
+            with jt.DeviceStreamDecoder(host_threads=4, **opts) as dec:
+                images, launches = counted(
+                    jt, lambda: dec.decode_stream(sources, batch_size=batch))
+            out[label] = {"sha256": _digest(images), "launches": launches,
+                          "checked": check(label)}
+        mesh = make_mesh({"stripe": 4}, mesh_devices(4))
+        with jt.DeviceStreamDecoder(mesh=mesh, host_threads=1) as dec:
+            image, launches = counted(jt, lambda: dec.decode_striped(
+                (FIXTURES / "stripe_420.jpg").read_bytes()))
+        out["stripe_420 at 4"] = {"sha256": _digest([image]),
+                                  "launches": launches,
+                                  "checked": check("stripe_420 at 4")}
+    finally:
+        p1d1.remove()
+        (stream.decode_chunks, stream.unpack_delta, stream.assemble_nat,
+         stripe_bits.decode_chunks, stripe_bits.assemble_nat) = saved
+    return out
+
+
+def matrix_leg() -> int:
+    """`chip_smoke.py --matrix-leg`: one leg of phase 27 in this process,
+    whose environment holds the leg's host switch. Prints one JSON line:
+    whether the native host library staged the inputs, the decodes'
+    records (`matrix_decodes`) and their seconds."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --matrix-leg: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import jpeg_decoder_tpu_torch as jt
+    from jpeg_decoder_tpu_torch import _build
+    from jpeg_decoder_tpu_torch.host.entropy.native import get_native
+
+    _build.load()
+    t0 = time.perf_counter()
+    runs = matrix_decodes(jt)
+    print(json.dumps({"native": get_native() is not None, "runs": runs,
+                      "decode_seconds": time.perf_counter() - t0}))
+    return 0
+
+
+def phase_matrix(jt, card: str) -> dict:
+    """27. The main path along the host switches: `matrix_decodes` here
+    under the default switches (the native engine), then once per leg of
+    MATRIX_LEGS in a subprocess (`chip_smoke.py --matrix-leg`) started with
+    that switch and no other JPEG_TPU_* variable. Each leg must stage with
+    the engine its switch selects, give every output SHA-256-equal to the
+    default decode, launch each of MATRIX_KERNELS, and hold every K1, U1,
+    A1, P1 and D1 call to its plain version (the leg raises otherwise).
+    Returns each leg's seconds (the subprocess's wall time, its start
+    included), launches by kernel and verdicts."""
+    from jpeg_decoder_tpu_torch.host.entropy.native import get_native
+
+    if get_native() is None:
+        raise AssertionError("27: the default decodes need the native host "
+                             "library")
+
+    def totals(runs: dict) -> tuple:
+        return ({k: sum(run["launches"][k] for run in runs.values())
+                 for k in jt.LAUNCHES},
+                {k: sum(run["checked"][k] for run in runs.values())
+                 for k in ("K1", "U1", "A1", "P1", "D1")})
+
+    t0 = time.perf_counter()
+    default = matrix_decodes(jt)
+    launches, checked = totals(default)
+    legs = {"default": {"seconds": time.perf_counter() - t0, "native": True,
+                        "launches": launches, "checked": checked,
+                        "runs": default}}
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("JPEG_TPU_")}
+    for leg, switch in MATRIX_LEGS.items():
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                              "--matrix-leg"], cwd=ROOT,
+                             env={**env, **switch}, capture_output=True,
+                             text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"27 {leg}: exit {res.returncode}\n"
+                                 f"{res.stderr[-4000:]}")
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+        if got["native"] != (leg != "engine-off"):
+            raise AssertionError(f"27 {leg}: native host library engaged "
+                                 f"{got['native']}")
+        if got["runs"].keys() != default.keys():
+            raise AssertionError(f"27 {leg}: decodes {list(got['runs'])}")
+        for label, run in got["runs"].items():
+            if run["sha256"] != default[label]["sha256"]:
+                raise AssertionError(f"27 {leg} {label}: output differs from "
+                                     "the default decode")
+        wire_equal = {label: run["checked"]["wire_sha256"]
+                      == default[label]["checked"]["wire_sha256"]
+                      for label, run in got["runs"].items()}
+        launches, checked = totals(got["runs"])
+        if min(launches[k] for k in MATRIX_KERNELS) < 1 \
+                or min(checked.values()) < 1:
+            raise AssertionError(f"27 {leg}: launches {launches}, calls "
+                                 f"checked {checked}")
+        legs[leg] = {"seconds": seconds, "native": got["native"],
+                     "decode_seconds": got["decode_seconds"],
+                     "launches": launches, "checked": checked,
+                     "sha256_equal_default": True,
+                     "wire_equal_default": wire_equal, "runs": got["runs"]}
+        say(f"27 matrix {leg}", card=card,
+            **{k: v for k, v in legs[leg].items() if k != "runs"})
+    return legs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2509,6 +2719,10 @@ def main() -> int:
     say("1 card", nvidia_smi=card, torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
         native_host_library=get_native() is not None)
+    if get_native() is None:
+        raise AssertionError("1: the native host library is not engaged: "
+                             "its g++ build failed or JPEG_TPU_DISABLE_NATIVE "
+                             "is set")
 
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -2893,6 +3107,9 @@ def main() -> int:
     # 26. P1 and D1 against their plain versions, their times.
     p1d1_res = phase_p1_d1(jt, data, params, dev, card, p1d1)
 
+    # 27. The main path along the host switches, a subprocess per leg.
+    matrix = phase_matrix(jt, card)
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
                     in ("jax", "jaxlib", "jpeg_decoder_tpu"))
     if loaded:
@@ -3014,6 +3231,14 @@ def main() -> int:
                       phase14_prefix_fast_interleaved=prefix_launches)
     kernels[10].update(launches_per_stripe=1,
                        mesh_launches_per_stripe=mesh["launches_per_stripe"])
+    for row, key in zip(kernels, _build.LAUNCHES):
+        ran = {leg: res["launches"][key] for leg, res in matrix.items()
+               if leg != "default" and res["launches"][key]}
+        if ran:
+            row["matrix_launches"] = ran
+    print(json.dumps({"matrix": {
+        leg: {k: v for k, v in res.items() if k != "runs"}
+        for leg, res in matrix.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3023,4 +3248,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(matrix_leg() if sys.argv[1:] == ["--matrix-leg"] else main())
