@@ -270,7 +270,22 @@ stripe's DC totals):
    native host library engaged in every leg but the engine's; each leg's
    seconds, launches and whether K1 and P1 read the default's wire (class
    collapse off changes the delta wire). Phase 1 requires the native host
-   library.
+   library;
+28. the compiled dispatch (`jpeg_decoder_tpu_torch/models/graphs.py`: the
+   bits device half captured once per key as a CUDA graph and replayed;
+   phases 5-27 already decode through it, their spies seeing each key's
+   eager warm-up and not its capture): large_420 at fast and exact in the
+   three layouts and tower_420 at batch 1 and 16 (GRAPH_ROUTES), every
+   replay SHA-256-equal to the eager body on the same inputs, with its
+   launches; tower_420, tower_420_q92 and the optimised-table tower_420
+   alternating (two keys), every tensor handed out unchanged after later
+   replays; 10,000 replays of one graph and a replay run across the end
+   of the device epochs (A1's 2^32, U1's 2^30); replays under
+   `set_sync_debug_mode("error")`; the profiler's count of each kernel
+   over replays, equal to the eager body's launches on every route; each
+   graph's pool and peak memory; eager beside replay,
+   device-resident ms/image, host ms/image and the card's idle share, and
+   each eager wrapper's host µs beside its kernel.
 
 Any failure raises and the script exits nonzero. It needs a CUDA device and
 the repository around it; it imports neither JAX, nor PIL, nor the JAX
@@ -354,6 +369,14 @@ TAIL_CASES = (
     (("h1v1", "h2v2", "h2v2"), "ycbcr", 1001, 1667, (501, 834)),
     (("h1v1", "h2v1", "h2v1"), "ycbcr", 333, 517, (333, 259)),
 )
+
+
+def capturing() -> bool:
+    """True while a CUDA graph is being captured (`models/graphs.py`): a
+    spy then sees calls that launch nothing, whose tensors hold no values
+    until a replay, so it leaves them out; it sees the key's eager warm-up
+    call, on the same inputs, just before."""
+    return torch.cuda.is_current_stream_capturing()
 
 
 def say(phase: str, **fields) -> None:
@@ -1862,7 +1885,8 @@ def phase_t1(jt, data: dict, params, dev, card: str) -> dict:
 
     def spy(pixels, *args, **kw):
         out = kernels.interleaved_tail(pixels, *args, **kw)
-        captured.append((pixels, args, kw, out))
+        if not capturing():
+            captured.append((pixels, args, kw, out))
         return out
 
     def check(label: str, keep: int = None) -> int:
@@ -2038,12 +2062,14 @@ def phase_a1_u1(jt, data: dict, params, dev, card: str) -> dict:
 
     def a1_spy(nat, plan, maps=None, carry=None):
         out = assemble_nat(nat, plan, maps, carry)
-        a1_calls.append((nat, plan, maps, carry, out))
+        if not capturing():
+            a1_calls.append((nat, plan, maps, carry, out))
         return out
 
     def u1_spy(dm):
         out = unpack_delta(dm)
-        u1_calls.append((dm, out))
+        if not capturing():
+            u1_calls.append((dm, out))
         return out
 
     def check(label: str) -> tuple:
@@ -2533,7 +2559,8 @@ def matrix_decodes(jt) -> dict:
     def spy(key, fn):
         def call(*args, **kw):
             out = fn(*args, **kw)
-            calls[key].append((args, out))
+            if not capturing():
+                calls[key].append((args, out))
             return out
         return call
 
@@ -2681,6 +2708,394 @@ def phase_matrix(jt, card: str) -> dict:
         say(f"27 matrix {leg}", card=card,
             **{k: v for k, v in legs[leg].items() if k != "runs"})
     return legs
+
+
+# 28: the routes the compiled dispatch covers: (label, decoder options,
+# fixture, batch), batch 1 one image (`_run_device`), else one same-key
+# group (`_run_group`).
+GRAPH_ROUTES = (
+    [(f"large_420 {p} {lay}", {"precision": p, "layout": lay},
+      "large_420.jpg", 1)
+     for p in ("fast", "exact")
+     for lay in ("interleaved", "planar", "planar-pallas")]
+    + [("tower_420 fast x1", {}, "tower_420.jpg", 1),
+       ("tower_420 fast x16", {}, "tower_420.jpg", 16),
+       ("tower_420 exact x16", {"precision": "exact"}, "tower_420.jpg", 16)])
+# 28: the routes timed eager beside replay.
+GRAPH_TIMED = ("large_420 fast interleaved", "large_420 exact interleaved",
+               "tower_420 fast x1", "tower_420 fast x16")
+GRAPH_REPLAYS = 10_000
+
+
+def graph_calls(dec, blob: bytes, batch: int) -> dict:
+    """Calls of `blob`'s key on `dec` (one image, or a same-key group of
+    `batch` copies), each returning the [N, ...] output: "first" the
+    output of the key's first call (eager, off any graph: it makes no
+    graph); "replay" and "eager" on the inputs the second landing put in
+    the key's graph (as `device_resident_rate` times them),
+    "replay_landed" and "eager_landed" landing them first each time (the
+    H2D submission, `_to_device` or `_group_wires`, then the dispatch, as
+    `decode_stream` runs them); "fill" the second landing. The first
+    "replay" runs the body on the graph's inputs (its warm-up) and
+    captures the graph; later ones replay."""
+    staged = dec.stage(blob)
+    group = [staged] * batch
+
+    def land():
+        return dec._to_device(staged) if batch == 1 \
+            else dec._group_wires("bits", group)
+    first = dec._run_device(staged, land())[None] if batch == 1 \
+        else torch.stack(dec._run_group("bits", group, land()))
+    fill = land()
+    return {"first": first,
+            "replay": lambda: dec._graphs.run(dec, fill),
+            "eager": lambda: dec._graphs.run(dec, fill, eager=True),
+            "replay_landed": lambda: dec._graphs.run(dec, land()),
+            "eager_landed": lambda: dec._graphs.run(dec, land(), eager=True),
+            "fill": fill}
+
+
+def resident(run, iters: int, images: int, reps: int = 3) -> dict:
+    """Device ms/image (CUDA events around `iters` back-to-back calls) and
+    host ms/image (the enqueue: the first call to the last one's return),
+    of the rep with the least device time; after one warm-up call."""
+    run()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            run()
+        host = time.perf_counter() - t0
+        stop.record()
+        stop.synchronize()
+        dev = start.elapsed_time(stop)
+        if best is None or dev < best[0]:
+            best = (dev, host)
+    return {"ms_per_image": best[0] / iters / images,
+            "host_ms_per_image": best[1] * 1e3 / iters / images}
+
+
+def idle_share(run, iters: int, images: int) -> dict:
+    """The card's share of idle time over `iters` back-to-back calls
+    (torch.profiler, the card's activity only, so that the host runs as
+    unprofiled as it can: 1 - the union of device operations over the
+    wall time, synchronised), the device operations per image and their
+    names."""
+    from torch.profiler import ProfilerActivity
+
+    from tools.torch_port_profile import _busy_us, _kernels
+
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = _kernels(prof)
+    busy = _busy_us((e.time_range.start, e.time_range.end) for e in ops)
+    names: dict = {}
+    for e in ops:
+        names[e.name] = names.get(e.name, 0) + 1
+    return {"idle_share": 1 - busy / (wall * 1e6),
+            "busy_ms_per_image": busy / 1e3 / iters / images,
+            "wall_ms_per_image": wall * 1e3 / iters / images,
+            "device_ops_per_image": len(ops) / iters / images,
+            "ops_by_name_per_call": {k: v / iters for k, v in names.items()}}
+
+
+# 28: a wrapper's LAUNCHES key -> the name of the kernel it launches.
+KERNEL_SYMBOLS = {"huffman_decode": "huffman_decode_kernel",
+                  "unpack_delta": "unpack_delta_kernel",
+                  "assemble": "assemble_kernel",
+                  "dequant_idct": "dequant_idct_kernel",
+                  "idct_exact": "idct_exact_kernel",
+                  "interleaved_tail": "interleaved_tail_kernel",
+                  "fused_tail": "fused_tail_kernel"}
+GRAPH_PROFILED = 10     # replays in the profiler's active step
+
+
+def replay_kernels(run, calls: int = GRAPH_PROFILED) -> dict:
+    """The card's operations by name over `calls` calls of `run` in a
+    torch.profiler trace's active step, after a warm-up step of 3 calls
+    (the profiler drops events at a cold trace's start), each step
+    synchronised; a trace that comes back empty is taken again (twice at
+    most)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    got: dict = {}
+
+    def traced(prof) -> None:
+        got.clear()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                got[e.name] = got.get(e.name, 0) + 1
+
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=traced) as prof:
+            for n in (3, calls):
+                for _ in range(n):
+                    run()
+                torch.cuda.synchronize()
+                prof.step()
+        if got:
+            break
+    return got
+
+
+def graph_pool_bytes(graph) -> int:
+    """The bytes the caching allocator holds in a captured graph's private
+    pool (its segments in `torch.cuda.memory_snapshot()`), or None where
+    the snapshot names no segment of it."""
+    pool = tuple(graph.graph.pool())
+    held = [seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == pool]
+    return sum(held) if held else None
+
+
+def wrapper_host_us(jt, data: dict) -> dict:
+    """Each wrapper of the eager body apart from its kernel, at large_420's
+    main-path shapes (fast for K2, exact for E1): its arguments captured by
+    spies on one eager decode, then 200 calls back to back, host µs a call
+    (the enqueue) beside the kernel's device µs (torch.profiler)."""
+    from jpeg_decoder_tpu_torch.models import stream
+    from jpeg_decoder_tpu_torch.ops import pipeline
+    from tools.torch_port_profile import kernel_device_us
+
+    names = {"K1": (stream, "decode_chunks", "huffman_decode_kernel"),
+             "U1": (stream, "unpack_delta", "unpack_delta_kernel"),
+             "A1": (stream, "assemble_nat", "assemble_kernel"),
+             "K2": (pipeline, "dequant_idct_batch", "dequant_idct_kernel"),
+             "E1": (pipeline, "idct_exact_batch", "idct_exact_kernel"),
+             "T1": (pipeline, "interleaved_tail", "interleaved_tail_kernel")}
+    args: dict = {}
+    saved = {k: getattr(mod, fn) for k, (mod, fn, _sym) in names.items()}
+
+    def spy(key):
+        real = saved[key]
+
+        def call(*a, **kw):
+            args.setdefault(key, (real, a, kw))
+            return real(*a, **kw)
+        return call
+
+    for key, (mod, fn, _sym) in names.items():
+        setattr(mod, fn, spy(key))
+    try:
+        for precision in ("fast", "exact"):
+            with jt.DeviceStreamDecoder(host_threads=1,
+                                        precision=precision) as dec:
+                staged = dec.stage(data["large_420.jpg"])
+                dec._run_device_eager(staged, dec._to_device(staged))
+                torch.cuda.synchronize()
+    finally:
+        for key, (mod, fn, _sym) in names.items():
+            setattr(mod, fn, saved[key])
+    out = {}
+    for key, (_mod, _fn, sym) in names.items():
+        real, a, kw = args[key]
+
+        def call():
+            return real(*a, **kw)
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            call()
+        host = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        prof = kernel_device_us(call, sym)
+        out[key] = {"host_us": host, "kernel_us": prof["kernel_us"],
+                    "device_ops_per_call": prof["all_launches"]}
+    return out
+
+
+def phase_graphs(jt, data: dict, card: str) -> dict:
+    """28. The compiled dispatch (`models/graphs.py`): the bits device half
+    captured once per key as a CUDA graph and replayed. Every route of
+    GRAPH_ROUTES: the key's first call (eager, off any graph), three
+    calls on freshly landed inputs (the warm-up and the capture, then two
+    replays) and the eager body on the same inputs
+    SHA-256-equal; each replay counting the eager body's launches, by
+    kernel; one capture and two replays per key. tower_420, tower_420_q92 and
+    optimized/tower_420_opt.jpg alternating on one decoder (the first and
+    the last share one key and one graph): every image SHA-256-equal to
+    its eager body's, and every tensor handed out unchanged after the
+    later replays. GRAPH_REPLAYS replays of tower_420's graph, every output
+    equal to the first; a group of 4 large_420 (U1 and A1 over several
+    tiles) replayed across the end of its device epochs. Replays of warmed
+    keys under `torch.cuda.set_sync_debug_mode("error")`. Launches per
+    image by `_build.LAUNCHES`, and by the profiler on every route: each
+    kernel of the eager body exactly as often in GRAPH_PROFILED replays,
+    or the phase fails; captures, replays and each graph's pool (the
+    allocator's segments of it) and peak memory. Times, eager body beside replay in this run
+    (GRAPH_TIMED), on inputs landed once and landing them every call:
+    device ms/image, host ms/image and the card's idle share, and
+    `device_resident_rate`; each eager wrapper's host µs beside its
+    kernel's device µs (`wrapper_host_us`)."""
+    routes, timed, memory = {}, {}, {}
+    for label, opts, name, batch in GRAPH_ROUTES:
+        blob = data[name]
+        with jt.DeviceStreamDecoder(host_threads=1, **opts) as dec:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            calls = graph_calls(dec, blob, batch)   # the key's first call
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+            replay, eager = calls["replay_landed"], calls["eager_landed"]
+            first = calls["first"]
+            reserved = torch.cuda.memory_reserved()
+            jt.reset_launches()
+            replays = [replay() for _ in range(3)]  # the first captures
+            torch.cuda.synchronize()
+            reserved = torch.cuda.memory_reserved() - reserved
+            replayed = {k: v / 3 / batch for k, v in jt.LAUNCHES.items() if v}
+            jt.reset_launches()
+            body = eager()
+            torch.cuda.synchronize()
+            eager_calls = {k: v for k, v in jt.LAUNCHES.items() if v}
+            eager_launches = {k: v / batch for k, v in eager_calls.items()}
+            stats = dec._graphs.stats()
+            want = _digest([body])
+            if any(_digest([t]) != want for t in [first] + replays) \
+                    or replayed != eager_launches \
+                    or stats["captures"] != 1 or stats["hits"] != 2:
+                raise AssertionError(f"28 {label}: replay against eager: "
+                                     f"{replayed} {eager_launches} {stats}")
+            # The replays' kernels as the profiler sees them: each kernel
+            # of the eager body exactly as often a replay, no other.
+            ops = replay_kernels(replay)
+            counted = {k: sum(n for op, n in ops.items() if sym in op)
+                       for k, sym in KERNEL_SYMBOLS.items()}
+            if any(counted[k] != eager_calls.get(k, 0) * GRAPH_PROFILED
+                   for k in KERNEL_SYMBOLS):
+                raise AssertionError(
+                    f"28 {label}: the profiler counts {counted} kernels over "
+                    f"{GRAPH_PROFILED} replays, the eager body {eager_calls}")
+            routes[label] = {
+                "sha256": want, "launches_per_image": replayed,
+                "profiler_kernels_per_image": {
+                    k: v / GRAPH_PROFILED / batch
+                    for k, v in counted.items() if v},
+                "profiler_ops_per_call": {
+                    op.split("(")[0].split("::")[-1]: n / GRAPH_PROFILED
+                    for op, n in ops.items()},
+                "graph": stats}
+            memory[label] = {"pool_bytes": graph_pool_bytes(
+                                 calls["fill"].graph),
+                             "reserved_growth_capture_3_replays": reserved,
+                             "peak_bytes_first_call": peak,
+                             "arena_bytes": calls["fill"].graph.arena
+                             .numel()}
+            if label in GRAPH_TIMED:
+                iters = 50 if batch == 1 else 10
+                timed[label] = {
+                    mode: {**resident(calls[mode], iters, batch),
+                           **idle_share(calls[mode], iters, batch)}
+                    for mode in ("eager", "replay", "eager_landed",
+                                 "replay_landed")}
+                timed[label]["device_resident_rate"] = \
+                    dec.device_resident_rate(blob, iters=iters, batch=batch)
+    say("28 replay equals eager", **routes)
+    say("28 memory", **memory)
+
+    # One key through three images, and tensors handed out earlier.
+    names = ("tower_420.jpg", "tower_420_q92.jpg",
+             "optimized/tower_420_opt.jpg")
+    blobs = [(FIXTURES / n).read_bytes() for n in names]
+    with jt.DeviceStreamDecoder(host_threads=1) as dec:
+        want = []
+        for blob in blobs:
+            st = dec.stage(blob)
+            want.append(_digest([dec._run_device_eager(
+                st, dec._to_device(st))]))
+        outs = dec.decode_stream(blobs * 4)
+        torch.cuda.synchronize()
+        got = [_digest([o]) for o in outs]
+        keys = len(dec._graphs)
+        hits = dec._graphs.hits
+        later = dec.decode_stream(blobs * 2)
+        torch.cuda.synchronize()
+        kept = [_digest([o]) for o in outs]
+    if got != want * 4 or kept != got or keys != 2 \
+            or [_digest([o]) for o in later] != want * 2:
+        raise AssertionError(f"28 one key through three images: {keys} "
+                             "graphs, or an output differs")
+    alternating = {"graphs": keys, "replays": hits,
+                   "shared_key": [names[0], names[2]]}
+
+    # GRAPH_REPLAYS replays of one graph; the epochs' wrap.
+    with jt.DeviceStreamDecoder(host_threads=1) as dec:
+        replay = graph_calls(dec, data["tower_420.jpg"], 1)["replay_landed"]
+        ref = replay()          # the warm-up and the capture
+        bad = torch.zeros((), dtype=torch.int64, device="cuda")
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_REPLAYS):
+            bad += (replay() != ref).sum()
+        torch.cuda.synchronize()
+        many_s = time.perf_counter() - t0
+        grew = torch.cuda.memory_allocated() - held
+        many = {"replays": dec._graphs.hits, "differing_bytes": int(bad),
+                "seconds": many_s, "memory_growth_bytes": grew}
+    if many["differing_bytes"] or many["replays"] < GRAPH_REPLAYS:
+        raise AssertionError(f"28 {GRAPH_REPLAYS} replays: {many}")
+    with jt.DeviceStreamDecoder(host_threads=1) as dec:
+        calls = graph_calls(dec, data["large_420.jpg"], 4)
+        replay, fill = calls["replay_landed"], calls["fill"]
+        ref = replay()
+        replay()
+        bufs = fill.graph.scope.epochs.buffers
+        ends = {"assemble": 1 << 32, "unpack_delta": 1 << 30}
+        for kernel, end in ends.items():
+            w = (end - 2) << 32
+            bufs[kernel][0][0] = w - (1 << 64) if w >= 1 << 63 else w
+        outs = [replay() for _ in range(4)]
+        torch.cuda.synchronize()
+        epochs = {k: int(b[0][0]) >> 32 for k, b in bufs.items()}
+    if set(bufs) != set(ends) or epochs != {k: 2 for k in ends} \
+            or any(not torch.equal(o, ref) for o in outs):
+        raise AssertionError(f"28 the epochs' wrap: {epochs}")
+
+    # No synchronisation on a replay of a warmed key, through the
+    # decoder's own entry points.
+    with jt.DeviceStreamDecoder(host_threads=1) as dec:
+        one = dec.stage(data["large_420.jpg"])
+        group = [dec.stage(data["tower_420.jpg"])] * 16
+
+        def calls():
+            return (dec._run_device(one, dec._to_device(one)),
+                    dec._run_group("bits", group,
+                                   dec._group_wires("bits", group)))
+        calls()                 # the keys' first sight
+        calls()                 # their capture
+        torch.cuda.synchronize()
+        hits = dec._graphs.hits
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(5):
+                calls()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if dec._graphs.hits - hits != 10:
+            raise AssertionError("28 the sync-free calls were not replays")
+
+    wrappers = wrapper_host_us(jt, data)
+    say("28 graphs", card=card, alternating=alternating, many_replays=many,
+        wrap_epochs=epochs, sync_free_replays="ok", times=timed,
+        wrappers=wrappers)
+    return {"routes": routes, "memory": memory, "times": timed,
+            "wrappers": wrappers, "many": many}
 
 
 def main() -> int:
@@ -3109,6 +3524,9 @@ def main() -> int:
 
     # 27. The main path along the host switches, a subprocess per leg.
     matrix = phase_matrix(jt, card)
+
+    # 28. The compiled dispatch: one CUDA graph per key, replayed.
+    phase_graphs(jt, data, card)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
                     in ("jax", "jaxlib", "jpeg_decoder_tpu"))

@@ -10,14 +10,19 @@ edited source rebuilds and an unchanged one loads the existing file. Nothing
 is compiled or loaded at import time: the first kernel launch calls
 `load()`.
 
-Each wrapper counts its launches in `LAUNCHES` (one per kernel launch, and
-nowhere else), so a caller can show that a run went through the kernels;
-a batched call that is one launch counts one.
+Each wrapper counts its launches in `LAUNCHES` (`count_launch`: one per
+kernel launch, and nowhere else), so a caller can show that a run went
+through the kernels; a batched call that is one launch counts one. A
+wrapper called while a CUDA graph is captured (`graph_scope` with
+`capturing` set, `models/graphs.py`) launches nothing: its count goes to
+the scope's tally, which each replay of the graph adds to `LAUNCHES`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -55,6 +60,16 @@ class KernelBuildError(RuntimeError):
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def count_launch(name: str, n: int = 1) -> None:
+    """Count `n` launches of kernel `name`: in `LAUNCHES`, or in the tally
+    of the graph this thread is capturing (`graph_scope`)."""
+    scope = getattr(_local, "scope", None)
+    if scope is not None and scope.capturing:
+        scope.tally[name] = scope.tally.get(name, 0) + n
+    else:
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:
@@ -189,15 +204,15 @@ def load() -> ctypes.CDLL:
             i, p,           # general, host void*[4 ncomp]: its index maps
             p, q, q,        # carry (int64, or 0), its strides (c, n)
             p,              # out: every component's stores, one allocation
-            p, q,           # status buffer (counter + words), its words
-            ctypes.c_uint,  # epoch
+            p, q,           # status buffer (word 0 + words), its words
+            ctypes.c_uint,  # epoch, or 0: the epoch in word 0
             p]              # stream
         lib.jdt_assemble.restype = i
         lib.jdt_unpack_delta.argtypes = [
             p, q,           # dm, n
             p, p,           # ab, base
-            p, q,           # status buffer (counter + words), its words
-            ctypes.c_uint,  # epoch
+            p, q,           # status buffer (word 0 + words), its words
+            ctypes.c_uint,  # epoch, or 0: the epoch in word 0
             p]              # stream
         lib.jdt_unpack_delta.restype = i
         lib.jdt_prefix_rebuild.argtypes = [
@@ -237,15 +252,92 @@ def load() -> ctypes.CDLL:
 # same buffer.
 _status: dict = {}
 _status_lock = threading.Lock()
+_local = threading.local()     # .scope: the GraphScope this thread runs in
+
+
+class DeviceEpochs:
+    """Status buffers whose epoch lives on the card, for the launches of one
+    captured graph (`models/graphs.py`): one buffer per launch site, the
+    k-th launch of a kernel in the graph's body taking the kernel's k-th
+    buffer. Word 0 holds the epoch in its high 32 bits and the ticket
+    counter in its low 32: each CTA's 64-bit atomicAdd of 1 returns its
+    ticket and the launch's epoch together, and the CTA that takes the last
+    ticket stores the next epoch (mod 2^epoch bits: 2^32 for A1, 2^30 for
+    U1) with the counter 0, in one atomic. A replay launches the same
+    kernel on the same tile count, and every tile publishes its status, so
+    after a launch every word a later launch reads carries that launch's
+    epoch, which the next launch's differs from: a word not yet published
+    in this launch never reads as valid, across the wrap too, and no
+    buffer is ever cleared. The wrapper passes epoch 0 (no host epoch) for
+    such a buffer."""
+
+    def __init__(self, device):
+        self.device = device
+        self.buffers: dict = {}     # kernel -> [int64 buffer, ...]
+        self._next: dict = {}       # kernel -> launch sites used this run
+
+    def begin(self) -> None:
+        """A new run of the body: launch sites count from 0 again."""
+        self._next.clear()
+
+    def buffer(self, kernel: str, words: int, capturing: bool):
+        import torch
+
+        k = self._next.get(kernel, 0)
+        self._next[kernel] = k + 1
+        bufs = self.buffers.setdefault(kernel, [])
+        if k < len(bufs) and bufs[k].numel() - 1 >= words:
+            return bufs[k]
+        if capturing:
+            # Memory taken under a capture comes from the graph's pool,
+            # whose blocks freed earlier in the body an earlier node of the
+            # graph writes at every replay: no state survives there.
+            raise RuntimeError(f"{kernel}: no device-epoch status buffer of "
+                               f"{words} words for launch site {k}; the "
+                               "warm-up run must make it before capture")
+        buf = torch.zeros(1 + max(words, 1), dtype=torch.int64,
+                          device=self.device)
+        if k < len(bufs):
+            bufs[k] = buf
+        else:
+            bufs.append(buf)
+        return buf
+
+
+@dataclasses.dataclass
+class GraphScope:
+    """What the wrappers read while a graph's body runs on this thread: its
+    device-epoch status buffers, and while `capturing`, the tally of the
+    launches the capture records (`count_launch`)."""
+    epochs: DeviceEpochs
+    capturing: bool = False
+    tally: dict = dataclasses.field(default_factory=dict)
+
+
+@contextlib.contextmanager
+def graph_scope(scope: GraphScope):
+    """Run a graph's body (eagerly, or under capture) in `scope`."""
+    prev = getattr(_local, "scope", None)
+    _local.scope = scope
+    scope.epochs.begin()
+    try:
+        yield scope
+    finally:
+        _local.scope = prev
 
 
 def status_buffer(kernel: str, dev, stream: int, words: int,
                   epoch_bits: int) -> tuple:
     """(buffer, epoch) for one launch of `kernel` on (`dev`, `stream`) that
     needs `words` status words: the buffer int64 [1 + at least `words`],
-    the epoch new on it, 1 .. 2^epoch_bits - 1."""
+    the epoch new on it, 1 .. 2^epoch_bits - 1. Inside a `graph_scope`:
+    the scope's device-epoch buffer for this launch site and epoch 0 (the
+    kernel takes its epoch from the buffer's word 0)."""
     import torch
 
+    scope = getattr(_local, "scope", None)
+    if scope is not None:
+        return scope.epochs.buffer(kernel, words, scope.capturing), 0
     with _status_lock:
         entry = _status.get((kernel, dev, stream))
         if entry is None or entry[0].numel() - 1 < words \

@@ -51,6 +51,16 @@
 //   earlier launch never reads as valid and the buffer needs no clearing
 //   between launches. The last CTA to take a ticket sets the counter back
 //   to 0 for the next launch on the stream.
+// - The epoch on the card, for a launch captured in a CUDA graph (whose
+//   replays would repeat a baked-in host epoch): the wrapper passes epoch
+//   0, and word 0 of the buffer holds the epoch in its high 32 bits and
+//   the ticket counter in its low 32. A CTA's 64-bit atomicAdd of 1
+//   returns its ticket and the launch's epoch together; the CTA that takes
+//   the last ticket stores the next epoch (mod 2^32) with the counter 0 in
+//   one atomic. Such a buffer serves one launch site of one graph, the same
+//   tiles at every replay, every data tile publishes, so a word a launch
+//   reads holds this launch's epoch or the last one's
+//   (`_build.DeviceEpochs`): the wrap needs no clearing.
 // - The carry of a stripe (the DC sum of every earlier stripe) is the
 //   initial prefix of a sequence whose component takes one; only its low
 //   16 bits matter.
@@ -97,14 +107,17 @@ struct Args {
   const long long* carry;  // carry[c * carry_sc + n * carry_sn], or null
   long long carry_sc, carry_sn;
   unsigned long long* status;   // [data_tiles] status words
-  unsigned* counter;            // the ticket counter, 0 between launches
-  unsigned long long epoch;     // this launch's epoch << 32
+  unsigned long long* word0;    // the ticket counter (low half), 0 between
+                                // launches; the epoch (high half) when
+                                // host_epoch is 0
+  unsigned long long host_epoch;  // this launch's epoch, or 0
   int general;
   Comp c[kMaxComp];
 };
 
 struct Smem {
   long long ticket;
+  unsigned long long epoch;     // this launch's epoch << 32
   uint32_t dc[kRows];           // the rows' DC, then their prefix sums
   uint32_t warp_val[kWarps];
   uint32_t warp_flag[kWarps];
@@ -176,12 +189,18 @@ assemble_kernel(const __grid_constant__ Args a) {
   const int warp = tid >> 5;
   const int piece = tid & (kPieces - 1);
   if (tid == 0) {
-    const unsigned t = atomicAdd(a.counter, 1u);
-    if (t == a.total_tiles - 1) atomicExch(a.counter, 0u);
+    const unsigned long long w = atomicAdd(a.word0, 1ull);
+    const unsigned t = static_cast<unsigned>(w);
+    const unsigned long long e = a.host_epoch ? a.host_epoch : w >> 32;
+    if (t == a.total_tiles - 1)
+      atomicExch(a.word0, a.host_epoch ? 0ull : ((e + 1) & 0xffffffffull)
+                                                    << 32);
     sm.ticket = t;
+    sm.epoch = e << 32;
   }
   __syncthreads();
   const long long ticket = sm.ticket;
+  const unsigned long long epoch = sm.epoch;
 
   if (ticket >= a.data_tiles) {               // a tile of padding rows
     long long p = ticket - a.data_tiles;
@@ -290,14 +309,14 @@ assemble_kernel(const __grid_constant__ Args a) {
         excl = static_cast<uint32_t>(static_cast<unsigned long long>(
             a.carry[c * a.carry_sc + n * a.carry_sn])) & 0xffffu;
       if (lane == 0)
-        store_release(mine, a.epoch | kFlagP
+        store_release(mine, epoch | kFlagP
                       | ((agg_flag ? agg : excl + agg) & 0xffffu));
     } else {
       if (lane == 0)
-        store_release(mine, a.epoch | (agg_flag ? kFlagP : kFlagA) | agg);
-      excl = look_back(a.status, ticket - 1, ticket - t, a.epoch, lane);
+        store_release(mine, epoch | (agg_flag ? kFlagP : kFlagA) | agg);
+      excl = look_back(a.status, ticket - 1, ticket - t, epoch, lane);
       if (lane == 0 && !agg_flag)
-        store_release(mine, a.epoch | kFlagP | ((excl + agg) & 0xffffu));
+        store_release(mine, epoch | kFlagP | ((excl + agg) & 0xffffu));
     }
     if (lane == 0) sm.excl = excl;
   }
@@ -324,8 +343,10 @@ assemble_kernel(const __grid_constant__ Args a) {
 // component stream_idx, raster_of, seg_first, pad_rows (int32 on the
 // card). out: one allocation, the components' [images, rows, 64] stores
 // one after another. status: int64 [1 + status_words], word 0 the ticket
-// counter (0 between launches), the rest the tiles' status words; epoch:
-// nonzero and new for every launch on this buffer.
+// counter (0 between launches; its high half the epoch when epoch is 0),
+// the rest the tiles' status words; epoch: nonzero and new for every
+// launch on this buffer, or 0: the epoch in word 0 (the buffer's launches
+// all take it so).
 extern "C" int jdt_assemble(const void* nat, long long n_blocks, int images,
                             int ncomp, const long long* comp_meta,
                             int general, const void* const* maps,
@@ -336,8 +357,7 @@ extern "C" int jdt_assemble(const void* nat, long long n_blocks, int images,
   if (ncomp < 1 || ncomp > kMaxComp || images < 1 || n_blocks < 0
       || n_blocks >= (1LL << 31)
       || (nat == nullptr && n_blocks > 0) || out == nullptr
-      || status == nullptr
-      || epoch == 0 || (general && maps == nullptr))
+      || status == nullptr || (general && maps == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(nat) & 15)
       || (reinterpret_cast<uintptr_t>(out) & 15)
@@ -350,9 +370,9 @@ extern "C" int jdt_assemble(const void* nat, long long n_blocks, int images,
   a.carry = static_cast<const long long*>(carry);
   a.carry_sc = carry_sc;
   a.carry_sn = carry_sn;
-  a.counter = static_cast<unsigned*>(status);
+  a.word0 = static_cast<unsigned long long*>(status);
   a.status = static_cast<unsigned long long*>(status) + 1;
-  a.epoch = static_cast<unsigned long long>(epoch) << 32;
+  a.host_epoch = epoch;
   uint4* base = static_cast<uint4*>(out);
   for (int c = 0; c < ncomp; ++c) {
     const long long* m = comp_meta + c * kCompMeta;

@@ -59,6 +59,16 @@
 //   word of an earlier launch never reads as valid and the buffer needs
 //   no clearing between launches; the last CTA to take a ticket sets the
 //   counter back to 0 for the next launch on the stream.
+// - The epoch on the card (the wrapper passes epoch 0, as a launch
+//   captured in a CUDA graph must: a replay would repeat a baked-in host
+//   epoch). Word 0 of the buffer holds the epoch in its high 32 bits and
+//   the ticket counter in its low 32; a CTA's 64-bit atomicAdd of 1
+//   returns its ticket and the launch's epoch together, and the CTA that
+//   takes the last ticket stores the next epoch, mod 2^30, with the
+//   counter 0 in one atomic. Such a buffer serves one launch site of one
+//   graph, the same tile count at every replay, and every tile publishes
+//   both words, so every word a launch reads holds this launch's epoch or
+//   the last one's (`_build.DeviceEpochs`): the wrap needs no clearing.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -75,6 +85,7 @@ constexpr unsigned long long kFlagA = 1ull << 32;   // aggregate
 constexpr unsigned long long kFlagP = 2ull << 32;   // inclusive prefix
 constexpr unsigned long long kFlags = 3ull << 32;
 constexpr unsigned long long kEpochMask = ~0ull << 34;
+constexpr unsigned long long kEpochs = 1ull << 30;  // epochs, mod this
 static_assert(kPer % 4 == 0 && kWarps <= 32, "U1's tile shape");
 
 struct Smem {
@@ -82,6 +93,7 @@ struct Smem {
   uint32_t warp_ab[kWarps];
   uint32_t warp_base[kWarps];
   unsigned ticket;
+  unsigned long long epoch;   // this launch's epoch << 34
 };
 
 // Entry i of the tile in shared memory: a pad of 4 words after every 32.
@@ -186,21 +198,30 @@ __device__ __forceinline__ void store_tile(Smem& sm, const uint32_t* v,
 __global__ void __launch_bounds__(kThreads)
 unpack_delta_kernel(const uint32_t* __restrict__ dm, long long n,
                     uint32_t* __restrict__ ab, uint32_t* __restrict__ base,
-                    unsigned long long* status, unsigned* counter,
-                    unsigned long long epoch, unsigned tiles, int vec) {
+                    unsigned long long* status, unsigned long long* word0,
+                    unsigned long long host_epoch, unsigned tiles,
+                    int vec) {
   __shared__ Smem sm;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   unsigned tile = 0;
+  unsigned long long epoch = 0;
   if (tiles > 1) {
     if (tid == 0) {
-      const unsigned t = atomicAdd(counter, 1u);
-      if (t == tiles - 1) atomicExch(counter, 0u);
+      // Word 0: the epoch on the card (high half; 0 with a host epoch)
+      // and the ticket counter (low half).
+      const unsigned long long w = atomicAdd(word0, 1ull);
+      const unsigned t = static_cast<unsigned>(w);
+      const unsigned long long e = host_epoch ? host_epoch : w >> 32;
+      if (t == tiles - 1)
+        atomicExch(word0, host_epoch ? 0ull : ((e + 1) % kEpochs) << 32);
       sm.ticket = t;
+      sm.epoch = e << 34;
     }
     __syncthreads();
     tile = sm.ticket;
+    epoch = sm.epoch;
   }
   const long long t0 = static_cast<long long>(tile) * kTile;
   const int cnt = n - t0 < kTile ? static_cast<int>(n - t0) : kTile;
@@ -305,10 +326,11 @@ unpack_delta_kernel(const uint32_t* __restrict__ dm, long long n,
 }  // namespace
 
 // dm, ab, base: int32 [n] on the card (uint32 bit patterns). status: int64
-// [1 + status_words], word 0 the ticket counter (0 between launches), then
-// two status words a tile; read only when the wire has more than one tile
-// of kTile entries (else it may be null). epoch: 1 .. 2^30 - 1, new for
-// every launch on this buffer.
+// [1 + status_words], word 0 the ticket counter (0 between launches; its
+// high half the epoch when epoch is 0), then two status words a tile;
+// read only when the wire has more than one tile of kTile entries (else it
+// may be null). epoch: 1 .. 2^30 - 1, new for every launch on this buffer,
+// or 0: the epoch in word 0 (the buffer's launches all take it so).
 extern "C" int jdt_unpack_delta(const void* dm, long long n, void* ab,
                                 void* base, void* status,
                                 long long status_words, unsigned epoch,
@@ -319,8 +341,7 @@ extern "C" int jdt_unpack_delta(const void* dm, long long n, void* ab,
   if (n == 0) return 0;
   const long long tiles = (n + kTile - 1) / kTile;
   if (tiles >= (1LL << 31)
-      || (tiles > 1 && (status == nullptr || epoch == 0
-                        || epoch >= (1u << 30)
+      || (tiles > 1 && (status == nullptr || epoch >= (1u << 30)
                         || status_words < 2 * tiles)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (tiles > 1 && (reinterpret_cast<uintptr_t>(status) & 7))
@@ -332,9 +353,8 @@ extern "C" int jdt_unpack_delta(const void* dm, long long n, void* ab,
   unpack_delta_kernel<<<static_cast<unsigned>(tiles), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(dm), n, static_cast<uint32_t*>(ab),
-      static_cast<uint32_t*>(base), tiles > 1 ? words + 1 : nullptr,
-      static_cast<unsigned*>(status),
-      static_cast<unsigned long long>(epoch) << 34,
-      static_cast<unsigned>(tiles), vec);
+      static_cast<uint32_t*>(base), tiles > 1 ? words + 1 : nullptr, words,
+      static_cast<unsigned long long>(epoch), static_cast<unsigned>(tiles),
+      vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,8 +30,9 @@ segments that lie inside a stripe, so their DC resets are stripe-local.
 `assemble_nat` dispatches on the device of `nat`: CPU tensors run
 `assemble_nat_plain` (the two branches above), CUDA tensors launch kernel
 A1 (`csrc/assemble.cu`: both branches, every component and image in one
-launch, the stores one allocation with a contiguous view per component),
-anything else raises.
+launch, the stores one allocation with a contiguous view per component;
+its look-back's epoch from the host, or inside a captured graph's body
+from its status buffer, `_build.graph_scope`), anything else raises.
 """
 
 from __future__ import annotations
@@ -146,7 +147,7 @@ def _dc_totals_d1(nat: torch.Tensor, plan) -> torch.Tensor:
         status, _epoch = _build.status_buffer("dc_totals", dev, stream, words,
                                               32)
         err = _d1_launch(lib, nat, plan, out, meta, status, stream)
-        _build.LAUNCHES["dc_totals"] += 1
+        _build.count_launch("dc_totals")
     _build.check(lib, err, "dc_totals")
     return out
 
@@ -354,6 +355,6 @@ def _assemble_a1(nat: torch.Tensor, plan, maps, carry) -> list:
             "assemble", dev, stream, nat.shape[0] * layout.data_tiles, 32)
         err = _a1_launch(lib, nat, plan, layout, out, carry_args, status,
                          epoch, stream)
-        _build.LAUNCHES["assemble"] += 1
+        _build.count_launch("assemble")
     _build.check(lib, err, "assemble")
     return stores

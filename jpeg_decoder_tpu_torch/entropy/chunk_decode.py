@@ -6,8 +6,10 @@ Mirrors `jpeg_decoder_tpu/entropy/pallas_decode.py`:
   by a cumsum of the 23-bit deltas, block bases by an exclusive cumsum of
   the budgets (kernel U1, `csrc/unpack_delta.cu`, on a CUDA tensor: one
   launch, a CTA per tile of `U1_TILE` entries, the tiles' prefixes by
-  decoupled look-back over a status buffer of its own; its plain version
-  `unpack_delta_plain` on a CPU tensor).
+  decoupled look-back over a status buffer of its own, whose epoch comes
+  from the host, or from the buffer itself inside a captured graph's body
+  (`_build.graph_scope`); its plain version `unpack_delta_plain` on a CPU
+  tensor).
 - `decode_chunks` replaces `build_pallas_sweep` and its kernel
   `_build_decode_kernel`, and returns the same `nat` tensor: int16
   [n_blocks, 64] natural-order coefficients in stream block order, DC
@@ -78,7 +80,7 @@ def unpack_delta(dm: torch.Tensor):
                 status, epoch = _build.status_buffer(
                     "unpack_delta", dm.device, stream, 2 * tiles, 30)
             err = _u1_launch(lib, dm, ab, base, status, epoch, stream)
-            _build.LAUNCHES["unpack_delta"] += 1
+            _build.count_launch("unpack_delta")
         _build.check(lib, err, "unpack_delta")
     return ab, base
 
@@ -196,7 +198,7 @@ def decode_chunks(words, dm, ab, base, tables: ScanTables, s_max: int,
             tables.pattern.data_ptr(), tables.pattern.numel(),
             tables.unzig.data_ptr(), s_max, nat.data_ptr(), n_blocks,
             torch.cuda.current_stream(words.device).cuda_stream)
-        _build.LAUNCHES["huffman_decode"] += 1
+        _build.count_launch("huffman_decode")
     _build.check(lib, err, "huffman_decode")
     return nat
 

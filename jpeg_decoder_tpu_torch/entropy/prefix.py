@@ -118,6 +118,7 @@ def _prefix_p1(geometry, dc, ac, resid_idx, resid_vals) -> list:
         with torch.cuda.device(dc.device):
             stream = torch.cuda.current_stream(dc.device).cuda_stream
             err = _p1_launch(lib, dc, ac, resid_idx, resid_vals, out, stream)
-            _build.LAUNCHES["prefix_rebuild"] += 1 + bool(resid_idx.numel())
+            _build.count_launch("prefix_rebuild",
+                                1 + bool(resid_idx.numel()))
         _build.check(lib, err, "prefix_rebuild")
     return _split(geometry, out, n, nb)

@@ -1,0 +1,501 @@
+"""Compiled dispatch of the bits path: one CUDA graph per bucketed plan.
+
+Counterpart of the JAX package's `_compiled_bits_pipeline` and
+`_compiled_bits_pipeline_batched` (`jpeg_decoder_tpu/models/stream.py:
+919-1014`): an `lru_cache(maxsize=128)` of `jax.jit(run)`, compiled on a
+key's first call and replayed, keyed only on what is static, with the wire
+and the tables passed at run time (`:1408-1439`). Here the device half of
+one bits image (`DeviceStreamDecoder._run_device`) or of a bits group of
+one (plan, geometry) (`_run_group`) is captured once per key as a
+`torch.cuda.CUDAGraph` and replayed: no wrapper's Python (checks, ctypes
+argument arrays, K2's segment table, status-buffer epochs) runs on a
+replay.
+
+The key (`bits_key`) holds what the JAX compile key holds: the plans with
+their kept components, the component count, the geometry (its precision
+included), the layout, and per scan the wire kind, n_tab, `comp_to_upair`
+and the wire's bucketed lengths, with the delta wire's class shapes
+`(slot_words, s_max, n_bucket)` (the JAX key strips the content-dependent
+n_items, and so does this one) or the anchor wire's plan's s_max (the
+prescan's bucket); for a group, also the image count. The precision appears beside the geometry
+for the reader. Images of one encoder at one size share a key whatever
+their Huffman or quantisation tables, as they share an executable in JAX.
+
+Runtime inputs (`Inputs`): each graph owns one uint8 device buffer, its
+arena, that holds every input that changes from call to call at a fixed
+offset: per scan the wire (the delta wire as `pack_delta` buckets it; the
+anchor wire padded to `_bucket_up` of its words and chunks with budget-0
+chunks, which decode nothing, their first block the scan's end) and K1's
+tables; the zigzag map; per image and component the quantisation table,
+float32 with the table folded into the IDCT basis for K2 (`params.
+folded_basis`, the bits K2's wrapper would fold), or int32 for E1. One
+call fills it with one H2D copy through the pinned pool
+(`transfer.put_into`), the wire included, so the wire lands in the graph's
+inputs within the submission that carried it before; every call lands the
+whole arena, its tables included. What a key fixes the graph holds
+itself, so no cache eviction frees what it reads: the zero-padded IDCT
+bases and a general plan's index maps, taken from the decoder's caches
+(uploaded once a decoder: an upload from pageable memory waits for the
+card), and its status buffers.
+The tables' host arrays are cached by content, as `params.DeviceParams`
+caches their device copies, so that K1's lookup tables and K2's folded
+bases are not rebuilt on every call.
+K2's and E1's segments take one table slot each per (image, component):
+no two images' segments merge, as the eager path merges those that share
+a table tensor, so a group takes N x C segments. A launch takes 64, so a
+group of more than 21 three-component images takes two K2 (or E1)
+launches where the eager path took one.
+
+Dispatch (on a CUDA device): a key's first call dispatches eagerly, off
+any graph, as a mesh's images do (`BitsGraphs.first_sight`): it builds
+the kernels and makes the per-card `cudaFuncSetAttribute` opt-ins, and
+a key seen once costs what eager dispatch costs and makes no graph. At
+its second call (if it recurs within the last GRAPH_CACHE_SIZE first
+sights) the key gets its graph: the call lands its inputs in the graph's
+arena, runs the body eagerly on them (the warm-up, whose output it
+returns: it makes the status buffers, which no capture may allocate) and
+captures it on a side stream (`BitsGraphs.run`); every later call lands
+and replays. So a stream that cycles through more keys than the cache
+holds runs eagerly, never capturing a graph that it would evict before
+its reuse. A replay's output is copied out of
+the graph's static buffer into a tensor of the caller's own (one
+device-to-device copy, ~10 MB at large_420): a later replay never writes
+into a tensor handed out earlier. A capture or replay that fails raises;
+nothing falls back to eager dispatch. The capture neither synchronises
+the host nor empties the allocator's caches (which `torch.cuda.graph`
+does), so no other user of the device pays for it. On the CPU every
+call runs the body eagerly on the graph's inputs, through the kernels'
+plain versions.
+
+Status buffers: A1 (and U1 on a wire of more than one tile) take their
+epoch from the card (`_build.DeviceEpochs`), since a replay would repeat
+a host epoch baked in at capture. Launch counts: a capture launches
+nothing and counts nothing; each replay adds the graph's launches, by
+kernel, to `_build.LAUNCHES` (`_build.count_launch`), so launches per
+image stay what the eager body counts.
+
+Span names (`torch.profiler.record_function`) run on the host at capture,
+not at replay: a replay shows as one "bits_graph" span on the host, and
+the card's kernels inside it carry their own names only.
+
+One decoder dispatches from one thread on one stream: a graph's arena and
+static tensors are shared by its calls, which the stream orders. A call
+whose arena another call refilled before it ran fills it again.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..host.entropy.prescan import _bucket_up
+from ..params import ScanTables, folded_basis, scan_table_arrays
+from ..transfer import ALIGN, put_into
+
+# Graphs a decoder keeps. JAX keeps 128 executables, which hold no
+# activations; a captured graph holds its private memory pool (~46 MB at
+# large_420, ~50 MB for a group of 16 tower_420), so the bound is
+# tighter: 32 graphs of large_420 hold ~1.5 GB.
+GRAPH_CACHE_SIZE = 32
+_HOST_CACHE = 256       # host-side table arrays kept by content
+
+_TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
+                 np.dtype(np.float32): torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanShape:
+    """What the body needs of one scan, fixed by the key."""
+    wire: str            # "delta" or "anchor"
+    plan: object         # the scan's ScanPlan
+    kept: tuple          # ((scan component position, frame component), ...)
+    s_max: int           # K1's step bound
+    n_blocks: int        # blocks of the wire: every image's of the scan
+
+
+@dataclasses.dataclass(frozen=True)
+class BodyShape:
+    """The static structure of a graph's body."""
+    scans: tuple         # (ScanShape, ...)
+    ncomp: int
+    geometry: object
+    images: int
+    fp32: bool           # K2 on folded float32 tables, else E1 on int32
+
+
+@dataclasses.dataclass
+class QtSlot:
+    """One (image, component)'s quantisation table in the arena: float32
+    `q` and its basis `folded` for K2, or int32 `q_exact` for E1."""
+    q: torch.Tensor = None
+    folded: torch.Tensor = None
+    q_exact: torch.Tensor = None
+
+
+class SlotParams:
+    """`params.DeviceParams`' lookups (`qt`, `folded`, `qt_exact`,
+    `basis`) answered from a graph's inputs: the tables of `QtSlot`s, the
+    bases the graph holds."""
+
+    def __init__(self, bases: dict):
+        self._bases = bases
+
+    def qt(self, slot: QtSlot) -> torch.Tensor:
+        return slot.q
+
+    def folded(self, slot: QtSlot, scale: int) -> torch.Tensor:
+        return slot.folded
+
+    def qt_exact(self, slot: QtSlot) -> torch.Tensor:
+        return slot.q_exact
+
+    def basis(self, scale: int) -> torch.Tensor:
+        return self._bases[scale]
+
+
+@dataclasses.dataclass
+class Inputs:
+    """A graph's inputs, as the body reads them: per scan its wire (words,
+    dm[, ab, base]), K1's tables and, for a plan without the closed form,
+    its index maps; per image its components' `QtSlot`s; `params` the
+    lookups of the reconstruction."""
+    wires: list
+    tables: list
+    maps: list
+    qts_b: list
+    params: SlotParams
+
+
+def _scan_key(st, lengths: tuple, s_max: int, shapes) -> tuple:
+    scan = st.scan
+    head = (st.wire, len(scan.tab_maxcode), tuple(scan.comp_to_upair),
+            lengths)
+    if st.wire == "delta":
+        return head + (tuple(tuple(s[:3]) for s in shapes),)
+    return head + (s_max,)
+
+
+def wire_arrays(wire: str, arrays: tuple, n_blocks: int) -> tuple:
+    """A scan's (or a group's merged) wire arrays as a graph takes them:
+    the delta wire as `pack_delta` (or its merge) buckets it; the anchor
+    wire's words zero-padded to `_bucket_up(words, 1024)` and its chunks to
+    `_bucket_up(chunks)` with budget-0 chunks at entry bit 0 whose first
+    block is `n_blocks` (nondecreasing first blocks, as K1 needs; they
+    decode nothing)."""
+    if wire == "delta":
+        return tuple(arrays)
+    words, dm, ab, base = arrays
+    nw, n = _bucket_up(len(words), 1024), _bucket_up(len(dm))
+    pw = np.zeros(nw, np.int32)
+    pw[:len(words)] = words
+    out = [pw]
+    for a, fill in ((dm, 0), (ab, 0), (base, n_blocks)):
+        p = np.full(n, fill, np.int32)
+        p[:len(a)] = a
+        out.append(p)
+    return tuple(out)
+
+
+def bits_key(staged_or_group, precision: str, layout: str,
+             merged=None) -> tuple:
+    """The compile key of one StagedBits, or of a group of them (a list)
+    whose merged wire is `merged`, (arrays, s_max, n_blocks, shapes) as
+    `DeviceStreamDecoder` merges it (`_merge`). `layout` is the layout the
+    decoder takes for the geometry (`_effective_layout`)."""
+    if isinstance(staged_or_group, (list, tuple)):
+        first = staged_or_group[0]
+        arrays, s_max, n_blocks, shapes = merged
+        st = first.scans[0]
+        lengths = tuple(len(a) for a in
+                        wire_arrays(st.wire, arrays, n_blocks)[:2])
+        scans = (_scan_key(st, lengths, _s_max(st, s_max), shapes),)
+        head = ("group", len(staged_or_group))
+    else:
+        first = staged_or_group
+        scans = tuple(_scan_key(
+            s, tuple(len(a) for a in wire_arrays(
+                s.wire, _scan_arrays(s), s.scan.plan.n_blocks)[:2]),
+            _s_max(s, s.s_max), s.shapes) for s in first.scans)
+        head = ("image", 1)
+    return head + (tuple((s.scan.plan, s.kept) for s in first.scans),
+                   len(first.qts), first.geometry, layout, precision, scans)
+
+
+def _s_max(st, s_max: int) -> int:
+    """K1's step bound on a scan's wire (`s_max` its wire's own): on the
+    anchor wire the plan's, the prescan's bucket of its chunks' symbol
+    counts (`_s_max_bucket`), as the JAX key holds it; on the delta wire
+    `s_max`, the bucket `pack_delta` chose."""
+    return s_max if st.wire == "delta" else st.scan.plan.s_max
+
+
+def _scan_arrays(st) -> tuple:
+    """One image's scan wire, as `StagedScan` holds it."""
+    if st.wire == "delta":
+        return st.words, st.dm
+    return st.words, st.dm, st.ab, st.base
+
+
+def image_shape(staged, fp32: bool, keyed: bool = True) -> BodyShape:
+    """The body's structure for one StagedBits: its key's, or (not
+    `keyed`) on the image's own wires, as eager dispatch off a graph
+    sends them, with each scan's own s_max."""
+    return BodyShape(tuple(ScanShape(
+        s.wire, s.scan.plan, s.kept,
+        _s_max(s, s.s_max) if keyed else s.s_max,
+        s.scan.plan.n_blocks) for s in staged.scans),
+        len(staged.qts), staged.geometry, 1, fp32)
+
+
+def group_shape(group: list, merged, fp32: bool) -> BodyShape:
+    """The body's structure for a same-plan group on its merged wire."""
+    _arrays, s_max, n_blocks, _shapes = merged
+    st = group[0].scans[0]
+    return BodyShape((ScanShape(st.wire, st.scan.plan, st.kept,
+                                _s_max(st, s_max), n_blocks),),
+                     len(group[0].qts), group[0].geometry, len(group), fp32)
+
+
+@dataclasses.dataclass
+class Fill:
+    """One call's inputs landed in a graph's arena: `id` is the arena's
+    fill count when they landed; `items` the (offset, array) pairs, kept
+    to land them again if another call refilled the arena first."""
+    graph: "BitsGraph"
+    id: int
+    items: list
+
+
+class BitsGraph:
+    """One key's graph: its arena and the input views into it, what the
+    body reads beside them, its device-epoch status buffers, and once
+    captured the graph, its static output and its launches by kernel."""
+
+    def __init__(self, key, shape: BodyShape, arrays: list, device,
+                 maps: list, bases: dict):
+        self.key, self.shape, self.device = key, shape, device
+        self.layout, off = [], 0
+        for a in arrays:
+            self.layout.append((off, a.dtype, a.shape))
+            off += -(-max(a.nbytes, 1) // ALIGN) * ALIGN
+        self.arena = torch.zeros(max(off, 1), dtype=torch.uint8,
+                                 device=device)
+        views = [self.arena[o:o + int(np.prod(sh)) * dt.itemsize]
+                 .view(_TORCH_DTYPES[dt]).view(sh)
+                 for o, dt, sh in self.layout]
+        self.inputs = self._inputs(views, maps, bases)
+        self.scope = _build.GraphScope(_build.DeviceEpochs(device))
+        self.fill_id = 0
+        self.graph = None
+        self.out = None
+        self.launches: dict = {}
+
+    def _inputs(self, views: list, maps: list, bases: dict) -> Inputs:
+        """The views in the order `BitsGraphs._arrays` lays the arrays,
+        with per scan its index maps (or None) and the bases by scale."""
+        sh = self.shape
+        it = iter(views)
+        wires = [tuple(next(it) for _ in range(
+            2 if scan.wire == "delta" else 4)) for scan in sh.scans]
+        tables = [[next(it) for _ in range(6)] for _scan in sh.scans]
+        unzig = next(it)
+        tables = [ScanTables(*t, unzig=unzig) for t in tables]
+        qts_b = []
+        for _i in range(sh.images):
+            if sh.fp32:
+                qts_b.append([QtSlot(q=next(it), folded=next(it))
+                              for _c in range(sh.ncomp)])
+            else:
+                qts_b.append([QtSlot(q_exact=next(it))
+                              for _c in range(sh.ncomp)])
+        return Inputs(wires, tables, maps, qts_b, SlotParams(bases))
+
+    def items(self, arrays: list) -> list:
+        """(offset, array) pairs of one call's arrays, checked against the
+        layout the key fixed."""
+        if len(arrays) != len(self.layout) or any(
+                a.dtype != dt or a.shape != sh
+                for a, (_o, dt, sh) in zip(arrays, self.layout)):
+            raise ValueError("a call's inputs do not have its key's shapes")
+        return [(o, a) for a, (o, _dt, _sh) in zip(arrays, self.layout)]
+
+
+class BitsGraphs:
+    """A decoder's graphs on one device, least recently used evicted past
+    `maxsize`; `captures`, `hits` (replays) and the host-side caches of
+    the tables' arrays by content. `params` (the device's
+    `params.DeviceParams`) and `maps` (plan, device -> `GeneralMaps`) are
+    the decoder's caches of what a key fixes: uploaded once a decoder, not
+    once a graph, since an upload from pageable memory waits for the
+    card."""
+
+    def __init__(self, device, params, maps):
+        self.device = torch.device(device)
+        self._params, self._maps = params, maps
+        self.maxsize = GRAPH_CACHE_SIZE
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self._tables: dict = {}
+        self._qts: dict = {}
+        self._stream = None     # the side stream captures run on
+        self._seen: collections.OrderedDict = collections.OrderedDict()
+        self.captures = 0
+        self.hits = 0
+
+    def clear(self) -> None:
+        self._graphs.clear()
+        self._seen.clear()
+        self._tables.clear()
+        self._qts.clear()
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def stats(self) -> dict:
+        return {"graphs": len(self._graphs), "captures": self.captures,
+                "hits": self.hits}
+
+    def _cached(self, cache: dict, key, make):
+        val = cache.get(key)
+        if val is None:
+            if len(cache) > _HOST_CACHE:
+                cache.clear()
+            val = cache[key] = make()
+        return val
+
+    def _table_arrays(self, scan) -> ScanTables:
+        key = (scan.tab_maxcode.tobytes(), scan.tab_delta.tobytes(),
+               scan.tab_values.tobytes(), tuple(scan.comp_to_upair),
+               tuple(scan.plan.pattern))
+        return self._cached(self._tables, key,
+                            lambda: scan_table_arrays(scan))
+
+    def _qt_arrays(self, qt, scale: int, fp32: bool) -> tuple:
+        q = np.asarray(qt)
+        if not fp32:
+            return self._cached(self._qts, (q.tobytes(), 0), lambda: (
+                np.ascontiguousarray(q.astype(np.int32).reshape(64)),))
+        return self._cached(self._qts, (q.tobytes(), scale), lambda: (
+            np.ascontiguousarray(q.astype(np.float32).reshape(64)),
+            folded_basis(q, scale, "cpu").numpy()))
+
+    def _arrays(self, shape: BodyShape, wires: list, scans: list,
+                qts_b: list) -> list:
+        """Every input of one call, in the arena's order: every scan's wire
+        arrays, every scan's K1 tables (six), the zigzag map, then per image
+        and component its table(s). The tables' arrays come from the
+        host-side caches, one object per content."""
+        out = [a for wire in wires for a in wire]
+        tabs = None
+        for scan in scans:
+            tabs = self._table_arrays(scan)
+            out += [tabs.maxcode, tabs.delta, tabs.values, tabs.lut,
+                    tabs.walk, tabs.pattern]
+        out.append(tabs.unzig)
+        scales = [c.dct_scale for c in shape.geometry.components]
+        for qts in qts_b:
+            for qt, s in zip(qts, scales):
+                out += self._qt_arrays(qt, s, shape.fp32)
+        return out
+
+    def fill(self, key, shape: BodyShape, wires: list, scans: list,
+             qts_b: list) -> Fill:
+        """Land one call's inputs in its key's graph (made on first sight):
+        `wires` per scan its arrays (`wire_arrays`), `scans` the
+        `AnchoredScan`s whose tables K1 reads, `qts_b` per image its
+        components' uint16[64] tables."""
+        arrays = self._arrays(shape, wires, scans, qts_b)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = BitsGraph(
+                key, shape, arrays, self.device,
+                [None if scan.plan.structured is not None
+                 else self._maps(scan.plan, self.device)
+                 for scan in shape.scans],
+                {c.dct_scale: self._params.basis(c.dct_scale)
+                 for c in shape.geometry.components})
+            while len(self._graphs) > self.maxsize:
+                self._graphs.popitem(last=False)
+        else:
+            self._graphs.move_to_end(key)
+        fill = Fill(graph, 0, graph.items(arrays))
+        self._land(fill)
+        return fill
+
+    def _land(self, fill: Fill) -> None:
+        """Land `fill`'s items in its graph's arena."""
+        graph = fill.graph
+        put_into(graph.arena, fill.items)
+        graph.fill_id += 1
+        fill.id = graph.fill_id
+
+    def first_sight(self, key) -> bool:
+        """Whether a call of `key` runs eagerly off any graph: on a card,
+        where the key has no graph and was not seen among the last
+        `maxsize` keys so seen (it is remembered now). So a key's first
+        call on a card dispatches as eager dispatch does and makes no
+        graph, and a stream that cycles through more keys than the cache
+        holds never captures a graph it would evict before its reuse."""
+        if self.device.type != "cuda" or key in self._graphs:
+            return False
+        if self._seen.pop(key, False):
+            return False
+        self._seen[key] = True
+        while len(self._seen) > self.maxsize:
+            self._seen.popitem(last=False)
+        return True
+
+    def run(self, dec, fill: Fill, eager: bool = False) -> torch.Tensor:
+        """The body's output, [N, ...] in the decoder's layout, for the
+        inputs of `fill`: eagerly on the CPU or with `eager`; on a card at
+        the graph's first call by its warm-up and capture, then by
+        replay."""
+        graph = fill.graph
+        if graph.fill_id != fill.id:
+            self._land(fill)
+        if eager or graph.device.type != "cuda":
+            with _build.graph_scope(graph.scope):
+                return dec._bits_body(graph.shape, graph.inputs)
+        if graph.graph is None:
+            return self._capture(dec, graph)
+        with torch.profiler.record_function("bits_graph"):
+            graph.graph.replay()
+        for name, n in graph.launches.items():
+            _build.count_launch(name, n)
+        self.hits += 1
+        return graph.out.clone()
+
+    def _capture(self, dec, graph: BitsGraph) -> torch.Tensor:
+        """The warm-up, whose output is returned: the body run eagerly on
+        the graph's inputs, which makes its status buffers (the key's
+        first call, off any graph, has built the kernels and made the
+        per-card opt-ins). Then the capture, on the side stream: it
+        launches nothing, and its launches are tallied by kernel."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        scope = graph.scope
+        with _build.graph_scope(scope):
+            out = dec._bits_body(graph.shape, graph.inputs)
+        cuda_graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.device(graph.device), \
+                    torch.cuda.stream(self._stream), \
+                    _build.graph_scope(scope):
+                scope.capturing, scope.tally = True, {}
+                cuda_graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    static = dec._bits_body(graph.shape, graph.inputs)
+                finally:
+                    scope.capturing = False
+                    cuda_graph.capture_end()
+        except BaseException:
+            if self._graphs.get(graph.key) is graph:
+                del self._graphs[graph.key]
+            raise
+        graph.graph, graph.out = cuda_graph, static
+        graph.launches = dict(scope.tally)
+        self.captures += 1
+        return out

@@ -204,7 +204,7 @@ def _launch_segments(name: str, segs: list, dev) -> None:
                      ptrs(*[s[2] for s in part]),
                      ints(*[s[3] for s in part]), ints(*[s[4] for s in part]),
                      len(part), torch.cuda.current_stream(dev).cuda_stream)
-            _build.LAUNCHES[name] += 1
+            _build.count_launch(name)
         _build.check(lib, err, name)
 
 
@@ -404,7 +404,7 @@ def fused_tail(planes, comp_modes, chroma_dims, transform: str, out_h: int,
             TAIL_TRANSFORMS.index(transform), hc, wc, out_h, out_w,
             lead[0] if lead else 1, out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-        _build.LAUNCHES["fused_tail"] += 1
+        _build.count_launch("fused_tail")
     _build.check(lib, err, "fused_tail")
     return out
 
@@ -612,7 +612,7 @@ def interleaved_tail(pixels, comps, transform, out_h: int, out_w: int,
                 out.data_ptr(),
                 (ctypes.c_longlong * len(out_meta))(*out_meta),
                 torch.cuda.current_stream(dev).cuda_stream)
-            _build.LAUNCHES["interleaved_tail"] += 1
+            _build.count_launch("interleaved_tail")
         _build.check(lib, err, "interleaved_tail")
         return out
 
@@ -731,7 +731,7 @@ def fused_recon(y, cb, cr, qts, basis, width: int = None) -> torch.Tensor:
             y.data_ptr(), cb.data_ptr(), cr.data_ptr(), bases.data_ptr(),
             bh, bw, width, out.data_ptr(),
             torch.cuda.current_stream(y.device).cuda_stream)
-        _build.LAUNCHES["fused_recon"] += 1
+        _build.count_launch("fused_recon")
     _build.check(lib, err, "fused_recon")
     return out
 

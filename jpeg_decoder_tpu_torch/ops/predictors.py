@@ -66,7 +66,7 @@ def lossless_recur(diffs, predictor: int, pt: int, default: int
             diffs.data_ptr(), c, h, w, int(predictor), pt, int(default),
             out.data_ptr(),
             torch.cuda.current_stream(diffs.device).cuda_stream)
-        _build.LAUNCHES["lossless_recur"] += 1
+        _build.count_launch("lossless_recur")
     _build.check(lib, err, "lossless_recur")
     return out
 

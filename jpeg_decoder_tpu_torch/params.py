@@ -159,27 +159,34 @@ def _steps_of(symbol, is_dc: bool):
     return s, np.where(s != 0, r + 1, np.where(r == 15, 16, 64))
 
 
-def scan_tables(scan, device) -> ScanTables:
-    """`scan` is an `AnchoredScan` of the host prescan
+def scan_table_arrays(scan) -> ScanTables:
+    """K1's constant inputs for one scan as int32 numpy arrays, in the
+    fields of `ScanTables`. `scan` is an `AnchoredScan` of the host prescan
     (`host/entropy/prescan.py::prescan_baseline`) or of the transcoder."""
     pattern = [scan.comp_to_upair[c] for c in (scan.plan.pattern or [0])]
     if len(pattern) > MAX_PATTERN:
         raise ValueError(f"MCU pattern of {len(pattern)} blocks exceeds "
                          f"{MAX_PATTERN}")
 
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+    def i32(a):
+        return np.ascontiguousarray(a, np.int32)
 
     return ScanTables(
-        maxcode=put(scan.tab_maxcode),
-        delta=put(scan.tab_delta),
-        values=put(np.asarray(scan.tab_values, np.uint32).view(np.int32)),
-        lut=put(lookahead_tables(scan.tab_maxcode, scan.tab_delta,
-                                 scan.tab_values)),
-        walk=put(walk_tables(scan.tab_maxcode, scan.tab_delta,
-                             scan.tab_values)),
-        pattern=put(np.asarray(pattern)),
-        unzig=put(np.asarray(UNZIGZAG)))
+        maxcode=i32(scan.tab_maxcode),
+        delta=i32(scan.tab_delta),
+        values=i32(np.asarray(scan.tab_values, np.uint32).view(np.int32)),
+        lut=lookahead_tables(scan.tab_maxcode, scan.tab_delta,
+                             scan.tab_values),
+        walk=walk_tables(scan.tab_maxcode, scan.tab_delta, scan.tab_values),
+        pattern=i32(pattern),
+        unzig=i32(UNZIGZAG))
+
+
+def scan_tables(scan, device) -> ScanTables:
+    """`scan_table_arrays` on `device`."""
+    arrays = scan_table_arrays(scan)
+    return ScanTables(**{f.name: torch.from_numpy(getattr(arrays, f.name))
+                         .to(device) for f in dataclasses.fields(ScanTables)})
 
 
 def quant_table(qt, device, dtype=np.float32) -> torch.Tensor:

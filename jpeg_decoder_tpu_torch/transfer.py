@@ -30,7 +30,12 @@ evicts them or their pool is dropped, so the bound holds for the pinned
 memory itself and freed memory is never left registered. An array larger
 than the whole budget is copied synchronously from pageable memory.
 
-On the CPU nothing pins: `put` wraps the array (`torch.from_numpy`).
+`put_into` lands arrays in a tensor that already exists, at byte offsets
+into it (a captured graph's input buffer, `models/graphs.py`): one pinned
+buffer laid out as the tensor is, then one non-blocking copy.
+
+On the CPU nothing pins: `put` wraps the array (`torch.from_numpy`), and
+`put_into` writes the arrays into the tensor.
 """
 
 from __future__ import annotations
@@ -198,6 +203,38 @@ class PinnedPool:
             self._release(buf, seconds, sum(a.nbytes for a in arrays))
         return out
 
+    def put_into(self, dst: torch.Tensor, items) -> None:
+        """Non-blocking H2D copy of `items`, (byte offset, array) pairs,
+        into `dst` (contiguous uint8 on the pool's device) through one
+        pinned buffer: one copy of dst's first bytes up to the last
+        array's end."""
+        end = max(off + a.nbytes for off, a in items)
+        size = max(PAGE, 1 << max(end - 1, 0).bit_length())
+        if size > self._budget:
+            host = np.zeros(end, np.uint8)
+            _fill(host, items)
+            dst[:end].copy_(torch.from_numpy(host))
+            return
+        buf = self._acquire(size)
+        seconds = 0.0
+        try:
+            t0 = time.perf_counter()
+            _fill(buf.array, items)
+            seconds = time.perf_counter() - t0
+            dst[:end].copy_(torch.from_numpy(buf.array[:end]),
+                            non_blocking=True)
+            buf.event.record(torch.cuda.current_stream(self.device))
+            buf.recorded = True
+        finally:
+            self._release(buf, seconds, sum(a.nbytes for _o, a in items))
+
+
+def _fill(host: np.ndarray, items) -> None:
+    """Each (byte offset, array) of `items` into the uint8 `host`."""
+    for off, a in items:
+        host[off:off + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
+            np.uint8)
+
 
 _pools: dict = {}
 _pools_lock = threading.Lock()
@@ -225,3 +262,20 @@ def put(arrays, device: torch.device) -> tuple:
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     return pinned_pool(device).put(arrays)
+
+
+def put_into(dst: torch.Tensor, items) -> None:
+    """(byte offset, array) pairs into the uint8 tensor `dst`: one
+    non-blocking copy through the device's pinned pool on a CUDA device;
+    on the CPU the arrays written in place."""
+    if dst.dtype != torch.uint8 or dst.dim() != 1 \
+            or not dst.is_contiguous():
+        raise ValueError("put_into writes a contiguous 1-D uint8 tensor")
+    if max(off + a.nbytes for off, a in items) > dst.numel():
+        raise ValueError("an array lands past the end of the tensor")
+    if dst.device.type == "cpu":
+        _fill(dst.numpy(), items)
+    elif dst.device.type == "cuda":
+        pinned_pool(dst.device).put_into(dst, items)
+    else:
+        raise ValueError(f"unsupported device {dst.device}")

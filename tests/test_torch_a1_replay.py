@@ -33,6 +33,18 @@ pattern, the fixtures' real wires and merged group wires of 3 tower_420
 and of at least 4 tiles of large_420. This checks the kernels' tile
 arithmetic and look-back, not the card: the card runs the same sources in
 `tests/test_torch_cuda.py` and `chip_smoke.py` phase 25.
+
+The epoch on the card (the launches a CUDA graph captures and replays,
+`_build.DeviceEpochs`): the wrapper passes epoch 0 and each kernel takes
+its epoch from word 0 of the buffer (its high 32 bits), and the last CTA
+stores the next one there with the counter 0. Many launches in a row on
+one buffer, never cleared, each on new seeded inputs of one shape, CTAs in
+waves of 1 and 3, every launch bit-equal to plain and leaving word 0 the
+next epoch with the counter 0 and every status word this launch's
+prefix; A1 on a sequence of several tiles and U1 on a wire of several
+tiles; and a run across the end of the epochs (2^32 for A1, 2^30 for U1),
+from a buffer whose word 0 is set two launches below it and whose words
+hold the launch before's epoch.
 """
 
 import copy
@@ -48,7 +60,7 @@ import torch
 
 import jpeg_decoder_tpu_torch as jt
 from jpeg_decoder_tpu_torch.entropy import assemble
-from jpeg_decoder_tpu_torch.entropy.assemble import (GeneralMaps,
+from jpeg_decoder_tpu_torch.entropy.assemble import (A1_ROWS, GeneralMaps,
                                                      assemble_nat_plain)
 from jpeg_decoder_tpu_torch.entropy import chunk_decode
 from jpeg_decoder_tpu_torch.entropy.chunk_decode import (U1_TILE,
@@ -149,6 +161,14 @@ inline unsigned atomicAdd(unsigned* p, unsigned v) {
 }
 inline unsigned atomicExch(unsigned* p, unsigned v) {
   return std::atomic_ref<unsigned>(*p).exchange(v);
+}
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
+inline unsigned long long atomicExch(unsigned long long* p,
+                                     unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).exchange(v);
 }
 // The old value, as on the card: `cmp` keeps it where the exchange fails.
 inline unsigned atomicCAS(unsigned* p, unsigned cmp, unsigned v) {
@@ -461,3 +481,110 @@ def test_replayed_u1_on_real_and_merged_wires(lib):
     for dm in wires:
         _check_u1(lib, torch.from_numpy(np.ascontiguousarray(dm)),
                   waves=(1, 3) if dm.size > U1_TILE else (1,))
+
+
+A1_EPOCHS = 1 << 32      # A1's device epochs run mod this
+U1_EPOCHS = 1 << 30      # U1's
+
+
+def _signed(w: int) -> int:
+    """A 64-bit word as the int64 a buffer stores."""
+    return w - (1 << 64) if w >= 1 << 63 else w
+
+
+def _word0(epoch: int) -> int:
+    """Word 0 of a device-epoch buffer holding `epoch`, counter 0."""
+    return _signed(epoch << 32)
+
+
+def device_epoch_a1(lib, nat, plan, status, wave: int, epoch: int):
+    """One A1 launch on `status` with no host epoch (the card's), its
+    counter and words checked: the launch took `epoch` and left the next."""
+    layout, out, stores, carry_args = assemble._a1_prepare(nat, plan, None,
+                                                           None)
+    out.fill_(-23131)
+    tiles = nat.shape[0] * layout.data_tiles
+    lib.replay_config(wave, 0x5A + wave, 0)
+    assert assemble._a1_launch(lib, nat, plan, layout, out, carry_args,
+                               status, 0, None) == 0
+    assert int(status[0]) == _word0((epoch + 1) % A1_EPOCHS)
+    words = status[1:tiles + 1]
+    assert torch.equal((words >> 32) & 0xFFFFFFFF,
+                       torch.full_like(words, epoch))
+    assert torch.equal(words >> 16 & 3, torch.full_like(words, 2))
+    return stores
+
+
+@pytest.mark.parametrize("start", [0, A1_EPOCHS - 2],
+                         ids=["from 0", "across the wrap"])
+def test_replayed_a1_device_epochs_in_a_row(lib, start):
+    """A1 launched again and again on one status buffer with no host epoch
+    and no clearing between launches, on new seeded nat of one plan each
+    time (small_444's: three components of two tiles, two images, 12
+    tiles): every launch bit-equal to plain. From a zeroed buffer (as
+    `DeviceEpochs` makes it), and from word 0 two launches below the end
+    of the epochs with every word the launch before's, so the run crosses
+    the wrap."""
+    (st,) = jt.stage_host_bits(fixture("small_444.jpg")).scans
+    plan = st.scan.plan
+    shape = (2, plan.n_blocks, 64)
+    layout = assemble._a1_prepare(torch.zeros(shape, dtype=torch.int16),
+                                  plan, None, None)[0]
+    tiles = shape[0] * layout.data_tiles
+    assert tiles == 12 and all(-(-r // A1_ROWS) == 2 for r in layout.rows)
+    status = torch.zeros(tiles + 1, dtype=torch.int64)
+    if start:
+        prev = start - 1
+        status[1:] = _signed((prev << 32) | (2 << 16) | 0x1234)
+        status[0] = _word0(start)
+    rng = np.random.default_rng(start % 97)
+    for k in range(4 if not start else 3):
+        nat = torch.from_numpy(rng.integers(-32768, 32768, shape,
+                                            dtype=np.int16))
+        got = device_epoch_a1(lib, nat, plan, status, 1 + 2 * (k % 2),
+                              (start + k) % A1_EPOCHS)
+        want = assemble_nat_plain(nat, plan)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), k
+
+
+def device_epoch_u1(lib, dm, status, wave: int, epoch: int):
+    """One U1 launch on `status` with no host epoch, its word 0 and its
+    tiles' words checked."""
+    n = dm.numel()
+    tiles = -(-n // U1_TILE)
+    ab, base = chunk_decode._u1_outputs(dm)
+    ab.fill_(-1515870811)
+    base.fill_(-1515870811)
+    lib.replay_config(wave, 0x5A + wave, 0)
+    assert chunk_decode._u1_launch(lib, dm, ab, base, status, 0, None) == 0
+    assert int(status[0]) == _word0((epoch + 1) % U1_EPOCHS)
+    words = status[1:2 * tiles + 1]
+    assert torch.equal(words >> 34 & (U1_EPOCHS - 1),
+                       torch.full_like(words, epoch))
+    assert torch.equal(words >> 32 & 3, torch.full_like(words, 2))
+    return ab, base
+
+
+@pytest.mark.parametrize("start", [0, U1_EPOCHS - 2],
+                         ids=["from 0", "across the wrap"])
+def test_replayed_u1_device_epochs_in_a_row(lib, start):
+    """U1 on a wire of 2 tiles and a ragged third, launched again and
+    again on one status buffer with no host epoch and no clearing, each
+    launch on a new seeded wire: every launch bit-equal to plain, from a
+    zeroed buffer and across the end of U1's 2^30 epochs (word 0 two
+    launches below it, every word the launch before's)."""
+    n = 2 * U1_TILE + 777
+    tiles = -(-n // U1_TILE)
+    status = torch.zeros(2 * tiles + 1, dtype=torch.int64)
+    if start:
+        prev = start - 1
+        status[1:] = _signed((prev << 34) | (2 << 32) | 0x1234)
+        status[0] = _word0(start)
+    rng = np.random.default_rng(start % 89)
+    for k in range(4 if not start else 3):
+        dm = torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
+                              .astype(np.uint32).view(np.int32))
+        got = device_epoch_u1(lib, dm, status, 1 + 2 * (k % 2),
+                              (start + k) % U1_EPOCHS)
+        assert all(torch.equal(g, w)
+                   for g, w in zip(got, unpack_delta_plain(dm))), k

@@ -84,7 +84,16 @@ plain version on every fixture's plan for 1 and 3 images, 1,000 launches
 in a row, once per stripe of large_420 at 4 and 8; K1 writing into the
 rows of a larger tensor (`decode_chunks(out=)`). The bits, prefix and
 lossless device halves (`_run_device`, `_run_group`) under
-`torch.cuda.set_sync_debug_mode("error")`: nothing synchronises.
+`torch.cuda.set_sync_debug_mode("error")`: nothing synchronises, the
+bits route's calls there all graph replays. The compiled dispatch
+(`models/graphs.py`): large_420 and a tower_420 group of 4 in every
+layout at both precisions, the first call, three replays and the eager
+body bit-equal, each replay counting the eager body's launches (5 at
+large_420); outputs handed out unchanged by later replays of one graph
+through two images with other tables; replays across the end of A1's and
+U1's device epochs; a capture that fails raises, keeps no graph and does
+not fall back. A spy on a wrapper skips the calls a capture makes: they
+launch nothing.
 """
 
 import time
@@ -1155,19 +1164,28 @@ def test_u1_interleaved_with_a1_on_one_stream(cuda):
 @pytest.mark.parametrize("n", [6_144, 65_536])
 def test_u1_is_one_kernel_a_call(cuda, n):
     """A call enqueues exactly U1's kernel: no fill of the status buffer,
-    no other kernel (the buffer is made by the first call, not timed)."""
-    from torch.profiler import ProfilerActivity, profile
+    no other kernel (the buffer is made by the first call, not timed).
+    The trace counts the active step after a warm-up step of its own, as
+    a cold trace drops events at its start."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    def traced(prof) -> None:
+        on_card[:] = [e.name for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    on_card = []
     dm = _seeded_wire(n, cuda)
     unpack_delta(dm)
     torch.cuda.synchronize()
     for _attempt in range(3):   # a trace now and then comes back empty
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                unpack_delta(dm)
-            torch.cuda.synchronize()
-        on_card = [e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=traced) as prof:
+            for _step in range(2):
+                for _ in range(3):
+                    unpack_delta(dm)
+                torch.cuda.synchronize()
+                prof.step()
         if on_card:
             break
     assert len(on_card) == 3 and all("unpack_delta_kernel" in k
@@ -1207,7 +1225,8 @@ def test_a1_and_u1_launch_once_per_image_group_and_stripe(cuda, precision):
 
     def spy(nat, plan, maps=None, carry=None):
         out = real(nat, plan, maps, carry)
-        calls.append((nat, plan, maps, carry, out))
+        if not torch.cuda.is_current_stream_capturing():
+            calls.append((nat, plan, maps, carry, out))
         return out
 
     real = stream.assemble_nat
@@ -1254,7 +1273,8 @@ def test_u1_once_for_a_group_of_16_large_420(cuda):
 
     def spy(dm):
         out = real(dm)
-        calls.append((dm, out))
+        if not torch.cuda.is_current_stream_capturing():
+            calls.append((dm, out))
         return out
 
     real = stream.unpack_delta
@@ -1386,7 +1406,10 @@ def test_device_routes_never_synchronise(cuda, route):
     """`_run_device` and `_run_group` on the bits, prefix and lossless
     routes under `torch.cuda.set_sync_debug_mode("error")`: no operation
     on them waits for the card (after one warm-up decode, which copies
-    the per-table constants to the card once)."""
+    the per-table constants to the card once, and on the bits route a
+    second, which captures the graphs); on the bits route every call
+    there is a graph replay, the H2D submission that fills a graph's
+    inputs included."""
     from tools.make_torch_fixtures import sof3_jpeg, sof3_samples
 
     if route == "lossless":
@@ -1398,19 +1421,27 @@ def test_device_routes_never_synchronise(cuda, route):
                                 interchange=interchange) as dec:
         staged = dec.stage(blob)
         group = [dec.stage(blob) for _ in range(4)]
-        wires = dec._to_device(staged)
-        group_wires = dec._group_wires(route, group)
-        dec._run_device(staged, wires)
-        dec._run_group(route, group, group_wires)
+        for _ in range(2):      # bits: a key's first sight, then its capture
+            wires = dec._to_device(staged)
+            group_wires = dec._group_wires(route, group)
+            dec._run_device(staged, wires)
+            dec._run_group(route, group, group_wires)
         torch.cuda.synchronize()
+        hits = dec._graphs.hits
         torch.cuda.set_sync_debug_mode("error")
         try:
             one = dec._run_device(staged, wires)
             many = dec._run_group(route, group, group_wires)
+            for _ in range(3):      # a warmed key's replays, new inputs
+                again = dec._run_device(staged, dec._to_device(staged))
+                many_again = dec._run_group(route, group,
+                                            dec._group_wires(route, group))
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-    assert all(torch.equal(img, one) for img in many)
+        replays = dec._graphs.hits - hits
+    assert all(torch.equal(img, one) for img in many + many_again + [again])
+    assert replays == (8 if route == "bits" else 0)
 
 
 def test_p1_on_two_streams_at_once(cuda):
@@ -1555,3 +1586,134 @@ def test_k1_into_rows_of_a_larger_tensor_on_card(cuda):
     assert got.data_ptr() == nat[1].data_ptr()
     assert torch.equal(nat[1], decode_chunks(*args))
     assert (nat[0] == -7).all() and (nat[2] == -7).all()
+
+
+# The compiled dispatch (`models/graphs.py`): the bits device half captured
+# once per key as a CUDA graph and replayed.
+GRAPH_ROUTES = [(layout, precision, batch)
+                for layout in ("interleaved", "planar", "planar-pallas")
+                for precision in ("fast", "exact") for batch in (1, 0)]
+
+
+def _route_wires(dec, blob, batch: int):
+    """(first, run, eager) on `blob`'s key: one image (batch 1), or
+    tower_420 x 4 as one group (batch 0). `first` the output of the key's
+    first call (eager, off any graph); `run` and `eager` the calls on the
+    inputs the second call landed in the key's graph."""
+    staged = dec.stage(blob)
+    if batch == 1:
+        first = dec._run_device(staged, dec._to_device(staged))[None]
+        fill = dec._to_device(staged)
+        return (first, lambda: dec._run_device(staged, fill)[None],
+                lambda: dec._run_device_eager(staged, fill)[None])
+    group = [staged] * 4
+    first = torch.stack(dec._run_group("bits", group,
+                                       dec._group_wires("bits", group)))
+    fill = dec._group_wires("bits", group)
+    return (first,
+            lambda: torch.stack(dec._run_group("bits", group, fill)),
+            lambda: torch.stack(dec._run_group_eager("bits", group, fill)))
+
+
+@pytest.mark.parametrize("layout,precision,batch", GRAPH_ROUTES)
+def test_graph_replay_equals_eager_body(cuda, layout, precision, batch):
+    """large_420 (one image) and tower_420 x 4 (one group) in every layout
+    at both precisions: the key's first call (eager, off any graph), the
+    second (the warm-up on the graph's inputs, then the capture), two
+    replays and the eager body on the graph's inputs all bit-equal; one
+    capture, two replays; the launches a call counts
+    equal to the eager body's, by kernel (5 at large_420: K1, U1, A1, K2
+    or E1, T1)."""
+    from jpeg_decoder_tpu_torch.models.graphs import BitsGraph
+
+    blob = fixture("large_420.jpg" if batch == 1 else "tower_420.jpg")
+    with jt.DeviceStreamDecoder(host_threads=1, layout=layout,
+                                precision=precision) as dec:
+        first, run, eager = _route_wires(dec, blob, batch)
+        torch.cuda.synchronize()
+        jt.reset_launches()
+        replays = [run() for _ in range(3)]
+        torch.cuda.synchronize()
+        replayed = dict(jt.LAUNCHES)
+        jt.reset_launches()
+        body = eager()
+        torch.cuda.synchronize()
+        stats = dec._graphs.stats()
+        (graph,) = dec._graphs._graphs.values()
+    assert isinstance(graph, BitsGraph)
+    assert stats["captures"] == 1 and stats["hits"] == 2
+    assert all(torch.equal(r, first) for r in replays + [body])
+    assert replayed == {k: 3 * v for k, v in jt.LAUNCHES.items()}
+    if batch == 1 and layout == "interleaved":
+        assert {k: v for k, v in jt.LAUNCHES.items() if v} == {
+            "huffman_decode": 1, "unpack_delta": 1, "assemble": 1,
+            "interleaved_tail": 1,
+            ("dequant_idct" if precision == "fast" else "idct_exact"): 1}
+
+
+def test_graph_outputs_stay_the_callers(cuda):
+    """tower_420 and its optimised-table twin through one graph, in turns:
+    every output equal to its own image's first decode, and each tensor
+    handed out unchanged after the later replays."""
+    blobs = [fixture("tower_420.jpg"), fixture("optimized/"
+                                                "tower_420_opt.jpg")]
+    with jt.DeviceStreamDecoder(host_threads=1) as dec:
+        want = [dec.decode_stream([b])[0].clone() for b in blobs]
+        outs = dec.decode_stream(blobs * 4)
+        torch.cuda.synchronize()
+        assert dec._graphs.stats()["graphs"] == 1
+    assert not torch.equal(want[0], want[1])
+    for i, img in enumerate(outs):
+        assert torch.equal(img, want[i % 2]), i
+
+
+def test_graph_epochs_cross_their_wrap(cuda):
+    """A group of 16 large_420 (U1 over many tiles, A1 over many tiles)
+    replayed with each device-epoch buffer's word 0 set two launches below
+    the end of its epochs (2^32 for A1, 2^30 for U1): every replay across
+    the wrap bit-equal to the first decode, word 0 back at small epochs."""
+    blob = fixture("large_420.jpg")
+    with jt.DeviceStreamDecoder(host_threads=1) as dec:
+        group = [dec.stage(blob)] * 16
+        first = torch.stack(dec._run_group("bits", group,
+                                           dec._group_wires("bits", group)))
+        fill = dec._group_wires("bits", group)
+        dec._run_group("bits", group, fill)     # the capture
+        bufs = fill.graph.scope.epochs.buffers
+        assert set(bufs) == {"assemble", "unpack_delta"}
+        for kernel, ends in (("assemble", 1 << 32), ("unpack_delta", 1 << 30)):
+            w = (ends - 2) << 32
+            bufs[kernel][0][0] = w - (1 << 64) if w >= 1 << 63 else w
+        outs = [torch.stack(dec._run_group("bits", group, fill))
+                for _ in range(4)]
+        torch.cuda.synchronize()
+        epochs = {k: int(b[0][0]) >> 32 for k, b in bufs.items()}
+    assert all(torch.equal(o, first) for o in outs)
+    assert epochs == {"assemble": 2, "unpack_delta": 2}
+
+
+def test_a_failed_capture_raises(cuda):
+    """A body that synchronises while it is captured (here a spy on A1)
+    makes the capture fail: the key's first call (eager, off any graph)
+    decodes, its second (the capture) raises and the key keeps no graph;
+    so again from the start (no eager fallback at a capture)."""
+    from jpeg_decoder_tpu_torch.models import stream
+
+    real = stream.assemble_nat
+
+    def syncing(*args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()
+        return real(*args, **kw)
+
+    blob = fixture("tower_420.jpg")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(stream, "assemble_nat", syncing)
+        with jt.DeviceStreamDecoder(host_threads=1) as dec:
+            for _ in range(2):
+                dec.decode_stream([blob])
+                assert len(dec._graphs) == 0
+                with pytest.raises(RuntimeError):
+                    dec.decode_stream([blob])
+                assert len(dec._graphs) == 0
+    torch.cuda.synchronize()

@@ -61,7 +61,8 @@ POISON = -23131                                             # 0xA5A5
 
 # What P1 and D1 use beyond the A1 replay's shim: `cudaError_t`, cp.async
 # copies that land when their thread waits for them, `__stwb`, a warp's
-# `__reduce_add_sync`, 64-bit atomics.
+# `__reduce_add_sync` (the 64-bit atomics are in the A1 replay's shim,
+# whose kernels take them too).
 P1_SHIM = r"""
 #pragma once
 #include "shim.h"
@@ -89,14 +90,6 @@ inline int __reduce_add_sync(unsigned, int v) {
   return static_cast<int>(sum);
 }
 template <class T> void __stwb(T* p, T v) { *p = v; }
-inline unsigned long long atomicAdd(unsigned long long* p,
-                                    unsigned long long v) {
-  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
-}
-inline unsigned long long atomicExch(unsigned long long* p,
-                                     unsigned long long v) {
-  return std::atomic_ref<unsigned long long>(*p).exchange(v);
-}
 """
 
 

@@ -1,0 +1,187 @@
+#!/usr/bin/env python
+"""What the bits path's dispatch costs a key on its first calls, and a
+stream of many keys, of one checkout, for A/B runs on a card.
+
+    python tools/experiments/graph_traffic.py make DIR
+    python tools/experiments/graph_traffic.py run TREE DIR
+
+`make` writes KEYS JPEGs into DIR (PIL, where PIL is installed; the card's
+machine may lack it): this checkout's `tools/make_torch_fixtures.py`
+`textured` pixels (seed 100 + i) at quality 85, 4:2:0, at distinct sizes
+drawn from the ImageNet-class range of the mixed fixtures (320-500 x
+240-500, seed 0), so that no two share a geometry and hence no two share
+a compiled-dispatch key (`models/graphs.py`).
+
+`run` imports the port from TREE, the root of a checkout of this
+repository (this one: `.`; another commit: unpack it with `git archive
+COMMIT | tar -x -C DIR2` into a directory `.gitignore` lists), and prints
+one JSON line per case, on one decoder each, after a warm-up decode that
+builds the kernels:
+
+- "calls_of_a_key": every image of DIR staged first, then its first,
+  second and third call of what `decode_one` runs (`_to_device`, the H2D
+  landing, then `_run_device`, the device half), each timed to the card's
+  end (wall ms, synchronised), with the host's median ms in each of the
+  two: what a key pays before it is warm.
+- "dispatch": `decode_one` over staged images back to back, one
+  synchronisation at the end, wall ms/image, best of three passes: the
+  images of DIR PASSES times over (more keys than a decoder's graph cache
+  holds, 32: a least recently used cache then misses on every call), the
+  six mixed fixtures ten times over (six keys), and tower_420 sixty-four
+  times (one key).
+- "stream": `decode_stream` (staging included, the decoder's default host
+  threads) over the same three lists, wall ms/image, best of three.
+
+Each case also prints the decoder's graph counts where TREE has them, and
+a SHA-256 of every output in order, which two checkouts must share. Run
+parent, change, change, parent in one call to compare two versions on one
+card. `run` needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HERE = Path(__file__).resolve().parents[2]
+FIXTURES = HERE / "tests" / "fixtures" / "torch_port"
+KEYS = 40
+PASSES = 3
+MIXED = ("mixed_500x375.jpg", "mixed_375x500.jpg", "mixed_500x333.jpg",
+         "mixed_333x500.jpg", "mixed_448x448.jpg", "mixed_320x240.jpg")
+
+
+def make(out: Path, n: int = KEYS) -> None:
+    """`n` JPEGs of distinct sizes (4:2:0, quality 85), seed 0, into
+    `out` as key_XX.jpg."""
+    from PIL import Image
+
+    sys.path.insert(0, str(HERE))
+    from tools.make_torch_fixtures import textured
+
+    rng = np.random.default_rng(0)
+    sizes: list = []
+    while len(sizes) < n:
+        wh = (int(rng.integers(320, 501)), int(rng.integers(240, 501)))
+        if wh not in sizes:
+            sizes.append(wh)
+    out.mkdir(parents=True, exist_ok=True)
+    for i, (w, h) in enumerate(sizes):
+        Image.fromarray(textured(h, w, 3, 3.3, 100 + i)).save(
+            out / f"key_{i:02d}.jpg", "JPEG", quality=85, subsampling=2)
+
+
+def digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def graph_stats(dec) -> dict:
+    graphs = getattr(dec, "_graphs", None)
+    return graphs.stats() if graphs is not None else None
+
+
+def summary(ms: list) -> dict:
+    return {"median_ms": statistics.median(ms), "mean_ms": statistics.mean(ms),
+            "min_ms": min(ms), "max_ms": max(ms)}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) == 2 and argv[0] == "make":
+        make(Path(argv[1]))
+        return 0
+    if len(argv) != 3 or argv[0] != "run" or not torch.cuda.is_available():
+        print("usage: graph_traffic.py make DIR | run TREE DIR (run needs "
+              "a CUDA device)", file=sys.stderr)
+        return 1
+    many = [p.read_bytes() for p in sorted(Path(argv[2]).glob("key_*.jpg"))]
+    mixed = [(FIXTURES / n).read_bytes() for n in MIXED]
+    tower = (FIXTURES / "tower_420.jpg").read_bytes()
+    tree = Path(argv[1]).resolve()
+    sys.path.insert(0, str(tree))
+    for name in [m for m in sys.modules
+                 if m.startswith(("jpeg_decoder_tpu", "tools"))]:
+        del sys.modules[name]
+    import jpeg_decoder_tpu_torch as jt
+
+    def say(case: str, **fields) -> None:
+        print(json.dumps({"tree": argv[1], "case": case, **fields}),
+              flush=True)
+
+    with jt.DeviceStreamDecoder(host_threads=1) as dec:
+        dec.decode_stream([tower] * 3)
+        torch.cuda.synchronize()
+
+    with jt.DeviceStreamDecoder(host_threads=1) as dec:
+        staged = [dec.stage(b) for b in many]
+        calls: list = [[], [], []]
+        parts: list = [([], []) for _ in range(3)]
+        outs = []
+        for st in staged:
+            for k in range(3):
+                t0 = time.perf_counter()
+                wires = dec._to_device(st)
+                t1 = time.perf_counter()
+                out = dec._run_device(st, wires)
+                t2 = time.perf_counter()
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                calls[k].append((t3 - t0) * 1e3)
+                parts[k][0].append((t1 - t0) * 1e3)
+                parts[k][1].append((t2 - t1) * 1e3)
+            outs.append(out)
+        names = ("first", "second", "third")
+        say("calls_of_a_key", keys=len(many),
+            **{name: summary(ms) for name, ms in zip(names, calls)},
+            host_median_ms={name: {"land": statistics.median(land),
+                                   "dispatch": statistics.median(run)}
+                            for name, (land, run) in zip(names, parts)},
+            graph=graph_stats(dec), sha256=digest(outs))
+
+    lists = {"many_keys": many * PASSES, "mixed": mixed * 10,
+             "tower_420": [tower] * 64}
+    for name, blobs in lists.items():
+        with jt.DeviceStreamDecoder(host_threads=1) as dec:
+            staged = [dec.stage(b) for b in blobs]
+            dec.decode_one(staged[0])
+            torch.cuda.synchronize()
+            best, outs = None, None
+            for _rep in range(3):
+                t0 = time.perf_counter()
+                got = [dec.decode_one(st) for st in staged]
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / len(staged)
+                if best is None or ms < best:
+                    best, outs = ms, got
+            say("dispatch", stream=name, images=len(staged),
+                ms_per_image=best, graph=graph_stats(dec),
+                sha256=digest(outs))
+    for name, blobs in lists.items():
+        with jt.DeviceStreamDecoder() as dec:
+            dec.decode_stream(blobs[:1])
+            torch.cuda.synchronize()
+            best, outs = None, None
+            for _rep in range(3):
+                t0 = time.perf_counter()
+                got = dec.decode_stream(blobs)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / len(blobs)
+                if best is None or ms < best:
+                    best, outs = ms, got
+            say("stream", stream=name, images=len(blobs), ms_per_image=best,
+                graph=graph_stats(dec), sha256=digest(outs))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

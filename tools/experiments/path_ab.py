@@ -13,7 +13,8 @@ checkout, prints one JSON line per case with the profiler's numbers
 on the card): kernel launches per image, device busy ms per image (the
 union of kernel intervals), the idle share of that window, kernel ms per
 image by layer (the decoder's record_function spans: unpack_delta,
-k1_decode, assemble, reconstruct, interleaved_tail, ...) and the
+k1_decode, assemble, reconstruct, interleaved_tail, ...; a replayed CUDA
+graph's kernels, which no span holds, by their names) and the
 device-resident ms per image by CUDA events (`device_resident_rate`, 50
 decodes). Cases: large_420 (2048 x 1680 4:2:0) at fast and at exact, both
 interleaved on the bits interchange; tower_420 (512 x 512 4:2:0) as a group

@@ -19,7 +19,9 @@ stripe tests (`tests/test_stripe_bits.py:38-69`, case "420": random pixels
 in [0, 255), seed 101, q80): its 8-stripe split starts stripes inside
 chunks, which the card tests of the stripe wire need. And `q100/
 q100_420.jpg`, a 4:2:0 image at quality 100, whose residuals fill the
-prefix wire's zigzag slots 16-63.
+prefix wire's zigzag slots 16-63. And `optimized/tower_420_opt.jpg`,
+tower_420's array at q86 with per-image optimised Huffman tables, which
+shares tower_420's graph key.
 
 Lossless (SOF3) streams are not committed: `sof3_jpeg` writes them at run
 time from seeded samples (`sof3_samples`), with numpy alone (no PIL, no
@@ -81,6 +83,14 @@ NOISE_FIXTURES = {
 # the prefix interchange's wire that the prefix rebuild (P1) scatters.
 FIXTURES["q100/q100_420.jpg"] = (256, 192, "RGB",
                                  {"subsampling": 2, "quality": 100}, 4.0, 9)
+# tower_420's array with Huffman tables optimised for the image (PIL
+# `optimize=True`, as mozjpeg does by default), in a directory of its own:
+# at quality 86 its plan, wire buckets and class shapes are tower_420's, so
+# it shares tower_420's compiled-dispatch key (`models/graphs.py`) while its
+# Huffman and quantisation tables differ.
+FIXTURES["optimized/tower_420_opt.jpg"] = (
+    512, 512, "RGB", {"subsampling": 2, "quality": 86, "optimize": True},
+    3.3, 1)
 
 
 def textured(h: int, w: int, channels: int, noise: float,
