@@ -2850,6 +2850,28 @@ def replay_kernels(run, calls: int = GRAPH_PROFILED) -> dict:
     return got
 
 
+def replay_gate(label: str, replay, eager_calls: dict) -> tuple:
+    """The profiler's gate on a route's replays: each kernel of the eager
+    body (`eager_calls`, by `LAUNCHES` key) exactly as often in
+    GRAPH_PROFILED replays as in as many eager bodies, and no other
+    kernel of KERNEL_SYMBOLS. A trace can lose events but not make them
+    up, so a trace that counts fewer is taken again (three traces at
+    most) and one exact count passes; (counted, ops, traces taken)."""
+    for attempt in range(1, 4):
+        ops = replay_kernels(replay)
+        counted = {k: sum(n for op, n in ops.items() if sym in op)
+                   for k, sym in KERNEL_SYMBOLS.items()}
+        want = {k: eager_calls.get(k, 0) * GRAPH_PROFILED
+                for k in KERNEL_SYMBOLS}
+        if counted == want:
+            return counted, ops, attempt
+        if any(counted[k] > want[k] for k in KERNEL_SYMBOLS):
+            break
+    raise AssertionError(
+        f"28 {label}: the profiler counts {counted} kernels over "
+        f"{GRAPH_PROFILED} replays, the eager body {eager_calls}")
+
+
 def graph_pool_bytes(graph) -> int:
     """The bytes the caching allocator holds in a captured graph's private
     pool (its segments in `torch.cuda.memory_snapshot()`), or None where
@@ -2917,6 +2939,179 @@ def wrapper_host_us(jt, data: dict) -> dict:
     return out
 
 
+# 28: the hetero routes, each on the mixed group of 8 (MIXED and its first
+# two again, one sweep and six parts) and on HETERO_SECOND (the same sweep
+# key; two of its parts' keys shared, at other offsets).
+HETERO_ROUTES = (("mixed x8 fast interleaved", {}),
+                 ("mixed x8 exact interleaved", {"precision": "exact"}),
+                 ("mixed x8 fast planar-pallas", {"layout": "planar-pallas"}))
+HETERO_SECOND = (5, 4, 3, 2, 1, 0, 4, 3)
+
+
+def hetero_calls(dec, group: list) -> dict:
+    """Calls of a hetero group's keys on `dec`, each returning the group's
+    images: "replay" and "eager" (the body of each half run eagerly on its
+    graph's inputs) on the halves one landing put in the graphs,
+    "replay_landed" and "eager_landed" landing them first each time;
+    "off_graph_landed" the eager dispatch off any graph (the merged wire
+    put to the device, as a mesh shard's group runs); "land" the landing
+    alone (the sweep's arena and each part's, one H2D submission each)."""
+    cuda = torch.device("cuda")
+
+    def land():
+        return dec._group_wires("bits", group)
+    halves = land()
+    return {"replay": lambda: dec._run_group("bits", group, halves),
+            "eager": lambda: dec._run_group_eager("bits", group, halves),
+            "replay_landed": lambda: dec._run_group("bits", group, land()),
+            "eager_landed":
+                lambda: dec._run_group_eager("bits", group, land()),
+            "off_graph_landed": lambda: dec._run_group(
+                "bits", group, dec._group_wires("bits", group, cuda)),
+            "land": land, "halves": halves}
+
+
+def copy_times(dec, group: list, halves) -> list:
+    """Each part's row copy (its rows of the sweep's nat into its graph's
+    `nat_in`, the port's `dynamic_slice`), alone: its bytes, CUDA-event ms
+    over 200 copies and the device µs of its memcpy (torch.profiler)."""
+    from torch.profiler import ProfilerActivity
+
+    nat = dec._run_half(halves.sweep, False)
+    out, off = [], 0
+    for members, fill in zip(halves.parts.values(), halves.recons):
+        rows = len(members) * group[members[0]].scans[0].scan.plan.n_blocks
+        src, dst = nat[off:off + rows], fill.graph.nat_in[:rows]
+
+        def copy(src=src, dst=dst):
+            dst.copy_(src)
+        ms = cuda_ms(copy, 200)
+        with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as p:
+            for _ in range(20):
+                copy()
+            torch.cuda.synchronize()
+        ev = [e.time_range.elapsed_us() for e in p.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        out.append({"images": len(members), "bytes": rows * 128,
+                    "cuda_event_ms": ms,
+                    "device_us": sum(ev) / len(ev) if ev else None})
+        off += rows
+    return out
+
+
+def phase_hetero_graphs(jt, card: str) -> dict:
+    """28, hetero groups: per HETERO_ROUTES the group's first call (every
+    key at its first sight: eager, off any graph, no graph made), three
+    calls on freshly landed inputs (the warm-up and the captures of the
+    sweep graph and the six part graphs, then two replays) and the eager
+    body on the same inputs SHA-256-equal, image by image; one capture a
+    key; each replay counting the eager body's launches by `LAUNCHES` and
+    by the profiler's warmed gate; HETERO_SECOND's first call (the sweep
+    and two parts replayed, the other parts eager) and two more, each
+    image SHA-256-equal to the same fixture's in the first composition,
+    one sweep graph for both; replays of both compositions' warmed keys
+    under `torch.cuda.set_sync_debug_mode("error")`. Measured: device and
+    host ms/image and the idle share, replay beside the eager body and
+    the eager dispatch off any graph; the landing's host µs a group; each
+    part's row copy; each graph's pool."""
+    mixed = [(FIXTURES / n).read_bytes() for n in MIXED]
+    cell = mixed + mixed[:2]
+    second = [mixed[i] for i in HETERO_SECOND]
+    out = {}
+    for label, opts in HETERO_ROUTES:
+        with jt.DeviceStreamDecoder(host_threads=1, **opts) as dec:
+            group = [dec.stage(b) for b in cell]
+            first = dec._run_group("bits", group,
+                                   dec._group_wires("bits", group))
+            torch.cuda.synchronize()
+            if len(dec._graphs):
+                raise AssertionError(f"28 {label}: a first sight made a graph")
+            calls = hetero_calls(dec, group)
+            replay, eager = calls["replay_landed"], calls["eager_landed"]
+            jt.reset_launches()
+            replays = [replay() for _ in range(3)]  # the first captures
+            torch.cuda.synchronize()
+            replayed = {k: v / 3 for k, v in jt.LAUNCHES.items() if v}
+            jt.reset_launches()
+            body = eager()
+            torch.cuda.synchronize()
+            eager_calls = {k: v for k, v in jt.LAUNCHES.items() if v}
+            stats = dec._graphs.stats()
+            keys = len(calls["halves"].recons) + 1
+            want = [_digest([t]) for t in body]
+            if any([_digest([t]) for t in r] != want
+                   for r in [first] + replays) \
+                    or replayed != eager_calls \
+                    or stats != {"graphs": keys, "captures": keys,
+                                 "hits": 2 * keys}:
+                raise AssertionError(f"28 {label}: replay against eager: "
+                                     f"{replayed} {eager_calls} {stats}")
+            counted, ops, traces = replay_gate(label, replay, eager_calls)
+            # A second composition: the sweep key again, parts at other
+            # offsets.
+            group2 = [dec.stage(b) for b in second]
+            sweep = calls["halves"].sweep.graph
+            seconds = []
+            for _ in range(3):
+                halves2 = dec._group_wires("bits", group2)
+                seconds.append(dec._run_group("bits", group2, halves2))
+            torch.cuda.synchronize()
+            if halves2.sweep.graph is not sweep or any(
+                    [_digest([t]) for t in imgs]
+                    != [want[i] for i in HETERO_SECOND]
+                    for imgs in seconds):
+                raise AssertionError(f"28 {label}: the second composition")
+            # Warmed keys of both compositions, no synchronisation.
+            torch.cuda.synchronize()
+            hits = dec._graphs.hits
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(3):
+                    replay()
+                    dec._run_group("bits", group2,
+                                   dec._group_wires("bits", group2))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            sync_free = dec._graphs.hits - hits
+            if sync_free != 3 * (keys + len(halves2.recons) + 1):
+                raise AssertionError(f"28 {label}: {sync_free} sync-free "
+                                     "replays")
+            images = len(cell)
+            timed = {mode: {**resident(calls[mode], 20, images),
+                            **idle_share(calls[mode], 20, images)}
+                     for mode in ("replay", "eager", "replay_landed",
+                                  "eager_landed", "off_graph_landed")}
+            land = calls["land"]
+            land()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                land()
+            landing_us = (time.perf_counter() - t0) / 50 * 1e6
+            torch.cuda.synchronize()
+            halves = calls["halves"]
+            out[label] = {
+                "sha256": _digest(body), "launches_per_group": replayed,
+                "profiler_traces": traces,
+                "profiler_kernels_per_group": {
+                    k: v / GRAPH_PROFILED for k, v in counted.items() if v},
+                "profiler_ops_per_group": {
+                    op.split("(")[0].split("::")[-1]: n / GRAPH_PROFILED
+                    for op, n in ops.items()},
+                "graph": dec._graphs.stats(), "sync_free_replays": sync_free,
+                "times": timed, "landing_host_us_per_group": landing_us,
+                "copies": copy_times(dec, group, halves),
+                "pool_bytes": {"sweep": graph_pool_bytes(halves.sweep.graph),
+                               "parts": [graph_pool_bytes(f.graph)
+                                         for f in halves.recons]},
+                "arena_bytes": {"sweep": halves.sweep.graph.arena.numel(),
+                                "parts": [f.graph.arena.numel()
+                                          for f in halves.recons]}}
+    say("28 hetero graphs", card=card, **out)
+    return out
+
+
 def phase_graphs(jt, data: dict, card: str) -> dict:
     """28. The compiled dispatch (`models/graphs.py`): the bits device half
     captured once per key as a CUDA graph and replayed. Every route of
@@ -2939,7 +3134,8 @@ def phase_graphs(jt, data: dict, card: str) -> dict:
     (GRAPH_TIMED), on inputs landed once and landing them every call:
     device ms/image, host ms/image and the card's idle share, and
     `device_resident_rate`; each eager wrapper's host µs beside its
-    kernel's device µs (`wrapper_host_us`)."""
+    kernel's device µs (`wrapper_host_us`). The hetero groups: a sweep
+    graph and a graph per part (`phase_hetero_graphs`)."""
     routes, timed, memory = {}, {}, {}
     for label, opts, name, batch in GRAPH_ROUTES:
         blob = data[name]
@@ -2972,15 +3168,9 @@ def phase_graphs(jt, data: dict, card: str) -> dict:
                                      f"{replayed} {eager_launches} {stats}")
             # The replays' kernels as the profiler sees them: each kernel
             # of the eager body exactly as often a replay, no other.
-            ops = replay_kernels(replay)
-            counted = {k: sum(n for op, n in ops.items() if sym in op)
-                       for k, sym in KERNEL_SYMBOLS.items()}
-            if any(counted[k] != eager_calls.get(k, 0) * GRAPH_PROFILED
-                   for k in KERNEL_SYMBOLS):
-                raise AssertionError(
-                    f"28 {label}: the profiler counts {counted} kernels over "
-                    f"{GRAPH_PROFILED} replays, the eager body {eager_calls}")
+            counted, ops, traces = replay_gate(label, replay, eager_calls)
             routes[label] = {
+                "profiler_traces": traces,
                 "sha256": want, "launches_per_image": replayed,
                 "profiler_kernels_per_image": {
                     k: v / GRAPH_PROFILED / batch
@@ -3090,12 +3280,13 @@ def phase_graphs(jt, data: dict, card: str) -> dict:
         if dec._graphs.hits - hits != 10:
             raise AssertionError("28 the sync-free calls were not replays")
 
+    hetero = phase_hetero_graphs(jt, card)
     wrappers = wrapper_host_us(jt, data)
     say("28 graphs", card=card, alternating=alternating, many_replays=many,
         wrap_epochs=epochs, sync_free_replays="ok", times=timed,
         wrappers=wrappers)
     return {"routes": routes, "memory": memory, "times": timed,
-            "wrappers": wrappers, "many": many}
+            "wrappers": wrappers, "many": many, "hetero": hetero}
 
 
 def main() -> int:

@@ -11,6 +11,24 @@ one (plan, geometry) (`_run_group`) is captured once per key as a
 argument arrays, K2's segment table, status-buffer epochs) runs on a
 replay.
 
+A bits group of several (plan, geometry) parts (mixed sizes of one
+encoder) runs in two halves, as the JAX package's
+`_decode_group_bits_hetero` (`stream.py:1776-1853`) runs it: one sweep
+graph (`sweep_key`, the counterpart of `_compiled_bits_sweep`,
+`:1017-1033`: U1 and K1 over the merged wire, keyed on the wire's
+bucketed shapes and a bucketed block count, never on the group's
+composition) whose static output is `nat`, then per part one part graph
+(`part_key`, the counterpart of `_compiled_nat_reconstruct`, `:1036-1070`:
+A1 and the reconstruction of a count bucket of images of one plan). A
+graph bakes its pointers in, so the part's offset into `nat` cannot be a
+captured argument as JAX's `dynamic_slice` offset is a runtime scalar:
+the part graph owns a static `nat_in` of `count_bucket x n_blocks` rows
+that nothing else writes, and each call copies the part's rows into it
+(one device-to-device copy on the stream, issued by `BitsGraphs.run`)
+before the replay. Rows past the part's images keep what they held: the
+pad slots decode them and are never returned, and every kernel of the
+part body works image by image, so no returned image depends on them.
+
 The key (`bits_key`) holds what the JAX compile key holds: the plans with
 their kept components, the component count, the geometry (its precision
 included), the layout, and per scan the wire kind, n_tab, `comp_to_upair`
@@ -78,6 +96,16 @@ Span names (`torch.profiler.record_function`) run on the host at capture,
 not at replay: a replay shows as one "bits_graph" span on the host, and
 the card's kernels inside it carry their own names only.
 
+A hetero group (`DeviceStreamDecoder._group_halves`) lands the sweep's
+arena (the merged wire, K1's tables) and each part's (its images'
+quantisation tables, the pad slots the last image's) in one H2D
+submission each; each half whose key is at its first sight on a card
+runs eagerly, on tensors put to the device, so a warm part graph runs
+behind an eager sweep and the other way round. The sweep's static nat is
+handed to the parts' copies only, all enqueued before the next replay of
+any graph of the group; two parts of one group have two keys, so they
+share no static buffer.
+
 One decoder dispatches from one thread on one stream: a graph's arena and
 static tensors are shared by its calls, which the stream orders. A call
 whose arena another call refilled before it ran fills it again.
@@ -111,20 +139,23 @@ _TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
 class ScanShape:
     """What the body needs of one scan, fixed by the key."""
     wire: str            # "delta" or "anchor"
-    plan: object         # the scan's ScanPlan
+    plan: object         # the scan's ScanPlan (None in a sweep)
     kept: tuple          # ((scan component position, frame component), ...)
     s_max: int           # K1's step bound
-    n_blocks: int        # blocks of the wire: every image's of the scan
+    n_blocks: int        # rows of nat: every image's blocks of the scan
 
 
 @dataclasses.dataclass(frozen=True)
 class BodyShape:
-    """The static structure of a graph's body."""
+    """The static structure of a graph's body. `half`: "whole" (every
+    scan's K1, then the reconstruction), "sweep" (K1 over a merged wire
+    only: its nat out) or "part" (the reconstruction of `nat_in`)."""
     scans: tuple         # (ScanShape, ...)
     ncomp: int
     geometry: object
     images: int
     fp32: bool           # K2 on folded float32 tables, else E1 on int32
+    half: str = "whole"
 
 
 @dataclasses.dataclass
@@ -225,6 +256,34 @@ def bits_key(staged_or_group, precision: str, layout: str,
                    len(first.qts), first.geometry, layout, precision, scans)
 
 
+def sweep_key(st, wire: tuple, s_max: int, shapes, n_blocks: int) -> tuple:
+    """The compile key of a hetero group's sweep (`_compiled_bits_sweep`'s
+    arguments and the shapes `jax.jit` traces): the wire kind, n_tab, the
+    MCU pattern mapped through `comp_to_upair`, the graph's wire lengths
+    (`wire`, `wire_arrays` of the merged wire), the delta wire's class
+    shapes `(slot_words, s_max, n_bucket)` or the anchor wire's step bound
+    `s_max`, and `n_blocks`, the block count bucketed as the JAX package
+    buckets it (`DeviceStreamDecoder._group_halves`). `st` is the first
+    image's StagedScan; no plan is in the key."""
+    scan = st.scan
+    pattern = tuple(scan.comp_to_upair[c] for c in scan.plan.pattern)
+    tail = tuple(tuple(s[:3]) for s in shapes) if st.wire == "delta" \
+        else s_max
+    return ("sweep", st.wire, len(scan.tab_maxcode), pattern,
+            tuple(len(a) for a in wire[:2]), tail, n_blocks)
+
+
+def part_key(staged, count_bucket: int, precision: str, layout: str
+             ) -> tuple:
+    """The compile key of a hetero group's part: the JAX package's
+    `_compiled_nat_reconstruct` key `(plan, count_bucket, geometry,
+    layout)`, with the kept components, the component count and the
+    precision beside them; `staged` is any image of the part."""
+    s = staged.scans[0]
+    return ("part", s.scan.plan, s.kept, len(staged.qts), count_bucket,
+            staged.geometry, layout, precision)
+
+
 def _s_max(st, s_max: int) -> int:
     """K1's step bound on a scan's wire (`s_max` its wire's own): on the
     anchor wire the plan's, the prescan's bucket of its chunks' symbol
@@ -260,6 +319,22 @@ def group_shape(group: list, merged, fp32: bool) -> BodyShape:
                      len(group[0].qts), group[0].geometry, len(group), fp32)
 
 
+def sweep_shape(st, s_max: int, n_blocks: int) -> BodyShape:
+    """A sweep's structure: K1 over a merged wire of `n_blocks` rows (the
+    bucket on a graph, the images' blocks eagerly), no plan."""
+    return BodyShape((ScanShape(st.wire, None, (), s_max, n_blocks),), 0,
+                     None, 0, False, "sweep")
+
+
+def part_shape(staged, images: int, fp32: bool) -> BodyShape:
+    """A part's structure: the reconstruction of `images` images of the
+    plan of `staged` (any image of the part) from their nat rows."""
+    s = staged.scans[0]
+    return BodyShape((ScanShape(s.wire, s.scan.plan, s.kept, 0,
+                                images * s.scan.plan.n_blocks),),
+                     len(staged.qts), staged.geometry, images, fp32, "part")
+
+
 @dataclasses.dataclass
 class Fill:
     """One call's inputs landed in a graph's arena: `id` is the arena's
@@ -272,12 +347,16 @@ class Fill:
 
 class BitsGraph:
     """One key's graph: its arena and the input views into it, what the
-    body reads beside them, its device-epoch status buffers, and once
-    captured the graph, its static output and its launches by kernel."""
+    body reads beside them (a part's `nat_in`), its device-epoch status
+    buffers, and once captured the graph, its static output and its
+    launches by kernel."""
 
     def __init__(self, key, shape: BodyShape, arrays: list, device,
                  maps: list, bases: dict):
         self.key, self.shape, self.device = key, shape, device
+        self.nat_in = torch.zeros((shape.scans[0].n_blocks, 64),
+                                  dtype=torch.int16, device=device) \
+            if shape.half == "part" else None
         self.layout, off = [], 0
         for a in arrays:
             self.layout.append((off, a.dtype, a.shape))
@@ -299,11 +378,13 @@ class BitsGraph:
         with per scan its index maps (or None) and the bases by scale."""
         sh = self.shape
         it = iter(views)
-        wires = [tuple(next(it) for _ in range(
-            2 if scan.wire == "delta" else 4)) for scan in sh.scans]
-        tables = [[next(it) for _ in range(6)] for _scan in sh.scans]
-        unzig = next(it)
-        tables = [ScanTables(*t, unzig=unzig) for t in tables]
+        wires, tables = [], []
+        if sh.half != "part":
+            wires = [tuple(next(it) for _ in range(
+                2 if scan.wire == "delta" else 4)) for scan in sh.scans]
+            tables = [[next(it) for _ in range(6)] for _scan in sh.scans]
+            unzig = next(it)
+            tables = [ScanTables(*t, unzig=unzig) for t in tables]
         qts_b = []
         for _i in range(sh.images):
             if sh.fp32:
@@ -313,6 +394,14 @@ class BitsGraph:
                 qts_b.append([QtSlot(q_exact=next(it))
                               for _c in range(sh.ncomp)])
         return Inputs(wires, tables, maps, qts_b, SlotParams(bases))
+
+    def body(self, dec) -> torch.Tensor:
+        """The decoder's body of this graph's half on its inputs."""
+        if self.shape.half == "sweep":
+            return dec._sweep_body(self.shape, self.inputs)[0]
+        if self.shape.half == "part":
+            return dec._part_body(self.shape, [self.nat_in], self.inputs)
+        return dec._bits_body(self.shape, self.inputs)
 
     def items(self, arrays: list) -> list:
         """(offset, array) pairs of one call's arrays, checked against the
@@ -394,8 +483,10 @@ class BitsGraphs:
             tabs = self._table_arrays(scan)
             out += [tabs.maxcode, tabs.delta, tabs.values, tabs.lut,
                     tabs.walk, tabs.pattern]
-        out.append(tabs.unzig)
-        scales = [c.dct_scale for c in shape.geometry.components]
+        if tabs is not None:
+            out.append(tabs.unzig)
+        scales = [c.dct_scale for c in shape.geometry.components] \
+            if qts_b else []
         for qts in qts_b:
             for qt, s in zip(qts, scales):
                 out += self._qt_arrays(qt, s, shape.fp32)
@@ -406,15 +497,17 @@ class BitsGraphs:
         """Land one call's inputs in its key's graph (made on first sight):
         `wires` per scan its arrays (`wire_arrays`), `scans` the
         `AnchoredScan`s whose tables K1 reads, `qts_b` per image its
-        components' uint16[64] tables."""
+        components' uint16[64] tables (a sweep has no `qts_b`, a part no
+        `wires` and `scans`)."""
         arrays = self._arrays(shape, wires, scans, qts_b)
         graph = self._graphs.get(key)
         if graph is None:
             graph = self._graphs[key] = BitsGraph(
                 key, shape, arrays, self.device,
-                [None if scan.plan.structured is not None
+                [None if scan.plan is None or scan.plan.structured is not None
                  else self._maps(scan.plan, self.device)
                  for scan in shape.scans],
+                {} if shape.geometry is None else
                 {c.dct_scale: self._params.basis(c.dct_scale)
                  for c in shape.geometry.components})
             while len(self._graphs) > self.maxsize:
@@ -448,25 +541,37 @@ class BitsGraphs:
             self._seen.popitem(last=False)
         return True
 
-    def run(self, dec, fill: Fill, eager: bool = False) -> torch.Tensor:
-        """The body's output, [N, ...] in the decoder's layout, for the
-        inputs of `fill`: eagerly on the CPU or with `eager`; on a card at
-        the graph's first call by its warm-up and capture, then by
-        replay."""
+    def run(self, dec, fill: Fill, eager: bool = False,
+            rows: torch.Tensor = None) -> torch.Tensor:
+        """The body's output for the inputs of `fill`: eagerly on the CPU
+        or with `eager`; on a card at the graph's first call by its warm-up
+        and capture, then by replay. A whole body or a part gives [N, ...]
+        in the decoder's layout, copied out of a replayed graph; a part
+        first copies `rows` (its images' rows of the sweep's nat, int16
+        [count x n_blocks, 64]) into its `nat_in` and gives its first
+        `count` images. A sweep gives its nat, the graph's static output
+        itself: it is read by the parts' copies that follow on the stream,
+        before the next replay, and never handed out."""
         graph = fill.graph
         if graph.fill_id != fill.id:
             self._land(fill)
+        count = None
+        if rows is not None:
+            graph.nat_in[:rows.shape[0]].copy_(rows)
+            count = rows.shape[0] // graph.shape.scans[0].plan.n_blocks
         if eager or graph.device.type != "cuda":
             with _build.graph_scope(graph.scope):
-                return dec._bits_body(graph.shape, graph.inputs)
+                return graph.body(dec)[:count]
         if graph.graph is None:
-            return self._capture(dec, graph)
+            return self._capture(dec, graph)[:count]
         with torch.profiler.record_function("bits_graph"):
             graph.graph.replay()
         for name, n in graph.launches.items():
             _build.count_launch(name, n)
         self.hits += 1
-        return graph.out.clone()
+        if graph.shape.half == "sweep":
+            return graph.out
+        return graph.out[:count].clone()
 
     def _capture(self, dec, graph: BitsGraph) -> torch.Tensor:
         """The warm-up, whose output is returned: the body run eagerly on
@@ -478,7 +583,7 @@ class BitsGraphs:
             self._stream = torch.cuda.Stream(self.device)
         scope = graph.scope
         with _build.graph_scope(scope):
-            out = dec._bits_body(graph.shape, graph.inputs)
+            out = graph.body(dec)
         cuda_graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.device(graph.device), \
@@ -487,7 +592,7 @@ class BitsGraphs:
                 scope.capturing, scope.tally = True, {}
                 cuda_graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    static = dec._bits_body(graph.shape, graph.inputs)
+                    static = graph.body(dec)
                 finally:
                     scope.capturing = False
                     cuda_graph.capture_end()

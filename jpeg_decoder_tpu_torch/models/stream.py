@@ -44,8 +44,9 @@ reference's does, and adds no synchronisation.
 Device stage (per image or per group, on the caller's thread,
 `device_dispatch`, asynchronous on the current CUDA stream; a bits image,
 and a bits group of one (plan, geometry), off a mesh, by replay of one
-CUDA graph per key, `models/graphs.py`, whose inputs the H2D submission
-lands in; on the CPU the same body runs eagerly):
+CUDA graph per key, and a bits group of several parts by replay of a
+sweep graph and one graph per part, `models/graphs.py`, whose inputs the
+H2D submission lands in; on the CPU the same bodies run eagerly):
 - bits: delta unpack (delta wire), kernel K1 (chunk Huffman decode),
   assembly (DC prefix sums, raster placement), then reconstruction: the
   exact int32 IDCT (kernel E1) or kernel K2 by precision, then
@@ -66,7 +67,10 @@ step runs once per group:
   and go to the device in one copy per array, then one K1 sweep decodes
   every image, assembly and reconstruction run once per (plan, geometry)
   over that part's rows (K2 and K3 one launch each, per-image tables in
-  K2's segment table);
+  K2's segment table); the sweep and each part are the two halves of one
+  body (`_sweep_body`, `_part_body`; `GroupHalves`), each replayed from
+  its key's graph on a card (a part's graph holds a count bucket of
+  images, `_batch_bucket`, and takes its rows by a copy);
 - lossless: the same `StagedLossless.group_key`; the planes stack as
   [N * C, H, W] through one `reconstruct_planes` (one L1 launch where the
   predictor needs it);
@@ -78,7 +82,11 @@ open group first, so outputs stay in source order. Groups are not padded
 to a bucket of sizes as the reference's are (`_batch_bucket`, `_bucket`):
 those bound XLA's recompiles; here a group's size is in its graph's key,
 so a stream's short last group captures a graph of its own once, where a
-padded image would be wasted work on every replay.
+padded image would be wasted work on every replay. A hetero group's parts
+are the exception, as in the reference (`_compiled_nat_reconstruct`): a
+part's graph decodes its count bucket of images, its pad slots never
+returned, and the sweep's block count is bucketed, so that a new
+composition of known sizes finds its graphs.
 
 On a mesh (`DeviceStreamDecoder(mesh=...)`, the reference's mesh mode,
 `jpeg_decoder_tpu/models/stream.py:1243-1317`, `:1856-1995`), bits groups
@@ -110,7 +118,7 @@ from ..entropy.assemble import GeneralMaps, assemble_nat
 from ..entropy.chunk_decode import decode_chunks, unpack_delta
 from ..entropy.prefix import prefix_stores
 from ..host.decoder import Decoder
-from ..host.entropy.prescan import AnchoredScan, PrescanFallback
+from ..host.entropy.prescan import AnchoredScan, PrescanFallback, _bucket_up
 from ..host.entropy.transcode import transcode_decoded
 from ..host.entropy.wire import (WORDS_PAD, anchor_meta, merge_anchor_wires,
                                  merge_image_packs_delta, pack_delta)
@@ -376,7 +384,9 @@ K1_MAX_BLOCKS = (2 ** 31 - 1) // 64
 
 def _batch_bucket(n: int) -> int:
     """The reference's group bucket (`stream.py:206`): the least power of
-    two >= n. On a mesh it sets the shards' rows; no image is padded."""
+    two >= n. On a mesh it sets the shards' rows (no image is padded
+    there); in a hetero group a part's images (its graph's pad slots) and
+    the sweep's block count."""
     size = 1
     while size < n:
         size *= 2
@@ -404,6 +414,19 @@ def lossless_images(st: StagedLossless, diffs: torch.Tensor) -> torch.Tensor:
         img = planes[..., :count].transpose(1, 2).reshape(
             n, st.out_height, st.out_width, ncomp)
     return img.to(torch.uint8 if st.precision == 8 else torch.uint16)
+
+
+@dataclasses.dataclass
+class GroupHalves:
+    """A bits group's device half as the reference's hetero dispatch splits
+    it: `sweep`, every image's K1 over the merged wire, and per (plan,
+    geometry) part in `parts` (its images, first seen first) its entry of
+    `recons`, the assembly and reconstruction of its rows of the sweep's
+    nat. Each half is a `graphs.Fill` of its key's graph or a
+    (`graphs.BodyShape`, `graphs.Inputs`) pair run eagerly."""
+    parts: dict
+    sweep: object
+    recons: list
 
 
 def _kind(staged) -> str:
@@ -622,24 +645,41 @@ class DeviceStreamDecoder:
         for pos, comp_i in kept:
             stores[comp_i] = scan_stores[pos]
 
-    def _bits_body(self, shape: "graphs.BodyShape",
+    def _sweep_body(self, shape: "graphs.BodyShape",
+                    inputs: "graphs.Inputs") -> list:
+        """The first half of the bits device half: every scan's K1 (after
+        U1 on the delta wire) over its wire, one nat per scan, int16
+        [n_blocks, 64] in stream block order. A hetero group's sweep graph
+        runs it alone (`graphs.sweep_shape`)."""
+        return [self._decode_scan(scan.wire, wire, tables, scan.s_max,
+                                  scan.n_blocks)
+                for scan, wire, tables in zip(shape.scans, inputs.wires,
+                                              inputs.tables)]
+
+    def _part_body(self, shape: "graphs.BodyShape", nats: list,
                    inputs: "graphs.Inputs") -> torch.Tensor:
-        """The device half of a graph's key on its inputs: every scan's K1
-        (after U1 on the delta wire) and A1, then the reconstruction of
-        the `shape.images` images: [N, ...] in the decoder's layout. What
-        `graphs.BitsGraphs` runs eagerly or captures, and what a bits image
-        off a graph (a key's first call on a card, a mesh's image, one sent
-        to another device) runs on the device's `DeviceParams`."""
+        """The second half: per scan A1 of its nat (the `shape.images`
+        images' rows, [N x n_blocks, 64]), then the reconstruction of the
+        images: [N, ...] in the decoder's layout. A hetero group's part
+        graph runs it alone (`graphs.part_shape`), on its `nat_in`."""
         n = shape.images
         stores = [None] * shape.ncomp
-        for scan, wire, tables, maps in zip(shape.scans, inputs.wires,
-                                            inputs.tables, inputs.maps):
-            nat = self._decode_scan(scan.wire, wire, tables, scan.s_max,
-                                    scan.n_blocks)
-            self._assemble(nat.view(n, scan.n_blocks // n, 64), scan.plan,
+        for scan, nat, maps in zip(shape.scans, nats, inputs.maps):
+            self._assemble(nat.view(n, scan.plan.n_blocks, 64), scan.plan,
                            scan.kept, stores, maps)
         return self._reconstruct(shape.geometry, stores, inputs.qts_b,
                                  inputs.params)
+
+    def _bits_body(self, shape: "graphs.BodyShape",
+                   inputs: "graphs.Inputs") -> torch.Tensor:
+        """The device half of a graph's key on its inputs: the sweep, then
+        the part, back to back: [N, ...] in the decoder's layout. What
+        `graphs.BitsGraphs` runs eagerly or captures for one image or a
+        group of one (plan, geometry), and what a bits image off a graph
+        (a key's first call on a card, a mesh's image, one sent to another
+        device) runs on the device's `DeviceParams`."""
+        return self._part_body(shape, self._sweep_body(shape, inputs),
+                               inputs)
 
     def _run_device(self, staged, wires) -> torch.Tensor:
         """The device half for one image whose wire is already on the
@@ -726,13 +766,13 @@ class DeviceStreamDecoder:
             merged = _merge([group[i].scans[0] for i in order])
             if merged is None:
                 return None
-            if len(parts) == 1 and self._graphs is not None and dev is None:
+            graphed = self._graphs is not None and dev is None
+            if len(parts) == 1 and graphed:
                 fill = self._group_fill(group, merged)
                 if fill is not None:
                     return fill
-            arrays, s_max, n_blocks, _shapes = merged
-            return (parts, self._put_recorded(tuple(arrays), dev), s_max,
-                    n_blocks)
+            return self._group_halves(group, parts, merged, dev,
+                                      graphed and len(parts) > 1)
         if kind == "lossless":
             return self._put_recorded(
                 (np.stack([st.diffs for st in group]).view(np.int16),), dev)
@@ -769,11 +809,97 @@ class DeviceStreamDecoder:
         return self._put_into(lambda: self._graphs.fill(
             key, shape, [wire], [st0.scan], [st.qts for st in group]))
 
+    def _group_halves(self, group: list, parts: dict, merged, dev,
+                      graphed: bool) -> "GroupHalves":
+        """A bits group's device half in its two halves (`GroupHalves`):
+        with `graphed` (a group of several parts off a mesh) the sweep's
+        and each part's inputs land in their keys' graphs, one H2D
+        submission an arena (`graphs.Fill`s); a half whose key is at its
+        first sight on a card, and every half without `graphed`, runs
+        eagerly: the merged wire in one H2D submission to `dev`, the tables
+        from the device's `DeviceParams`."""
+        arrays, s_max, n_blocks, shapes = merged
+        st0 = group[0].scans[0]
+        sweep = None
+        if graphed:
+            wire = graphs.wire_arrays(st0.wire, arrays, n_blocks)
+            bound = s_max if st0.wire == "delta" \
+                else max(st.scans[0].scan.plan.s_max for st in group)
+            blocks = min(_bucket_up(sum(
+                _batch_bucket(len(members)) * plan.n_blocks
+                for (plan, _g), members in parts.items()), 4096),
+                K1_MAX_BLOCKS)
+            key = graphs.sweep_key(st0, wire, bound, shapes, blocks)
+            if not self._graphs.first_sight(key):
+                sweep = self._put_into(lambda: self._graphs.fill(
+                    key, graphs.sweep_shape(st0, bound, blocks), [wire],
+                    [st0.scan], []))
+        params = self._params_of(self.device if dev is None else dev)
+        if sweep is None:
+            put = self._put_recorded(tuple(arrays), dev)
+            sweep = (graphs.sweep_shape(st0, s_max, n_blocks),
+                     graphs.Inputs([put], [params.tables(st0.scan)], [None],
+                                   [], params))
+        recons = []
+        for members in parts.values():
+            first = group[members[0]]
+            fp32 = self._fp32(first.geometry)
+            fill = self._part_fill(group, members, fp32) if graphed else None
+            recons.append(fill if fill is not None else (
+                graphs.part_shape(first, len(members), fp32),
+                graphs.Inputs([], [], [None], [group[i].qts for i in members],
+                              params)))
+        return GroupHalves(parts, sweep, recons)
+
+    def _part_fill(self, group: list, members: list, fp32: bool):
+        """One part's quantisation tables into its key's graph, a slot per
+        image of its count bucket (the pad slots take the last image's, as
+        the reference pads them), in one H2D submission (a `graphs.Fill`);
+        None at the key's first sight on a card."""
+        first = group[members[0]]
+        bucket = _batch_bucket(len(members))
+        key = graphs.part_key(first, bucket, self.precision,
+                              self._effective_layout(first.geometry))
+        if self._graphs.first_sight(key):
+            return None
+        qts = [group[i].qts for i in members]
+        qts += [qts[-1]] * (bucket - len(members))
+        return self._put_into(lambda: self._graphs.fill(
+            key, graphs.part_shape(first, bucket, fp32), [], [], qts))
+
+    def _run_half(self, half, eager: bool, rows=None) -> torch.Tensor:
+        """One half of a group (`GroupHalves`): a `graphs.Fill` through its
+        graph, else (shape, inputs) run eagerly; the sweep's nat, or with
+        `rows` (a part's rows of it) the part's images."""
+        if isinstance(half, graphs.Fill):
+            return self._graphs.run(self, half, eager, rows)
+        shape, inputs = half
+        if rows is None:
+            return self._sweep_body(shape, inputs)[0]
+        return self._part_body(shape, [rows], inputs)
+
+    def _run_halves(self, group: list, halves: "GroupHalves",
+                    eager: bool = False) -> list:
+        """The sweep, then per part its rows of the sweep's nat through its
+        reconstruction: the reference's `_decode_group_bits_hetero`
+        dispatch, each part's offset a runtime value. No host
+        synchronisation."""
+        nat = self._run_half(halves.sweep, eager)
+        results = [None] * len(group)
+        off = 0
+        for members, half in zip(halves.parts.values(), halves.recons):
+            rows = len(members) * group[members[0]].scans[0].scan.plan.n_blocks
+            out = self._run_half(half, eager, nat[off:off + rows])
+            for i, img in zip(members, out):
+                results[i] = img
+            off += rows
+        return results
+
     def _run_group(self, kind: str, group: list, wires) -> list:
         """The device half of a group whose merged wire is on the device:
         its images' tensors, in the group's order, each a view of one
         [N, ...] output per (plan, geometry) (of a graph's output, copied
-        out of it, for a `graphs.Fill`)."""
+        out of it, for a `graphs.Fill` and a part's graph)."""
         if isinstance(wires, graphs.Fill):
             return list(self._graphs.run(self, wires))
         if kind == "lossless":
@@ -784,31 +910,15 @@ class DeviceStreamDecoder:
                 stores = prefix_stores(group[0].geometry, *wires)
             return list(self._reconstruct(group[0].geometry, stores,
                                           [st.qts for st in group]))
-        parts, wire, s_max, n_blocks = wires
-        st0 = group[0].scans[0]
-        nat = self._decode_scan(st0.wire, wire,
-                                self._params_of(wire[0].device)
-                                .tables(st0.scan), s_max, n_blocks)
-        results = [None] * len(group)
-        off = 0
-        for (plan, geometry), members in parts.items():
-            rows = len(members) * plan.n_blocks
-            stores = [None] * len(group[members[0]].qts)
-            self._assemble(nat[off:off + rows].view(len(members),
-                                                    plan.n_blocks, 64),
-                           plan, group[members[0]].scans[0].kept, stores)
-            out = self._reconstruct(geometry, stores,
-                                    [group[i].qts for i in members])
-            for i, img in zip(members, out):
-                results[i] = img
-            off += rows
-        return results
+        return self._run_halves(group, wires)
 
     def _run_group_eager(self, kind: str, group: list, wires) -> list:
         """`_run_group` with a bits graph's body run eagerly on its inputs,
         not replayed."""
         if isinstance(wires, graphs.Fill):
             return list(self._graphs.run(self, wires, eager=True))
+        if isinstance(wires, GroupHalves):
+            return self._run_halves(group, wires, eager=True)
         return self._run_group(kind, group, wires)
 
     def _decode_group(self, kind: str, group: list, dev=None) -> list:

@@ -92,8 +92,12 @@ body bit-equal, each replay counting the eager body's launches (5 at
 large_420); outputs handed out unchanged by later replays of one graph
 through two images with other tables; replays across the end of A1's and
 U1's device epochs; a capture that fails raises, keeps no graph and does
-not fall back. A spy on a wrapper skips the calls a capture makes: they
-launch nothing.
+not fall back. The hetero group (the six mixed sizes and two repeats: one
+sweep graph, six part graphs) in four layout and precision pairs: the
+first call, three replays and the eager body bit-equal, the eager body's
+launches, a second composition through the same sweep graph and two part
+graphs at other offsets. A spy on a wrapper skips the calls a capture
+makes: they launch nothing.
 """
 
 import time
@@ -124,6 +128,10 @@ from torch_inputs import (A1_CASES, ODD_TAIL_LAYOUTS, P1_SHAPES,
                           fixture, odd_tail_case, oracle_stores, t1_args,
                           t1_geometry, t1_pixels, tail_planes,
                           three_table_pairs)
+
+# The mixed sizes of one encoder: one hetero bits group.
+MIXED_SIZES = ("mixed_500x375.jpg", "mixed_375x500.jpg", "mixed_500x333.jpg",
+               "mixed_333x500.jpg", "mixed_448x448.jpg", "mixed_320x240.jpg")
 
 
 @pytest.fixture
@@ -1401,47 +1409,57 @@ def test_prefix_route_launches_p1_k2_and_t1_only(cuda):
         list(kernels), on_card
 
 
-@pytest.mark.parametrize("route", ["bits", "prefix", "lossless"])
+@pytest.mark.parametrize("route", ["bits", "prefix", "lossless", "hetero"])
 def test_device_routes_never_synchronise(cuda, route):
     """`_run_device` and `_run_group` on the bits, prefix and lossless
-    routes under `torch.cuda.set_sync_debug_mode("error")`: no operation
+    routes and on a hetero bits group (the six mixed sizes and two
+    repeats) under `torch.cuda.set_sync_debug_mode("error")`: no operation
     on them waits for the card (after one warm-up decode, which copies
-    the per-table constants to the card once, and on the bits route a
-    second, which captures the graphs); on the bits route every call
-    there is a graph replay, the H2D submission that fills a graph's
-    inputs included."""
+    the per-table constants to the card once, and on the bits routes a
+    second, which captures the graphs); on the bits routes every call
+    there is a graph replay (on the hetero route one sweep and six parts,
+    each part's row copy included), the H2D submission that fills a
+    graph's inputs included."""
     from tools.make_torch_fixtures import sof3_jpeg, sof3_samples
 
     if route == "lossless":
-        blob = sof3_jpeg(sof3_samples(64, 48, 3, 16, 0, seed=4), 6, 0, 16)
+        blobs = [sof3_jpeg(sof3_samples(64, 48, 3, 16, 0, seed=4), 6, 0,
+                           16)] * 4
+    elif route == "hetero":
+        blobs = [fixture(n) for n in MIXED_SIZES]
+        blobs += blobs[:2]
     else:
-        blob = fixture("large_420.jpg")
+        blobs = [fixture("large_420.jpg")] * 4
     interchange = "prefix" if route == "prefix" else "bits"
+    kind = "bits" if route == "hetero" else route
     with jt.DeviceStreamDecoder(host_threads=1,
                                 interchange=interchange) as dec:
-        staged = dec.stage(blob)
-        group = [dec.stage(blob) for _ in range(4)]
+        staged = dec.stage(blobs[0])
+        group = [dec.stage(blob) for blob in blobs]
         for _ in range(2):      # bits: a key's first sight, then its capture
             wires = dec._to_device(staged)
-            group_wires = dec._group_wires(route, group)
+            group_wires = dec._group_wires(kind, group)
             dec._run_device(staged, wires)
-            dec._run_group(route, group, group_wires)
+            dec._run_group(kind, group, group_wires)
         torch.cuda.synchronize()
         hits = dec._graphs.hits
         torch.cuda.set_sync_debug_mode("error")
         try:
             one = dec._run_device(staged, wires)
-            many = dec._run_group(route, group, group_wires)
+            many = dec._run_group(kind, group, group_wires)
             for _ in range(3):      # a warmed key's replays, new inputs
                 again = dec._run_device(staged, dec._to_device(staged))
-                many_again = dec._run_group(route, group,
-                                            dec._group_wires(route, group))
+                many_again = dec._run_group(kind, group,
+                                            dec._group_wires(kind, group))
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         replays = dec._graphs.hits - hits
-    assert all(torch.equal(img, one) for img in many + many_again + [again])
-    assert replays == (8 if route == "bits" else 0)
+    assert torch.equal(again, one) and torch.equal(many[0], one)
+    assert all(torch.equal(a, b) for a, b in zip(many, many_again))
+    assert all(torch.equal(img, one) for img, blob in zip(many, blobs)
+               if blob == blobs[0])
+    assert replays == {"bits": 8, "hetero": 32}.get(route, 0)
 
 
 def test_p1_on_two_streams_at_once(cuda):
@@ -1690,6 +1708,79 @@ def test_graph_epochs_cross_their_wrap(cuda):
         epochs = {k: int(b[0][0]) >> 32 for k, b in bufs.items()}
     assert all(torch.equal(o, first) for o in outs)
     assert epochs == {"assemble": 2, "unpack_delta": 2}
+
+
+# The hetero group's graphs: a sweep graph and a graph per (plan, count
+# bucket), the mixed group of 8 and a second composition.
+HETERO_ROUTES = [("interleaved", "fast"), ("interleaved", "exact"),
+                 ("planar", "exact"), ("planar-pallas", "fast")]
+HETERO_SECOND = (5, 4, 3, 2, 1, 0, 4, 3)
+
+
+@pytest.mark.parametrize("layout,precision", HETERO_ROUTES)
+def test_hetero_graph_replay_equals_eager_body(cuda, layout, precision):
+    """The six mixed sizes and two repeats as one hetero group: the keys'
+    first call (eager, off any graph, no graph made), the second (the
+    warm-ups and captures of one sweep graph and six part graphs), two
+    replays and the eager body on the graphs' inputs all bit-equal; one
+    capture a key; the launches a call counts equal to the eager body's
+    (K1 and U1 once, A1, the IDCT and the tail once a part). A second
+    composition replays the same sweep graph and two part graphs at other
+    offsets, and a third runs a new sweep key eagerly before six warm part
+    graphs: each image bit-equal to the same fixture's in the first."""
+    blobs = [fixture(n) for n in MIXED_SIZES]
+    cell = blobs + blobs[:2]
+    with jt.DeviceStreamDecoder(host_threads=1, layout=layout,
+                                precision=precision) as dec:
+        group = [dec.stage(b) for b in cell]
+        first = dec._run_group("bits", group,
+                               dec._group_wires("bits", group))
+        assert len(dec._graphs) == 0
+        torch.cuda.synchronize()
+        jt.reset_launches()
+        replays = [dec._run_group("bits", group,
+                                  dec._group_wires("bits", group))
+                   for _ in range(3)]
+        torch.cuda.synchronize()
+        replayed = dict(jt.LAUNCHES)
+        jt.reset_launches()
+        body = dec._run_group_eager("bits", group,
+                                    dec._group_wires("bits", group))
+        torch.cuda.synchronize()
+        eager = {k: v for k, v in jt.LAUNCHES.items() if v}
+        stats = dec._graphs.stats()
+        group2 = [dec.stage(blobs[i]) for i in HETERO_SECOND]
+        seconds = [dec._run_group("bits", group2,
+                                  dec._group_wires("bits", group2))
+                   for _ in range(3)]
+        torch.cuda.synchronize()
+        # The six sizes once each: a sweep key at its first sight (eager)
+        # before six part graphs that are warm.
+        hits = dec._graphs.hits
+        group3 = [dec.stage(b) for b in blobs]
+        third = dec._run_group("bits", group3,
+                               dec._group_wires("bits", group3))
+        torch.cuda.synchronize()
+        third_replays = dec._graphs.hits - hits
+        sweeps = [k for k in dec._graphs._graphs if k[0] == "sweep"]
+    assert stats == {"graphs": 7, "captures": 7, "hits": 14}
+    for out in [first] + replays:
+        assert all(torch.equal(a, b) for a, b in zip(out, body))
+    assert {k: v for k, v in replayed.items() if v} == {
+        k: 3 * v for k, v in eager.items()}
+    parts = len(MIXED_SIZES)
+    idct = "dequant_idct" if precision == "fast" \
+        or layout == "planar-pallas" else "idct_exact"
+    tail = "fused_tail" if layout == "planar-pallas" else "interleaved_tail"
+    assert eager == {
+        "huffman_decode": 1, "unpack_delta": 1, "assemble": parts,
+        idct: parts, tail: parts}
+    assert len(sweeps) == 1
+    for imgs in seconds:
+        assert all(torch.equal(img, body[i])
+                   for i, img in zip(HETERO_SECOND, imgs))
+    assert third_replays == parts
+    assert all(torch.equal(img, body[i]) for i, img in enumerate(third))
 
 
 def test_a_failed_capture_raises(cuda):
