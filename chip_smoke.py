@@ -272,12 +272,17 @@ stripe's DC totals):
    collapse off changes the delta wire). Phase 1 requires the native host
    library;
 28. the compiled dispatch (`jpeg_decoder_tpu_torch/models/graphs.py`: the
-   bits device half captured once per key as a CUDA graph and replayed;
-   phases 5-27 already decode through it, their spies seeing each key's
-   eager warm-up and not its capture): large_420 at fast and exact in the
-   three layouts and tower_420 at batch 1 and 16 (GRAPH_ROUTES), every
+   bits, prefix and lossless device halves captured once per key as CUDA
+   graphs and replayed; phases 5-27 already decode through it, their spies
+   seeing each key's eager warm-up and not its capture): bits large_420 at
+   fast and exact in the three layouts and tower_420 at batch 1 and 16,
+   prefix large_420 likewise and tower_420 x 16, lossless SOF3 512 x 512
+   x 8 and 2048 x 2048 at predictors 1 and 6 (GRAPH_ROUTES), every
    replay SHA-256-equal to the eager body on the same inputs, with its
-   launches; tower_420, tower_420_q92 and the optimised-table tower_420
+   launches (on the prefix and lossless routes also every kernel by name
+   as often as in the eager body, and replays under
+   `set_sync_debug_mode("error")`); tower_420, tower_420_q92 and the
+   optimised-table tower_420
    alternating (two keys), every tensor handed out unchanged after later
    replays; 10,000 replays of one graph and a replay run across the end
    of the device epochs (A1's 2^32, U1's 2^30); replays under
@@ -299,6 +304,7 @@ and before that phase 27's {"matrix": {...}} line.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import json
 import os
@@ -2281,9 +2287,11 @@ def u1_times(wires: dict, kernel_device_us) -> dict:
 class P1D1Calls:
     """Spies on P1 (`models/stream.py`'s `prefix_stores`) and D1
     (`parallel/stripe_bits.py`'s `dc_totals`) while installed: every call
-    of the real decodes, each held against its plain version on the same
-    inputs (tolerance 0) by `check(label)`, which counts the calls under
-    that label."""
+    of the real decodes but a graph's capture (which launches nothing),
+    each held against its plain version on the same inputs (P1's copied
+    when it ran where they are views of a graph's arena, which takes the
+    next call's) with tolerance 0 by `check(label)`, which counts the
+    calls under that label."""
 
     def __init__(self):
         self.p1, self.d1, self.counts = [], [], {}
@@ -2298,7 +2306,12 @@ class P1D1Calls:
 
         def p1(geometry, *wire):
             out = real_p1(geometry, *wire)
-            self.p1.append((geometry, wire, out))
+            if not capturing():
+                # A graph's inputs are views of its arena, which a later
+                # call refills: those are copied as they are now.
+                self.p1.append((geometry, tuple(
+                    w.clone() if w.untyped_storage().nbytes() > w.nbytes
+                    else w for w in wire), out))
             return out
 
         def d1(nat, plan):
@@ -2430,7 +2443,7 @@ def phase_p1_d1(jt, data: dict, params, dev, card: str,
     with jt.DeviceStreamDecoder(host_threads=1, interchange="prefix") as dec:
         one = dec.stage(tower)
         for n in range(1, 17):
-            wire = dec._group_wires("prefix", [one] * n)
+            wire = dec._group_wires("prefix", [one] * n, dev)
             calls.p1.append((one.geometry, wire,
                              prefix_stores(one.geometry, *wire)))
     st = stage_host(data["large_420.jpg"])
@@ -2454,7 +2467,8 @@ def phase_p1_d1(jt, data: dict, params, dev, card: str,
 
     # Times at large_420's shapes.
     with jt.DeviceStreamDecoder(host_threads=1, interchange="prefix") as dec:
-        tower_wire = dec._group_wires("prefix", [dec.stage(tower)] * 16)
+        tower_wire = dec._group_wires("prefix", [dec.stage(tower)] * 16,
+                                      dev)
     blocks = st.dc.size
     p1_bytes = blocks * (2 + 15 + 128) + 6 * st.resid_idx.size
     tower_blocks = tower_wire[0].numel()
@@ -2711,8 +2725,10 @@ def phase_matrix(jt, card: str) -> dict:
 
 
 # 28: the routes the compiled dispatch covers: (label, decoder options,
-# fixture, batch), batch 1 one image (`_run_device`), else one same-key
-# group (`_run_group`).
+# source, batch), batch 1 one image (`_run_device`), else one same-key
+# group of `batch` copies (`_run_group`); a source is a fixture's name or
+# ("sof3", side, predictor), a 16-bit SOF3 stream (`sof3_blob`).
+PREFIX = {"interchange": "prefix"}
 GRAPH_ROUTES = (
     [(f"large_420 {p} {lay}", {"precision": p, "layout": lay},
       "large_420.jpg", 1)
@@ -2720,11 +2736,42 @@ GRAPH_ROUTES = (
      for lay in ("interleaved", "planar", "planar-pallas")]
     + [("tower_420 fast x1", {}, "tower_420.jpg", 1),
        ("tower_420 fast x16", {}, "tower_420.jpg", 16),
-       ("tower_420 exact x16", {"precision": "exact"}, "tower_420.jpg", 16)])
+       ("tower_420 exact x16", {"precision": "exact"}, "tower_420.jpg", 16)]
+    + [(f"prefix large_420 {p} {lay}",
+        {**PREFIX, "precision": p, "layout": lay}, "large_420.jpg", 1)
+       for p in ("fast", "exact")
+       for lay in ("interleaved", "planar", "planar-pallas")]
+    + [("prefix tower_420 fast x16", PREFIX, "tower_420.jpg", 16)]
+    + [(f"SOF3 512x512 predictor {p} x8", {}, ("sof3", SOF3_SLICE[0], p), 8)
+       for p in (1, 6)]
+    + [(f"SOF3 2048x2048 predictor {p}", {}, ("sof3", SOF3_SIDE, p), 1)
+       for p in (1, 6)])
 # 28: the routes timed eager beside replay.
 GRAPH_TIMED = ("large_420 fast interleaved", "large_420 exact interleaved",
-               "tower_420 fast x1", "tower_420 fast x16")
+               "tower_420 fast x1", "tower_420 fast x16",
+               "prefix large_420 fast interleaved",
+               "prefix large_420 exact interleaved",
+               "prefix tower_420 fast x16", "SOF3 512x512 predictor 1 x8",
+               "SOF3 512x512 predictor 6 x8", "SOF3 2048x2048 predictor 1",
+               "SOF3 2048x2048 predictor 6")
 GRAPH_REPLAYS = 10_000
+
+
+@functools.lru_cache(maxsize=None)
+def sof3_blob(side: int, predictor: int) -> bytes:
+    """A side x side 16-bit one-component SOF3 stream of seeded samples at
+    `predictor`, point transform 0."""
+    from tools.make_torch_fixtures import sof3_jpeg, sof3_samples
+
+    return sof3_jpeg(sof3_samples(side, side, 1, 16, 0, seed=0), predictor,
+                     0, 16)
+
+
+def route_blob(data: dict, source) -> bytes:
+    """A GRAPH_ROUTES source's bytes."""
+    if isinstance(source, tuple):
+        return sof3_blob(*source[1:])
+    return data[source]
 
 
 def graph_calls(dec, blob: bytes, batch: int) -> dict:
@@ -2737,22 +2784,25 @@ def graph_calls(dec, blob: bytes, batch: int) -> dict:
     H2D submission, `_to_device` or `_group_wires`, then the dispatch, as
     `decode_stream` runs them); "fill" the second landing. The first
     "replay" runs the body on the graph's inputs (its warm-up) and
-    captures the graph; later ones replay."""
+    captures the graph; later ones replay. "kind" the interchange."""
+    from jpeg_decoder_tpu_torch.models.stream import _kind
+
     staged = dec.stage(blob)
+    kind = _kind(staged)
     group = [staged] * batch
 
     def land():
         return dec._to_device(staged) if batch == 1 \
-            else dec._group_wires("bits", group)
+            else dec._group_wires(kind, group)
     first = dec._run_device(staged, land())[None] if batch == 1 \
-        else torch.stack(dec._run_group("bits", group, land()))
+        else torch.stack(dec._run_group(kind, group, land()))
     fill = land()
     return {"first": first,
             "replay": lambda: dec._graphs.run(dec, fill),
             "eager": lambda: dec._graphs.run(dec, fill, eager=True),
             "replay_landed": lambda: dec._graphs.run(dec, land()),
             "eager_landed": lambda: dec._graphs.run(dec, land(), eager=True),
-            "fill": fill}
+            "fill": fill, "kind": kind}
 
 
 def resident(run, iters: int, images: int, reps: int = 3) -> dict:
@@ -2809,31 +2859,64 @@ def idle_share(run, iters: int, images: int) -> dict:
             "ops_by_name_per_call": {k: v / iters for k, v in names.items()}}
 
 
-# 28: a wrapper's LAUNCHES key -> the name of the kernel it launches.
-KERNEL_SYMBOLS = {"huffman_decode": "huffman_decode_kernel",
-                  "unpack_delta": "unpack_delta_kernel",
-                  "assemble": "assemble_kernel",
-                  "dequant_idct": "dequant_idct_kernel",
-                  "idct_exact": "idct_exact_kernel",
-                  "interleaved_tail": "interleaved_tail_kernel",
-                  "fused_tail": "fused_tail_kernel"}
+# 28: a wrapper's LAUNCHES key -> the names of the kernels it launches.
+KERNEL_SYMBOLS = {"huffman_decode": ("huffman_decode_kernel",),
+                  "unpack_delta": ("unpack_delta_kernel",),
+                  "assemble": ("assemble_kernel",),
+                  "dequant_idct": ("dequant_idct_kernel",),
+                  "idct_exact": ("idct_exact_kernel",),
+                  "interleaved_tail": ("interleaved_tail_kernel",),
+                  "fused_tail": ("fused_tail_kernel",),
+                  "prefix_rebuild": ("prefix_base_kernel",
+                                     "prefix_resid_kernel"),
+                  "lossless_recur": ("lossless_recur_kernel",)}
 GRAPH_PROFILED = 10     # replays in the profiler's active step
+# A trace drops the first operations of its active step: those of the
+# first few ms after the host resumes from its last wait (phase 28 of
+# long runs: the first call's copy in and first kernels, or all of it, at
+# idle margins of 50 ms to 0.8 s before the calls; a spin kernel before
+# a 50 ms sleep and one after it, both). So the active step opens with
+# PROFILER_FILL_S of spin kernels launched back to back, no wait between
+# them and the calls, and counts only what follows the last one it holds;
+# a trace that holds none is taken again.
+PROFILER_FILL_S = 0.02
+SPIN_CYCLES = 1000
+GATE_TRACES = 6
+STARTED = time.monotonic()
 
 
-def replay_kernels(run, calls: int = GRAPH_PROFILED) -> dict:
+def replay_kernels(run, calls: int = GRAPH_PROFILED,
+                   fill: float = PROFILER_FILL_S) -> tuple:
     """The card's operations by name over `calls` calls of `run` in a
-    torch.profiler trace's active step, after a warm-up step of 3 calls
-    (the profiler drops events at a cold trace's start), each step
-    synchronised; a trace that comes back empty is taken again (twice at
-    most)."""
+    torch.profiler trace's active step, after a warm-up step of 3 calls,
+    each step synchronised; the active step opens with `fill` seconds of
+    spin kernels and only the operations after the last spin kernel in
+    the trace are counted. A trace that holds no spin kernel or counts
+    nothing after it is taken again (twice at most). (The operations;
+    every other one of the trace in order as [its kernel's name, its
+    start less the last spin kernel's, µs]; [spin kernels launched, held
+    by the trace].)"""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     got: dict = {}
+    order = []
+    spins = [0, 0]
 
     def traced(prof) -> None:
         got.clear()
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+        order.clear()
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+        held = [e.time_range.start for e in ev if "spin_kernel" in e.name]
+        spins[1] = len(held)
+        at = held[-1] if held else 0
+        for e in ev:
+            if "spin_kernel" in e.name:
+                continue
+            order.append([kernel_name(e.name),
+                          round(e.time_range.start - at, 1)])
+            if held and e.time_range.start > at:
                 got[e.name] = got.get(e.name, 0) + 1
 
     for _attempt in range(3):
@@ -2841,13 +2924,34 @@ def replay_kernels(run, calls: int = GRAPH_PROFILED) -> dict:
                      schedule=schedule(wait=0, warmup=1, active=1),
                      on_trace_ready=traced) as prof:
             for n in (3, calls):
+                if n == calls:
+                    spins[0] = 0
+                    end = time.perf_counter() + fill
+                    while time.perf_counter() < end:
+                        torch.cuda._sleep(SPIN_CYCLES)
+                        spins[0] += 1
                 for _ in range(n):
                     run()
                 torch.cuda.synchronize()
                 prof.step()
         if got:
             break
-    return got
+    return got, order, spins
+
+
+def missed(fill: float, have: dict, want: dict, order: list, spins: list,
+           taken: list) -> dict:
+    """A retaken trace's record: its fill, the script's seconds so far,
+    the spin kernels launched and held, each name's count less the count
+    wanted, and for the first two of a gate its operations in order."""
+    rec = {"fill": fill, "at_s": time.monotonic() - STARTED,
+           "spins": spins,
+           "short": {kernel_name(k): have.get(k, 0) - want.get(k, 0)
+                     for k in set(have) | set(want)
+                     if have.get(k, 0) != want.get(k, 0)}}
+    if sum("order" in t for t in taken if isinstance(t, dict)) < 2:
+        rec["order"] = order
+    return rec
 
 
 def replay_gate(label: str, replay, eager_calls: dict) -> tuple:
@@ -2855,21 +2959,89 @@ def replay_gate(label: str, replay, eager_calls: dict) -> tuple:
     body (`eager_calls`, by `LAUNCHES` key) exactly as often in
     GRAPH_PROFILED replays as in as many eager bodies, and no other
     kernel of KERNEL_SYMBOLS. A trace can lose events but not make them
-    up, so a trace that counts fewer is taken again (three traces at
-    most) and one exact count passes; (counted, ops, traces taken)."""
-    for attempt in range(1, 4):
-        ops = replay_kernels(replay)
-        counted = {k: sum(n for op, n in ops.items() if sym in op)
-                   for k, sym in KERNEL_SYMBOLS.items()}
-        want = {k: eager_calls.get(k, 0) * GRAPH_PROFILED
-                for k in KERNEL_SYMBOLS}
+    up, so a trace that counts fewer is taken again with twice the fill
+    (GATE_TRACES traces at most) and one exact count passes; (counted,
+    ops, the traces taken: [fill s, spin kernels launched, held] of the
+    one that passed, after a record (`missed`) of each one retaken)."""
+    want = {k: eager_calls.get(k, 0) * GRAPH_PROFILED for k in KERNEL_SYMBOLS}
+    taken = []
+    for attempt in range(GATE_TRACES):
+        fill = PROFILER_FILL_S * 2 ** attempt
+        ops, order, spins = replay_kernels(replay, fill=fill)
+        counted = {k: sum(n for op, n in ops.items()
+                          if any(sym in op for sym in syms))
+                   for k, syms in KERNEL_SYMBOLS.items()}
         if counted == want:
-            return counted, ops, attempt
+            return counted, ops, taken + [[fill, *spins]]
+        taken.append(missed(fill, counted, want, order, spins, taken))
         if any(counted[k] > want[k] for k in KERNEL_SYMBOLS):
             break
     raise AssertionError(
         f"28 {label}: the profiler counts {counted} kernels over "
-        f"{GRAPH_PROFILED} replays, the eager body {eager_calls}")
+        f"{GRAPH_PROFILED} replays, the eager body {eager_calls}; traces "
+        f"{json.dumps(taken)}")
+
+
+def kernel_name(op: str) -> str:
+    """A device operation's name without its signature, template arguments
+    and namespaces."""
+    name = op.removeprefix("void ").replace("(anonymous namespace)::", "")
+    for cut in "<(":
+        name = name.split(cut)[0]
+    return name.split("::")[-1].strip()
+
+
+def device_kernels(run, fill: float = PROFILER_FILL_S) -> tuple:
+    """The card's kernels by name over GRAPH_PROFILED calls of `run`
+    (`replay_kernels`), copies and fills left out, every operation in
+    order and the spin kernels."""
+    ops, order, spins = replay_kernels(run, fill=fill)
+    return {op: n for op, n in ops.items()
+            if "Memcpy" not in op and "Memset" not in op}, order, spins
+
+
+def kernels_gate(label: str, replay, eager) -> tuple:
+    """Every kernel, PyTorch's included (the lossless closed forms' scans
+    and casts), as often over GRAPH_PROFILED replays as over as many eager
+    bodies on the same inputs. A trace can lose events, so a pair that
+    differs is taken again with twice the fill (GATE_TRACES pairs at
+    most); (kernels, the pairs taken: [fill s, the replays' spin kernels
+    launched and held, the eager bodies'] of the one that passed, after
+    a record (`missed`, the replays' counts against the eager bodies') of
+    each one retaken)."""
+    taken = []
+    for attempt in range(GATE_TRACES):
+        fill = PROFILER_FILL_S * 2 ** attempt
+        got, order, spins = device_kernels(replay, fill)
+        want, eager_order, eager_spins = device_kernels(eager, fill)
+        if got == want and got:
+            return got, taken + [[fill, spins, eager_spins]]
+        rec = missed(fill, got, want, order, spins, taken)
+        rec["eager_spins"] = eager_spins
+        if "order" in rec:
+            rec["eager_order"] = eager_order
+        taken.append(rec)
+    raise AssertionError(f"28 {label}: the replays' kernels {got}, the "
+                         f"eager bodies' {want}; pairs {json.dumps(taken)}")
+
+
+def sync_free_replays(label: str, dec, replay, calls: int = 3) -> int:
+    """`calls` replays (each landing its inputs first) under
+    `torch.cuda.set_sync_debug_mode("error")`: nothing may wait for the
+    card, and each must be a replay."""
+    torch.cuda.synchronize()
+    hits = dec._graphs.hits
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(calls):
+            replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if dec._graphs.hits - hits != calls:
+        raise AssertionError(f"28 {label}: the sync-free calls were not "
+                             "replays")
+    return calls
 
 
 def graph_pool_bytes(graph) -> int:
@@ -3113,13 +3285,16 @@ def phase_hetero_graphs(jt, card: str) -> dict:
 
 
 def phase_graphs(jt, data: dict, card: str) -> dict:
-    """28. The compiled dispatch (`models/graphs.py`): the bits device half
-    captured once per key as a CUDA graph and replayed. Every route of
-    GRAPH_ROUTES: the key's first call (eager, off any graph), three
-    calls on freshly landed inputs (the warm-up and the capture, then two
-    replays) and the eager body on the same inputs
+    """28. The compiled dispatch (`models/graphs.py`): the bits, prefix and
+    lossless device halves captured once per key as CUDA graphs and
+    replayed. Every route of GRAPH_ROUTES: the key's first call (eager,
+    off any graph), three calls on freshly landed inputs (the warm-up and
+    the capture, then two replays) and the eager body on the same inputs
     SHA-256-equal; each replay counting the eager body's launches, by
-    kernel; one capture and two replays per key. tower_420, tower_420_q92 and
+    kernel; one capture and two replays per key; on the prefix and
+    lossless routes every kernel by name, PyTorch's included, as often
+    over replays as over eager bodies (`kernels_gate`) and three replays
+    under `torch.cuda.set_sync_debug_mode("error")`. tower_420, tower_420_q92 and
     optimized/tower_420_opt.jpg alternating on one decoder (the first and
     the last share one key and one graph): every image SHA-256-equal to
     its eager body's, and every tensor handed out unchanged after the
@@ -3137,8 +3312,8 @@ def phase_graphs(jt, data: dict, card: str) -> dict:
     kernel's device µs (`wrapper_host_us`). The hetero groups: a sweep
     graph and a graph per part (`phase_hetero_graphs`)."""
     routes, timed, memory = {}, {}, {}
-    for label, opts, name, batch in GRAPH_ROUTES:
-        blob = data[name]
+    for label, opts, source, batch in GRAPH_ROUTES:
+        blob = route_blob(data, source)
         with jt.DeviceStreamDecoder(host_threads=1, **opts) as dec:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -3169,7 +3344,19 @@ def phase_graphs(jt, data: dict, card: str) -> dict:
             # The replays' kernels as the profiler sees them: each kernel
             # of the eager body exactly as often a replay, no other.
             counted, ops, traces = replay_gate(label, replay, eager_calls)
-            routes[label] = {
+            if calls["kind"] != "bits":
+                kernels, pairs = kernels_gate(label, replay, eager)
+                by_name: dict = {}
+                for op, n in kernels.items():
+                    by_name[kernel_name(op)] = \
+                        by_name.get(kernel_name(op), 0) + n / GRAPH_PROFILED
+                extra = {"kernels_per_call": by_name,
+                         "kernels_gate_pairs": pairs,
+                         "sync_free_replays": sync_free_replays(label, dec,
+                                                                replay)}
+            else:
+                extra = {}
+            routes[label] = {**extra,
                 "profiler_traces": traces,
                 "sha256": want, "launches_per_image": replayed,
                 "profiler_kernels_per_image": {

@@ -1,15 +1,44 @@
-"""Compiled dispatch of the bits path: one CUDA graph per bucketed plan.
+"""Compiled dispatch: one CUDA graph per key, on the bits, prefix and
+lossless paths.
 
-Counterpart of the JAX package's `_compiled_bits_pipeline` and
-`_compiled_bits_pipeline_batched` (`jpeg_decoder_tpu/models/stream.py:
-919-1014`): an `lru_cache(maxsize=128)` of `jax.jit(run)`, compiled on a
-key's first call and replayed, keyed only on what is static, with the wire
-and the tables passed at run time (`:1408-1439`). Here the device half of
-one bits image (`DeviceStreamDecoder._run_device`) or of a bits group of
-one (plan, geometry) (`_run_group`) is captured once per key as a
-`torch.cuda.CUDAGraph` and replayed: no wrapper's Python (checks, ctypes
-argument arrays, K2's segment table, status-buffer epochs) runs on a
-replay.
+Counterpart of the JAX package's compiled pipelines: `_compiled_bits_pipeline`
+and `_compiled_bits_pipeline_batched` (`jpeg_decoder_tpu/models/stream.py:
+919-1014`), `_compiled_prefix_pipeline` and
+`_compiled_prefix_pipeline_batched` (`:73-165`) and
+`_compiled_lossless_pipeline` (`:766-815`): `lru_cache`s of `jax.jit(run)`,
+compiled on a key's first call and replayed, keyed only on what is static,
+with the wire and the tables passed at run time. Here the device half of
+one image (`DeviceStreamDecoder._run_device`) or of a group
+(`_run_group`) is captured once per key as a `torch.cuda.CUDAGraph` and
+replayed: no wrapper's Python (checks, ctypes argument arrays, K2's segment
+table, status-buffer epochs) runs on a replay. One LRU of
+GRAPH_CACHE_SIZE graphs holds every kind, since a bits decoder meets
+prefix fallbacks and lossless images too. What stays eager: a mesh's
+images and groups, a call with an explicit `dev`, and `Decoder`'s
+reconstruction.
+
+The kinds (`BodyShape.half`) and their keys:
+- "whole", a bits image or a bits group of one (plan, geometry) (`bits_key`,
+  below): every scan's K1, then assembly and the reconstruction;
+- "sweep" and "part", a bits group of several (plan, geometry) parts
+  (`sweep_key`, `part_key`, below);
+- "prefix", a prefix image or group (`prefix_key`: the geometry, its
+  precision beside it, the residuals' length, the layout and None or the
+  count bucket): P1, then the reconstruction;
+- "lossless", a SOF3 image or group (`lossless_key`: the component count,
+  predictor, point transform, precision, `restart_all`, the output's width
+  and height, the planes' [H, W] and None or the count bucket): the
+  closed forms or L1, then the interleave.
+Two images share a key exactly when they share the JAX package's.
+
+A group is padded to its count bucket (`batch_bucket`) on the prefix and
+lossless paths, as the JAX package pads it: the rows past the group's
+images take its last image's inputs, so that every slot of a graph
+decodes this call's inputs and no replay reads what an earlier call left;
+the pad images are decoded and never returned (`Fill.count`). A prefix
+group's dropped residuals land at a sink past the bucket's stores. The
+prefix path's K2 and E1 take a segment per (image, component) of the
+bucket: at `decode_stream(batch_size=16)` at most 48, one launch.
 
 A bits group of several (plan, geometry) parts (mixed sizes of one
 encoder) runs in two halves, as the JAX package's
@@ -29,7 +58,7 @@ before the replay. Rows past the part's images keep what they held: the
 pad slots decode them and are never returned, and every kernel of the
 part body works image by image, so no returned image depends on them.
 
-The key (`bits_key`) holds what the JAX compile key holds: the plans with
+The bits key (`bits_key`) holds what the JAX compile key holds: the plans with
 their kept components, the component count, the geometry (its precision
 included), the layout, and per scan the wire kind, n_tab, `comp_to_upair`
 and the wire's bucketed lengths, with the delta wire's class shapes
@@ -50,7 +79,10 @@ folded_basis`, the bits K2's wrapper would fold), or int32 for E1. One
 call fills it with one H2D copy through the pinned pool
 (`transfer.put_into`), the wire included, so the wire lands in the graph's
 inputs within the submission that carried it before; every call lands the
-whole arena, its tables included. What a key fixes the graph holds
+whole arena, its tables included. A prefix graph's arena holds the prefix
+wire (dc int16 [B, n], ac int8 [B, n, 15], the residuals' int32 indices
+and int16 values [B, width]) and per image and component its table; a
+lossless graph's its planes (int16 [B, C, H, W]). What a key fixes the graph holds
 itself, so no cache eviction frees what it reads: the zero-padded IDCT
 bases and a general plan's index maps, taken from the decoder's caches
 (uploaded once a decoder: an upload from pageable memory waits for the
@@ -121,18 +153,36 @@ import torch
 
 from .. import _build
 from ..host.entropy.prescan import _bucket_up
+from ..host.staging import _bucket
 from ..params import ScanTables, folded_basis, scan_table_arrays
 from ..transfer import ALIGN, put_into
 
-# Graphs a decoder keeps. JAX keeps 128 executables, which hold no
-# activations; a captured graph holds its private memory pool (~46 MB at
-# large_420, ~50 MB for a group of 16 tower_420), so the bound is
-# tighter: 32 graphs of large_420 hold ~1.5 GB.
+# Graphs a decoder keeps, of every kind. JAX keeps 128 bits executables,
+# 256 prefix and 32 lossless, which hold no activations; a captured graph
+# holds its private memory pool (~46 MB at large_420, ~50 MB for a group
+# of 16 tower_420), so the bound is tighter: 32 graphs of large_420 hold
+# ~1.5 GB.
 GRAPH_CACHE_SIZE = 32
 _HOST_CACHE = 256       # host-side table arrays kept by content
 
+# The arena's dtypes: the wires and tables (int32, float32), the prefix
+# wire's dc and residual values and the lossless planes (int16; the planes
+# are uint16 sent as int16 bit patterns) and its AC slots (int8).
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
-                 np.dtype(np.float32): torch.float32}
+                 np.dtype(np.float32): torch.float32,
+                 np.dtype(np.int16): torch.int16,
+                 np.dtype(np.int8): torch.int8}
+
+
+def batch_bucket(n: int) -> int:
+    """The JAX package's group bucket (`stream.py:206`, `_batch_bucket`):
+    the least power of two >= n. The images of a prefix or lossless
+    group's graph and of a hetero part's, the sweep's block count, and on
+    a mesh the shards' rows."""
+    size = 1
+    while size < n:
+        size *= 2
+    return size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,10 +196,25 @@ class ScanShape:
 
 
 @dataclasses.dataclass(frozen=True)
+class LosslessShape:
+    """What a lossless body reads of its images beside their planes: the
+    fields of `StagedLossless` that `stream.lossless_images` takes (a
+    graph keeps these, not an image whose planes it would hold alive)."""
+    predictor: int
+    point_transform: int
+    precision: int
+    restart_all: bool
+    out_width: int
+    out_height: int
+
+
+@dataclasses.dataclass(frozen=True)
 class BodyShape:
     """The static structure of a graph's body. `half`: "whole" (every
     scan's K1, then the reconstruction), "sweep" (K1 over a merged wire
-    only: its nat out) or "part" (the reconstruction of `nat_in`)."""
+    only: its nat out), "part" (the reconstruction of `nat_in`), "prefix"
+    (P1 over the prefix wire, then the reconstruction) or "lossless" (the
+    predictors and the interleave; `geometry` a `LosslessShape`)."""
     scans: tuple         # (ScanShape, ...)
     ncomp: int
     geometry: object
@@ -191,9 +256,10 @@ class SlotParams:
 @dataclasses.dataclass
 class Inputs:
     """A graph's inputs, as the body reads them: per scan its wire (words,
-    dm[, ab, base]), K1's tables and, for a plan without the closed form,
-    its index maps; per image its components' `QtSlot`s; `params` the
-    lookups of the reconstruction."""
+    dm[, ab, base]; the prefix wire (dc, ac, resid_idx, resid_vals); the
+    lossless planes (diffs,)), K1's tables and, for a plan without the
+    closed form, its index maps; per image its components' `QtSlot`s;
+    `params` the lookups of the reconstruction."""
     wires: list
     tables: list
     maps: list
@@ -284,6 +350,38 @@ def part_key(staged, count_bucket: int, precision: str, layout: str
             staged.geometry, layout, precision)
 
 
+def prefix_key(staged_or_group, precision: str, layout: str) -> tuple:
+    """The compile key of one StagedImage (the prefix interchange), as
+    `_compiled_prefix_pipeline` keys it: its geometry, the length of its
+    residual lists (`stage_host` buckets it) and the layout; of a group (a
+    list of one geometry), as `_compiled_prefix_pipeline_batched` does:
+    `_bucket` of its longest residual list and its count bucket
+    (`batch_bucket`). The precision appears beside the geometry, as in
+    `bits_key`."""
+    if isinstance(staged_or_group, (list, tuple)):
+        first = staged_or_group[0]
+        width = _bucket(max(len(st.resid_idx) for st in staged_or_group))
+        images = batch_bucket(len(staged_or_group))
+    else:
+        first, images = staged_or_group, None
+        width = len(first.resid_idx)
+    return ("prefix", first.geometry, width, layout, precision, images)
+
+
+def lossless_key(staged_or_group) -> tuple:
+    """The compile key of one StagedLossless, or of a group of them (a
+    list of one `group_key`), as `_compiled_lossless_pipeline` keys it:
+    the component count, predictor, point transform, precision,
+    `restart_all`, the output's width and height and None or the count
+    bucket, with the planes' [H, W] that `jax.jit` traces."""
+    group = isinstance(staged_or_group, (list, tuple))
+    st = staged_or_group[0] if group else staged_or_group
+    ncomp, h, w = st.diffs.shape
+    return ("lossless", ncomp, st.predictor, st.point_transform,
+            st.precision, st.restart_all, st.out_width, st.out_height,
+            (h, w), batch_bucket(len(staged_or_group)) if group else None)
+
+
 def _s_max(st, s_max: int) -> int:
     """K1's step bound on a scan's wire (`s_max` its wire's own): on the
     anchor wire the plan's, the prescan's bucket of its chunks' symbol
@@ -335,14 +433,32 @@ def part_shape(staged, images: int, fp32: bool) -> BodyShape:
                      len(staged.qts), staged.geometry, images, fp32, "part")
 
 
+def prefix_shape(staged, images: int, fp32: bool) -> BodyShape:
+    """A prefix body's structure: P1 and the reconstruction of `images`
+    images of the geometry of `staged` (any of them)."""
+    return BodyShape((), len(staged.qts), staged.geometry, images, fp32,
+                     "prefix")
+
+
+def lossless_shape(staged, images: int) -> BodyShape:
+    """A lossless body's structure: the planes of `images` images of the
+    `group_key` of `staged` (any of them)."""
+    return BodyShape((), 0, LosslessShape(
+        staged.predictor, staged.point_transform, staged.precision,
+        staged.restart_all, staged.out_width, staged.out_height), images,
+        False, "lossless")
+
+
 @dataclasses.dataclass
 class Fill:
     """One call's inputs landed in a graph's arena: `id` is the arena's
     fill count when they landed; `items` the (offset, array) pairs, kept
-    to land them again if another call refilled the arena first."""
+    to land them again if another call refilled the arena first; `count`
+    the images the call returns, the first of the graph's (None: all)."""
     graph: "BitsGraph"
     id: int
     items: list
+    count: int = None
 
 
 class BitsGraph:
@@ -379,7 +495,10 @@ class BitsGraph:
         sh = self.shape
         it = iter(views)
         wires, tables = [], []
-        if sh.half != "part":
+        if sh.half in ("prefix", "lossless"):
+            wires = [tuple(next(it) for _ in range(
+                4 if sh.half == "prefix" else 1))]
+        elif sh.half != "part":
             wires = [tuple(next(it) for _ in range(
                 2 if scan.wire == "delta" else 4)) for scan in sh.scans]
             tables = [[next(it) for _ in range(6)] for _scan in sh.scans]
@@ -397,10 +516,15 @@ class BitsGraph:
 
     def body(self, dec) -> torch.Tensor:
         """The decoder's body of this graph's half on its inputs."""
-        if self.shape.half == "sweep":
+        half = self.shape.half
+        if half == "sweep":
             return dec._sweep_body(self.shape, self.inputs)[0]
-        if self.shape.half == "part":
+        if half == "part":
             return dec._part_body(self.shape, [self.nat_in], self.inputs)
+        if half == "prefix":
+            return dec._prefix_body(self.shape, self.inputs)
+        if half == "lossless":
+            return dec._lossless_body(self.shape, self.inputs)
         return dec._bits_body(self.shape, self.inputs)
 
     def items(self, arrays: list) -> list:
@@ -474,9 +598,10 @@ class BitsGraphs:
     def _arrays(self, shape: BodyShape, wires: list, scans: list,
                 qts_b: list) -> list:
         """Every input of one call, in the arena's order: every scan's wire
-        arrays, every scan's K1 tables (six), the zigzag map, then per image
-        and component its table(s). The tables' arrays come from the
-        host-side caches, one object per content."""
+        arrays (the prefix or lossless wire's), every scan's K1 tables
+        (six), the zigzag map, then per image and component its table(s).
+        The tables' arrays come from the host-side caches, one object per
+        content."""
         out = [a for wire in wires for a in wire]
         tabs = None
         for scan in scans:
@@ -493,12 +618,14 @@ class BitsGraphs:
         return out
 
     def fill(self, key, shape: BodyShape, wires: list, scans: list,
-             qts_b: list) -> Fill:
+             qts_b: list, count: int = None) -> Fill:
         """Land one call's inputs in its key's graph (made on first sight):
-        `wires` per scan its arrays (`wire_arrays`), `scans` the
-        `AnchoredScan`s whose tables K1 reads, `qts_b` per image its
-        components' uint16[64] tables (a sweep has no `qts_b`, a part no
-        `wires` and `scans`)."""
+        `wires` per scan its arrays (`wire_arrays`; a prefix or lossless
+        body's one wire), `scans` the `AnchoredScan`s whose tables K1 reads,
+        `qts_b` per image its components' uint16[64] tables (a sweep and a
+        lossless body have no `qts_b`, a part no `wires`, a part, a prefix
+        and a lossless body no `scans`); `count` the images the call
+        returns (`Fill.count`)."""
         arrays = self._arrays(shape, wires, scans, qts_b)
         graph = self._graphs.get(key)
         if graph is None:
@@ -507,14 +634,14 @@ class BitsGraphs:
                 [None if scan.plan is None or scan.plan.structured is not None
                  else self._maps(scan.plan, self.device)
                  for scan in shape.scans],
-                {} if shape.geometry is None else
+                {} if shape.half in ("sweep", "lossless") else
                 {c.dct_scale: self._params.basis(c.dct_scale)
                  for c in shape.geometry.components})
             while len(self._graphs) > self.maxsize:
                 self._graphs.popitem(last=False)
         else:
             self._graphs.move_to_end(key)
-        fill = Fill(graph, 0, graph.items(arrays))
+        fill = Fill(graph, 0, graph.items(arrays), count)
         self._land(fill)
         return fill
 
@@ -545,17 +672,18 @@ class BitsGraphs:
             rows: torch.Tensor = None) -> torch.Tensor:
         """The body's output for the inputs of `fill`: eagerly on the CPU
         or with `eager`; on a card at the graph's first call by its warm-up
-        and capture, then by replay. A whole body or a part gives [N, ...]
-        in the decoder's layout, copied out of a replayed graph; a part
-        first copies `rows` (its images' rows of the sweep's nat, int16
-        [count x n_blocks, 64]) into its `nat_in` and gives its first
-        `count` images. A sweep gives its nat, the graph's static output
-        itself: it is read by the parts' copies that follow on the stream,
-        before the next replay, and never handed out."""
+        and capture, then by replay. A whole, prefix or lossless body or a
+        part gives [N, ...] (its first `fill.count` images), copied out of
+        a replayed graph; a part first copies `rows` (its images' rows of
+        the sweep's nat, int16 [count x n_blocks, 64]) into its `nat_in`
+        and gives its first `count` images. A sweep gives its nat, the
+        graph's static output itself: it is read by the parts' copies that
+        follow on the stream, before the next replay, and never handed
+        out."""
         graph = fill.graph
         if graph.fill_id != fill.id:
             self._land(fill)
-        count = None
+        count = fill.count
         if rows is not None:
             graph.nat_in[:rows.shape[0]].copy_(rows)
             count = rows.shape[0] // graph.shape.scans[0].plan.n_blocks

@@ -42,11 +42,11 @@ submissions of 4 MB or more into `utils.link`'s rate estimate, as the
 reference's does, and adds no synchronisation.
 
 Device stage (per image or per group, on the caller's thread,
-`device_dispatch`, asynchronous on the current CUDA stream; a bits image,
-and a bits group of one (plan, geometry), off a mesh, by replay of one
-CUDA graph per key, and a bits group of several parts by replay of a
-sweep graph and one graph per part, `models/graphs.py`, whose inputs the
-H2D submission lands in; on the CPU the same bodies run eagerly):
+`device_dispatch`, asynchronous on the current CUDA stream; off a mesh, an
+image or a group of any interchange by replay of one CUDA graph per key,
+and a bits group of several parts by replay of a sweep graph and one
+graph per part, `models/graphs.py`, whose inputs the H2D submission lands
+in; on the CPU the same bodies run eagerly):
 - bits: delta unpack (delta wire), kernel K1 (chunk Huffman decode),
   assembly (DC prefix sums, raster placement), then reconstruction: the
   exact int32 IDCT (kernel E1) or kernel K2 by precision, then
@@ -78,15 +78,16 @@ step runs once per group:
 Every image comes out bit-equal to its one-image decode, as a view of its
 group's [N, ...] output (the view keeps the group's tensor alive, as the
 reference's `out[i]` does). A `None` slot (on_error="none") flushes every
-open group first, so outputs stay in source order. Groups are not padded
-to a bucket of sizes as the reference's are (`_batch_bucket`, `_bucket`):
-those bound XLA's recompiles; here a group's size is in its graph's key,
+open group first, so outputs stay in source order. A same-plan bits
+group is not padded to a bucket of sizes: its size is in its graph's key,
 so a stream's short last group captures a graph of its own once, where a
-padded image would be wasted work on every replay. A hetero group's parts
-are the exception, as in the reference (`_compiled_nat_reconstruct`): a
-part's graph decodes its count bucket of images, its pad slots never
-returned, and the sweep's block count is bucketed, so that a new
-composition of known sizes finds its graphs.
+padded image would be wasted work on every replay. Prefix and lossless
+groups are padded as the reference pads them (`graphs.batch_bucket`; the
+prefix residuals to `_bucket` of the longest list), the pad rows the last
+image's and never returned, since their keys are the reference's; so are
+a hetero group's parts (`_compiled_nat_reconstruct`: a part's graph
+decodes its count bucket of images), and the sweep's block count is
+bucketed, so that a new composition of known sizes finds its graphs.
 
 On a mesh (`DeviceStreamDecoder(mesh=...)`, the reference's mesh mode,
 `jpeg_decoder_tpu/models/stream.py:1243-1317`, `:1856-1995`), bits groups
@@ -127,8 +128,8 @@ from ..host.ops.pipeline import ImageGeometry, geometry_from_frame
 from ..host.ops.tail import is_420_ycbcr
 from ..host.parser import CodingProcess, Predictor
 from ..host.staging import (BitstreamCapture, StagedImage, StagedLossless,
-                            _LosslessCapture, _staged_lossless_from_capture,
-                            stage_host)
+                            _bucket, _LosslessCapture,
+                            _staged_lossless_from_capture, stage_host)
 from ..ops.pipeline import reconstruct, reconstruct_planar_pallas
 from . import graphs
 from ..ops.predictors import reconstruct_planes
@@ -382,21 +383,11 @@ def _hetero_threshold() -> float:
 K1_MAX_BLOCKS = (2 ** 31 - 1) // 64
 
 
-def _batch_bucket(n: int) -> int:
-    """The reference's group bucket (`stream.py:206`): the least power of
-    two >= n. On a mesh it sets the shards' rows (no image is padded
-    there); in a hetero group a part's images (its graph's pad slots) and
-    the sweep's block count."""
-    size = 1
-    while size < n:
-        size *= 2
-    return size
-
-
 def lossless_images(st: StagedLossless, diffs: torch.Tensor) -> torch.Tensor:
     """The reference's `_compiled_lossless_pipeline` (vmapped over a
     group): `diffs` holds N images' staged uint16 planes as int16 bit
-    patterns, [N, C, H, W], of one `group_key` (`st` is any of them). Every
+    patterns, [N, C, H, W], of one `group_key` (`st` is any of them, or
+    its `graphs.LosslessShape`). Every
     plane of the group through one `reconstruct_planes` (kernel L1 once
     for the group where the predictor needs it), then the
     element-count-bound interleave per image; uint8 out at precision 8,
@@ -414,6 +405,29 @@ def lossless_images(st: StagedLossless, diffs: torch.Tensor) -> torch.Tensor:
         img = planes[..., :count].transpose(1, 2).reshape(
             n, st.out_height, st.out_width, ncomp)
     return img.to(torch.uint8 if st.precision == 8 else torch.uint16)
+
+
+def _prefix_wire(group: list, images: int) -> tuple:
+    """A prefix group's wire, `images` rows of one geometry (the rows past
+    the group's take its last image's, as the reference pads a group):
+    dc [B, n], ac [B, n, 15], and the residuals [B, width] (`_bucket` of the
+    longest list), each index into the rows' stores flattened row after
+    row (row i's offset by i times an image's coefficients, a negative one
+    counted from its row's end, as `mode="drop"` reads it) and every other
+    one at the sink `images x total`, past every row: dropped."""
+    rows = group + [group[-1]] * (images - len(group))
+    total = group[0].dc.shape[-1] * 64     # one image's coefficients
+    width = _bucket(max(len(st.resid_idx) for st in group))
+    ri = np.full((images, width), images * total, np.int64)
+    rv = np.zeros((images, width), np.int16)
+    for i, st in enumerate(rows):
+        idx = st.resid_idx.astype(np.int64)
+        idx = np.where(idx < 0, idx + total, idx)
+        ri[i, :len(idx)] = np.where((idx >= 0) & (idx < total),
+                                    idx + i * total, images * total)
+        rv[i, :len(idx)] = st.resid_vals
+    return (np.stack([st.dc for st in rows]),
+            np.stack([st.ac for st in rows]), ri.astype(np.int32), rv)
 
 
 @dataclasses.dataclass
@@ -531,12 +545,14 @@ class DeviceStreamDecoder:
 
     def _to_device(self, staged, dev=None):
         """One H2D submission of one image's staged wire (to `dev`, by
-        default the decoder's device). A bits image off a mesh lands in
-        its key's graph with its tables (a `graphs.Fill`), but at the key's
-        first sight on a card; otherwise the wire's device tensors."""
+        default the decoder's device). An image off a mesh with no `dev`
+        lands in its key's graph with its tables (a `graphs.Fill`), but at
+        the key's first sight on a card; otherwise the wire's device
+        tensors."""
         kind = _kind(staged)
-        if kind == "bits" and self._graphs is not None and dev is None:
-            fill = self._bits_fill(staged)
+        if self._graphs is not None and dev is None:
+            fill = self._bits_fill(staged) if kind == "bits" \
+                else self._padded_fill(kind, staged)
             if fill is not None:
                 return fill
         if kind == "bits":
@@ -586,6 +602,36 @@ class DeviceStreamDecoder:
         return self._put_into(lambda: self._graphs.fill(
             key, shape, wires, [s.scan for s in staged.scans],
             [staged.qts]))
+
+    def _padded_fill(self, kind: str, staged_or_group):
+        """A prefix or lossless image's wire (or a group's, its rows padded
+        to its count bucket with the last image's, as the reference pads a
+        group: `_prefix_wire` on prefix), with a prefix image's
+        quantisation tables, into its key's graph in one H2D submission (a
+        `graphs.Fill` that returns the group's images); None at the key's
+        first sight on a card."""
+        group = isinstance(staged_or_group, list)
+        rows = staged_or_group if group else [staged_or_group]
+        first = rows[0]
+        key = graphs.lossless_key(staged_or_group) if kind == "lossless" \
+            else graphs.prefix_key(staged_or_group, self.precision,
+                                   self._effective_layout(first.geometry))
+        if self._graphs.first_sight(key):
+            return None
+        images = key[-1] or 1
+        padded = rows + [rows[-1]] * (images - len(rows))
+        if kind == "lossless":
+            shape, qts = graphs.lossless_shape(first, images), []
+            wire = (np.stack([st.diffs for st in padded]).view(np.int16),)
+        else:
+            shape = graphs.prefix_shape(first, images,
+                                        self._fp32(first.geometry))
+            qts = [st.qts for st in padded]
+            wire = _prefix_wire(rows, images) if group else (
+                first.dc[None], first.ac[None], first.resid_idx[None],
+                first.resid_vals[None])
+        return self._put_into(lambda: self._graphs.fill(
+            key, shape, [wire], [], qts, len(rows)))
 
     def _general_maps(self, plan, dev):
         maps = self._maps.get((plan, dev))
@@ -681,32 +727,64 @@ class DeviceStreamDecoder:
         return self._part_body(shape, self._sweep_body(shape, inputs),
                                inputs)
 
+    def _prefix_body(self, shape: "graphs.BodyShape",
+                     inputs: "graphs.Inputs") -> torch.Tensor:
+        """The device half of a prefix image or group: P1 over its wire
+        (`entropy/prefix.py`), then the reconstruction of its
+        `shape.images` images, as `_part_body` runs it: [N, ...] in the
+        decoder's layout. What `graphs.BitsGraphs` runs eagerly or
+        captures, and what a prefix image or group off a graph runs on the
+        device's `DeviceParams`."""
+        with torch.profiler.record_function("prefix_stores"):
+            stores = prefix_stores(shape.geometry, *inputs.wires[0])
+        return self._reconstruct(shape.geometry, stores, inputs.qts_b,
+                                 inputs.params)
+
+    def _lossless_body(self, shape: "graphs.BodyShape",
+                       inputs: "graphs.Inputs") -> torch.Tensor:
+        """The device half of a lossless image or group: `lossless_images`
+        of its planes, int16 [N, C, H, W]: [N, ...]."""
+        with torch.profiler.record_function("lossless"):
+            return lossless_images(shape.geometry, inputs.wires[0][0])
+
+    def _eager_body(self, kind: str, group: list, wire: tuple
+                    ) -> torch.Tensor:
+        """The prefix or lossless body of `group` off any graph: its wire
+        on the device, the tables from that device's `DeviceParams`."""
+        if kind == "lossless":
+            return self._lossless_body(
+                graphs.lossless_shape(group[0], len(group)),
+                graphs.Inputs([wire], [], [], [], None))
+        return self._prefix_body(
+            graphs.prefix_shape(group[0], len(group),
+                                self._fp32(group[0].geometry)),
+            graphs.Inputs([wire], [], [], [st.qts for st in group],
+                          self._params_of(wire[0].device)))
+
     def _run_device(self, staged, wires) -> torch.Tensor:
         """The device half for one image whose wire is already on the
-        device: a bits image's graph (`_to_device`'s `graphs.Fill`), by
-        replay on a card. Enqueues work only: no host synchronisation."""
+        device: its key's graph (`_to_device`'s `graphs.Fill`), by replay
+        on a card, or its body off any graph. Enqueues work only: no host
+        synchronisation."""
         if isinstance(wires, graphs.Fill):
             return self._graphs.run(self, wires)[0]
         kind = _kind(staged)
         if kind == "lossless":
-            with torch.profiler.record_function("lossless"):
-                return lossless_images(staged, wires[0][None])[0]
-        if kind == "bits":
-            params = self._params_of(wires[0][0].device)
-            return self._bits_body(
-                graphs.image_shape(staged, self._fp32(staged.geometry),
-                                   keyed=False),
-                graphs.Inputs(list(wires),
-                              [params.tables(st.scan) for st in staged.scans],
-                              [None] * len(staged.scans), [staged.qts],
-                              params))[0]
-        with torch.profiler.record_function("prefix_stores"):
-            stores = prefix_stores(staged.geometry, *wires)
-        return self._reconstruct(staged.geometry, stores, [staged.qts])[0]
+            return self._eager_body(kind, [staged], (wires[0][None],))[0]
+        if kind == "prefix":
+            return self._eager_body(kind, [staged], tuple(wires))[0]
+        params = self._params_of(wires[0][0].device)
+        return self._bits_body(
+            graphs.image_shape(staged, self._fp32(staged.geometry),
+                               keyed=False),
+            graphs.Inputs(list(wires),
+                          [params.tables(st.scan) for st in staged.scans],
+                          [None] * len(staged.scans), [staged.qts],
+                          params))[0]
 
     def _run_device_eager(self, staged, wires) -> torch.Tensor:
-        """`_run_device` with a bits graph's body run eagerly on its inputs,
-        not replayed: the eager dispatch the replay stands for."""
+        """`_run_device` with a graph's body run eagerly on its inputs, not
+        replayed: the eager dispatch the replay stands for."""
         if isinstance(wires, graphs.Fill):
             return self._graphs.run(self, wires, eager=True)[0]
         return self._run_device(staged, wires)
@@ -754,9 +832,12 @@ class DeviceStreamDecoder:
     def _group_wires(self, kind: str, group: list, dev=None):
         """The group's merged wire on `dev` (by default the decoder's
         device), or None when the host merge declines (the images then
-        decode one by one). A bits group of one (plan, geometry) off a
-        mesh lands in its key's graph with its tables (a `graphs.Fill`),
-        but at the key's first sight on a card."""
+        decode one by one). A bits group of one (plan, geometry), and a
+        prefix or lossless group, off a mesh and with no `dev`, lands in
+        its key's graph with its tables (a `graphs.Fill`), but at the key's
+        first sight on a card; a bits group of several parts lands in its
+        halves' graphs (`GroupHalves`)."""
+        graphed = self._graphs is not None and dev is None
         if kind == "bits":
             parts: dict = {}       # (plan, geometry) -> images, first seen
             for i, st in enumerate(group):
@@ -766,32 +847,23 @@ class DeviceStreamDecoder:
             merged = _merge([group[i].scans[0] for i in order])
             if merged is None:
                 return None
-            graphed = self._graphs is not None and dev is None
             if len(parts) == 1 and graphed:
                 fill = self._group_fill(group, merged)
                 if fill is not None:
                     return fill
             return self._group_halves(group, parts, merged, dev,
                                       graphed and len(parts) > 1)
+        if kind == "prefix" and graphs.batch_bucket(len(group)) \
+                * group[0].dc.shape[-1] * 64 >= 2 ** 31:
+            return None         # P1's indices would pass int32
+        if graphed:
+            fill = self._padded_fill(kind, group)
+            if fill is not None:
+                return fill
         if kind == "lossless":
             return self._put_recorded(
                 (np.stack([st.diffs for st in group]).view(np.int16),), dev)
-        n = len(group)
-        total = group[0].dc.shape[-1] * 64     # one image's coefficients
-        if n * total >= 2 ** 31:
-            return None
-        width = max(len(st.resid_idx) for st in group)
-        ri = np.full((n, width), n * total, np.int64)   # the sink: dropped
-        rv = np.zeros((n, width), np.int16)
-        for i, st in enumerate(group):
-            idx = st.resid_idx.astype(np.int64)
-            idx = np.where(idx < 0, idx + total, idx)   # as mode="drop"
-            ri[i, :len(idx)] = np.where((idx >= 0) & (idx < total),
-                                        idx + i * total, n * total)
-            rv[i, :len(idx)] = st.resid_vals
-        return self._put_recorded((np.stack([st.dc for st in group]),
-                                   np.stack([st.ac for st in group]),
-                                   ri.astype(np.int32), rv), dev)
+        return self._put_recorded(_prefix_wire(group, len(group)), dev)
 
     def _group_fill(self, group: list, merged):
         """A same-plan bits group's merged wire, its tables and every
@@ -826,7 +898,7 @@ class DeviceStreamDecoder:
             bound = s_max if st0.wire == "delta" \
                 else max(st.scans[0].scan.plan.s_max for st in group)
             blocks = min(_bucket_up(sum(
-                _batch_bucket(len(members)) * plan.n_blocks
+                graphs.batch_bucket(len(members)) * plan.n_blocks
                 for (plan, _g), members in parts.items()), 4096),
                 K1_MAX_BLOCKS)
             key = graphs.sweep_key(st0, wire, bound, shapes, blocks)
@@ -857,7 +929,7 @@ class DeviceStreamDecoder:
         the reference pads them), in one H2D submission (a `graphs.Fill`);
         None at the key's first sight on a card."""
         first = group[members[0]]
-        bucket = _batch_bucket(len(members))
+        bucket = graphs.batch_bucket(len(members))
         key = graphs.part_key(first, bucket, self.precision,
                               self._effective_layout(first.geometry))
         if self._graphs.first_sight(key):
@@ -902,19 +974,13 @@ class DeviceStreamDecoder:
         out of it, for a `graphs.Fill` and a part's graph)."""
         if isinstance(wires, graphs.Fill):
             return list(self._graphs.run(self, wires))
-        if kind == "lossless":
-            with torch.profiler.record_function("lossless"):
-                return list(lossless_images(group[0], wires[0]))
-        if kind == "prefix":
-            with torch.profiler.record_function("prefix_stores"):
-                stores = prefix_stores(group[0].geometry, *wires)
-            return list(self._reconstruct(group[0].geometry, stores,
-                                          [st.qts for st in group]))
+        if kind != "bits":
+            return list(self._eager_body(kind, group, tuple(wires)))
         return self._run_halves(group, wires)
 
     def _run_group_eager(self, kind: str, group: list, wires) -> list:
-        """`_run_group` with a bits graph's body run eagerly on its inputs,
-        not replayed."""
+        """`_run_group` with a graph's body run eagerly on its inputs, not
+        replayed."""
         if isinstance(wires, graphs.Fill):
             return list(self._graphs.run(self, wires, eager=True))
         if isinstance(wires, GroupHalves):
@@ -977,7 +1043,7 @@ class DeviceStreamDecoder:
         a group itself (the reference's process-local staging)."""
         devs = list(self.mesh.axis_devices(self.data_axis))
         owners = self.mesh.axis_owners(self.data_axis)
-        per = -(-_batch_bucket(n) // len(devs))
+        per = -(-graphs.batch_bucket(n) // len(devs))
         return [(dev, int(owners[k]), (k * per, min((k + 1) * per, n)))
                 for k, dev in enumerate(devs) if k * per < n]
 
@@ -1088,9 +1154,9 @@ class DeviceStreamDecoder:
         reference's `device_resident_rate(batch=...)`, `stream.py:1497`)
         and the time is per image; an image that cannot group (a bits
         image with no group key, or a merge that declines) is timed alone
-        and reported with "batch": 1. A bits image or same-plan group runs
-        by graph replay (`models/graphs.py`): the key's first call, off any
-        graph, and the capture come before the timing.
+        and reported with "batch": 1. Every interchange runs by graph
+        replay (`models/graphs.py`): the key's first call, off any graph,
+        and the capture come before the timing.
         "host_ms_per_image" is the host's time to enqueue the calls (from
         the first call to the return of the last, before the wait for the
         card), of the same best rep.
@@ -1111,7 +1177,7 @@ class DeviceStreamDecoder:
                 one = self._to_device(staged)
                 return 1, lambda: self._run_device(staged, one)
             return batch, lambda: self._run_group(kind, group, wires)
-        land()[1]()             # a bits key's first call: off any graph
+        land()[1]()             # the key's first call: off any graph
         batch, run = land()     # the key's graph
         run()                   # its capture
         torch.cuda.synchronize(self.device)

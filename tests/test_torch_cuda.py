@@ -1415,11 +1415,11 @@ def test_device_routes_never_synchronise(cuda, route):
     routes and on a hetero bits group (the six mixed sizes and two
     repeats) under `torch.cuda.set_sync_debug_mode("error")`: no operation
     on them waits for the card (after one warm-up decode, which copies
-    the per-table constants to the card once, and on the bits routes a
-    second, which captures the graphs); on the bits routes every call
-    there is a graph replay (on the hetero route one sweep and six parts,
-    each part's row copy included), the H2D submission that fills a
-    graph's inputs included."""
+    the per-table constants to the card once, and a second, which
+    captures the graphs); on every route every call there is a graph
+    replay (on the hetero route one sweep and six parts, each part's row
+    copy included), the H2D submission that fills a graph's inputs
+    included."""
     from tools.make_torch_fixtures import sof3_jpeg, sof3_samples
 
     if route == "lossless":
@@ -1436,7 +1436,7 @@ def test_device_routes_never_synchronise(cuda, route):
                                 interchange=interchange) as dec:
         staged = dec.stage(blobs[0])
         group = [dec.stage(blob) for blob in blobs]
-        for _ in range(2):      # bits: a key's first sight, then its capture
+        for _ in range(2):      # a key's first sight, then its capture
             wires = dec._to_device(staged)
             group_wires = dec._group_wires(kind, group)
             dec._run_device(staged, wires)
@@ -1459,7 +1459,7 @@ def test_device_routes_never_synchronise(cuda, route):
     assert all(torch.equal(a, b) for a, b in zip(many, many_again))
     assert all(torch.equal(img, one) for img, blob in zip(many, blobs)
                if blob == blobs[0])
-    assert replays == {"bits": 8, "hetero": 32}.get(route, 0)
+    assert replays == {"hetero": 32}.get(route, 8)
 
 
 def test_p1_on_two_streams_at_once(cuda):

@@ -253,12 +253,13 @@ def test_replayed_p1_on_a_q100_image(lib):
 
 
 def test_replayed_p1_on_a_merged_group(lib):
-    """Three tower_420 merged as `_group_wires` merges a prefix group: the
-    residuals offset image by image, the padding at the sink."""
+    """Three tower_420 merged as `_group_wires` merges a prefix group put
+    to a device off any graph: the residuals offset image by image, the
+    padding at the sink."""
     staged = [stage_host(fixture("tower_420.jpg")) for _ in range(3)]
     with DeviceStreamDecoder(device="cpu", host_threads=1,
                              interchange="prefix") as dec:
-        wires = dec._group_wires("prefix", staged)
+        wires = dec._group_wires("prefix", staged, dec.device)
     _check_p1(lib, *(w.contiguous() for w in wires))
 
 

@@ -4,6 +4,7 @@ stream of many keys, of one checkout, for A/B runs on a card.
 
     python tools/experiments/graph_traffic.py make DIR
     python tools/experiments/graph_traffic.py run TREE DIR [CASE ...]
+    python tools/experiments/graph_traffic.py keys
 
 `make` writes KEYS JPEGs into DIR (PIL, where PIL is installed; the card's
 machine may lack it): this checkout's `tools/make_torch_fixtures.py`
@@ -46,6 +47,15 @@ builds the kernels:
   over the list and a SHA-256 of the last pass's outputs. Run it again
   with `env JPEG_TPU_HETERO_BITS=0` on the command line for the exact-key
   grouping (the hetero threshold's question).
+
+`keys` (host staging only, no card needed) prints one JSON line: over
+every fixture under `tests/fixtures/torch_port/` (subdirectories
+included), the count of distinct geometries at each precision and of the
+compiled dispatch's one-image keys, `bits_key` (the images the bits
+interchange stages as bits) and `prefix_key` (every image on the prefix
+interchange), interleaved; and per geometry with more than one fixture,
+its fixtures' residual buckets. A prefix image's key holds its residual
+bucket, so images of one size can take more prefix keys than bits keys.
 
 `CASE`s choose among "calls_of_a_key", "dispatch", "stream" and "groups"
 (by default all). Each case also prints the decoder's graph counts where
@@ -195,16 +205,50 @@ def groups(jt, say, lists: dict) -> None:
                 sha256=digest(outs))
 
 
+def keys() -> dict:
+    """The `keys` subcommand's counts (module docstring)."""
+    sys.path.insert(0, str(HERE))
+    from jpeg_decoder_tpu_torch import stage_host_bits
+    from jpeg_decoder_tpu_torch.host.staging import stage_host
+    from jpeg_decoder_tpu_torch.models import graphs
+    from jpeg_decoder_tpu_torch.models.stream import StagedBits
+
+    names = sorted(str(p.relative_to(FIXTURES))
+                   for p in FIXTURES.rglob("*.jpg"))
+    out = {"fixtures": len(names)}
+    for precision in ("fast", "exact"):
+        bits, prefix, geometries = set(), set(), {}
+        for name in names:
+            data = (FIXTURES / name).read_bytes()
+            st = stage_host_bits(data, None, precision)
+            if isinstance(st, StagedBits):
+                bits.add(graphs.bits_key(st, precision, "interleaved"))
+            pre = stage_host(data, None, precision)
+            prefix.add(graphs.prefix_key(pre, precision, "interleaved"))
+            geometries.setdefault(pre.geometry, {})[name] = \
+                len(pre.resid_idx)
+        out[precision] = {
+            "geometries": len(geometries), "bits_keys": len(bits),
+            "prefix_keys": len(prefix),
+            "shared_geometries": [buckets for buckets in geometries.values()
+                                  if len(buckets) > 1]}
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if len(argv) == 2 and argv[0] == "make":
         make(Path(argv[1]))
         return 0
+    if argv == ["keys"]:
+        print(json.dumps(keys()))
+        return 0
     cases = argv[3:] or list(CASES)
     if len(argv) < 3 or argv[0] != "run" or set(cases) - set(CASES) \
             or not torch.cuda.is_available():
         print("usage: graph_traffic.py make DIR | run TREE DIR [CASE ...] "
-              f"(CASE in {CASES}; run needs a CUDA device)", file=sys.stderr)
+              f"| keys (CASE in {CASES}; run needs a CUDA device)",
+              file=sys.stderr)
         return 1
     many = [p.read_bytes() for p in sorted(Path(argv[2]).glob("key_*.jpg"))]
     mixed = [(FIXTURES / n).read_bytes() for n in MIXED]

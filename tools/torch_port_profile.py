@@ -213,13 +213,15 @@ def profile(dec, path: Path, iters: int, batch: int = 1):
 def stream_rate(dec, path: Path, n: int, batch: int = 1) -> dict:
     """End to end: decode_stream over n copies at batch_size `batch` (host
     staging in the pool, H2D, device), wall clock until the last image is
-    on the card; then the same run under torch.profiler for the card's
-    idle share (the profiler's own cost lengthens that run's wall time, so
-    the share is an upper bound)."""
+    on the card, after a warm-up of two full groups (a key's first call
+    runs eagerly and its second captures its graph, `models/graphs.py`:
+    the timed run is the steady state); then the same run under
+    torch.profiler for the card's idle share (the profiler's own cost
+    lengthens that run's wall time, so the share is an upper bound)."""
     from torch.profiler import ProfilerActivity
 
     data = [path.read_bytes()] * n
-    dec.decode_stream(data[:2], batch_size=batch)
+    dec.decode_stream(data[:2 * batch], batch_size=batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = dec.decode_stream(data, batch_size=batch)
