@@ -303,7 +303,9 @@ and before that phase 27's {"matrix": {...}} line.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import json
@@ -1347,6 +1349,17 @@ def mesh_devices(n: int) -> list:
     return [f"cuda:{i % torch.cuda.device_count()}" for i in range(n)]
 
 
+def eager_lines(mesh):
+    """`mesh`, its first card's process-wide graph cache emptied
+    (`graphs.device_graphs`): the next call of each of its lines is its
+    key's first sight there, dispatched eagerly through the kernels'
+    wrappers, which a phase's spies see."""
+    from jpeg_decoder_tpu_torch.models import graphs
+
+    graphs.device_graphs(mesh.first).clear()
+    return mesh
+
+
 def counted(jt, fn):
     """fn() with every launch count set to 0 just before and read just
     after: (its result, the counts)."""
@@ -1363,6 +1376,7 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
     wires."""
     from jpeg_decoder_tpu_torch.entropy.chunk_decode import (
         decode_chunks, decode_chunks_plain)
+    from jpeg_decoder_tpu_torch.models import graphs
     from jpeg_decoder_tpu_torch.parallel import make_mesh
     from jpeg_decoder_tpu_torch.parallel import mesh as mesh_mod
     from jpeg_decoder_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -1426,13 +1440,23 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
         t1_stripe_launches += launches["interleaved_tail"]
         a1_stripe_launches += launches["assemble"]
         d1_stripe_launches += launches["dc_totals"]
+        # From the key's third call on, one replay of its stripes graph
+        # a call; beside it the eager body on the same inputs.
         prof = kernel_device_us(lambda: decode_bits_striped(staged, mesh),
                                 "huffman_decode_kernel", iters=3)
         ms = cuda_ms(lambda: decode_bits_striped(staged, mesh), 5)
+        with eager_bodies():
+            eager_prof = kernel_device_us(
+                lambda: decode_bits_striped(staged, mesh),
+                "huffman_decode_kernel", iters=3)
+            eager_ms = cuda_ms(lambda: decode_bits_striped(staged, mesh), 5)
         striped[f"{n} stripes"] = {
             "ms_per_image": ms, "ms_per_stripe": ms / n,
+            "eager_ms_per_image": eager_ms,
             "launches_per_image": prof["all_launches"],
             "launches_per_stripe": prof["all_launches"] / n,
+            "eager_launches_per_stripe": eager_prof["all_launches"] / n,
+            "graphs": graphs.device_graphs(mesh.first).stats(),
             "parent_launches_per_stripe_c15": PARENT_STRIPE_LAUNCHES[n],
             "k1_launches": launches["huffman_decode"],
             "e1_launches": launches["idct_exact"],
@@ -1484,7 +1508,8 @@ def phase_mesh(jt, data: dict, params, dev, card: str) -> dict:
         shard = [dec.stage(tower) for _ in range(4)]
         shard_ms = []
         for sdev in data_mesh.axis_devices("data"):
-            wires = dec._group_wires("bits", shard, sdev)
+            wires = dec._group_halves(shard, *dec._bits_merge(shard), sdev,
+                                      None)
             shard_ms.append(cuda_ms(
                 lambda: dec._run_group("bits", shard, wires), 20))
 
@@ -1938,7 +1963,7 @@ def phase_t1(jt, data: dict, params, dev, card: str) -> dict:
         for name, n in (("large_420.jpg", 4), ("large_420.jpg", 8),
                         ("stripe_420.jpg", 8)):
             blob = (FIXTURES / name).read_bytes()
-            mesh = make_mesh({"stripe": n}, mesh_devices(n))
+            mesh = eager_lines(make_mesh({"stripe": n}, mesh_devices(n)))
             with jt.DeviceStreamDecoder(mesh=mesh, host_threads=1) as dec:
                 dec.decode_striped(blob)
             got = check(f"{name} at {n} stripes", keep=1)
@@ -2142,7 +2167,7 @@ def phase_a1_u1(jt, data: dict, params, dev, card: str) -> dict:
                     check(f"progressive, quirk, three pairs {precision}")
         for name, n in (("large_420.jpg", 4), ("large_420.jpg", 8),
                         ("stripe_420.jpg", 8)):
-            mesh = make_mesh({"stripe": n}, mesh_devices(n))
+            mesh = eager_lines(make_mesh({"stripe": n}, mesh_devices(n)))
             with jt.DeviceStreamDecoder(mesh=mesh, host_threads=1) as dec:
                 dec.decode_striped((FIXTURES / name).read_bytes())
             if name == "large_420.jpg" and n == 4:
@@ -2379,6 +2404,7 @@ def phase_p1_d1(jt, data: dict, params, dev, card: str,
     from jpeg_decoder_tpu_torch.entropy.prefix import (prefix_stores,
                                                        prefix_stores_plain)
     from jpeg_decoder_tpu_torch.host.staging import stage_host
+    from jpeg_decoder_tpu_torch.models.stream import _prefix_wire
     from jpeg_decoder_tpu_torch.parallel import make_mesh
     from jpeg_decoder_tpu_torch.parallel.stripe_bits import (
         split_anchored_stripes, stripe_wire)
@@ -2400,7 +2426,7 @@ def phase_p1_d1(jt, data: dict, params, dev, card: str,
                                     precision="exact") as dec:
             dec.decode_stream([tower, q92] * 8, batch_size=16)
         calls.check("20 prefix group on {'data': 8}")
-        mesh = make_mesh({"stripe": 8}, mesh_devices(8))
+        mesh = eager_lines(make_mesh({"stripe": 8}, mesh_devices(8)))
         with jt.DeviceStreamDecoder(mesh=mesh, host_threads=1) as dec:
             img = dec.decode_striped((FIXTURES / "stripe_420.jpg")
                                      .read_bytes())
@@ -2443,7 +2469,7 @@ def phase_p1_d1(jt, data: dict, params, dev, card: str,
     with jt.DeviceStreamDecoder(host_threads=1, interchange="prefix") as dec:
         one = dec.stage(tower)
         for n in range(1, 17):
-            wire = dec._group_wires("prefix", [one] * n, dev)
+            wire = dec._put_recorded(_prefix_wire([one] * n, n))
             calls.p1.append((one.geometry, wire,
                              prefix_stores(one.geometry, *wire)))
     st = stage_host(data["large_420.jpg"])
@@ -2467,8 +2493,8 @@ def phase_p1_d1(jt, data: dict, params, dev, card: str,
 
     # Times at large_420's shapes.
     with jt.DeviceStreamDecoder(host_threads=1, interchange="prefix") as dec:
-        tower_wire = dec._group_wires("prefix", [dec.stage(tower)] * 16,
-                                      dev)
+        tower_wire = dec._put_recorded(_prefix_wire([dec.stage(tower)] * 16,
+                                                    16))
     blocks = st.dc.size
     p1_bytes = blocks * (2 + 15 + 128) + 6 * st.resid_idx.size
     tower_blocks = tower_wire[0].numel()
@@ -2621,7 +2647,7 @@ def matrix_decodes(jt) -> dict:
                     jt, lambda: dec.decode_stream(sources, batch_size=batch))
             out[label] = {"sha256": _digest(images), "launches": launches,
                           "checked": check(label)}
-        mesh = make_mesh({"stripe": 4}, mesh_devices(4))
+        mesh = eager_lines(make_mesh({"stripe": 4}, mesh_devices(4)))
         with jt.DeviceStreamDecoder(mesh=mesh, host_threads=1) as dec:
             image, launches = counted(jt, lambda: dec.decode_striped(
                 (FIXTURES / "stripe_420.jpg").read_bytes()))
@@ -2869,7 +2895,8 @@ KERNEL_SYMBOLS = {"huffman_decode": ("huffman_decode_kernel",),
                   "fused_tail": ("fused_tail_kernel",),
                   "prefix_rebuild": ("prefix_base_kernel",
                                      "prefix_resid_kernel"),
-                  "lossless_recur": ("lossless_recur_kernel",)}
+                  "lossless_recur": ("lossless_recur_kernel",),
+                  "dc_totals": ("dc_totals_kernel",)}
 GRAPH_PROFILED = 10     # replays in the profiler's active step
 # A trace drops the first operations of its active step: those of the
 # first few ms after the host resumes from its last wait (phase 28 of
@@ -3128,8 +3155,6 @@ def hetero_calls(dec, group: list) -> dict:
     "off_graph_landed" the eager dispatch off any graph (the merged wire
     put to the device, as a mesh shard's group runs); "land" the landing
     alone (the sweep's arena and each part's, one H2D submission each)."""
-    cuda = torch.device("cuda")
-
     def land():
         return dec._group_wires("bits", group)
     halves = land()
@@ -3139,7 +3164,8 @@ def hetero_calls(dec, group: list) -> dict:
             "eager_landed":
                 lambda: dec._run_group_eager("bits", group, land()),
             "off_graph_landed": lambda: dec._run_group(
-                "bits", group, dec._group_wires("bits", group, cuda)),
+                "bits", group, dec._group_halves(
+                    group, *dec._bits_merge(group), None, None)),
             "land": land, "halves": halves}
 
 
@@ -3282,6 +3308,350 @@ def phase_hetero_graphs(jt, card: str) -> dict:
                                           for f in halves.recons]}}
     say("28 hetero graphs", card=card, **out)
     return out
+
+
+@contextlib.contextmanager
+def eager_bodies():
+    """Every graph call in the block runs its body eagerly on the inputs its
+    landing put in the graph's arena (`BitsGraphs.run(eager=True)`), not by
+    replay: the eager dispatch a route's replays stand for, through the
+    route's own entry point."""
+    from jpeg_decoder_tpu_torch.models import graphs
+
+    real = graphs.BitsGraphs.run
+
+    def run(self, dec, fill, eager=False, rows=None):
+        return real(self, dec, fill, True, rows)
+    graphs.BitsGraphs.run = run
+    try:
+        yield
+    finally:
+        graphs.BitsGraphs.run = real
+
+
+def _flat(out) -> list:
+    """A route's output as a list of tensors."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _flat(o)]
+
+
+def mesh_graph_routes(jt, data: dict, dev: torch.device) -> list:
+    """28, the mesh and `Decoder` routes: (label, call, caches, runs a call,
+    images a call, refs, tol). `call()` is the route's entry point on
+    inputs staged once, returning its outputs; `caches` the graph caches
+    its keys land in; `runs` the graph runs one call makes (a data shard
+    or line each). Every shard, line and run of a call decodes an image
+    of its own that shares the route's keys (`requantized` fixtures, SOF3
+    slices of other seeds, stores with their DC shifted), and `refs` holds
+    each output's own host decode (the exact one; `tol` PIXEL_TOL on a
+    fast route, else 0), in `_flat(call())`'s order. `dev` is where
+    `Decoder`'s reconstruction runs."""
+    from jpeg_decoder_tpu_torch.models import graphs
+    from jpeg_decoder_tpu_torch.parallel import make_mesh
+    from jpeg_decoder_tpu_torch.parallel.batch import make_batch_pipeline
+    from jpeg_decoder_tpu_torch.parallel.stripe_bits import (
+        decode_bits_striped, decode_bits_striped_batch)
+    from jpeg_decoder_tpu_torch.parallel.stripes import (
+        _pad_rows, make_stripe_pipeline)
+    from jpeg_decoder_tpu_torch import decoder as port_decoder
+    from jpeg_decoder_tpu_torch.models.service import _host_stage
+    from tools.make_torch_fixtures import requantized, sof3_jpeg, sof3_samples
+
+    cache = graphs.device_graphs(dev)
+    cache.clear()           # the keys earlier phases captured
+    routes = []
+    for name, n in (("large_420", 4), ("large_420", 8), ("stripe_420", 8)):
+        mesh = make_mesh({"stripe": n}, mesh_devices(n))
+        blob = (FIXTURES / f"{name}.jpg").read_bytes()
+        blobs = [requantized(blob, step) for step in (0, 7)]
+        staged = [jt.stage_host_bits(b) for b in blobs]
+        routes.append((f"decode_striped {name} at {n}",
+                       lambda st=staged, m=mesh: [decode_bits_striped(s, m)
+                                                  for s in st],
+                       [cache], 2, 2, [host_exact(b) for b in blobs], 0))
+    pair = make_mesh({"data": 2, "stripe": 2}, mesh_devices(4))
+    towers = [requantized(data["tower_420.jpg"], 5 * k) for k in range(16)]
+    tower = [jt.stage_host_bits(b) for b in towers[:4]]
+    tower_refs = [host_exact(b) for b in towers]
+    routes.append(("DP x SP 4 x tower_420 on data 2 stripe 2",
+                   lambda: decode_bits_striped_batch(tower, pair),
+                   [cache], 2, 4, [np.stack(tower_refs[:4])], 0))
+    data_mesh = make_mesh({"data": MESH_SLOTS}, mesh_devices(MESH_SLOTS))
+    sof3 = [sof3_jpeg(sof3_samples(*SOF3_SLICE, 1, 16, 0, seed=k), 6, 0, 16)
+            for k in range(8)]
+    for label, opts, blobs, refs, tol in (
+            ("tower_420 x16 on data 4", {}, towers, tower_refs, PIXEL_TOL),
+            ("prefix tower_420 x8 on data 4", {"interchange": "prefix"},
+             towers[:8], tower_refs[:8], PIXEL_TOL),
+            ("SOF3 512x512 x8 predictor 6 on data 4", {}, sof3,
+             [host_exact(b) for b in sof3], 0)):
+        dec = jt.DeviceStreamDecoder(mesh=data_mesh, host_threads=1, **opts)
+        group = [dec.stage(b) for b in blobs]
+        kind = "lossless" if blobs is sof3 else \
+            "prefix" if opts else "bits"
+        routes.append((label, lambda d=dec, g=group, k=kind:
+                       d._decode_group_mesh(k, g), [dec._graphs],
+                       MESH_SLOTS, len(blobs), refs, tol))
+    geometry, stores, qts = _host_stage(data["tower_420.jpg"])
+    exact = dataclasses.replace(geometry, precision="exact")
+    tol = PIXEL_TOL if geometry.precision == "fast" else 0
+
+    def shifted(k: int) -> list:
+        """tower_420's stores with every DC moved by 6 k."""
+        out = [s.copy() for s in stores]
+        for s in out:
+            s[:, 0] += 6 * k
+        return out
+    shifts = [shifted(k) for k in range(8)]
+    shift_refs = [host_recon(exact, st, qts) for st in shifts]
+    batched = tuple(np.stack([st[c] for st in shifts])
+                    for c in range(len(stores)))
+    pipeline = make_batch_pipeline(geometry, data_mesh)
+    routes.append(("decode_batch_sharded tower_420 x8 on data 4",
+                   lambda: pipeline(batched, qts), [cache], MESH_SLOTS, 8,
+                   [np.stack(shift_refs[k:k + 2]) for k in range(0, 8, 2)],
+                   tol))
+    d = jt.host.decoder.Decoder(data["tower_420.jpg"], backend="numpy")
+    d._decode_entropy_only()
+    rows = d.frame.mcu_size.height
+    stripe_mesh = make_mesh({"stripe": 4}, mesh_devices(4))
+    striped = make_stripe_pipeline(geometry, rows, 4, stripe_mesh)
+    padded = [_pad_rows(geometry, shifts[k], rows, 4, False) for k in (0, 3)]
+    routes.append(("make_stripe_pipeline tower_420 at 4",
+                   lambda: [striped(p, tuple(qts)) for p in padded],
+                   [cache], 2, 2,
+                   [host_recon(exact, shifts[k], qts) for k in (0, 3)],
+                   0))
+    for precision in ("fast", "exact"):
+        blobs = [requantized(data["large_420.jpg"], step) for step in (0, 7)]
+        fronts = [_front_stores(b, precision) for b in blobs]
+        routes.append((f"Decoder large_420 {precision}",
+                       lambda f=fronts: [port_decoder.reconstruct_tensor(
+                           g, st, q, dev) for g, st, q in f],
+                       [cache], 2, 2, [host_exact(b) for b in blobs],
+                       PIXEL_TOL if precision == "fast" else 0))
+    return routes
+
+
+def host_recon(geometry, stores, qts) -> np.ndarray:
+    """The host's reconstruction of stores ([n_c, 64] each) at the
+    geometry's precision."""
+    from jpeg_decoder_tpu_torch.host.ops.pipeline import reconstruct_image
+
+    return reconstruct_image(geometry, stores, qts)
+
+
+def held_to_refs(label: str, outs: list, refs: list, tol: int) -> int:
+    """Each output of a route against its own host decode (`refs`, in
+    order; the output cropped to the reference's extent, as padded rows
+    and columns are): the largest |difference|; raises past `tol` or on
+    a count that differs."""
+    if len(outs) != len(refs):
+        raise AssertionError(f"28 {label}: {len(outs)} outputs, "
+                             f"{len(refs)} references")
+    worst = 0
+    for i, (o, ref) in enumerate(zip(outs, refs)):
+        got = o.cpu().numpy()
+        got = got[tuple(slice(0, n) for n in ref.shape)]
+        if got.shape != ref.shape:
+            raise AssertionError(f"28 {label}: output {i} {got.shape}, its "
+                                 f"reference {ref.shape}")
+        err = int(np.abs(got.astype(np.int64) - ref.astype(np.int64)).max())
+        if err > tol:
+            raise AssertionError(f"28 {label}: output {i} differs from its "
+                                 f"own host decode by {err} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def _front_stores(blob: bytes, precision: str, scale: int = 1) -> tuple:
+    """(geometry, stores, tables) of `blob` as `Decoder(precision=)` hands
+    them to its device reconstruction, at 1/`scale` of its size."""
+    from jpeg_decoder_tpu_torch.host.decoder import Decoder
+    from jpeg_decoder_tpu_torch.host.ops.pipeline import geometry_from_frame
+
+    d = Decoder(blob, backend="numpy", precision=precision)
+    if scale > 1:
+        probe = Decoder(blob, backend="numpy")
+        probe.read_info()
+        info = probe.info()
+        d.scale(-(-info.width // scale), -(-info.height // scale))
+    d._decode_entropy_only()
+    n = len(d.frame.components)
+    transform = None if n == 1 else d._determine_color_transform()
+    return (geometry_from_frame(d.frame, transform, precision=precision),
+            [d._pending_render[i][0].reshape(-1, 64) for i in range(n)],
+            [d._pending_render[i][1] for i in range(n)])
+
+
+def _stats(caches) -> dict:
+    out = {"graphs": 0, "captures": 0, "hits": 0}
+    for cache in caches:
+        for k, v in cache.stats().items():
+            out[k] += v
+    return out
+
+
+def phase_mesh_graphs(jt, data: dict, card: str) -> dict:
+    """28, the mesh and `Decoder` (`mesh_graph_routes`): per route two
+    calls (the keys' first sight and their capture; a route of several
+    data shards or lines captures at its second run), three replayed calls
+    and one eager (`eager_bodies`) on the same staged inputs, SHA-256-equal
+    output for output, and every output within the route's tolerance of
+    its own image's host decode (each shard, line and run decodes an
+    image of its own, of the route's keys); the replays' launches by `LAUNCHES` and their
+    exchanged bytes by kind (`mesh.EXCHANGED`) equal to the eager call's;
+    one capture a key and a replay per run from the third call on; each
+    kernel by name as often over replayed as over eager calls
+    (`kernels_gate`, behind the spin fill) and the `LAUNCHES` kernels by
+    `replay_gate`; three calls under `set_sync_debug_mode("error")`, all
+    replays. Measured: device and host ms per image and the idle share,
+    replayed against eager; each graph's pool; the memory a route's graphs
+    hold. `Decoder` on large_420 at fast and exact through its entry
+    point (exact bit-equal to the host decode, fast within 3), its stage
+    split; the Decoder's cache filled to its bound with the fixtures'
+    geometries: its pools and the peak memory."""
+    from jpeg_decoder_tpu_torch.parallel import mesh as mesh_mod
+
+    out = {}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for label, call, caches, runs, images, refs, tol in mesh_graph_routes(
+            jt, data, dev):
+        torch.cuda.synchronize()
+        base = _stats(caches)
+        held = torch.cuda.memory_allocated()
+        firsts = [_flat(call()) for _ in range(2)]
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - held
+        after = _stats(caches)
+        keys = after["graphs"] - base["graphs"]
+        jt.reset_launches()
+        mesh_mod.reset_exchanged()
+        replays = [_flat(call()) for _ in range(3)]
+        torch.cuda.synchronize()
+        replayed = {k: v / 3 for k, v in jt.LAUNCHES.items() if v}
+        moved = {k: v / 3 for k, v in mesh_mod.EXCHANGED.items()}
+        hits = _stats(caches)["hits"] - after["hits"]
+        jt.reset_launches()
+        mesh_mod.reset_exchanged()
+        with eager_bodies():
+            body = _flat(call())
+        torch.cuda.synchronize()
+        eager_calls = {k: v for k, v in jt.LAUNCHES.items() if v}
+        eager_moved = dict(mesh_mod.EXCHANGED)
+        want = [_digest([t]) for t in body]
+        err = max(held_to_refs(label, o, refs, tol)
+                  for o in firsts + replays + [body])
+        if any([_digest([t]) for t in o] != want for o in firsts + replays) \
+                or replayed != eager_calls or moved != eager_moved \
+                or keys < 1 or after["captures"] - base["captures"] != keys \
+                or hits != 3 * runs:
+            raise AssertionError(
+                f"28 {label}: replay against eager: {replayed} {eager_calls} "
+                f"exchanged {moved} {eager_moved} keys {keys} hits {hits}")
+        counted, _ops, traces = replay_gate(label, call, eager_calls)
+
+        def eager(call=call):
+            with eager_bodies():
+                return call()
+        kernels, pairs = kernels_gate(label, call, eager)
+        torch.cuda.synchronize()
+        before = _stats(caches)["hits"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if _stats(caches)["hits"] - before != 3 * runs:
+            raise AssertionError(f"28 {label}: the sync-free calls were not "
+                                 "replays")
+        by_name: dict = {}
+        for op, n in kernels.items():
+            by_name[kernel_name(op)] = \
+                by_name.get(kernel_name(op), 0) + n / GRAPH_PROFILED
+        iters = 20
+        timed = {"replay": {**resident(call, iters, images),
+                            **idle_share(call, iters, images)},
+                 "eager": {**resident(eager, iters, images),
+                           **idle_share(eager, iters, images)}}
+        pools = [graph_pool_bytes(g) for c in caches
+                 for g in c._graphs.values() if g.graph is not None]
+        out[label] = {
+            "sha256": _digest(body), "max_abs_err_own_host_decode": err,
+            "keys": keys, "runs_per_call": runs,
+            "launches_per_call": replayed, "exchanged_per_call": moved,
+            "profiler_kernels_per_call": {
+                k: v / GRAPH_PROFILED for k, v in counted.items() if v},
+            "kernels_per_call": by_name, "profiler_traces": traces,
+            "kernels_gate_pairs": pairs, "sync_free_calls": 3,
+            "times": timed, "pool_bytes": pools,
+            "memory_growth_first_two_calls": grown}
+    say("28 mesh and Decoder graphs", card=card, **out)
+    out["Decoder"] = front_end_graphs(jt, data, card)
+    return out
+
+
+def front_end_graphs(jt, data: dict, card: str) -> dict:
+    """28, `Decoder` through its entry point on large_420 at fast and exact
+    (exact bit-equal to the host's exact decode, fast within PIXEL_TOL; the
+    third call on replays its recon key), ms/image split by stage (median
+    of 5, host clock) replayed and with the eager body; then the cache
+    cleared and filled past its bound with the fixtures' geometries at
+    both precisions and four scales (each key's first sight, capture and a
+    replay): its graphs, the sum of their pools and the peak memory
+    allocated while it fills."""
+    from jpeg_decoder_tpu_torch import decoder as port_decoder
+    from jpeg_decoder_tpu_torch.models import graphs
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cache = graphs.device_graphs(dev)
+    large = data["large_420.jpg"]
+    gold = host_exact(large)
+    split = {}
+    for precision in ("fast", "exact"):
+        hits = cache.hits
+        for _ in range(3):
+            px = jt.Decoder(large, precision=precision).decode_array()
+        err = int(np.abs(px.astype(np.int32) - gold.astype(np.int32)).max())
+        if err > (PIXEL_TOL if precision == "fast" else 0) \
+                or cache.hits == hits:
+            raise AssertionError(f"28 Decoder {precision}: max |diff| {err},"
+                                 f" replays {cache.hits - hits}")
+        times = _split_ms(lambda timer: jt.Decoder(
+            large, precision=precision, timer=timer).decode_array())
+        with eager_bodies():
+            eager = _split_ms(lambda timer: jt.Decoder(
+                large, precision=precision, timer=timer).decode_array())
+        split[precision] = {"max_abs_err": err, "replay": times,
+                            "eager": eager}
+    cache.clear()
+    captures = cache.captures
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    filled = 0
+    for name in reversed(ORDER):    # large_420's keys the last in the LRU
+        for precision in ("fast", "exact"):
+            for scale in (1, 2, 4, 8):
+                g, st, q = _front_stores(data[name], precision, scale)
+                for _ in range(3):
+                    port_decoder.reconstruct_tensor(g, st, q, dev)
+                filled += 1
+    torch.cuda.synchronize()
+    pools = [graph_pool_bytes(g) for g in cache._graphs.values()
+             if g.graph is not None]
+    full = {"keys_called": filled, "graphs": len(cache),
+            "captures": cache.captures - captures, "pool_bytes_sum": sum(
+                p for p in pools if p), "pool_bytes_max": max(
+                (p for p in pools if p), default=None),
+            "allocated_growth_bytes": torch.cuda.memory_allocated() - held,
+            "peak_allocated_growth_bytes":
+                torch.cuda.max_memory_allocated() - held}
+    say("28 Decoder graphs", card=card, split=split, cache_full=full)
+    return {"split": split, "cache_full": full}
 
 
 def phase_graphs(jt, data: dict, card: str) -> dict:
@@ -3468,12 +3838,14 @@ def phase_graphs(jt, data: dict, card: str) -> dict:
             raise AssertionError("28 the sync-free calls were not replays")
 
     hetero = phase_hetero_graphs(jt, card)
+    mesh = phase_mesh_graphs(jt, data, card)
     wrappers = wrapper_host_us(jt, data)
     say("28 graphs", card=card, alternating=alternating, many_replays=many,
         wrap_epochs=epochs, sync_free_replays="ok", times=timed,
         wrappers=wrappers)
     return {"routes": routes, "memory": memory, "times": timed,
-            "wrappers": wrappers, "many": many, "hetero": hetero}
+            "wrappers": wrappers, "many": many, "hetero": hetero,
+            "mesh": mesh}
 
 
 def main() -> int:

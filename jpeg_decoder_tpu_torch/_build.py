@@ -15,7 +15,8 @@ kernel launch, and nowhere else), so a caller can show that a run went
 through the kernels; a batched call that is one launch counts one. A
 wrapper called while a CUDA graph is captured (`graph_scope` with
 `capturing` set, `models/graphs.py`) launches nothing: its count goes to
-the scope's tally, which each replay of the graph adds to `LAUNCHES`.
+the scope's tally, which each replay of the graph adds to `LAUNCHES`
+(`count`, which the mesh's exchanges count through too).
 """
 
 from __future__ import annotations
@@ -62,14 +63,31 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def count_launch(name: str, n: int = 1) -> None:
-    """Count `n` launches of kernel `name`: in `LAUNCHES`, or in the tally
-    of the graph this thread is capturing (`graph_scope`)."""
+def count(counts: dict, name: str, n: int = 1) -> None:
+    """Add `n` to `counts[name]` (`LAUNCHES`, or another count of what the
+    device does, as `parallel.mesh.EXCHANGED`), or to the tally of the
+    graph this thread is capturing (`graph_scope`), which each replay of
+    the graph adds to `counts` (`add_tally`)."""
     scope = getattr(_local, "scope", None)
     if scope is not None and scope.capturing:
-        scope.tally[name] = scope.tally.get(name, 0) + n
+        mine = scope.tally.setdefault(id(counts), (counts, {}))[1]
+        mine[name] = mine.get(name, 0) + n
     else:
-        LAUNCHES[name] += n
+        counts[name] += n
+
+
+def count_launch(name: str, n: int = 1) -> None:
+    """Count `n` launches of kernel `name` (`count` into `LAUNCHES`)."""
+    count(LAUNCHES, name, n)
+
+
+def add_tally(tally: dict) -> None:
+    """One replay of a captured graph: its tally (`GraphScope.tally`, the
+    launches and the rest its capture counted) added to the counts it was
+    taken from."""
+    for counts, by_name in tally.values():
+        for name, n in by_name.items():
+            counts[name] += n
 
 
 def _nvcc() -> str:
@@ -308,7 +326,8 @@ class DeviceEpochs:
 class GraphScope:
     """What the wrappers read while a graph's body runs on this thread: its
     device-epoch status buffers, and while `capturing`, the tally of the
-    launches the capture records (`count_launch`)."""
+    launches (and exchanged bytes) the capture records (`count`): by the
+    id of the counts they go to, (counts, {name: n})."""
     epochs: DeviceEpochs
     capturing: bool = False
     tally: dict = dataclasses.field(default_factory=dict)

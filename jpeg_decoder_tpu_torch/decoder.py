@@ -8,11 +8,20 @@ with the reconstruction moved to a device where the backend says so,
 through the host copy's two method hooks:
 - DCT images (`_reconstruct_image`, the reference's `_compute_image`,
   `decoder.py:683-703`): one H2D copy of the components' int16
-  coefficient stores (`transfer.put`: pinned and non-blocking on a card),
-  then `ops.pipeline.reconstruct` on the device: kernel K2 (dequantize +
-  fp32 IDCT, one launch for all components) at precision "fast", kernel
-  E1 (the exact int32 IDCT, one launch too) at "exact"; then upsampling and color
-  (kernel T1, one launch), and one copy back. The bytes are the reference's layouts (L8, RGB24, CMYK32).
+  coefficient stores, then `ops.pipeline.reconstruct` on the device:
+  kernel K2 (dequantize + fp32 IDCT, one launch for all components) at
+  precision "fast", kernel E1 (the exact int32 IDCT, one launch too) at
+  "exact"; then upsampling and color (kernel T1, one launch), and one copy
+  back. As the reference's `_compiled_pipeline` (`ops/pipeline.py:
+  134-144`) compiles it once per geometry, the reconstruction is one CUDA
+  graph per `models.graphs.recon_key` (the geometry, its precision, one
+  image, the layout) in the process's cache of the device
+  (`models.graphs.device_graphs`), which the process's `Decoder`s share:
+  the stores and tables land in the graph's arena in one H2D copy and the
+  graph replays, from the key's second call (its first dispatches
+  eagerly: a `transfer.put` of the stores, pinned and non-blocking on a
+  card, and the kernels' wrappers). The bytes are the reference's layouts
+  (L8, RGB24, CMYK32).
 - Lossless (SOF3) components (`_reconstruct_lossless_plane`, the
   reference's `_reconstruct_lossless_device`, `decoder.py:573-597`), one
   component at a time by the reference's rule: Ra with a point transform
@@ -36,7 +45,6 @@ no card raises at construction; nothing falls back to the CPU.
 
 from __future__ import annotations
 
-import threading
 from typing import Optional
 
 import numpy as np
@@ -45,41 +53,46 @@ import torch
 from .host import decoder as _host
 from .host.ops.predictors import device_supported
 from .host.parser import Predictor
+from .models import graphs
 from .ops.pipeline import reconstruct
 from .ops.predictors import (reconstruct_lossless_device,
                              reconstruct_lossless_wavefront)
-from .params import DeviceParams
+from .params import device_params
 from .transfer import checked_device, put
 from .utils.timing import timed_stage
 
 BACKENDS = ("numpy", "torch", "auto")
 
-_params: dict = {}
-_params_lock = threading.Lock()
-
-
-def device_params(device: torch.device) -> DeviceParams:
-    """The process's `DeviceParams` for one device (tables and bases shared
-    by every image decoded there)."""
-    with _params_lock:
-        params = _params.get(device)
-        if params is None:
-            params = _params[device] = DeviceParams(device)
-        return params
+def reconstruct_tensor(geometry, stores, qts, device: torch.device,
+                       timer=None) -> torch.Tensor:
+    """One image on `device`: int16 [n_c, 64] coefficient stores and uint16
+    natural-order tables per component -> the reconstructed image, a
+    tensor on `device`. The stores and tables land in their
+    `graphs.recon_key`'s graph of the process's cache of the device
+    (`graphs.device_graphs`, which the process's `Decoder`s share), in
+    one H2D submission ("h2d_submit"), and the graph replays
+    ("device_dispatch"), from the key's second call; at its first, one
+    `put` of the stores and `ops.pipeline.reconstruct`, eagerly."""
+    stores = [np.asarray(s, np.int16).reshape(1, -1, 64) for s in stores]
+    with timed_stage(timer, "h2d_submit"):
+        fill = graphs.recon_fill(graphs.device_graphs(device), geometry,
+                                 stores, [tuple(qts)])
+        if fill is None:
+            dev_stores = put(stores, device)
+    with timed_stage(timer, "device_dispatch"):
+        if fill is not None:
+            return fill.run()[0]
+        return reconstruct(geometry, dev_stores, [tuple(qts)],
+                           device_params(device))[0]
 
 
 def reconstruct_on_device(geometry, stores, qts, device: torch.device,
                           timer=None) -> np.ndarray:
-    """One image on `device`: int16 [n_c, 64] coefficient stores and uint16
-    natural-order tables per component -> the reconstructed image as a
-    numpy array ([H, W] or [H, W, C] uint8, [H, W * C] for the NONE
-    transform), as `host.ops.pipeline.reconstruct_image` gives it."""
-    with timed_stage(timer, "h2d_submit"):
-        dev_stores = put([np.asarray(s, np.int16).reshape(1, -1, 64)
-                          for s in stores], device)
-    with timed_stage(timer, "device_dispatch"):
-        out = reconstruct(geometry, dev_stores, [tuple(qts)],
-                          device_params(device))[0]
+    """One image on `device` (`reconstruct_tensor`) as a numpy array ([H, W]
+    or [H, W, C] uint8, [H, W * C] for the NONE transform), as
+    `host.ops.pipeline.reconstruct_image` gives it; the copy back is the
+    "d2h" stage."""
+    out = reconstruct_tensor(geometry, stores, qts, device, timer)
     with timed_stage(timer, "d2h"):
         return out.cpu().numpy()
 

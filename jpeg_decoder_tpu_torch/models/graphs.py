@@ -1,5 +1,5 @@
 """Compiled dispatch: one CUDA graph per key, on the bits, prefix and
-lossless paths.
+lossless paths, on the mesh and in `Decoder`.
 
 Counterpart of the JAX package's compiled pipelines: `_compiled_bits_pipeline`
 and `_compiled_bits_pipeline_batched` (`jpeg_decoder_tpu/models/stream.py:
@@ -13,9 +13,36 @@ one image (`DeviceStreamDecoder._run_device`) or of a group
 replayed: no wrapper's Python (checks, ctypes argument arrays, K2's segment
 table, status-buffer epochs) runs on a replay. One LRU of
 GRAPH_CACHE_SIZE graphs holds every kind, since a bits decoder meets
-prefix fallbacks and lossless images too. What stays eager: a mesh's
-images and groups, a call with an explicit `dev`, and `Decoder`'s
-reconstruction.
+prefix fallbacks and lossless images too.
+
+On a mesh, and in `Decoder`, the counterparts of the JAX package's
+`_compiled_bits_pipeline_batched_mesh` (`stream.py:1198-1233`),
+`_compiled_stripe_bits_xla{,_batch}` (`parallel/stripe_bits.py:278-310`,
+`:358-395`), `make_stripe_pipeline` (`parallel/stripes.py:135-182`),
+`make_batch_pipeline` (`parallel/batch.py:23-50`) and `_compiled_pipeline`
+(`ops/pipeline.py:134-144`):
+- a data shard of `DeviceStreamDecoder(mesh=...)` lands in, and replays
+  from, the decoder's cache of the shard's device: one cache per distinct
+  device this process runs on, so the slots of one card share one LRU
+  (a key replays once per shard, each shard landing its own arena in
+  stream order) and its bound stays GRAPH_CACHE_SIZE graphs a card; the
+  shard's keys are the one-device keys of its rows;
+- a line of stripes (`parallel/stripe_bits.py`, `parallel/stripes.py`),
+  a batched shard (`parallel/batch.py`) and `Decoder`'s reconstruction
+  replay from the process's cache of their device (`device_graphs`, one a
+  device, as the JAX package's module-level `lru_cache`s of its jit
+  programs are one a process): the "stripes" kind (`stripes_key`: per
+  stripe K1 over each image's padded stripe wire, D1, the exclusive
+  carry, A1, E1, the halo rows, T1, the rows gathered), "stripe_recon"
+  (`stripe_recon_key`: the same without the entropy half) and "recon"
+  (`recon_key`: K2 or E1, then T1, on stores).
+A line is captured only when its devices, and the one its rows gather
+on, are one device in a mesh of one process (`one_device`): a line over
+several cards, or any line of a mesh across processes, dispatches
+eagerly, decided before any capture. Every exchange of a captured line is
+a device-to-device copy inside the graph; the bytes it moves are counted
+at capture and added at every replay, as the launches are (`_build.count`
+into the graph's tally, `_build.add_tally`).
 
 The kinds (`BodyShape.half`) and their keys:
 - "whole", a bits image or a bits group of one (plan, geometry) (`bits_key`,
@@ -28,8 +55,13 @@ The kinds (`BodyShape.half`) and their keys:
 - "lossless", a SOF3 image or group (`lossless_key`: the component count,
   predictor, point transform, precision, `restart_all`, the output's width
   and height, the planes' [H, W] and None or the count bucket): the
-  closed forms or L1, then the interleave.
-Two images share a key exactly when they share the JAX package's.
+  closed forms or L1, then the interleave;
+- "recon", "stripes" and "stripe_recon" (above), which run without a
+  decoder.
+Every kind's shape holds its body (`BodyShape.fn`).
+Two images share a key exactly when they share the JAX package's (the
+"stripes" key also holds each image's n_tab, the rows of its K1 tables,
+which the JAX package's LUTs do not show).
 
 A group is padded to its count bucket (`batch_bucket`) on the prefix and
 lossless paths, as the JAX package pads it: the rows past the group's
@@ -97,7 +129,7 @@ group of more than 21 three-component images takes two K2 (or E1)
 launches where the eager path took one.
 
 Dispatch (on a CUDA device): a key's first call dispatches eagerly, off
-any graph, as a mesh's images do (`BitsGraphs.first_sight`): it builds
+any graph (`BitsGraphs.first_sight`): it builds
 the kernels and makes the per-card `cudaFuncSetAttribute` opt-ins, and
 a key seen once costs what eager dispatch costs and makes no graph. At
 its second call (if it recurs within the last GRAPH_CACHE_SIZE first
@@ -121,7 +153,8 @@ Status buffers: A1 (and U1 on a wire of more than one tile) take their
 epoch from the card (`_build.DeviceEpochs`), since a replay would repeat
 a host epoch baked in at capture. Launch counts: a capture launches
 nothing and counts nothing; each replay adds the graph's launches, by
-kernel, to `_build.LAUNCHES` (`_build.count_launch`), so launches per
+kernel, to `_build.LAUNCHES`, and its exchanges' bytes to
+`parallel.mesh.EXCHANGED` (`_build.add_tally`), so launches and bytes per
 image stay what the eager body counts.
 
 Span names (`torch.profiler.record_function`) run on the host at capture,
@@ -138,15 +171,23 @@ handed to the parts' copies only, all enqueued before the next replay of
 any graph of the group; two parts of one group have two keys, so they
 share no static buffer.
 
-One decoder dispatches from one thread on one stream: a graph's arena and
-static tensors are shared by its calls, which the stream orders. A call
-whose arena another call refilled before it ran fills it again.
+A graph's arena and static tensors are shared by its calls: a call whose
+arena another call refilled before it ran fills it again, and each cache
+holds its lock from that check through the replay and the copy out of
+its output, so callers on several threads (two meshes, a mesh and a
+`Decoder`, on one card's `device_graphs`) each get their own inputs'
+output; the
+card orders their work on the device's current stream, which every
+caller of a cache shares. A hetero group's sweep hands its static nat on
+after the run (above): its graphs live in the cache of the decoder that
+dispatches them, from one thread.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -154,8 +195,10 @@ import torch
 from .. import _build
 from ..host.entropy.prescan import _bucket_up
 from ..host.staging import _bucket
-from ..params import ScanTables, folded_basis, scan_table_arrays
-from ..transfer import ALIGN, put_into
+from ..ops.pipeline import reconstruct
+from ..params import (ScanTables, device_params, folded_basis,
+                      scan_table_arrays)
+from ..transfer import ALIGN, checked_device, put_into
 
 # Graphs a decoder keeps, of every kind. JAX keeps 128 bits executables,
 # 256 prefix and 32 lossless, which hold no activations; a captured graph
@@ -209,18 +252,33 @@ class LosslessShape:
 
 
 @dataclasses.dataclass(frozen=True)
+class StripeLine:
+    """What a stripe body reads beside its inputs: the image's decoded MCU
+    rows and the stripes they split into."""
+    mcu_rows: int
+    n_stripes: int
+
+
+@dataclasses.dataclass(frozen=True)
 class BodyShape:
     """The static structure of a graph's body. `half`: "whole" (every
     scan's K1, then the reconstruction), "sweep" (K1 over a merged wire
     only: its nat out), "part" (the reconstruction of `nat_in`), "prefix"
-    (P1 over the prefix wire, then the reconstruction) or "lossless" (the
-    predictors and the interleave; `geometry` a `LosslessShape`)."""
+    (P1 over the prefix wire, then the reconstruction), "lossless" (the
+    predictors and the interleave; `geometry` a `LosslessShape`), "recon"
+    (the reconstruction of stores), "stripes" (a line of stripes, entropy
+    included; `line` its `StripeLine`) or "stripe_recon" (a line of
+    stripes' reconstruction of stores). `fn`, the body: fn(dec, shape,
+    inputs) -> tensor, `dec` the decoder whose body it is (None for the
+    last three kinds, which run without one)."""
     scans: tuple         # (ScanShape, ...)
     ncomp: int
     geometry: object
     images: int
     fp32: bool           # K2 on folded float32 tables, else E1 on int32
     half: str = "whole"
+    line: StripeLine = None
+    fn: object = None
 
 
 @dataclasses.dataclass
@@ -257,14 +315,18 @@ class SlotParams:
 class Inputs:
     """A graph's inputs, as the body reads them: per scan its wire (words,
     dm[, ab, base]; the prefix wire (dc, ac, resid_idx, resid_vals); the
-    lossless planes (diffs,)), K1's tables and, for a plan without the
-    closed form, its index maps; per image its components' `QtSlot`s;
-    `params` the lookups of the reconstruction."""
+    lossless planes (diffs,); a "recon" body's stores, one per component;
+    a "stripe_recon" body's per stripe; a "stripes" body's per stripe and
+    image, stripe after stripe), K1's tables (a "stripes" body's per
+    image) and, for a plan without the closed form, its index maps; per
+    image its components' `QtSlot`s; `params` the lookups of the
+    reconstruction; a part's `nat`, its rows of the sweep's nat."""
     wires: list
     tables: list
     maps: list
     qts_b: list
     params: SlotParams
+    nat: torch.Tensor = None
 
 
 def _scan_key(st, lengths: tuple, s_max: int, shapes) -> tuple:
@@ -382,6 +444,54 @@ def lossless_key(staged_or_group) -> tuple:
             (h, w), batch_bucket(len(staged_or_group)) if group else None)
 
 
+def recon_key(geometry, images: int) -> tuple:
+    """The compile key of a reconstruction of stores (`ops/pipeline.py::
+    reconstruct`), as the JAX package's `_compiled_pipeline` keys it on
+    the geometry, and `make_batch_pipeline`'s program on the batch it
+    traces: the geometry with its precision beside it, the image count and
+    the layout (interleaved, the one both callers take)."""
+    return ("recon", geometry, geometry.precision, images, "interleaved")
+
+
+def stripes_key(staged_list: list, split) -> tuple:
+    """The compile key of a line of stripes, entropy included
+    (`parallel/stripe_bits.py`): the JAX package's
+    `_compiled_stripe_bits_xla{,_batch}` key (the stripe plan, the kept
+    components, the component count, the geometry, the MCU rows, the
+    stripe count and the images of the line) with what `jax.jit` traces of
+    the split's arrays: the words and chunks each stripe's wire is padded
+    to, K1's step bound (the plan's s_max) and per image n_tab, the rows of
+    its K1 tables. `staged_list` are the line's images (StagedBits of one
+    plan), `split` the first one's `StripeSplit`; nothing of the content
+    (the stripes' real chunk counts, words and symbol bounds) is in the
+    key."""
+    first = staged_list[0]
+    st = first.scans[0]
+    return ("stripes", split.plan, st.kept, len(first.qts), first.geometry,
+            split.mcu_rows, split.n_stripes, len(staged_list),
+            split.words.shape[1], split.anchor_bits.shape[1],
+            split.plan.s_max,
+            tuple(len(s.scans[0].scan.tab_maxcode) for s in staged_list))
+
+
+def stripe_recon_key(geometry, mcu_rows: int, n_stripes: int, images: int
+                     ) -> tuple:
+    """The compile key of a line of stripes' reconstruction of stores
+    (`parallel/stripes.py::make_stripe_pipeline`): the geometry, the MCU
+    rows, the stripe count and the images of the line."""
+    return ("stripe_recon", geometry, mcu_rows, n_stripes, images)
+
+
+def one_device(mesh, devices) -> bool:
+    """Whether a line of `mesh` (its entries' `devices`) runs as one
+    graph: its devices and the mesh's first (where its rows gather) one
+    `torch.device`, in a mesh of one process. A line over several cards
+    dispatches eagerly, and so does every line of a mesh across processes
+    (a crossing waits on the host): decided here, before any capture."""
+    return mesh.processes == 1 \
+        and len({torch.device(d) for d in devices} | {mesh.first}) == 1
+
+
 def _s_max(st, s_max: int) -> int:
     """K1's step bound on a scan's wire (`s_max` its wire's own): on the
     anchor wire the plan's, the prescan's bucket of its chunks' symbol
@@ -397,6 +507,26 @@ def _scan_arrays(st) -> tuple:
     return st.words, st.dm, st.ab, st.base
 
 
+def _whole_body(dec, shape: BodyShape, inputs: Inputs) -> torch.Tensor:
+    return dec._bits_body(shape, inputs)
+
+
+def _sweep_body(dec, shape: BodyShape, inputs: Inputs) -> torch.Tensor:
+    return dec._sweep_body(shape, inputs)[0]
+
+
+def _part_body(dec, shape: BodyShape, inputs: Inputs) -> torch.Tensor:
+    return dec._part_body(shape, [inputs.nat], inputs)
+
+
+def _prefix_body(dec, shape: BodyShape, inputs: Inputs) -> torch.Tensor:
+    return dec._prefix_body(shape, inputs)
+
+
+def _lossless_body(dec, shape: BodyShape, inputs: Inputs) -> torch.Tensor:
+    return dec._lossless_body(shape, inputs)
+
+
 def image_shape(staged, fp32: bool, keyed: bool = True) -> BodyShape:
     """The body's structure for one StagedBits: its key's, or (not
     `keyed`) on the image's own wires, as eager dispatch off a graph
@@ -405,7 +535,7 @@ def image_shape(staged, fp32: bool, keyed: bool = True) -> BodyShape:
         s.wire, s.scan.plan, s.kept,
         _s_max(s, s.s_max) if keyed else s.s_max,
         s.scan.plan.n_blocks) for s in staged.scans),
-        len(staged.qts), staged.geometry, 1, fp32)
+        len(staged.qts), staged.geometry, 1, fp32, fn=_whole_body)
 
 
 def group_shape(group: list, merged, fp32: bool) -> BodyShape:
@@ -414,14 +544,15 @@ def group_shape(group: list, merged, fp32: bool) -> BodyShape:
     st = group[0].scans[0]
     return BodyShape((ScanShape(st.wire, st.scan.plan, st.kept,
                                 _s_max(st, s_max), n_blocks),),
-                     len(group[0].qts), group[0].geometry, len(group), fp32)
+                     len(group[0].qts), group[0].geometry, len(group), fp32,
+                     fn=_whole_body)
 
 
 def sweep_shape(st, s_max: int, n_blocks: int) -> BodyShape:
     """A sweep's structure: K1 over a merged wire of `n_blocks` rows (the
     bucket on a graph, the images' blocks eagerly), no plan."""
     return BodyShape((ScanShape(st.wire, None, (), s_max, n_blocks),), 0,
-                     None, 0, False, "sweep")
+                     None, 0, False, "sweep", fn=_sweep_body)
 
 
 def part_shape(staged, images: int, fp32: bool) -> BodyShape:
@@ -430,14 +561,15 @@ def part_shape(staged, images: int, fp32: bool) -> BodyShape:
     s = staged.scans[0]
     return BodyShape((ScanShape(s.wire, s.scan.plan, s.kept, 0,
                                 images * s.scan.plan.n_blocks),),
-                     len(staged.qts), staged.geometry, images, fp32, "part")
+                     len(staged.qts), staged.geometry, images, fp32, "part",
+                     fn=_part_body)
 
 
 def prefix_shape(staged, images: int, fp32: bool) -> BodyShape:
     """A prefix body's structure: P1 and the reconstruction of `images`
     images of the geometry of `staged` (any of them)."""
     return BodyShape((), len(staged.qts), staged.geometry, images, fp32,
-                     "prefix")
+                     "prefix", fn=_prefix_body)
 
 
 def lossless_shape(staged, images: int) -> BodyShape:
@@ -446,7 +578,33 @@ def lossless_shape(staged, images: int) -> BodyShape:
     return BodyShape((), 0, LosslessShape(
         staged.predictor, staged.point_transform, staged.precision,
         staged.restart_all, staged.out_width, staged.out_height), images,
-        False, "lossless")
+        False, "lossless", fn=_lossless_body)
+
+
+def recon_shape(geometry, images: int) -> BodyShape:
+    """A "recon" body's structure: `reconstruct` of `images` images'
+    stores of `geometry`, K2 at precision "fast", else E1, interleaved."""
+    return BodyShape((), len(geometry.components), geometry, images,
+                     geometry.precision == "fast", "recon", fn=_recon_body)
+
+
+def _recon_body(_dec, shape: BodyShape, inputs: Inputs) -> torch.Tensor:
+    with torch.profiler.record_function("reconstruct"):
+        return reconstruct(shape.geometry, list(inputs.wires[0]),
+                           inputs.qts_b, inputs.params)
+
+
+def recon_fill(graphs: "BitsGraphs", geometry, stores: tuple, qts_b: list):
+    """One reconstruction's stores (int16 [N, n_i, 64] numpy arrays, one
+    per component) and per image its tables, landed in its `recon_key`'s
+    graph of `graphs` in one H2D submission (a `Fill`); None at the key's
+    first sight on a card."""
+    key = recon_key(geometry, len(qts_b))
+    if graphs.first_sight(key):
+        return None
+    return graphs.fill(key, recon_shape(geometry, len(qts_b)),
+                       [tuple(np.ascontiguousarray(s, np.int16)
+                              for s in stores)], [], qts_b)
 
 
 @dataclasses.dataclass
@@ -454,18 +612,26 @@ class Fill:
     """One call's inputs landed in a graph's arena: `id` is the arena's
     fill count when they landed; `items` the (offset, array) pairs, kept
     to land them again if another call refilled the arena first; `count`
-    the images the call returns, the first of the graph's (None: all)."""
+    the images the call returns, the first of the graph's (None: all);
+    `owner` the `BitsGraphs` that holds the graph (`run`)."""
     graph: "BitsGraph"
     id: int
     items: list
     count: int = None
+    owner: "BitsGraphs" = None
+
+    def run(self, dec=None, eager: bool = False,
+            rows: torch.Tensor = None) -> torch.Tensor:
+        """`BitsGraphs.run` of this fill on its owner."""
+        return self.owner.run(dec, self, eager, rows)
 
 
 class BitsGraph:
     """One key's graph: its arena and the input views into it, what the
     body reads beside them (a part's `nat_in`), its device-epoch status
-    buffers, and once captured the graph, its static output and its
-    launches by kernel."""
+    buffers, and once captured the graph, its static output and what its
+    capture counted (`tally`: its launches by kernel, the bytes its
+    exchanges move by kind; `_build.count`)."""
 
     def __init__(self, key, shape: BodyShape, arrays: list, device,
                  maps: list, bases: dict):
@@ -487,7 +653,7 @@ class BitsGraph:
         self.fill_id = 0
         self.graph = None
         self.out = None
-        self.launches: dict = {}
+        self.tally: dict = {}
 
     def _inputs(self, views: list, maps: list, bases: dict) -> Inputs:
         """The views in the order `BitsGraphs._arrays` lays the arrays,
@@ -498,6 +664,15 @@ class BitsGraph:
         if sh.half in ("prefix", "lossless"):
             wires = [tuple(next(it) for _ in range(
                 4 if sh.half == "prefix" else 1))]
+        elif sh.half in ("recon", "stripe_recon"):
+            wires = [tuple(next(it) for _ in range(sh.ncomp)) for _ in range(
+                1 if sh.half == "recon" else sh.line.n_stripes)]
+        elif sh.half == "stripes":
+            wires = [tuple(next(it) for _ in range(4))
+                     for _ in range(sh.line.n_stripes * sh.images)]
+            tables = [[next(it) for _ in range(6)] for _ in range(sh.images)]
+            unzig = next(it)
+            tables = [ScanTables(*t, unzig=unzig) for t in tables]
         elif sh.half != "part":
             wires = [tuple(next(it) for _ in range(
                 2 if scan.wire == "delta" else 4)) for scan in sh.scans]
@@ -512,20 +687,13 @@ class BitsGraph:
             else:
                 qts_b.append([QtSlot(q_exact=next(it))
                               for _c in range(sh.ncomp)])
-        return Inputs(wires, tables, maps, qts_b, SlotParams(bases))
+        return Inputs(wires, tables, maps, qts_b, SlotParams(bases),
+                      self.nat_in)
 
     def body(self, dec) -> torch.Tensor:
-        """The decoder's body of this graph's half on its inputs."""
-        half = self.shape.half
-        if half == "sweep":
-            return dec._sweep_body(self.shape, self.inputs)[0]
-        if half == "part":
-            return dec._part_body(self.shape, [self.nat_in], self.inputs)
-        if half == "prefix":
-            return dec._prefix_body(self.shape, self.inputs)
-        if half == "lossless":
-            return dec._lossless_body(self.shape, self.inputs)
-        return dec._bits_body(self.shape, self.inputs)
+        """The graph's body (`BodyShape.fn`) on its inputs: `dec` the
+        decoder whose body it is (None for the kinds without one)."""
+        return self.shape.fn(dec, self.shape, self.inputs)
 
     def items(self, arrays: list) -> list:
         """(offset, array) pairs of one call's arrays, checked against the
@@ -538,13 +706,15 @@ class BitsGraph:
 
 
 class BitsGraphs:
-    """A decoder's graphs on one device, least recently used evicted past
-    `maxsize`; `captures`, `hits` (replays) and the host-side caches of
-    the tables' arrays by content. `params` (the device's
-    `params.DeviceParams`) and `maps` (plan, device -> `GeneralMaps`) are
-    the decoder's caches of what a key fixes: uploaded once a decoder, not
-    once a graph, since an upload from pageable memory waits for the
-    card."""
+    """The graphs of one device, least recently used evicted past
+    `maxsize`: a decoder's (one a device it runs on), or the process's
+    (`device_graphs`); `captures`, `hits` (replays) and the host-side
+    caches of the tables' arrays by content. `params` (the device's
+    `params.DeviceParams`) and `maps` (plan, device -> `GeneralMaps`, or
+    None where every plan has the closed form) are the owner's caches of
+    what a key fixes: uploaded once, not once a graph, since an upload
+    from pageable memory waits for the card. Its calls may come from
+    several threads: each holds the cache's lock (`fill`, `run`)."""
 
     def __init__(self, device, params, maps):
         self.device = torch.device(device)
@@ -555,21 +725,24 @@ class BitsGraphs:
         self._qts: dict = {}
         self._stream = None     # the side stream captures run on
         self._seen: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.RLock()
         self.captures = 0
         self.hits = 0
 
     def clear(self) -> None:
-        self._graphs.clear()
-        self._seen.clear()
-        self._tables.clear()
-        self._qts.clear()
+        with self._lock:
+            self._graphs.clear()
+            self._seen.clear()
+            self._tables.clear()
+            self._qts.clear()
 
     def __len__(self) -> int:
         return len(self._graphs)
 
     def stats(self) -> dict:
-        return {"graphs": len(self._graphs), "captures": self.captures,
-                "hits": self.hits}
+        with self._lock:
+            return {"graphs": len(self._graphs), "captures": self.captures,
+                    "hits": self.hits}
 
     def _cached(self, cache: dict, key, make):
         val = cache.get(key)
@@ -626,6 +799,11 @@ class BitsGraphs:
         lossless body have no `qts_b`, a part no `wires`, a part, a prefix
         and a lossless body no `scans`); `count` the images the call
         returns (`Fill.count`)."""
+        with self._lock:
+            return self._fill(key, shape, wires, scans, qts_b, count)
+
+    def _fill(self, key, shape: BodyShape, wires: list, scans: list,
+              qts_b: list, count: int) -> Fill:
         arrays = self._arrays(shape, wires, scans, qts_b)
         graph = self._graphs.get(key)
         if graph is None:
@@ -641,7 +819,7 @@ class BitsGraphs:
                 self._graphs.popitem(last=False)
         else:
             self._graphs.move_to_end(key)
-        fill = Fill(graph, 0, graph.items(arrays), count)
+        fill = Fill(graph, 0, graph.items(arrays), count, self)
         self._land(fill)
         return fill
 
@@ -659,14 +837,15 @@ class BitsGraphs:
         call on a card dispatches as eager dispatch does and makes no
         graph, and a stream that cycles through more keys than the cache
         holds never captures a graph it would evict before its reuse."""
-        if self.device.type != "cuda" or key in self._graphs:
+        if self.device.type != "cuda":
             return False
-        if self._seen.pop(key, False):
-            return False
-        self._seen[key] = True
-        while len(self._seen) > self.maxsize:
-            self._seen.popitem(last=False)
-        return True
+        with self._lock:
+            if key in self._graphs or self._seen.pop(key, False):
+                return False
+            self._seen[key] = True
+            while len(self._seen) > self.maxsize:
+                self._seen.popitem(last=False)
+            return True
 
     def run(self, dec, fill: Fill, eager: bool = False,
             rows: torch.Tensor = None) -> torch.Tensor:
@@ -679,7 +858,13 @@ class BitsGraphs:
         and gives its first `count` images. A sweep gives its nat, the
         graph's static output itself: it is read by the parts' copies that
         follow on the stream, before the next replay, and never handed
-        out."""
+        out. Holds the cache's lock from the check of the arena's fill
+        through the copy out."""
+        with self._lock:
+            return self._run(dec, fill, eager, rows)
+
+    def _run(self, dec, fill: Fill, eager: bool, rows: torch.Tensor
+             ) -> torch.Tensor:
         graph = fill.graph
         if graph.fill_id != fill.id:
             self._land(fill)
@@ -694,8 +879,7 @@ class BitsGraphs:
             return self._capture(dec, graph)[:count]
         with torch.profiler.record_function("bits_graph"):
             graph.graph.replay()
-        for name, n in graph.launches.items():
-            _build.count_launch(name, n)
+        _build.add_tally(graph.tally)
         self.hits += 1
         if graph.shape.half == "sweep":
             return graph.out
@@ -706,7 +890,9 @@ class BitsGraphs:
         the graph's inputs, which makes its status buffers (the key's
         first call, off any graph, has built the kernels and made the
         per-card opt-ins). Then the capture, on the side stream: it
-        launches nothing, and its launches are tallied by kernel."""
+        launches and moves nothing, and what it would count (its launches
+        by kernel, the bytes its exchanges move) goes to the graph's tally
+        (`_build.count`), which every replay adds."""
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         scope = graph.scope
@@ -729,6 +915,30 @@ class BitsGraphs:
                 del self._graphs[graph.key]
             raise
         graph.graph, graph.out = cuda_graph, static
-        graph.launches = dict(scope.tally)
+        graph.tally = scope.tally
         self.captures += 1
         return out
+
+
+_registry: dict = {}
+_registry_lock = threading.Lock()
+
+
+def device_graphs(device) -> BitsGraphs:
+    """The process's graph cache of one device, for the programs that run
+    without a decoder: a line of stripes and the striped reconstruction
+    (`parallel/stripe_bits.py`, `parallel/stripes.py`), a batched shard's
+    reconstruction (`parallel/batch.py`) and `Decoder`'s
+    (`decoder.reconstruct_tensor`). One a device ("cuda" is "cuda:N",
+    `transfer.checked_device`), so the meshes and `Decoder`s of a process
+    hold at most GRAPH_CACHE_SIZE such graphs a card together, as the JAX
+    package's module-level `lru_cache`s of these programs are one a
+    process. Their plans have the closed form: no general plan's index
+    maps are asked of it."""
+    device = checked_device(device)
+    with _registry_lock:
+        cache = _registry.get(device)
+        if cache is None:
+            cache = _registry[device] = BitsGraphs(
+                device, device_params(device), None)
+        return cache

@@ -42,8 +42,9 @@ submissions of 4 MB or more into `utils.link`'s rate estimate, as the
 reference's does, and adds no synchronisation.
 
 Device stage (per image or per group, on the caller's thread,
-`device_dispatch`, asynchronous on the current CUDA stream; off a mesh, an
-image or a group of any interchange by replay of one CUDA graph per key,
+`device_dispatch`, asynchronous on the current CUDA stream; an image, a
+group or a mesh's data shard of any interchange by replay of one CUDA
+graph per key,
 and a bits group of several parts by replay of a sweep graph and one
 graph per part, `models/graphs.py`, whose inputs the H2D submission lands
 in; on the CPU the same bodies run eagerly):
@@ -96,12 +97,15 @@ merge across plans), and each group splits over the mesh's data axis as
 the reference shards it: `_batch_bucket(n)` rounded up to a multiple of
 the axis size sets the rows per device, and each device runs the group
 path above on its rows (its padding rows hold no image and are not
-decoded). `decode_striped` decodes one image's MCU rows across a stripe
-axis (`parallel/stripe_bits.py`). On a mesh across processes
+decoded), through the graph cache of its device (one a distinct device:
+the slots of one card share one, so a key replays once per shard from its
+second call on). `decode_striped` decodes one image's MCU rows across a
+stripe axis (`parallel/stripe_bits.py`: one "stripes" graph a call where
+the line is one device). On a mesh across processes
 (`parallel/dist.py`) the decode is SPMD, as the reference's under
 `jax.distributed`: every process gets the same sources and stages them,
-runs only its own shards, and holds `Remote(rank)` in the places of the
-other processes' images.
+runs only its own shards (each on its device's cache), and holds
+`Remote(rank)` in the places of the other processes' images.
 """
 
 from __future__ import annotations
@@ -498,16 +502,19 @@ class DeviceStreamDecoder:
         self.data_axis = data_axis
         self.params = DeviceParams(dev) if mesh is None else mesh.params(dev)
         self._maps: dict = {}
-        # The bits path's graphs, one per key (off a mesh).
-        self._graphs = graphs.BitsGraphs(dev, self.params,
-                                         self._general_maps) \
-            if mesh is None else None
+        # The graphs, one per key, in one cache per distinct device this
+        # process runs on: the decoder's, or each of the mesh's (its slots
+        # of one card share one); `_graphs` the decoder's device's.
+        self._caches = {d: graphs.BitsGraphs(d, self._params_of(d),
+                                             self._general_maps)
+                        for d in self._local_devices()}
+        self._graphs = self._caches[dev]
         self.pool = cf.ThreadPoolExecutor(max_workers=host_threads)
 
     def close(self) -> None:
         self.pool.shutdown(wait=True)
-        if self._graphs is not None:
-            self._graphs.clear()
+        for cache in self._caches.values():
+            cache.clear()
 
     def __enter__(self):
         return self
@@ -528,6 +535,20 @@ class DeviceStreamDecoder:
         (the mesh's, on a mesh)."""
         return self.params if self.mesh is None else self.mesh.params(dev)
 
+    def _local_devices(self) -> list:
+        """The distinct devices this process runs on: the decoder's, or
+        the mesh's entries this process holds, in mesh order."""
+        if self.mesh is None:
+            return [self.device]
+        local = self.mesh.devices[self.mesh.owners == self.mesh.rank]
+        return list(dict.fromkeys(local.tolist()))
+
+    def _graphs_of(self, dev):
+        """The graph cache of `dev` (by default the decoder's device), or
+        None for a device this process does not run on."""
+        return self._graphs if dev is None \
+            else self._caches.get(checked_device(dev))
+
     def _put_recorded(self, arrs, dev=None) -> tuple:
         """One H2D submission of a tuple of host arrays (`transfer.put`:
         non-blocking through one pinned buffer on a CUDA device), folding
@@ -545,16 +566,25 @@ class DeviceStreamDecoder:
 
     def _to_device(self, staged, dev=None):
         """One H2D submission of one image's staged wire (to `dev`, by
-        default the decoder's device). An image off a mesh with no `dev`
-        lands in its key's graph with its tables (a `graphs.Fill`), but at
-        the key's first sight on a card; otherwise the wire's device
-        tensors."""
+        default the decoder's device). The image lands in its key's graph
+        of `dev`'s cache with its tables (a `graphs.Fill`), but at the
+        key's first sight on a card; then the wire's device tensors
+        (`_wire_tensors`)."""
         kind = _kind(staged)
-        if self._graphs is not None and dev is None:
-            fill = self._bits_fill(staged) if kind == "bits" \
-                else self._padded_fill(kind, staged)
+        cache = self._graphs_of(dev)
+        if cache is not None:
+            fill = self._bits_fill(staged, cache) if kind == "bits" \
+                else self._padded_fill(kind, staged, cache)
             if fill is not None:
                 return fill
+        return self._wire_tensors(staged, dev)
+
+    def _wire_tensors(self, staged, dev=None) -> tuple:
+        """One image's staged wire in one H2D submission to `dev` (by
+        default the decoder's device), off any graph: per scan its (words,
+        dm[, ab, base]) on a bits image, else the prefix or lossless
+        wire's tensors."""
+        kind = _kind(staged)
         if kind == "bits":
             flat = self._put_recorded(tuple(
                 a for s in staged.scans
@@ -587,36 +617,37 @@ class DeviceStreamDecoder:
         return self._effective_layout(geometry) == "planar-pallas" \
             or geometry.precision == "fast"
 
-    def _bits_fill(self, staged):
+    def _bits_fill(self, staged, cache):
         """One bits image's wires, tables and quantisation tables into its
-        key's graph, in one H2D submission (a `graphs.Fill`); None at the
-        key's first sight on a card (`graphs.BitsGraphs.first_sight`)."""
+        key's graph of `cache`, in one H2D submission (a `graphs.Fill`);
+        None at the key's first sight on a card
+        (`graphs.BitsGraphs.first_sight`)."""
         layout = self._effective_layout(staged.geometry)
         key = graphs.bits_key(staged, self.precision, layout)
-        if self._graphs.first_sight(key):
+        if cache.first_sight(key):
             return None
         shape = graphs.image_shape(staged, self._fp32(staged.geometry))
         wires = [graphs.wire_arrays(s.wire, graphs._scan_arrays(s),
                                     s.scan.plan.n_blocks)
                  for s in staged.scans]
-        return self._put_into(lambda: self._graphs.fill(
+        return self._put_into(lambda: cache.fill(
             key, shape, wires, [s.scan for s in staged.scans],
             [staged.qts]))
 
-    def _padded_fill(self, kind: str, staged_or_group):
+    def _padded_fill(self, kind: str, staged_or_group, cache):
         """A prefix or lossless image's wire (or a group's, its rows padded
         to its count bucket with the last image's, as the reference pads a
         group: `_prefix_wire` on prefix), with a prefix image's
-        quantisation tables, into its key's graph in one H2D submission (a
-        `graphs.Fill` that returns the group's images); None at the key's
-        first sight on a card."""
+        quantisation tables, into its key's graph of `cache` in one H2D
+        submission (a `graphs.Fill` that returns the group's images); None
+        at the key's first sight on a card."""
         group = isinstance(staged_or_group, list)
         rows = staged_or_group if group else [staged_or_group]
         first = rows[0]
         key = graphs.lossless_key(staged_or_group) if kind == "lossless" \
             else graphs.prefix_key(staged_or_group, self.precision,
                                    self._effective_layout(first.geometry))
-        if self._graphs.first_sight(key):
+        if cache.first_sight(key):
             return None
         images = key[-1] or 1
         padded = rows + [rows[-1]] * (images - len(rows))
@@ -630,7 +661,7 @@ class DeviceStreamDecoder:
             wire = _prefix_wire(rows, images) if group else (
                 first.dc[None], first.ac[None], first.resid_idx[None],
                 first.resid_vals[None])
-        return self._put_into(lambda: self._graphs.fill(
+        return self._put_into(lambda: cache.fill(
             key, shape, [wire], [], qts, len(rows)))
 
     def _general_maps(self, plan, dev):
@@ -722,8 +753,8 @@ class DeviceStreamDecoder:
         the part, back to back: [N, ...] in the decoder's layout. What
         `graphs.BitsGraphs` runs eagerly or captures for one image or a
         group of one (plan, geometry), and what a bits image off a graph
-        (a key's first call on a card, a mesh's image, one sent to another
-        device) runs on the device's `DeviceParams`."""
+        (a key's first call on a card, `_wire_tensors`) runs on the
+        device's `DeviceParams`."""
         return self._part_body(shape, self._sweep_body(shape, inputs),
                                inputs)
 
@@ -767,7 +798,7 @@ class DeviceStreamDecoder:
         on a card, or its body off any graph. Enqueues work only: no host
         synchronisation."""
         if isinstance(wires, graphs.Fill):
-            return self._graphs.run(self, wires)[0]
+            return wires.run(self)[0]
         kind = _kind(staged)
         if kind == "lossless":
             return self._eager_body(kind, [staged], (wires[0][None],))[0]
@@ -786,7 +817,7 @@ class DeviceStreamDecoder:
         """`_run_device` with a graph's body run eagerly on its inputs, not
         replayed: the eager dispatch the replay stands for."""
         if isinstance(wires, graphs.Fill):
-            return self._graphs.run(self, wires, eager=True)[0]
+            return wires.run(self, eager=True)[0]
         return self._run_device(staged, wires)
 
     def decode_one(self, staged, dev=None) -> torch.Tensor:
@@ -833,31 +864,26 @@ class DeviceStreamDecoder:
         """The group's merged wire on `dev` (by default the decoder's
         device), or None when the host merge declines (the images then
         decode one by one). A bits group of one (plan, geometry), and a
-        prefix or lossless group, off a mesh and with no `dev`, lands in
-        its key's graph with its tables (a `graphs.Fill`), but at the key's
-        first sight on a card; a bits group of several parts lands in its
+        prefix or lossless group, lands in its key's graph of `dev`'s
+        cache with its tables (a `graphs.Fill`), but at the key's first
+        sight on a card; a bits group of several parts lands in its
         halves' graphs (`GroupHalves`)."""
-        graphed = self._graphs is not None and dev is None
+        cache = self._graphs_of(dev)
         if kind == "bits":
-            parts: dict = {}       # (plan, geometry) -> images, first seen
-            for i, st in enumerate(group):
-                parts.setdefault((st.scans[0].scan.plan, st.geometry),
-                                 []).append(i)
-            order = [i for members in parts.values() for i in members]
-            merged = _merge([group[i].scans[0] for i in order])
+            parts, merged = self._bits_merge(group)
             if merged is None:
                 return None
-            if len(parts) == 1 and graphed:
-                fill = self._group_fill(group, merged)
+            if len(parts) == 1 and cache is not None:
+                fill = self._group_fill(group, merged, cache)
                 if fill is not None:
                     return fill
             return self._group_halves(group, parts, merged, dev,
-                                      graphed and len(parts) > 1)
+                                      cache if len(parts) > 1 else None)
         if kind == "prefix" and graphs.batch_bucket(len(group)) \
                 * group[0].dc.shape[-1] * 64 >= 2 ** 31:
             return None         # P1's indices would pass int32
-        if graphed:
-            fill = self._padded_fill(kind, group)
+        if cache is not None:
+            fill = self._padded_fill(kind, group, cache)
             if fill is not None:
                 return fill
         if kind == "lossless":
@@ -865,35 +891,46 @@ class DeviceStreamDecoder:
                 (np.stack([st.diffs for st in group]).view(np.int16),), dev)
         return self._put_recorded(_prefix_wire(group, len(group)), dev)
 
-    def _group_fill(self, group: list, merged):
+    def _bits_merge(self, group: list) -> tuple:
+        """A bits group's parts ({(plan, geometry): its images' indices},
+        in the order first seen) and its merged wire (`_merge` of the
+        images part after part; None where the host merge declines)."""
+        parts: dict = {}
+        for i, st in enumerate(group):
+            parts.setdefault((st.scans[0].scan.plan, st.geometry),
+                             []).append(i)
+        order = [i for members in parts.values() for i in members]
+        return parts, _merge([group[i].scans[0] for i in order])
+
+    def _group_fill(self, group: list, merged, cache):
         """A same-plan bits group's merged wire, its tables and every
-        image's quantisation tables into its key's graph, in one H2D
-        submission (a `graphs.Fill`); None at the key's first sight on a
-        card."""
+        image's quantisation tables into its key's graph of `cache`, in
+        one H2D submission (a `graphs.Fill`); None at the key's first
+        sight on a card."""
         geometry = group[0].geometry
         st0 = group[0].scans[0]
         key = graphs.bits_key(group, self.precision,
                               self._effective_layout(geometry), merged)
-        if self._graphs.first_sight(key):
+        if cache.first_sight(key):
             return None
         shape = graphs.group_shape(group, merged, self._fp32(geometry))
         wire = graphs.wire_arrays(st0.wire, merged[0], merged[2])
-        return self._put_into(lambda: self._graphs.fill(
+        return self._put_into(lambda: cache.fill(
             key, shape, [wire], [st0.scan], [st.qts for st in group]))
 
     def _group_halves(self, group: list, parts: dict, merged, dev,
-                      graphed: bool) -> "GroupHalves":
+                      cache) -> "GroupHalves":
         """A bits group's device half in its two halves (`GroupHalves`):
-        with `graphed` (a group of several parts off a mesh) the sweep's
-        and each part's inputs land in their keys' graphs, one H2D
-        submission an arena (`graphs.Fill`s); a half whose key is at its
-        first sight on a card, and every half without `graphed`, runs
-        eagerly: the merged wire in one H2D submission to `dev`, the tables
-        from the device's `DeviceParams`."""
+        with a `cache` (a group of several parts) the sweep's and each
+        part's inputs land in their keys' graphs of it, one H2D submission
+        an arena (`graphs.Fill`s); a half whose key is at its first sight
+        on a card, and every half without a `cache`, runs eagerly: the
+        merged wire in one H2D submission to `dev`, the tables from the
+        device's `DeviceParams`."""
         arrays, s_max, n_blocks, shapes = merged
         st0 = group[0].scans[0]
         sweep = None
-        if graphed:
+        if cache is not None:
             wire = graphs.wire_arrays(st0.wire, arrays, n_blocks)
             bound = s_max if st0.wire == "delta" \
                 else max(st.scans[0].scan.plan.s_max for st in group)
@@ -902,8 +939,8 @@ class DeviceStreamDecoder:
                 for (plan, _g), members in parts.items()), 4096),
                 K1_MAX_BLOCKS)
             key = graphs.sweep_key(st0, wire, bound, shapes, blocks)
-            if not self._graphs.first_sight(key):
-                sweep = self._put_into(lambda: self._graphs.fill(
+            if not cache.first_sight(key):
+                sweep = self._put_into(lambda: cache.fill(
                     key, graphs.sweep_shape(st0, bound, blocks), [wire],
                     [st0.scan], []))
         params = self._params_of(self.device if dev is None else dev)
@@ -916,15 +953,17 @@ class DeviceStreamDecoder:
         for members in parts.values():
             first = group[members[0]]
             fp32 = self._fp32(first.geometry)
-            fill = self._part_fill(group, members, fp32) if graphed else None
+            fill = self._part_fill(group, members, fp32, cache) \
+                if cache is not None else None
             recons.append(fill if fill is not None else (
                 graphs.part_shape(first, len(members), fp32),
                 graphs.Inputs([], [], [None], [group[i].qts for i in members],
                               params)))
         return GroupHalves(parts, sweep, recons)
 
-    def _part_fill(self, group: list, members: list, fp32: bool):
-        """One part's quantisation tables into its key's graph, a slot per
+    def _part_fill(self, group: list, members: list, fp32: bool, cache):
+        """One part's quantisation tables into its key's graph of `cache`,
+        a slot per
         image of its count bucket (the pad slots take the last image's, as
         the reference pads them), in one H2D submission (a `graphs.Fill`);
         None at the key's first sight on a card."""
@@ -932,11 +971,11 @@ class DeviceStreamDecoder:
         bucket = graphs.batch_bucket(len(members))
         key = graphs.part_key(first, bucket, self.precision,
                               self._effective_layout(first.geometry))
-        if self._graphs.first_sight(key):
+        if cache.first_sight(key):
             return None
         qts = [group[i].qts for i in members]
         qts += [qts[-1]] * (bucket - len(members))
-        return self._put_into(lambda: self._graphs.fill(
+        return self._put_into(lambda: cache.fill(
             key, graphs.part_shape(first, bucket, fp32), [], [], qts))
 
     def _run_half(self, half, eager: bool, rows=None) -> torch.Tensor:
@@ -944,7 +983,7 @@ class DeviceStreamDecoder:
         graph, else (shape, inputs) run eagerly; the sweep's nat, or with
         `rows` (a part's rows of it) the part's images."""
         if isinstance(half, graphs.Fill):
-            return self._graphs.run(self, half, eager, rows)
+            return half.run(self, eager, rows)
         shape, inputs = half
         if rows is None:
             return self._sweep_body(shape, inputs)[0]
@@ -973,7 +1012,7 @@ class DeviceStreamDecoder:
         [N, ...] output per (plan, geometry) (of a graph's output, copied
         out of it, for a `graphs.Fill` and a part's graph)."""
         if isinstance(wires, graphs.Fill):
-            return list(self._graphs.run(self, wires))
+            return list(wires.run(self))
         if kind != "bits":
             return list(self._eager_body(kind, group, tuple(wires)))
         return self._run_halves(group, wires)
@@ -982,7 +1021,7 @@ class DeviceStreamDecoder:
         """`_run_group` with a graph's body run eagerly on its inputs, not
         replayed."""
         if isinstance(wires, graphs.Fill):
-            return list(self._graphs.run(self, wires, eager=True))
+            return list(wires.run(self, eager=True))
         if isinstance(wires, GroupHalves):
             return self._run_halves(group, wires, eager=True)
         return self._run_group(kind, group, wires)
@@ -1024,10 +1063,13 @@ class DeviceStreamDecoder:
         on its rows (one K1 sweep, K2 on its segment table, K3 on
         planar-pallas, L1 for a lossless shard). Rows past the images are
         the reference's padding: no image, so nothing is decoded there.
-        Each image's tensor lives on its shard's device. On a mesh across
-        processes only this process's shards run, as in the reference's
-        SPMD decode; a row of another process's shard is `Remote(rank)`
-        and is not read (the caller may leave anything there)."""
+        Each shard lands in, and from its key's second call replays from,
+        its device's graph cache (`_graphs_of`), the slots of one card
+        sharing one. Each image's tensor lives on its shard's device. On a
+        mesh across processes only this process's shards run, as in the
+        reference's SPMD decode; a row of another process's shard is
+        `Remote(rank)` and is not read (the caller may leave anything
+        there)."""
         out = []
         for dev, owner, (b0, b1) in self.mesh_shards(len(group)):
             rows = group[b0:b1]

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..models import graphs
 from ..ops.pipeline import reconstruct
 from ..transfer import put
 from .dist import Shard
@@ -36,7 +37,13 @@ def make_batch_pipeline(geometry, mesh, data_axis: str = "data"):
     where the shard runs, the counterpart of the reference harness's
     `piece_of` (`tools/multiproc_mesh.py:51-63`). On a mesh across
     processes only this process's shards run, and fn returns its `Shard`s
-    (index (rows,))."""
+    (index (rows,)).
+
+    Each shard's stores and tables land in its `graphs.recon_key`'s graph
+    of the process's cache of its device (`graphs.device_graphs`),
+    replayed from the key's second call (the first dispatches eagerly:
+    one `put`, `reconstruct`); the shards of one device share its cache
+    and their key."""
     devices = list(mesh.axis_devices(data_axis))
     owners = mesh.axis_owners(data_axis)
 
@@ -54,9 +61,15 @@ def make_batch_pipeline(geometry, mesh, data_axis: str = "data"):
                 devices, _shards(batch, len(devices)))):
             if b1 <= b0 or owners[k] != mesh.rank:
                 continue
-            local = put(tuple(rows_of(b0, b1)), dev)
-            out = reconstruct(geometry, list(local),
-                              [tuple(qts)] * (b1 - b0), mesh.params(dev))
+            shard = tuple(rows_of(b0, b1))
+            qts_b = [tuple(qts)] * (b1 - b0)
+            fill = graphs.recon_fill(graphs.device_graphs(dev), geometry,
+                                     shard, qts_b)
+            if fill is not None:
+                out = fill.run()
+            else:
+                out = reconstruct(geometry, list(put(shard, dev)), qts_b,
+                                  mesh.params(dev))
             parts.append(out if mesh.processes == 1
                          else Shard((slice(b0, b1),), out))
         return parts

@@ -18,7 +18,9 @@ with device-to-device copies. The reference's collectives become:
 A mesh may name one device several times (the caller's `devices`): on a
 machine with one card, a mesh of slots of `cuda:0` runs every shard on
 that card, and the exchanges stay copies between the slots' tensors, as
-between cards. `EXCHANGED` counts the bytes each exchange moved.
+between cards. `EXCHANGED` counts the bytes each exchange moved (through
+`_build.count`: a replay of a captured line adds what its capture
+recorded).
 
 A mesh may also span processes, as the reference's does under
 `jax.distributed` (`jpeg_decoder_tpu/parallel/mesh.py:6-8`): `make_mesh`
@@ -39,6 +41,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import _build
 from ..params import DeviceParams
 from ..transfer import checked_device
 from . import dist
@@ -142,9 +145,9 @@ def make_mesh(axis_sizes: dict, devices: Optional[Sequence] = None) -> Mesh:
             raise ValueError(f"mesh needs {n} devices, have {len(devices)}")
         arr = np.empty(n, dtype=object)
         for i, d in enumerate(devices[:n]):
-            arr[i] = _local_device(d)
+            arr[i] = checked_device(d)
         return Mesh(arr.reshape(shape), tuple(axis_sizes.keys()))
-    local = [_local_device(d) for d in devices]
+    local = [checked_device(d) for d in devices]
     everyone = dist.gather_objects([str(d) for d in local])
     entries = [(r, i) for r, names in enumerate(everyone)
                for i in range(len(names))]
@@ -170,13 +173,6 @@ def cuda_devices() -> list:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def _local_device(d) -> torch.device:
-    dev = checked_device(d)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 def mesh_device(mesh: Mesh, device="cuda") -> torch.device:
     """The device a mesh's caller runs its unsharded work on: the mesh's
     first. `device` (an entry point's own argument, "cuda" by default) must
@@ -192,7 +188,7 @@ def _copy_to(t: torch.Tensor, device: torch.device, kind: str
              ) -> torch.Tensor:
     """A copy of `t` on `device`, also when it is there already: the
     exchange between two slots of one device is still a copy."""
-    EXCHANGED[kind] += t.numel() * t.element_size()
+    _build.count(EXCHANGED, kind, t.numel() * t.element_size())
     return t.to(device, non_blocking=True, copy=True)
 
 
@@ -339,7 +335,8 @@ def gather_rows(parts: list, device: torch.device, dim: int = 0,
     for p in range(n):
         rows = shapes[p][dim]
         if p in at:
-            EXCHANGED["gather"] += at[p].numel() * at[p].element_size()
+            _build.count(EXCHANGED, "gather",
+                         at[p].numel() * at[p].element_size())
             out.narrow(dim, off, rows).copy_(at[p], non_blocking=True)
         elif p in remote:
             out.narrow(dim, off, rows).copy_(_crossed(remote[p], "gather"),

@@ -33,14 +33,27 @@ reads the anchor wire, so the port has one engine (the reference's XLA
 one, `engine="xla"`). The split also records what the per-stripe launch
 needs: each stripe's real chunk count, words and symbol bound.
 
-Device half: per stripe, on its device, the 12 B/chunk anchor wire
-(`stripe_wire`: the stripe's words, `budget << 4 | slot` with the last
-real chunk's budget stopping at the stripe's real block extent, entry bits
-rebased to the words, first blocks rebased, the straddler's negative),
-K1 over the stripe's blocks of each image into its rows of one nat a
-stripe, the DC totals (kernel D1), assembly with the carry of every
-earlier stripe, then the halo'd exact reconstruction. Each stripe runs its
-real chunk count: eager launches need no bucket-padded items.
+Device half (`stripe_body`): per stripe, on its device, the 12 B/chunk
+anchor wire (`stripe_wire`: the stripe's words, `budget << 4 | slot` with
+the last real chunk's budget stopping at the stripe's real block extent,
+entry bits rebased to the words, first blocks rebased, the straddler's
+negative), K1 over the stripe's blocks of each image into its rows of one
+nat a stripe, the DC totals (kernel D1), assembly with the carry of every
+earlier stripe, then the halo'd exact reconstruction.
+
+Dispatch: a line of stripes on one device (`graphs.one_device`: its
+stripes and the device its rows gather on, in a mesh of one process; so
+every line of the slots of one card) is one CUDA graph per
+`graphs.stripes_key` in the process's cache of that device
+(`graphs.device_graphs`), the counterpart of the JAX package's
+`_compiled_stripe_bits_xla{,_batch}`: its images' stripe wires, padded to
+the split's word and chunk buckets (`padded_stripe_wire`, K1 at the
+plan's step bound), and their tables land in the graph's arena in one H2D
+copy, and the whole line (K1, D1, the carry, A1, E1, the halo, T1, the
+gather) replays, from the key's second call (its first dispatches
+eagerly). Any other line, and a key's first call, dispatches eagerly
+(`_decode_stripes`): each stripe its real chunk count, a `put` per stripe
+and image.
 """
 
 from __future__ import annotations
@@ -57,6 +70,7 @@ from ..host.entropy.prescan import (AnchoredScan, ScanPlan, _bucket_up,
                                     _plan_for)
 from ..host.entropy.wire import WORDS_PAD, anchor_meta
 from ..host.parser import Dimensions, update_component_sizes
+from ..models import graphs
 from ..transfer import put
 from .dist import Shard
 from .mesh import exclusive_carry, gather_rows, local_positions
@@ -229,46 +243,146 @@ def stripe_wire(split: StripeSplit, d: int) -> tuple:
         max(split.s_max[d], 1)
 
 
-def _decode_stripes(staged_list: list, splits: list, devs, mesh,
-                    owners=None) -> list:
-    """The images of one data shard (one plan), each striped over `devs`:
-    per stripe, on its device, K1 over each image's stripe wire, the DC
-    totals, then assembly with the carry of the earlier stripes and the
-    halo'd reconstruction of every image of the shard at once. Returns
-    per stripe uint8 [b, R, W(, C)] on its device. With `owners` (the rank
-    of each stripe, on a mesh across processes) only this process's
-    stripes run, and the carry and the halo cross from the others."""
-    s0, st0 = splits[0], staged_list[0]
-    n = s0.n_stripes
-    at = range(n) if owners is None else local_positions(owners)
+def padded_stripe_wire(split: StripeSplit, d: int) -> tuple:
+    """Stripe d's anchor wire as a graph of the line takes it
+    (`stripe_wire` padded to the split's buckets, as `graphs.wire_arrays`
+    pads an image's): the words zero-padded to the split's `Wb`, and the
+    chunks to its `I` with budget-0 chunks at entry bit 0 whose first
+    block is the stripe's end (`n_blocks_local`): they decode nothing, and
+    the first blocks stay nondecreasing, as K1 needs."""
+    (_words, dm, ab, base), _s_max = stripe_wire(split, d)
+    n_items = split.anchor_bits.shape[1]
+    padded = [np.ascontiguousarray(split.words[d]).view(np.int32)]
+    for a, fill in ((dm, 0), (ab, 0), (base, split.n_blocks_local)):
+        p = np.full(n_items, fill, np.int32)
+        p[:len(a)] = a
+        padded.append(p)
+    return tuple(padded)
+
+
+def stripe_body(geometry, plan, kept: tuple, mcu_rows: int, n: int,
+                wires: list, tables: list, s_maxes: list, qts_b: list,
+                params: list, owners=None) -> list:
+    """The device half of a line of stripes, on each stripe's device: per
+    stripe K1 over each image's stripe wire into its rows of one nat, the
+    DC totals (kernel D1); the exclusive carry of the earlier stripes;
+    per stripe assembly with its carry; the halo'd reconstruction of every
+    image of the line at once. `wires[j][b]` is image b's (words, dm, ab,
+    base) on local stripe j's device, `tables[j][b]` its K1 tables there
+    and `s_maxes[j][b]` K1's step bound on it, `qts_b` per image its
+    tables and `params[j]` the lookups of stripe j's device; `plan` the
+    stripes' plan, `kept` the scan's kept components. Returns per local
+    stripe uint8 [b, R, W(, C)] on its device. With `owners` (the rank of
+    each stripe, on a mesh across processes) the lists hold this
+    process's stripes, and the carry and the halo cross from the
+    others."""
     nats, totals = [], []
-    for d in at:
-        params = mesh.params(devs[d])
-        nat = torch.empty((len(staged_list), s0.n_blocks_local, 64),
-                          dtype=torch.int16, device=devs[d])
-        for st, sp, rows in zip(staged_list, splits, nat):
-            scan = st.scans[0].scan
-            arrays, s_max = stripe_wire(sp, d)
-            words, dm, ab, base = put(arrays, devs[d])
+    for wire_j, tables_j, s_max_j in zip(wires, tables, s_maxes):
+        nat = torch.empty((len(wire_j), plan.n_blocks, 64),
+                          dtype=torch.int16, device=wire_j[0][0].device)
+        for (words, dm, ab, base), tab, s_max, rows in zip(
+                wire_j, tables_j, s_max_j, nat):
             with torch.profiler.record_function("k1_decode"):
-                decode_chunks(words, dm, ab, base, params.tables(scan),
-                              s_max, sp.n_blocks_local, out=rows)
+                decode_chunks(words, dm, ab, base, tab, s_max, plan.n_blocks,
+                              out=rows)
         nats.append(nat)
-        totals.append(dc_totals(nat, s0.plan))         # [b, ncomp] int64
+        totals.append(dc_totals(nat, plan))           # [b, ncomp] int64
     carries = exclusive_carry(totals, owners)
-    kept = st0.scans[0].kept
     stores = []
     for nat, carry in zip(nats, carries):
         with torch.profiler.record_function("assemble"):
-            scan_stores = assemble_nat(nat, s0.plan, None, carry.T)
-        local = [None] * len(st0.qts)
+            scan_stores = assemble_nat(nat, plan, None, carry.T)
+        local = [None] * len(qts_b[0])
         for pos, comp_i in kept:
             local[comp_i] = scan_stores[pos]
         stores.append(local)
-    recon = build_stripe_local_recon(st0.geometry, s0.mcu_rows, n)
+    recon = build_stripe_local_recon(geometry, mcu_rows, n)
     with torch.profiler.record_function("reconstruct"):
-        return recon(stores, [st.qts for st in staged_list],
-                     [mesh.params(devs[d]) for d in at], owners)
+        return recon(stores, qts_b, params, owners)
+
+
+def _decode_stripes(staged_list: list, splits: list, devs, mesh,
+                    owners=None) -> list:
+    """The images of one data shard (one plan), each striped over `devs`,
+    dispatched eagerly: per stripe its real chunks' wire (`stripe_wire`)
+    put to its device for each image, then `stripe_body`. Returns per
+    stripe uint8 [b, R, W(, C)] on its device. With `owners` (the rank of
+    each stripe, on a mesh across processes) only this process's stripes
+    run, and the carry and the halo cross from the others."""
+    s0, st0 = splits[0], staged_list[0]
+    n = s0.n_stripes
+    at = range(n) if owners is None else local_positions(owners)
+    wires, tables, s_maxes = [], [], []
+    for d in at:
+        params = mesh.params(devs[d])
+        arrays = [stripe_wire(sp, d) for sp in splits]
+        wires.append([put(a, devs[d]) for a, _s in arrays])
+        s_maxes.append([s for _a, s in arrays])
+        tables.append([params.tables(st.scans[0].scan) for st in staged_list])
+    return stripe_body(st0.geometry, s0.plan, st0.scans[0].kept, s0.mcu_rows,
+                       n, wires, tables, s_maxes,
+                       [st.qts for st in staged_list],
+                       [mesh.params(devs[d]) for d in at], owners)
+
+
+def _stripes_graph_body(_dec, shape, inputs) -> torch.Tensor:
+    """A "stripes" graph's body (`graphs.BodyShape.fn`): `stripe_body` on
+    the graph's inputs (every stripe on the graph's device, each image's
+    padded wire and K1's step bound the plan's), the stripes' rows cropped
+    to the image's and gathered: uint8 [b, H, W(, C)]."""
+    n, b = shape.line.n_stripes, shape.images
+    scan = shape.scans[0]
+    wires = [inputs.wires[d * b:(d + 1) * b] for d in range(n)]
+    outs = stripe_body(shape.geometry, scan.plan, scan.kept,
+                       shape.line.mcu_rows, n, wires, [inputs.tables] * n,
+                       [[scan.s_max] * b] * n, inputs.qts_b,
+                       [inputs.params] * n)
+    dev = outs[0].device
+    return gather_rows([o for _, o in _crop_rows(
+        outs, range(n), shape.geometry.out_height)], dev, dim=1)
+
+
+def _stripes_fill(staged_list: list, splits: list, cache):
+    """The images of one line landed in their `graphs.stripes_key`'s graph
+    of `cache` (every stripe's padded wire, each image's K1 tables and
+    exact tables) in one H2D submission (a `graphs.Fill`); None at the
+    key's first sight on a card."""
+    s0, st0 = splits[0], staged_list[0]
+    key = graphs.stripes_key(staged_list, s0)
+    if cache.first_sight(key):
+        return None
+    scan = st0.scans[0]
+    shape = graphs.BodyShape(
+        (graphs.ScanShape("anchor", s0.plan, scan.kept, s0.plan.s_max,
+                          s0.n_blocks_local),),
+        len(st0.qts), st0.geometry, len(staged_list), False, "stripes",
+        line=graphs.StripeLine(s0.mcu_rows, s0.n_stripes),
+        fn=_stripes_graph_body)
+    wires = [padded_stripe_wire(sp, d) for d in range(s0.n_stripes)
+             for sp in splits]
+    return cache.fill(key, shape, wires, [st.scans[0].scan
+                                          for st in staged_list],
+                      [st.qts for st in staged_list])
+
+
+def _striped_line(staged_list: list, splits: list, devs, mesh) -> torch.Tensor:
+    """The images of one line (one data shard, one plan) striped over
+    `devs` on a mesh of one process: uint8 [b, H, W(, C)] on the mesh's
+    first device. A line whose devices and the mesh's first are one device
+    (`graphs.one_device`) replays its `stripes` graph from its key's second
+    call (the first dispatches eagerly, off any graph); any other line
+    dispatches eagerly (`_decode_stripes`), the rows gathered on the
+    mesh's first device."""
+    n = splits[0].n_stripes
+    if graphs.one_device(mesh, devs):
+        fill = _stripes_fill(staged_list, splits,
+                             graphs.device_graphs(devs[0]))
+        if fill is not None:
+            return fill.run()
+    outs = _decode_stripes(staged_list, splits, devs, mesh)
+    return gather_rows([o for _, o in _crop_rows(
+        outs, range(n), staged_list[0].geometry.out_height)], mesh.first,
+        dim=1)
 
 
 def _crop_rows(outs: list, at, rows: int) -> list:
@@ -327,9 +441,7 @@ def decode_bits_striped(staged_bits, mesh, stripe_axis: str = "stripe",
         outs = _decode_stripes([staged_bits], [split], devs, mesh,
                                owners) if at else []
         return [Shard((r,), o[0]) for r, o in _crop_rows(outs, at, rows)]
-    outs = _decode_stripes([staged_bits], [split], devs, mesh)
-    return gather_rows([o for _, o in _crop_rows(outs, range(n), rows)],
-                       mesh.first, dim=1)[0]
+    return _striped_line([staged_bits], [split], devs, mesh)[0]
 
 
 def decode_bits_striped_batch(staged_list, mesh, data_axis: str = "data",
@@ -366,12 +478,12 @@ def decode_bits_striped_batch(staged_list, mesh, data_axis: str = "data",
         if not at:
             continue
         images = slice(k * per, (k + 1) * per)
+        if not spread:
+            parts.append(_striped_line(staged_list[images], splits[images],
+                                       devs, mesh))
+            continue
         outs = _decode_stripes(staged_list[images], splits[images], devs,
-                               mesh, line if spread else None)
-        cut = _crop_rows(outs, at, g0.out_height)
-        if spread:
-            parts.extend(Shard((images, r), o) for r, o in cut)
-        else:
-            parts.append(gather_rows([o for _, o in cut], mesh.first,
-                                     dim=1))
+                               mesh, line)
+        parts.extend(Shard((images, r), o)
+                     for r, o in _crop_rows(outs, at, g0.out_height))
     return parts if spread else torch.cat(parts)

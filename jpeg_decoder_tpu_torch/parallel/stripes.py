@@ -21,7 +21,9 @@ Each stripe's work is enqueued on its own device by one caller: one E1
 launch for all of the stripe's components, the halo exchange (the first
 and last plane rows of each V2 component, taken from the block pixels by
 one small copy), then one T1 launch (`ops/kernels.py::interleaved_tail`
-with a `TailStripe`) for upsampling and color.
+with a `TailStripe`) for upsampling and color. A line of one device
+replays all of it, the gather included, as one "stripe_recon" CUDA graph
+(`make_stripe_pipeline`, `models/graphs.py`).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from ..host.ops.upsample import H1V2, H2V2
+from ..models import graphs
 from ..ops.kernels import TailStripe, interleaved_tail
 from ..ops.pipeline import exact_pixels_batch
 from ..transfer import put
@@ -90,6 +93,39 @@ def build_stripe_local_recon(geometry, mcu_rows: int, n_stripes: int):
     return recon
 
 
+def _stripe_recon_body(_dec, shape, inputs) -> torch.Tensor:
+    """A "stripe_recon" graph's body (`graphs.BodyShape.fn`): the line's
+    stripe-local reconstruction on the graph's inputs (each stripe's
+    stores, every stripe on the graph's device), the stripes' rows
+    gathered: uint8 [b, n * R, W(, C)]."""
+    n = shape.line.n_stripes
+    recon = build_stripe_local_recon(shape.geometry, shape.line.mcu_rows, n)
+    outs = recon([list(w) for w in inputs.wires], inputs.qts_b,
+                 [inputs.params] * n)
+    return gather_rows(outs, outs[0].device, dim=1)
+
+
+def _stripe_recon_fill(geometry, mcu_rows: int, n: int, stores: list, qts,
+                       cache):
+    """One line's stores (per component the line's images' int16
+    [b, n * k_i, 64], numpy) landed in their `graphs.stripe_recon_key`'s
+    graph of `cache`, each stripe's rows apart, with `qts` (shared by every
+    image) once per image, in one H2D submission (a `graphs.Fill`); None at
+    the key's first sight on a card."""
+    b = stores[0].shape[0]
+    key = graphs.stripe_recon_key(geometry, mcu_rows, n, b)
+    if cache.first_sight(key):
+        return None
+    shape = graphs.BodyShape((), len(geometry.components), geometry, b,
+                             False, "stripe_recon",
+                             line=graphs.StripeLine(mcu_rows, n),
+                             fn=_stripe_recon_body)
+    wires = [tuple(np.ascontiguousarray(s.reshape(b, n, -1, 64)[:, d],
+                                        np.int16)
+                   for s in stores) for d in range(n)]
+    return cache.fill(key, shape, wires, [], [qts] * b)
+
+
 def _shards(batch: int, n_data: int) -> list:
     """The reference's `PartitionSpec(data)` split of `batch` rows over
     `n_data` devices: contiguous blocks of ceil(batch / n_data) (a batch
@@ -115,6 +151,12 @@ def make_stripe_pipeline(geometry, mcu_rows: int, n_stripes: int, mesh,
     the data axis needs none): fn -> [B, n * R, W(, C)]. `qts` is one
     per-component table tuple shared by every image, as in the
     reference.
+
+    A line whose stripes and the mesh's first device are one device
+    in a mesh of one process (`graphs.one_device`) replays its
+    `stripe_recon` graph (the process's cache of that device,
+    `graphs.device_graphs`) from its key's second call; any other line,
+    and a key's first call, dispatches eagerly.
 
     On a mesh across processes each process reconstructs only the stripes
     it holds, and fn returns its `Shard`s of that result: index (rows,),
@@ -143,6 +185,14 @@ def make_stripe_pipeline(geometry, mcu_rows: int, n_stripes: int, mesh,
             at = local_positions(line) if spread else range(n_stripes)
             if b1 <= b0 or not at:
                 continue
+            if graphs.one_device(mesh, devs):
+                fill = _stripe_recon_fill(
+                    geometry, mcu_rows, n_stripes,
+                    [s[b0:b1] for s in stores], qts,
+                    graphs.device_graphs(devs[0]))
+                if fill is not None:
+                    parts.append(fill.run())
+                    continue
             local = [[put((np.ascontiguousarray(
                 s[b0:b1].reshape(b1 - b0, n_stripes, -1, 64)[:, d]),),
                 devs[d])[0] for s in stores]

@@ -25,6 +25,7 @@ Sources in the port's host copy (`jpeg_decoder_tpu_torch/host/`):
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -254,3 +255,21 @@ class DeviceParams:
     def folded(self, qt, scale: int) -> torch.Tensor:
         return self._get(("folded", np.asarray(qt).tobytes(), scale),
                          lambda: folded_basis(qt, scale, self.device))
+
+
+_params: dict = {}
+_params_lock = threading.Lock()
+
+
+def device_params(device) -> DeviceParams:
+    """The process's `DeviceParams` for one device (tables and bases shared
+    by every image decoded there, and by its graph cache,
+    `models.graphs.device_graphs`)."""
+    from .transfer import checked_device
+
+    device = checked_device(device)
+    with _params_lock:
+        params = _params.get(device)
+        if params is None:
+            params = _params[device] = DeviceParams(device)
+        return params

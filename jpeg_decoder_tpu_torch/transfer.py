@@ -53,13 +53,17 @@ ALIGN = 256     # each array's offset in a buffer: aligned for any dtype
 
 def checked_device(device) -> torch.device:
     """`device` as a torch.device the port runs on: "cpu" when the caller
-    asks for it, else CUDA, which raises where there is no card."""
+    asks for it, else CUDA, which raises where there is no card. "cuda"
+    names the current card by its index ("cuda:N"), so one card is one
+    device wherever devices are compared or key a cache."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but "
                            "torch.cuda.is_available() is False")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device!r}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -348,10 +348,10 @@ def test_prefix_group_rebuild_equals_per_image():
     staged = [stage_host(b) for b in stream]
     with DeviceStreamDecoder(device="cpu", host_threads=1,
                              interchange="prefix") as dec:
-        wires = dec._group_wires("prefix", staged, dec.device)
+        wires = dec._put_recorded(port_stream._prefix_wire(staged, 3))
         group = port_stream.prefix_stores(staged[0].geometry, *wires)
         for i, st in enumerate(staged):
             one = port_stream.prefix_stores(st.geometry,
-                                           *dec._to_device(st, dec.device))
+                                           *dec._wire_tensors(st))
             for g, o in zip(group, one):
                 assert torch.equal(g[i], o[0])

@@ -1226,7 +1226,7 @@ def test_a1_and_u1_launch_once_per_image_group_and_stripe(cuda, precision):
     large_420 striped over 4 slots (anchor wires: no U1; one A1 per
     stripe); every A1 call of them bit-equal to its plain version."""
     from jpeg_decoder_tpu_torch.entropy.assemble import assemble_nat_plain
-    from jpeg_decoder_tpu_torch.models import stream
+    from jpeg_decoder_tpu_torch.models import graphs, stream
     from jpeg_decoder_tpu_torch.parallel import make_mesh, stripe_bits
 
     calls = []
@@ -1257,6 +1257,7 @@ def test_a1_and_u1_launch_once_per_image_group_and_stripe(cuda, precision):
             assert jt.LAUNCHES["assemble"] == 1
             assert jt.LAUNCHES["unpack_delta"] == 1
         mesh = make_mesh({"stripe": 4}, ["cuda:0"] * 4)
+        graphs.device_graphs(mesh.first).clear()    # an eager first sight
         with jt.DeviceStreamDecoder(mesh=mesh, host_threads=1) as dec:
             jt.reset_launches()
             dec.decode_striped(fixture("large_420.jpg"))
@@ -1409,7 +1410,99 @@ def test_prefix_route_launches_p1_k2_and_t1_only(cuda):
         list(kernels), on_card
 
 
-@pytest.mark.parametrize("route", ["bits", "prefix", "lossless", "hetero"])
+def _mesh_route(route: str, cuda) -> tuple:
+    """(call, graph caches, graph runs a call, refs, tol) of a mesh or
+    `Decoder` route on slots of the card: the call its entry point on
+    inputs staged once. Every shard, line and run of a call decodes an
+    image of its own that shares the route's keys (`requantized`
+    fixtures, stores with their DC shifted); `refs` holds each output's
+    own host decode, in `_tensors(call())`'s order, and `tol` how far an
+    output may be from it (3 on the fast tier, else 0)."""
+    import dataclasses
+
+    from jpeg_decoder_tpu_torch import decoder as port_decoder
+    from jpeg_decoder_tpu_torch.host.ops.pipeline import reconstruct_image
+    from jpeg_decoder_tpu_torch.models import graphs
+    from jpeg_decoder_tpu_torch.models.service import _host_stage
+    from jpeg_decoder_tpu_torch.parallel import (make_batch_pipeline,
+                                                 make_mesh,
+                                                 make_stripe_pipeline)
+    from jpeg_decoder_tpu_torch.parallel.stripe_bits import (
+        decode_bits_striped, decode_bits_striped_batch)
+    from jpeg_decoder_tpu_torch.parallel.stripes import _pad_rows
+    from tools.make_torch_fixtures import requantized
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cache = graphs.device_graphs(dev)
+    towers = [requantized(fixture("tower_420.jpg"), 5 * k) for k in range(8)]
+    if route == "mesh_groups":
+        mesh = make_mesh({"data": 4}, [dev] * 4)
+        dec = jt.DeviceStreamDecoder(mesh=mesh, host_threads=1)
+        group = [dec.stage(b) for b in towers]
+        return (lambda: dec._decode_group_mesh("bits", group), [dec._graphs],
+                4, [_exact(b) for b in towers], 3)
+    if route == "stripes":
+        mesh = make_mesh({"stripe": 4}, [dev] * 4)
+        blobs = [requantized(fixture("large_420.jpg"), step)
+                 for step in (0, 7)]
+        staged = [jt.stage_host_bits(b) for b in blobs]
+        return (lambda: [decode_bits_striped(st, mesh) for st in staged],
+                [cache], 2, [_exact(b) for b in blobs], 0)
+    if route == "dp_sp":
+        mesh = make_mesh({"data": 2, "stripe": 2}, [dev] * 4)
+        staged = [jt.stage_host_bits(b) for b in towers[:4]]
+        return (lambda: decode_bits_striped_batch(staged, mesh), [cache], 2,
+                [np.stack([_exact(b) for b in towers[:4]])], 0)
+    geometry, stores, qts = _host_stage(fixture("tower_420.jpg"))
+    exact = dataclasses.replace(geometry, precision="exact")
+    tol = 3 if geometry.precision == "fast" else 0
+    shifts = []
+    for k in range(8):
+        shifts.append([st.copy() for st in stores])
+        for st in shifts[-1]:
+            st[:, 0] += 6 * k
+    refs = [reconstruct_image(exact, st, qts) for st in shifts]
+    if route == "stripe_recon":
+        mesh = make_mesh({"stripe": 4}, [dev] * 4)
+        rows = geometry.components[0].blocks_high // 2
+        fn = make_stripe_pipeline(geometry, rows, 4, mesh)
+        padded = [_pad_rows(geometry, shifts[k], rows, 4, False)
+                  for k in (0, 3)]
+        return (lambda: [fn(p, tuple(qts)) for p in padded], [cache], 2,
+                [refs[0], refs[3]], 0)
+    if route == "batch":
+        mesh = make_mesh({"data": 4}, [dev] * 4)
+        fn = make_batch_pipeline(geometry, mesh)
+        batched = tuple(np.stack([st[c] for st in shifts])
+                        for c in range(len(stores)))
+        return (lambda: fn(batched, qts), [cache], 4,
+                [np.stack(refs[k:k + 2]) for k in range(0, 8, 2)], tol)
+    return (lambda: [port_decoder.reconstruct_tensor(geometry, shifts[k], qts,
+                                                     dev) for k in (0, 3)],
+            [cache], 2, [refs[0], refs[3]], tol)
+
+
+def _exact(blob: bytes) -> np.ndarray:
+    return jt.host.decoder.Decoder(blob, backend="numpy",
+                                   precision="exact").decode_array()
+
+
+def _held(outs: list, refs: list, tol: int) -> None:
+    """Each output against its own reference, cropped to its extent."""
+    assert len(outs) == len(refs)
+    for out, ref in zip(outs, refs):
+        got = out.cpu().numpy()[tuple(slice(0, n) for n in ref.shape)]
+        assert got.shape == ref.shape
+        assert np.abs(got.astype(np.int64) - ref.astype(np.int64)).max() \
+            <= tol
+
+
+MESH_ROUTES = ("mesh_groups", "stripes", "dp_sp", "stripe_recon", "batch",
+               "decoder")
+
+
+@pytest.mark.parametrize("route", ["bits", "prefix", "lossless", "hetero",
+                                   *MESH_ROUTES])
 def test_device_routes_never_synchronise(cuda, route):
     """`_run_device` and `_run_group` on the bits, prefix and lossless
     routes and on a hetero bits group (the six mixed sizes and two
@@ -1419,9 +1512,33 @@ def test_device_routes_never_synchronise(cuda, route):
     captures the graphs); on every route every call there is a graph
     replay (on the hetero route one sweep and six parts, each part's row
     copy included), the H2D submission that fills a graph's inputs
-    included."""
+    included. The mesh and `Decoder` routes (`_mesh_route`: a group of 8
+    over 4 data slots, large_420 over 4 stripes, DP x SP, the striped and
+    the batched reconstructions, `Decoder`'s) likewise through their
+    entry points: a replay per data shard or line, outputs equal and
+    each within its tolerance of its own image's host decode (each shard,
+    line and run an image of its own, of one key)."""
     from tools.make_torch_fixtures import sof3_jpeg, sof3_samples
 
+    if route in MESH_ROUTES:
+        call, caches, runs, refs, tol = _mesh_route(route, cuda)
+        for _ in range(2):      # the keys' first sight, then their capture
+            want = [t.clone() for t in _tensors(call())]
+        _held(want, refs, tol)
+        torch.cuda.synchronize()
+        hits = sum(c.hits for c in caches)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = [_tensors(call()) for _ in range(3)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert sum(c.hits for c in caches) - hits == 3 * runs
+        assert all(torch.equal(a, b) for out in outs
+                   for a, b in zip(out, want))
+        for out in outs:
+            _held(out, refs, tol)
+        return
     if route == "lossless":
         blobs = [sof3_jpeg(sof3_samples(64, 48, 3, 16, 0, seed=4), 6, 0,
                            16)] * 4
@@ -1460,6 +1577,12 @@ def test_device_routes_never_synchronise(cuda, route):
     assert all(torch.equal(img, one) for img, blob in zip(many, blobs)
                if blob == blobs[0])
     assert replays == {"hetero": 32}.get(route, 8)
+
+
+def _tensors(out) -> list:
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _tensors(o)]
 
 
 def test_p1_on_two_streams_at_once(cuda):
@@ -1559,9 +1682,12 @@ def test_d1_a_thousand_launches_in_a_row(cuda):
 def test_d1_once_per_stripe(cuda, n):
     """large_420 striped over n slots: one D1 launch a stripe, each call
     equal to its plain version, K1 writing each stripe's one nat, the
-    image bit-equal to the host exact decode."""
+    image bit-equal to the host exact decode. The card's process-wide
+    graph cache is emptied first, so the call is its key's first sight,
+    dispatched eagerly through the wrapper the spy sees."""
     from jpeg_decoder_tpu_torch.entropy.assemble import dc_totals_plain
     from jpeg_decoder_tpu_torch.host.decoder import Decoder as HostDecoder
+    from jpeg_decoder_tpu_torch.models import graphs
     from jpeg_decoder_tpu_torch.parallel import make_mesh, stripe_bits
 
     calls = []
@@ -1574,6 +1700,7 @@ def test_d1_once_per_stripe(cuda, n):
 
     data = fixture("large_420.jpg")
     mesh = make_mesh({"stripe": n}, ["cuda:0"] * n)
+    graphs.device_graphs(mesh.first).clear()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(stripe_bits, "dc_totals", spy)
         with jt.DeviceStreamDecoder(mesh=mesh, host_threads=1) as dec:

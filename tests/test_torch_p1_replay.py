@@ -49,6 +49,7 @@ from jpeg_decoder_tpu_torch.entropy.assemble import dc_totals_plain
 from jpeg_decoder_tpu_torch.entropy.prefix import prefix_stores_plain
 from jpeg_decoder_tpu_torch.host.staging import (_ZIGZAG_OF_NATURAL, PREFIX_K,
                                                  stage_host)
+from jpeg_decoder_tpu_torch.models import stream as port_stream
 from jpeg_decoder_tpu_torch.models.stream import DeviceStreamDecoder
 from jpeg_decoder_tpu_torch.parallel.stripe_bits import split_anchored_stripes
 
@@ -253,13 +254,13 @@ def test_replayed_p1_on_a_q100_image(lib):
 
 
 def test_replayed_p1_on_a_merged_group(lib):
-    """Three tower_420 merged as `_group_wires` merges a prefix group put
-    to a device off any graph: the residuals offset image by image, the
-    padding at the sink."""
+    """Three tower_420 merged as `_group_wires` merges a prefix group
+    (`_prefix_wire`), put to the device off any graph: the residuals
+    offset image by image, the padding at the sink."""
     staged = [stage_host(fixture("tower_420.jpg")) for _ in range(3)]
     with DeviceStreamDecoder(device="cpu", host_threads=1,
                              interchange="prefix") as dec:
-        wires = dec._group_wires("prefix", staged, dec.device)
+        wires = dec._put_recorded(port_stream._prefix_wire(staged, 3))
     _check_p1(lib, *(w.contiguous() for w in wires))
 
 

@@ -26,7 +26,9 @@ shares tower_420's graph key.
 Lossless (SOF3) streams are not committed: `sof3_jpeg` writes them at run
 time from seeded samples (`sof3_samples`), with numpy alone (no PIL, no
 JAX), so `chip_smoke.py` can make a 2048 x 2048 16-bit one on a machine
-without PIL.
+without PIL. Nor are `requantized` variants of a fixture: images of other
+content that share every compile key of the fixture, made with numpy
+alone.
 """
 
 from __future__ import annotations
@@ -247,6 +249,39 @@ def sof3_jpeg(samples: np.ndarray, predictor: int = 1, pt: int = 0,
         + bytes([predictor, 0, pt])
     return (b"\xff\xd8" + segment(0xC4, dht) + segment(0xC3, sof)
             + segment(0xDA, sos) + scan.tobytes() + b"\xff\xd9")
+
+
+def requantized(data: bytes, step: int) -> bytes:
+    """`data` (a baseline or progressive JPEG) with `step` added to every
+    entry of its quantisation tables (DQT), each kept in [1, 255] (8-bit
+    tables) or [1, 65535]: the same entropy-coded coefficients, so the
+    same plans, wires and compile keys on every interchange, and other
+    pixels (step 0 leaves the image as it is). Numpy only."""
+    out, i = bytearray(data[:2]), 2
+    while i < len(data):
+        if data[i] != 0xFF:
+            raise ValueError(f"no marker at byte {i}")
+        marker = data[i + 1]
+        length = int.from_bytes(data[i + 2:i + 4], "big")
+        seg = bytearray(data[i:i + 2 + length])
+        if marker == 0xDB:
+            j = 4
+            while j < len(seg):
+                wide = seg[j] >> 4
+                size = 2 if wide else 1
+                q = np.frombuffer(bytes(seg[j + 1:j + 1 + 64 * size]),
+                                  ">u2" if wide else np.uint8)
+                q = np.clip(q.astype(np.int64) + step, 1,
+                            65535 if wide else 255)
+                seg[j + 1:j + 1 + 64 * size] = q.astype(
+                    ">u2" if wide else np.uint8).tobytes()
+                j += 1 + 64 * size
+        out += seg
+        i += 2 + length
+        if marker == 0xDA:              # the scan and all after it as is
+            out += data[i:]
+            break
+    return bytes(out)
 
 
 def main(argv=None) -> int:

@@ -82,29 +82,53 @@ def _busy_us(intervals) -> float:
     return total
 
 
+# A trace loses the card's work of the first ms or so after the host's
+# last wait, so the `iters` calls of `kernel_device_us` follow SPIN_FILL_S
+# of spin kernels launched back to back, and only what follows the last
+# spin kernel the trace holds is counted.
+SPIN_FILL_S = 0.02
+
+
+def _after_spin_fill(fn, iters: int, fill: float) -> list:
+    """The card's operations of `iters` calls of `fn` in one trace, behind
+    `fill` seconds of spin kernels: those after the last spin kernel the
+    trace holds (none if it holds none)."""
+    from torch.profiler import ProfilerActivity
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        end = time.perf_counter() + fill
+        while time.perf_counter() < end:
+            torch.cuda._sleep(1000)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    held = [e.time_range.start for e in ev if "spin_kernel" in e.name]
+    if not held:
+        return []
+    return [e for e in ev if "spin_kernel" not in e.name
+            and e.time_range.start > held[-1]]
+
+
 def kernel_device_us(fn, symbol: str, iters: int = 20) -> dict:
     """Device time of the kernels whose name contains `symbol`, per call of
     `fn`, from torch.profiler over `iters` calls after three warm-up calls
-    (warm L2): {"kernel_us", "launches", "each_us", "all_device_us",
+    (warm L2), behind a fill of spin kernels (`_after_spin_fill`; a trace
+    that holds fewer than one such kernel a call is taken again with twice
+    the fill): {"kernel_us", "launches", "each_us", "all_device_us",
     "all_launches"}: "each_us" every such kernel's own time in the window,
     the last two over every device operation `fn` enqueues."""
-    from torch.profiler import ProfilerActivity
-
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _attempt in range(3):   # a trace now and then comes back empty
-        with torch.profiler.profile(
-                activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        on_card = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    on_card = mine = []
+    for attempt in range(4):
+        on_card = _after_spin_fill(fn, iters, SPIN_FILL_S * 2 ** attempt)
         mine = [e for e in on_card if symbol in e.name]
-        if mine:
+        if len(mine) >= iters:
             break
-    else:
+    if not mine:
         raise RuntimeError(f"the profiler saw no {symbol!r} kernel; names: "
                            f"{sorted({e.name for e in on_card})[:8]}")
     # The trace may drop an event at the edge of the window: average over
