@@ -157,9 +157,16 @@ kernel, to `_build.LAUNCHES`, and its exchanges' bytes to
 `parallel.mesh.EXCHANGED` (`_build.add_tally`), so launches and bytes per
 image stay what the eager body counts.
 
-Span names (`torch.profiler.record_function`) run on the host at capture,
-not at replay: a replay shows as one "bits_graph" span on the host, and
-the card's kernels inside it carry their own names only.
+Spans (`utils.timing.span`, each a stage of the owner's `timer` where
+it has one): the layers' spans inside a body run on the host at capture,
+not at replay, so a replay shows as one "device_dispatch.replay" span on
+the host, and the card's kernels inside it carry their own names only.
+A call's landing is "h2d_submit.tables" (`_arrays`) and
+"h2d_submit.land" (`_land`), again "h2d_submit.land" inside the dispatch
+where another call refilled the arena first; the output's copy is
+"device_dispatch.copy_out", a body run off any graph
+"device_dispatch.eager" (counted, `stats()["eager"]`) and a warm-up with
+its capture "device_dispatch.capture".
 
 A hetero group (`DeviceStreamDecoder._group_halves`) lands the sweep's
 arena (the merged wire, K1's tables) and each part's (its images'
@@ -199,6 +206,7 @@ from ..ops.pipeline import reconstruct
 from ..params import (ScanTables, device_params, folded_basis,
                       scan_table_arrays)
 from ..transfer import ALIGN, checked_device, put_into
+from ..utils.timing import span, timed_stage
 
 # Graphs a decoder keeps, of every kind. JAX keeps 128 bits executables,
 # 256 prefix and 32 lossless, which hold no activations; a captured graph
@@ -589,7 +597,7 @@ def recon_shape(geometry, images: int) -> BodyShape:
 
 
 def _recon_body(_dec, shape: BodyShape, inputs: Inputs) -> torch.Tensor:
-    with torch.profiler.record_function("reconstruct"):
+    with span("reconstruct"):
         return reconstruct(shape.geometry, list(inputs.wires[0]),
                            inputs.qts_b, inputs.params)
 
@@ -599,9 +607,10 @@ def recon_fill(graphs: "BitsGraphs", geometry, stores: tuple, qts_b: list):
     per component) and per image its tables, landed in its `recon_key`'s
     graph of `graphs` in one H2D submission (a `Fill`); None at the key's
     first sight on a card."""
-    key = recon_key(geometry, len(qts_b))
-    if graphs.first_sight(key):
-        return None
+    with timed_stage(graphs.timer, "h2d_submit.key"):
+        key = recon_key(geometry, len(qts_b))
+        if graphs.first_sight(key):
+            return None
     return graphs.fill(key, recon_shape(geometry, len(qts_b)),
                        [tuple(np.ascontiguousarray(s, np.int16)
                               for s in stores)], [], qts_b)
@@ -695,6 +704,15 @@ class BitsGraph:
         decoder whose body it is (None for the kinds without one)."""
         return self.shape.fn(dec, self.shape, self.inputs)
 
+    def take(self, rows, count):
+        """The images a call returns: `count`, or with `rows` (a part's
+        rows of the sweep's nat, int16 [images x n_blocks, 64]) the images
+        they hold, once copied into `nat_in`."""
+        if rows is None:
+            return count
+        self.nat_in[:rows.shape[0]].copy_(rows)
+        return rows.shape[0] // self.shape.scans[0].plan.n_blocks
+
     def items(self, arrays: list) -> list:
         """(offset, array) pairs of one call's arrays, checked against the
         layout the key fixed."""
@@ -708,17 +726,21 @@ class BitsGraph:
 class BitsGraphs:
     """The graphs of one device, least recently used evicted past
     `maxsize`: a decoder's (one a device it runs on), or the process's
-    (`device_graphs`); `captures`, `hits` (replays) and the host-side
-    caches of the tables' arrays by content. `params` (the device's
-    `params.DeviceParams`) and `maps` (plan, device -> `GeneralMaps`, or
-    None where every plan has the closed form) are the owner's caches of
-    what a key fixes: uploaded once, not once a graph, since an upload
-    from pageable memory waits for the card. Its calls may come from
-    several threads: each holds the cache's lock (`fill`, `run`)."""
+    (`device_graphs`); `captures`, `hits` (replays), `eager` (bodies run
+    off any graph, `off_graph`) and the host-side caches of the tables'
+    arrays by content. `params` (the device's `params.DeviceParams`) and
+    `maps` (plan, device -> `GeneralMaps`, or None where every plan has
+    the closed form) are the owner's caches of what a key fixes: uploaded
+    once, not once a graph, since an upload from pageable memory waits for
+    the card. `timer`: the owner's `StageTimer` (a decoder's), which times
+    the sub-stages it runs (module docstring), or None (`device_graphs`):
+    bare spans. Its calls may come from several threads: each holds the
+    cache's lock (`fill`, `run`)."""
 
-    def __init__(self, device, params, maps):
+    def __init__(self, device, params, maps, timer=None):
         self.device = torch.device(device)
         self._params, self._maps = params, maps
+        self.timer = timer
         self.maxsize = GRAPH_CACHE_SIZE
         self._graphs: collections.OrderedDict = collections.OrderedDict()
         self._tables: dict = {}
@@ -728,6 +750,7 @@ class BitsGraphs:
         self._lock = threading.RLock()
         self.captures = 0
         self.hits = 0
+        self.eager = 0
 
     def clear(self) -> None:
         with self._lock:
@@ -742,7 +765,18 @@ class BitsGraphs:
     def stats(self) -> dict:
         with self._lock:
             return {"graphs": len(self._graphs), "captures": self.captures,
-                    "hits": self.hits}
+                    "hits": self.hits, "eager": self.eager}
+
+    def off_graph(self):
+        """The context of a body run off any graph on this cache's device:
+        counted in `stats()["eager"]`, timed as "device_dispatch.eager".
+        `run` enters it on the CPU and with `eager`; a decoder enters it
+        for the bodies it runs off its graphs (a key's first sight on a
+        card). The callers of `device_graphs` do not: their first sights
+        go uncounted."""
+        with self._lock:
+            self.eager += 1
+        return timed_stage(self.timer, "device_dispatch.eager")
 
     def _cached(self, cache: dict, key, make):
         val = cache.get(key)
@@ -804,7 +838,8 @@ class BitsGraphs:
 
     def _fill(self, key, shape: BodyShape, wires: list, scans: list,
               qts_b: list, count: int) -> Fill:
-        arrays = self._arrays(shape, wires, scans, qts_b)
+        with timed_stage(self.timer, "h2d_submit.tables"):
+            arrays = self._arrays(shape, wires, scans, qts_b)
         graph = self._graphs.get(key)
         if graph is None:
             graph = self._graphs[key] = BitsGraph(
@@ -826,7 +861,8 @@ class BitsGraphs:
     def _land(self, fill: Fill) -> None:
         """Land `fill`'s items in its graph's arena."""
         graph = fill.graph
-        put_into(graph.arena, fill.items)
+        with timed_stage(self.timer, "h2d_submit.land"):
+            put_into(graph.arena, fill.items)
         graph.fill_id += 1
         fill.id = graph.fill_id
 
@@ -868,22 +904,23 @@ class BitsGraphs:
         graph = fill.graph
         if graph.fill_id != fill.id:
             self._land(fill)
-        count = fill.count
-        if rows is not None:
-            graph.nat_in[:rows.shape[0]].copy_(rows)
-            count = rows.shape[0] // graph.shape.scans[0].plan.n_blocks
         if eager or graph.device.type != "cuda":
-            with _build.graph_scope(graph.scope):
+            with self.off_graph(), _build.graph_scope(graph.scope):
+                count = graph.take(rows, fill.count)
                 return graph.body(dec)[:count]
         if graph.graph is None:
-            return self._capture(dec, graph)[:count]
-        with torch.profiler.record_function("bits_graph"):
+            with timed_stage(self.timer, "device_dispatch.capture"):
+                count = graph.take(rows, fill.count)
+                return self._capture(dec, graph)[:count]
+        with timed_stage(self.timer, "device_dispatch.replay"):
+            count = graph.take(rows, fill.count)
             graph.graph.replay()
-        _build.add_tally(graph.tally)
-        self.hits += 1
+            _build.add_tally(graph.tally)
+            self.hits += 1
         if graph.shape.half == "sweep":
             return graph.out
-        return graph.out[:count].clone()
+        with timed_stage(self.timer, "device_dispatch.copy_out"):
+            return graph.out[:count].clone()
 
     def _capture(self, dec, graph: BitsGraph) -> torch.Tensor:
         """The warm-up, whose output is returned: the body run eagerly on

@@ -143,7 +143,7 @@ from ..parallel.stripe_bits import check_engine, decode_bits_striped
 from ..params import DeviceParams
 from ..transfer import checked_device, put
 from ..utils import link
-from ..utils.timing import timed_stage
+from ..utils.timing import span, timed_stage
 
 LAYOUTS = ("interleaved", "planar", "planar-pallas")
 PRECISIONS = ("fast", "exact")
@@ -293,7 +293,24 @@ def merge_scans(scans: list):
     return None if merged is None else merged[:3]
 
 
+class _TimedScans(list):
+    """A group's scans in merge order with the decoder's `timer`: `_merge`
+    takes the scans alone (the benchmark times it by wrapping the module's
+    `_merge`), so they carry the timer that times its body."""
+
+    def __init__(self, scans, timer):
+        super().__init__(scans)
+        self.timer = timer
+
+
 def _merge(scans: list):
+    """`_merge_wires` of `scans`, timed as the "h2d_submit.merge" stage of
+    their decoder's timer (`_TimedScans`), or a bare span."""
+    with timed_stage(getattr(scans, "timer", None), "h2d_submit.merge"):
+        return _merge_wires(scans)
+
+
+def _merge_wires(scans: list):
     """One wire for the scans of a group of images, all on one wire, in
     order: (arrays, s_max, n_blocks), the arrays being (words, dm) of the
     delta wire (`merge_image_packs_delta`) or (words, dm, ab, base) of the
@@ -497,7 +514,7 @@ class DeviceStreamDecoder:
         self.layout = layout
         self.interchange = interchange
         self.host_threads = host_threads
-        self.timer = timer
+        self._timer = timer
         self.mesh = mesh
         self.data_axis = data_axis
         self.params = DeviceParams(dev) if mesh is None else mesh.params(dev)
@@ -506,10 +523,22 @@ class DeviceStreamDecoder:
         # process runs on: the decoder's, or each of the mesh's (its slots
         # of one card share one); `_graphs` the decoder's device's.
         self._caches = {d: graphs.BitsGraphs(d, self._params_of(d),
-                                             self._general_maps)
+                                             self._general_maps, timer)
                         for d in self._local_devices()}
         self._graphs = self._caches[dev]
         self.pool = cf.ThreadPoolExecutor(max_workers=host_threads)
+
+    @property
+    def timer(self):
+        """The decoder's `StageTimer` (or None), which its graph caches
+        time their sub-stages by."""
+        return self._timer
+
+    @timer.setter
+    def timer(self, timer) -> None:
+        self._timer = timer
+        for cache in self._caches.values():
+            cache.timer = timer
 
     def close(self) -> None:
         self.pool.shutdown(wait=True)
@@ -559,7 +588,8 @@ class DeviceStreamDecoder:
         by construction."""
         nbytes = sum(a.nbytes for a in arrs)
         t0 = time.perf_counter()
-        out = put(arrs, self.device if dev is None else dev)
+        with timed_stage(self.timer, "h2d_submit.land"):
+            out = put(arrs, self.device if dev is None else dev)
         if nbytes >= (4 << 20):
             link.record_transfer(nbytes, time.perf_counter() - t0)
         return out
@@ -622,10 +652,11 @@ class DeviceStreamDecoder:
         key's graph of `cache`, in one H2D submission (a `graphs.Fill`);
         None at the key's first sight on a card
         (`graphs.BitsGraphs.first_sight`)."""
-        layout = self._effective_layout(staged.geometry)
-        key = graphs.bits_key(staged, self.precision, layout)
-        if cache.first_sight(key):
-            return None
+        with timed_stage(self.timer, "h2d_submit.key"):
+            key = graphs.bits_key(staged, self.precision,
+                                  self._effective_layout(staged.geometry))
+            if cache.first_sight(key):
+                return None
         shape = graphs.image_shape(staged, self._fp32(staged.geometry))
         wires = [graphs.wire_arrays(s.wire, graphs._scan_arrays(s),
                                     s.scan.plan.n_blocks)
@@ -644,11 +675,13 @@ class DeviceStreamDecoder:
         group = isinstance(staged_or_group, list)
         rows = staged_or_group if group else [staged_or_group]
         first = rows[0]
-        key = graphs.lossless_key(staged_or_group) if kind == "lossless" \
-            else graphs.prefix_key(staged_or_group, self.precision,
-                                   self._effective_layout(first.geometry))
-        if cache.first_sight(key):
-            return None
+        with timed_stage(self.timer, "h2d_submit.key"):
+            key = graphs.lossless_key(staged_or_group) \
+                if kind == "lossless" else graphs.prefix_key(
+                    staged_or_group, self.precision,
+                    self._effective_layout(first.geometry))
+            if cache.first_sight(key):
+                return None
         images = key[-1] or 1
         padded = rows + [rows[-1]] * (images - len(rows))
         if kind == "lossless":
@@ -688,7 +721,7 @@ class DeviceStreamDecoder:
         layout = self._effective_layout(geometry)
         if params is None:
             params = self._params_of(stores[0].device)
-        with torch.profiler.record_function("reconstruct"):  # K3: fused_tail
+        with span("reconstruct"):       # K3: fused_tail
             if layout == "planar-pallas":
                 return reconstruct_planar_pallas(geometry, stores, qts_b,
                                                  params)
@@ -699,7 +732,6 @@ class DeviceStreamDecoder:
                      n_blocks: int) -> torch.Tensor:
         """K1 over a scan's wire on the device (one image's, or a group's
         merged one), with its `tables`: int16 nat [n_blocks, 64]."""
-        span = torch.profiler.record_function   # layer names in traces
         if wire_kind == "delta":
             words, dm = wire
             with span("unpack_delta"):
@@ -715,7 +747,7 @@ class DeviceStreamDecoder:
         """Assembly of nat [N, n_blocks, 64] (N images of `plan`) into
         `stores`, by frame component (`kept`): [N, blocks, 64] each.
         `maps`: a general plan's index maps (by default the decoder's)."""
-        with torch.profiler.record_function("assemble"):
+        with span("assemble"):
             if maps is None and plan.structured is None:
                 maps = self._general_maps(plan, nat.device)
             scan_stores = assemble_nat(nat, plan, maps)
@@ -766,7 +798,7 @@ class DeviceStreamDecoder:
         decoder's layout. What `graphs.BitsGraphs` runs eagerly or
         captures, and what a prefix image or group off a graph runs on the
         device's `DeviceParams`."""
-        with torch.profiler.record_function("prefix_stores"):
+        with span("prefix_stores"):
             stores = prefix_stores(shape.geometry, *inputs.wires[0])
         return self._reconstruct(shape.geometry, stores, inputs.qts_b,
                                  inputs.params)
@@ -775,22 +807,32 @@ class DeviceStreamDecoder:
                        inputs: "graphs.Inputs") -> torch.Tensor:
         """The device half of a lossless image or group: `lossless_images`
         of its planes, int16 [N, C, H, W]: [N, ...]."""
-        with torch.profiler.record_function("lossless"):
+        with span("lossless"):
             return lossless_images(shape.geometry, inputs.wires[0][0])
+
+    def _off_graph(self, on: torch.Tensor):
+        """The context of a body run off any graph on the device of `on`:
+        counted and timed by that device's graph cache
+        (`graphs.BitsGraphs.off_graph`), or timed alone for a device
+        without one."""
+        cache = self._caches.get(on.device)
+        return cache.off_graph() if cache is not None \
+            else timed_stage(self.timer, "device_dispatch.eager")
 
     def _eager_body(self, kind: str, group: list, wire: tuple
                     ) -> torch.Tensor:
         """The prefix or lossless body of `group` off any graph: its wire
         on the device, the tables from that device's `DeviceParams`."""
-        if kind == "lossless":
-            return self._lossless_body(
-                graphs.lossless_shape(group[0], len(group)),
-                graphs.Inputs([wire], [], [], [], None))
-        return self._prefix_body(
-            graphs.prefix_shape(group[0], len(group),
-                                self._fp32(group[0].geometry)),
-            graphs.Inputs([wire], [], [], [st.qts for st in group],
-                          self._params_of(wire[0].device)))
+        with self._off_graph(wire[0]):
+            if kind == "lossless":
+                return self._lossless_body(
+                    graphs.lossless_shape(group[0], len(group)),
+                    graphs.Inputs([wire], [], [], [], None))
+            return self._prefix_body(
+                graphs.prefix_shape(group[0], len(group),
+                                    self._fp32(group[0].geometry)),
+                graphs.Inputs([wire], [], [], [st.qts for st in group],
+                              self._params_of(wire[0].device)))
 
     def _run_device(self, staged, wires) -> torch.Tensor:
         """The device half for one image whose wire is already on the
@@ -805,13 +847,14 @@ class DeviceStreamDecoder:
         if kind == "prefix":
             return self._eager_body(kind, [staged], tuple(wires))[0]
         params = self._params_of(wires[0][0].device)
-        return self._bits_body(
-            graphs.image_shape(staged, self._fp32(staged.geometry),
-                               keyed=False),
-            graphs.Inputs(list(wires),
-                          [params.tables(st.scan) for st in staged.scans],
-                          [None] * len(staged.scans), [staged.qts],
-                          params))[0]
+        with self._off_graph(wires[0][0]):
+            return self._bits_body(
+                graphs.image_shape(staged, self._fp32(staged.geometry),
+                                   keyed=False),
+                graphs.Inputs(list(wires),
+                              [params.tables(st.scan) for st in staged.scans],
+                              [None] * len(staged.scans), [staged.qts],
+                              params))[0]
 
     def _run_device_eager(self, staged, wires) -> torch.Tensor:
         """`_run_device` with a graph's body run eagerly on its inputs, not
@@ -900,7 +943,8 @@ class DeviceStreamDecoder:
             parts.setdefault((st.scans[0].scan.plan, st.geometry),
                              []).append(i)
         order = [i for members in parts.values() for i in members]
-        return parts, _merge([group[i].scans[0] for i in order])
+        return parts, _merge(_TimedScans([group[i].scans[0] for i in order],
+                                         self.timer))
 
     def _group_fill(self, group: list, merged, cache):
         """A same-plan bits group's merged wire, its tables and every
@@ -909,10 +953,11 @@ class DeviceStreamDecoder:
         sight on a card."""
         geometry = group[0].geometry
         st0 = group[0].scans[0]
-        key = graphs.bits_key(group, self.precision,
-                              self._effective_layout(geometry), merged)
-        if cache.first_sight(key):
-            return None
+        with timed_stage(self.timer, "h2d_submit.key"):
+            key = graphs.bits_key(group, self.precision,
+                                  self._effective_layout(geometry), merged)
+            if cache.first_sight(key):
+                return None
         shape = graphs.group_shape(group, merged, self._fp32(geometry))
         wire = graphs.wire_arrays(st0.wire, merged[0], merged[2])
         return self._put_into(lambda: cache.fill(
@@ -931,15 +976,17 @@ class DeviceStreamDecoder:
         st0 = group[0].scans[0]
         sweep = None
         if cache is not None:
-            wire = graphs.wire_arrays(st0.wire, arrays, n_blocks)
-            bound = s_max if st0.wire == "delta" \
-                else max(st.scans[0].scan.plan.s_max for st in group)
-            blocks = min(_bucket_up(sum(
-                graphs.batch_bucket(len(members)) * plan.n_blocks
-                for (plan, _g), members in parts.items()), 4096),
-                K1_MAX_BLOCKS)
-            key = graphs.sweep_key(st0, wire, bound, shapes, blocks)
-            if not cache.first_sight(key):
+            with timed_stage(self.timer, "h2d_submit.key"):
+                wire = graphs.wire_arrays(st0.wire, arrays, n_blocks)
+                bound = s_max if st0.wire == "delta" \
+                    else max(st.scans[0].scan.plan.s_max for st in group)
+                blocks = min(_bucket_up(sum(
+                    graphs.batch_bucket(len(members)) * plan.n_blocks
+                    for (plan, _g), members in parts.items()), 4096),
+                    K1_MAX_BLOCKS)
+                key = graphs.sweep_key(st0, wire, bound, shapes, blocks)
+                warm = not cache.first_sight(key)
+            if warm:
                 sweep = self._put_into(lambda: cache.fill(
                     key, graphs.sweep_shape(st0, bound, blocks), [wire],
                     [st0.scan], []))
@@ -969,10 +1016,11 @@ class DeviceStreamDecoder:
         None at the key's first sight on a card."""
         first = group[members[0]]
         bucket = graphs.batch_bucket(len(members))
-        key = graphs.part_key(first, bucket, self.precision,
-                              self._effective_layout(first.geometry))
-        if cache.first_sight(key):
-            return None
+        with timed_stage(self.timer, "h2d_submit.key"):
+            key = graphs.part_key(first, bucket, self.precision,
+                                  self._effective_layout(first.geometry))
+            if cache.first_sight(key):
+                return None
         qts = [group[i].qts for i in members]
         qts += [qts[-1]] * (bucket - len(members))
         return self._put_into(lambda: cache.fill(
@@ -986,8 +1034,10 @@ class DeviceStreamDecoder:
             return half.run(self, eager, rows)
         shape, inputs = half
         if rows is None:
-            return self._sweep_body(shape, inputs)[0]
-        return self._part_body(shape, [rows], inputs)
+            with self._off_graph(inputs.wires[0][0]):
+                return self._sweep_body(shape, inputs)[0]
+        with self._off_graph(rows):
+            return self._part_body(shape, [rows], inputs)
 
     def _run_halves(self, group: list, halves: "GroupHalves",
                     eager: bool = False) -> list:
@@ -1115,14 +1165,21 @@ class DeviceStreamDecoder:
                 return None
 
         try:
-            if batch_size <= 1:
-                return [None if st is None else self.decode_one(st)
-                        for st in map(resolve, futures)]
-            return self._grouped(map(resolve, futures), batch_size)
+            return self.decode_staged(map(resolve, futures), batch_size)
         except BaseException:
             for f in futures:      # stop staging what will not be decoded
                 f.cancel()
             raise
+
+    def decode_staged(self, staged: Iterable, batch_size: int = 1) -> list:
+        """The device half of `decode_stream` on images staged already
+        (`stage`; a None slot stays None): each image by `decode_one`, or
+        with batch_size > 1 in groups of up to batch_size (`_grouped`),
+        in order, to device tensors."""
+        if batch_size <= 1:
+            return [None if st is None else self.decode_one(st)
+                    for st in staged]
+        return self._grouped(staged, batch_size)
 
     def _grouped(self, staged, batch_size: int) -> list:
         """The reference's grouping loop (`stream.py:1619-1715`): three open

@@ -65,6 +65,7 @@ import torch
 from .. import _build
 from ..host.ops.color import validate_transform
 from ..host.ops.upsample import GENERIC, H1V1, H1V2, H2V1, H2V2
+from ..utils.timing import span
 from . import idct
 from .color import color_convert_image, ycbcr_to_rgb
 from .upsample import (_h2_horizontal, _v2_near_far, h2v2_combine,
@@ -576,7 +577,7 @@ def interleaved_tail(pixels, comps, transform, out_h: int, out_w: int,
     tensor; the plain version on the CPU."""
     _check_interleaved_tail(pixels, comps, transform, out_h, out_w, stripe)
     dev = pixels[0].device
-    with torch.profiler.record_function("interleaved_tail"):
+    with span("interleaved_tail"):
         if dev.type == "cpu":
             return interleaved_tail_plain(pixels, comps, transform, out_h,
                                           out_w, planar, stripe)

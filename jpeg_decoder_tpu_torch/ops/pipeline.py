@@ -31,6 +31,7 @@ import torch
 from ..host.ops.tail import _TAIL_TRANSFORMS, pallas_tail_mode
 
 from ..params import DeviceParams
+from ..utils.timing import span
 from .idct import blocks_to_plane
 from .kernels import (dequant_idct_batch, fused_tail, idct_exact_batch,
                       interleaved_tail)
@@ -125,7 +126,7 @@ def reconstruct_planar_pallas(geometry, stores, qts_b,
         return torch.stack([p[:, :out_h, :out_w] for p in planes], dim=1)
     chroma_dims = next(((c.size_height, c.size_width) for c in comps
                         if c.upsampler_mode != "h1v1"), None)
-    with torch.profiler.record_function("fused_tail"):
+    with span("fused_tail"):
         return fused_tail(planes, tuple(c.upsampler_mode for c in comps),
                           chroma_dims,
                           _TAIL_TRANSFORMS[geometry.transform.value],

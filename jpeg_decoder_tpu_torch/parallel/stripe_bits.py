@@ -72,6 +72,7 @@ from ..host.entropy.wire import WORDS_PAD, anchor_meta
 from ..host.parser import Dimensions, update_component_sizes
 from ..models import graphs
 from ..transfer import put
+from ..utils.timing import span
 from .dist import Shard
 from .mesh import exclusive_carry, gather_rows, local_positions
 from .stripes import build_stripe_local_recon
@@ -282,7 +283,7 @@ def stripe_body(geometry, plan, kept: tuple, mcu_rows: int, n: int,
                           dtype=torch.int16, device=wire_j[0][0].device)
         for (words, dm, ab, base), tab, s_max, rows in zip(
                 wire_j, tables_j, s_max_j, nat):
-            with torch.profiler.record_function("k1_decode"):
+            with span("k1_decode"):
                 decode_chunks(words, dm, ab, base, tab, s_max, plan.n_blocks,
                               out=rows)
         nats.append(nat)
@@ -290,14 +291,14 @@ def stripe_body(geometry, plan, kept: tuple, mcu_rows: int, n: int,
     carries = exclusive_carry(totals, owners)
     stores = []
     for nat, carry in zip(nats, carries):
-        with torch.profiler.record_function("assemble"):
+        with span("assemble"):
             scan_stores = assemble_nat(nat, plan, None, carry.T)
         local = [None] * len(qts_b[0])
         for pos, comp_i in kept:
             local[comp_i] = scan_stores[pos]
         stores.append(local)
     recon = build_stripe_local_recon(geometry, mcu_rows, n)
-    with torch.profiler.record_function("reconstruct"):
+    with span("reconstruct"):
         return recon(stores, qts_b, params, owners)
 
 

@@ -234,7 +234,7 @@ def test_every_call_lands_its_whole_arena(monkeypatch):
                              precision="exact") as dec:
         out = dec.decode_stream(names)
         assert dec._graphs.stats() == {"graphs": 1, "captures": 0,
-                                       "hits": 0}
+                                       "hits": 0, "eager": 5}
     assert landed == [12] * 5
     for data, img in zip(names, out):
         np.testing.assert_array_equal(img.numpy(), _exact(data))

@@ -54,8 +54,10 @@ sys.path.insert(0, str(ROOT))
 FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
 LAYERS = ("unpack_delta", "k1_decode", "assemble", "prefix_stores",
           "reconstruct", "fused_tail", "interleaved_tail", "lossless")
-# The span around a graph's replay (models/graphs.py): it holds no layer.
-GRAPH_SPAN = "bits_graph"
+# The decoder's stages and sub-stages (utils/timing.py), a graph's replay,
+# "device_dispatch.replay", among them: their ranges on the card's
+# timeline hold no layer.
+STAGES = ("h2d_submit", "device_dispatch")
 # A kernel's layer by its name, for kernels outside every layer's range.
 KERNEL_LAYERS = (("unpack_delta_kernel", "unpack_delta"),
                  ("huffman_decode_kernel", "k1_decode"),
@@ -171,7 +173,7 @@ def _kernels(prof) -> list:
     on the device timeline, as spans around kernels, not kernels."""
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.name not in LAYERS and e.name != GRAPH_SPAN]
+            and e.name not in LAYERS and not e.name.startswith(STAGES)]
 
 
 def profile(dec, path: Path, iters: int, batch: int = 1):
